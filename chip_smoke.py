@@ -9,16 +9,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
 2. build the CUDA kernels from ``ihgnn_torch/csrc`` (one nvcc per source,
    in parallel);
 3. check and time each kernel against its plain PyTorch twin at the
-   serving path's shapes, on a seeded graph of ``bench.py``'s shape
-   (U/Q/I/V = 200k/100k/400k/100k, E = 2M, d = 32, 4 words per query);
+   shapes the serving and training paths give it, on a seeded graph of
+   ``bench.py``'s shape (U/Q/I/V = 200k/100k/400k/100k, E = 2M, d = 32,
+   4 words per query): K1 for the node update, the bag mean and the three
+   backward sums, K2, K3 forward and ``interact_bwd`` at orders 3 and 1;
 4. the serving path: ``RawGnn`` at the default config (two IHGNN layers,
    orders 3 and 1, d = 32, seeded random weights) → ``make_eval_fns`` →
    one full-graph forward → ``evaluate`` over 4096 synthetic logs in
-   batches of 256; every kernel must have launched;
+   batches of 256; every kernel of the path must have launched;
 5. one forward and one eval batch, each under ``torch.profiler``: device
    time by kernel, the device's idle share, the costliest host operators;
 6. the same model on a small graph, on the card and on the CPU (plain
-   twins), must agree.
+   twins), must agree;
+7. the train path: ``make_train_step`` with Adam on the same graph and
+   model, batches of 1024 positives x 10 negatives built as ``bench.py``
+   builds them; 2 warm steps, then 10 timed steps; every kernel of the
+   path must have launched and every loss must be finite;
+8. one warm train step under ``torch.profiler``;
+9. three train steps on a small graph, on the card and on the CPU, from
+   the same weights and batches, must agree: the losses, every
+   parameter's step-0 gradient and the parameters after the last step; a
+   second card run says whether the card repeats itself bit for bit.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Needs a CUDA card; exits non-zero without one.
@@ -35,7 +46,18 @@ import numpy as np
 
 U, Q, I, VOCAB, E, D, WORDS = 200_000, 100_000, 400_000, 100_000, 2_000_000, 32, 4
 EVAL_LOGS, EVAL_BATCH = 4096, 256
+TRAIN_B, TRAIN_K, WARM_STEPS, TIMED_STEPS = 1024, 10, 2, 10
 SMALL = dict(users=40, queries=25, items=60, vocab=30, edges=300)
+SMALL_STEPS, SMALL_B = 3, 16
+# card against CPU after SMALL_STEPS Adam steps: Adam moves an element by
+# about lr (1e-3) whatever its gradient's size, so rounding in a tiny
+# gradient shows in the parameter at lr scale
+SMALL_LOSS_RTOL, SMALL_PARAM_ATOL = 1e-4, 1e-4
+# step-0 gradients, card against CPU: each within this share of the
+# tensor's largest value (f32 sums over a few hundred terms in another
+# order). Adam all but ignores a gradient's scale, so the parameters alone
+# would miss a backward that is off by a constant factor
+SMALL_GRAD_RTOL = 1e-5
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
 # outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -74,13 +96,45 @@ def time_ms(torch, fn) -> float:
     return start.elapsed_time(end) / REPS
 
 
+def _wrappers():
+    """The kernel wrappers, whose ``launches`` counts the phases read."""
+    from ihgnn_torch.ops.gather import gather_roles
+    from ihgnn_torch.ops.interact import interact_bwd, interact_fwd
+    from ihgnn_torch.ops.segsum import csr_gather_sum
+    return (csr_gather_sum, gather_roles, interact_fwd, interact_bwd)
+
+
 def random_graph(users, queries, items, edges, seed):
+    """(CPU ``HyperGraph``, its ``[E, 3]`` (u, q, i) rows)."""
     from ihgnn_torch.graph import build_hypergraph
     rng = np.random.default_rng(seed)
     uqi = np.stack([rng.integers(0, users, edges),
                     rng.integers(0, queries, edges),
                     rng.integers(0, items, edges)], axis=1)
-    return build_hypergraph(uqi, users + queries + items, users, queries)
+    return build_hypergraph(uqi, users + queries + items, users,
+                            queries), uqi
+
+
+def train_batch(uqi, items, batch, negs, seed):
+    """A training batch as ``bench.py`` builds it: ``batch`` positives drawn
+    from the graph's edges, each with ``negs`` uniform negative items."""
+    from ihgnn_torch.data.dataset import Batch
+    r = np.random.default_rng(seed)
+    idx = r.integers(0, len(uqi), batch)
+    rows = batch * (1 + negs)
+    users = np.zeros(rows, np.int32)
+    queries = np.zeros(rows, np.int32)
+    its = np.zeros(rows, np.int32)
+    flags = np.zeros(rows, np.float32)
+    users[:batch] = uqi[idx, 0]
+    queries[:batch] = uqi[idx, 1]
+    its[:batch] = uqi[idx, 2]
+    flags[:batch] = 1.0
+    users[batch:] = np.repeat(users[:batch], negs)
+    queries[batch:] = np.repeat(queries[:batch], negs)
+    its[batch:] = r.integers(0, items, batch * negs)
+    return Batch(users=users, queries=queries, items=its, flags=flags,
+                 weight=np.ones(rows, np.float32))
 
 
 def random_words(queries, vocab, seed):
@@ -110,7 +164,8 @@ def check_kernels(torch, dev, graph, bag):
     """Phase 3: each kernel against its plain twin, timed beside its
     bound and one library call."""
     from ihgnn_torch.ops.gather import gather_roles, gather_roles_plain
-    from ihgnn_torch.ops.interact import (ORDER_PARTS, interact_fwd,
+    from ihgnn_torch.ops.interact import (ORDER_PARTS, interact_bwd,
+                                          interact_bwd_plain, interact_fwd,
                                           interact_fwd_plain)
     from ihgnn_torch.ops.segsum import csr_gather_sum, csr_gather_sum_plain
 
@@ -122,7 +177,7 @@ def check_kernels(torch, dev, graph, bag):
     results = {}
 
     def record(name, shape, err, tol, k_fn, p_fn, l_fn, nbytes, flops,
-               lib_err=None):
+               lib_err=None, **extra):
         if not err <= tol:
             fail(f"{name} at {shape}: max error {err} > {tol}")
         b_ms, b_by = bound(nbytes, flops)
@@ -133,6 +188,7 @@ def check_kernels(torch, dev, graph, bag):
                "flops": flops}
         if lib_err is not None:
             row["library_max_abs_err"] = lib_err
+        row.update(extra)
         emit({"phase": "kernel_check", "kernel": name, **row})
         results.setdefault(name, []).append(row)
 
@@ -173,6 +229,47 @@ def check_kernels(torch, dev, graph, bag):
            2 * bag.col.numel() * D, lib_err)
     del vocab, k_out, p_out, csr
 
+    # K1 in the backward sums of the train step; each row has the bytes of
+    # its inputs read once and its output written once
+    def backward_sum(label, x, col, rowptr, weight, lib_fn):
+        s_out = rowptr.numel() - 1
+        k_out = csr_gather_sum(x, col, rowptr, weight)
+        p_out = csr_gather_sum_plain(x, col, rowptr, weight)
+        lib_err = (lib_fn() - p_out).abs().max().item()
+        per_entry = 2 if weight is not None else 1
+        record("csr_gather_sum", f"{label} [{col.numel()} entries of "
+               f"[{x.shape[0]}, {D}] -> [{s_out}, {D}]]",
+               (k_out - p_out).abs().max().item(), 1e-4,
+               lambda: csr_gather_sum(x, col, rowptr, weight),
+               lambda: csr_gather_sum_plain(x, col, rowptr, weight), lib_fn,
+               4 * (x.numel() + col.numel() * per_entry + rowptr.numel()
+                    + s_out * D),
+               per_entry * col.numel() * D, lib_err)
+
+    # gather backward: the [3E, d] role cotangents into [N, d]
+    cot3 = randn(3 * E, D)
+    csr = torch.sparse_csr_tensor(rowptr, graph.inc_slot,
+                                  torch.ones(graph.inc_slot.numel(),
+                                             device=dev), size=(n, 3 * E))
+    backward_sum("gather backward", cot3, graph.inc_slot, rowptr, None,
+                 lambda: torch.sparse.mm(csr, cot3))
+    del cot3, csr
+    # scatter backward: E segments of the 3 node rows of each edge
+    cot_n = randn(n, D)
+    i3_flat = graph.i3.view(-1)
+    i3_long = i3_flat.long()
+    backward_sum("scatter backward", cot_n, i3_flat, graph.edge_rowptr, None,
+                 lambda: torch.index_select(cot_n, 0, i3_long)
+                 .view(E, 3, D).sum(1))
+    del cot_n, i3_long
+    # bag backward: the word-major transpose, [Q, d] into [V+1, d]
+    cot_q = randn(Q, D)
+    csr = torch.sparse_csr_tensor(bag.t_rowptr, bag.t_col, bag.t_weight,
+                                  size=(VOCAB + 1, Q))
+    backward_sum("bag backward", cot_q, bag.t_col, bag.t_rowptr,
+                 bag.t_weight, lambda: torch.sparse.mm(csr, cot_q))
+    del cot_q, csr
+
     # K2: [N, d] → 3 × [E, d], exact copy
     x = randn(n, D)
     i3 = graph.i3
@@ -208,6 +305,45 @@ def check_kernels(torch, dev, graph, bag):
                4 * (3 * E * D + w.numel() + b.numel() + E * D),
                E * (hadamard + 2 * parts * D * D + D))
         del k_out, p_out
+
+    # interact_bwd at orders 3 and 1: each of du/dq/di/dW/db within 1e-4
+    # of its largest value; dW and db sum 2M edges in another order than
+    # the twin's matmuls
+    cot = randn(E, D)
+    names = ("du", "dq", "di", "dw", "db")
+    for order in (3, 1):
+        parts = ORDER_PARTS[order]
+        w = randn(parts * D, D) / (parts * D) ** 0.5
+        k_droles, *k_params = interact_bwd(u, q, i, w, cot, order)
+        p_droles, *p_params = interact_bwd_plain(u, q, i, w, cot, order)
+        errors = {}
+        for nm, a, b_ in zip(names, (*k_droles, *k_params),
+                             (*p_droles, *p_params)):
+            err = (a - b_).abs().max().item()
+            tol = 1e-4 * b_.abs().max().item()
+            if not err <= tol:
+                fail(f"interact_bwd order {order} {nm}: max error {err} > "
+                     f"{tol}")
+            errors[nm] = {"max_abs_err": err, "tolerance": tol}
+        # product rule per edge and feature: 4 multiply-adds a product
+        # pair at order 2+, 3 more terms at order 3; the hadamard parts
+        hadamard = {1: 0, 2: 3, 3: 4}[order]
+        product_rule = {1: 0, 2: 12, 3: 21}[order]
+        worst = max(errors.values(),
+                    key=lambda v: v["max_abs_err"] / max(v["tolerance"],
+                                                         1e-30))
+        record("interact_bwd", f"order {order}, 3 x [{E}, {D}] + cot "
+               f"[{E}, {D}] -> [3, {E}, {D}], dW [{parts * D}, {D}], db",
+               worst["max_abs_err"], worst["tolerance"],
+               lambda: interact_bwd(u, q, i, w, cot, order),
+               lambda: interact_bwd_plain(u, q, i, w, cot, order), None,
+               4 * (3 * E * D + E * D + w.numel() + 3 * E * D + w.numel()
+                    + D),
+               E * (2 * 2 * parts * D * D + D * (hadamard + product_rule)
+                    + D), errors=errors,
+               max_abs_err_all=max(v["max_abs_err"]
+                                   for v in errors.values()))
+        del k_droles, k_params, p_droles, p_params
     return results
 
 
@@ -229,7 +365,7 @@ def run_serving(torch, dev, graph, qw, qc):
     features_fn, metrics_fn = make_eval_fns(model, graph, qw, qc,
                                             device=dev)
     wrappers = (csr_gather_sum, gather_roles, interact_fwd)
-    for fn in wrappers:
+    for fn in _wrappers():
         fn.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -345,7 +481,8 @@ def check_small(torch, dev):
     from ihgnn_torch.train.eval import evaluate, make_eval_fns
 
     s = SMALL
-    graph = random_graph(s["users"], s["queries"], s["items"], s["edges"], 5)
+    graph, _ = random_graph(s["users"], s["queries"], s["items"],
+                            s["edges"], 5)
     qw, qc = random_words(s["queries"], s["vocab"], 6)
     logs = random_eval_logs(s["users"], s["queries"], s["items"], 64, 7)
     model = RawGnn(ModelConfig(), s["users"], s["queries"], s["items"],
@@ -365,6 +502,117 @@ def check_small(torch, dev):
         fail(f"card and CPU disagree on the small graph ({err}, {m_err})")
 
 
+def run_train(torch, dev, graph, uqi, qw, qc):
+    """Phase 7: the train path at full width; returns the launch counts
+    and the step the profile phase reuses."""
+    from ihgnn_torch.config import ModelConfig, TrainConfig
+    from ihgnn_torch.models.rawgnn import RawGnn
+    from ihgnn_torch.train.train import make_optimizer, make_train_step
+
+    cfg = ModelConfig()
+    tcfg = TrainConfig(batch_size=TRAIN_B,
+                       random_negative_sample_size=TRAIN_K)
+    model = RawGnn(cfg, U, Q, I, VOCAB,
+                   generator=torch.Generator().manual_seed(0)).to(dev)
+    opt = make_optimizer(model.parameters(), tcfg)
+    step = make_train_step(model, graph, qw, qc, opt, device=dev)
+    batches = [train_batch(uqi, I, TRAIN_B, TRAIN_K, seed) for seed in
+               range(4)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    wrappers = _wrappers()
+    for fn in wrappers:
+        fn.launches = 0
+    losses = [step(batches[k % 4]) for k in range(WARM_STEPS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(TIMED_STEPS):
+        losses.append(step(batches[(WARM_STEPS + k) % 4]))
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / TIMED_STEPS
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    steps = WARM_STEPS + TIMED_STEPS
+    losses = [x.item() for x in losses]
+    if not all(np.isfinite(losses)):
+        fail(f"non-finite train losses {losses}")
+    for name, count in launches.items():
+        if count <= 0:
+            fail(f"{name} was not launched on the train path")
+    emit({"phase": "train", "nodes": graph.node_count,
+          "edges": graph.edge_count, "layers": cfg.gnn_layer_count,
+          "orders": [cfg.layer_order(k) for k in range(cfg.gnn_layer_count)],
+          "d": cfg.embedding_size, "rows": TRAIN_B * (1 + TRAIN_K),
+          "warm_steps": WARM_STEPS, "timed_steps": TIMED_STEPS,
+          "train_step_ms": step_s * 1e3,
+          "hyperedge_aggregations_per_s":
+              graph.edge_count * cfg.gnn_layer_count / step_s,
+          "losses": losses,
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev),
+          "launches": launches,
+          "launches_per_step": {k: v / steps for k, v in launches.items()}})
+    return launches, lambda: step(batches[0])
+
+
+def check_small_train(torch, dev):
+    """Phase 9: SMALL_STEPS train steps on a small graph, on the card and
+    on the CPU (plain twins), from the same weights and batches; then the
+    card once more, to see whether it repeats itself bit for bit."""
+    import copy
+
+    from ihgnn_torch.config import ModelConfig, TrainConfig
+    from ihgnn_torch.models.rawgnn import RawGnn
+    from ihgnn_torch.train.train import make_optimizer, make_train_step
+
+    s = SMALL
+    graph, uqi = random_graph(s["users"], s["queries"], s["items"],
+                              s["edges"], 8)
+    qw, qc = random_words(s["queries"], s["vocab"], 9)
+    model = RawGnn(ModelConfig(), s["users"], s["queries"], s["items"],
+                   s["vocab"], generator=torch.Generator().manual_seed(10))
+    batches = [train_batch(uqi, s["items"], SMALL_B, TRAIN_K, 11 + k)
+               for k in range(SMALL_STEPS)]
+
+    def train(device):
+        m = copy.deepcopy(model).to(device)
+        opt = make_optimizer(m.parameters(), TrainConfig())
+        step = make_train_step(m, graph, qw, qc, opt, device=device)
+        losses, grads0 = [], None
+        for b in batches:
+            losses.append(step(b).item())
+            if grads0 is None:
+                # the step leaves its gradients in .grad until the next one
+                grads0 = {k: p.grad.detach().cpu().clone()
+                          for k, p in m.named_parameters()}
+        return losses, grads0, {k: v.detach().cpu() for k, v in
+                                m.state_dict().items()}
+
+    cpu_losses, cpu_grads, cpu_params = train("cpu")
+    card_losses, card_grads, card_params = train(dev)
+    again_losses, _, again_params = train(dev)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card_losses,
+                                                       cpu_losses))
+    grad_err = {k: (card_grads[k] - g).abs().max().item() /
+                max(g.abs().max().item(), 1e-30)
+                for k, g in cpu_grads.items()}
+    param_err = max((card_params[k] - cpu_params[k]).abs().max().item()
+                    for k in cpu_params)
+    repeatable = again_losses == card_losses and all(
+        torch.equal(again_params[k], card_params[k]) for k in card_params)
+    emit({"phase": "small_train_reference", "steps": SMALL_STEPS,
+          "card_losses": card_losses, "cpu_losses": cpu_losses,
+          "loss_max_rel_err": loss_err, "loss_rtol": SMALL_LOSS_RTOL,
+          "grad0_rel_err": grad_err, "grad0_rtol": SMALL_GRAD_RTOL,
+          "param_max_abs_err": param_err, "param_atol": SMALL_PARAM_ATOL,
+          "repeatable": repeatable})
+    bad_grads = {k: v for k, v in grad_err.items()
+                 if not v <= SMALL_GRAD_RTOL}
+    if (not loss_err <= SMALL_LOSS_RTOL or bad_grads
+            or not param_err <= SMALL_PARAM_ATOL):
+        fail(f"card and CPU training disagree on the small graph "
+             f"(losses {loss_err}, step-0 gradients {bad_grads}, "
+             f"parameters {param_err})")
+
+
 KERNELS = {
     "csr_gather_sum": ("ihgnn_torch/csrc/segsum.cu",
                        "ihgnn_tpu/ops/pallas/segsum.py:403"),
@@ -372,6 +620,8 @@ KERNELS = {
                      "ihgnn_tpu/ops/pallas/gather.py:188"),
     "interact_fwd": ("ihgnn_torch/csrc/interact.cu",
                      "ihgnn_tpu/ops/pallas/interact.py:319"),
+    "interact_bwd": ("ihgnn_torch/csrc/interact_bwd.cu",
+                     "ihgnn_tpu/ops/pallas/interact.py:340"),
 }
 
 
@@ -403,11 +653,11 @@ def main() -> int:
                         for p in libs.values()]})
 
     t0 = time.perf_counter()
-    graph_cpu = random_graph(U, Q, I, E, seed=0)
+    graph_cpu, uqi = random_graph(U, Q, I, E, seed=0)
     qw, qc = random_words(Q, VOCAB, seed=1)
     from ihgnn_torch.models.embedding import make_word_bag
     graph = graph_cpu.to(dev)
-    bag = make_word_bag(qw, qc).to(dev)
+    bag = make_word_bag(qw, qc, VOCAB + 1).to(dev)
     emit({"phase": "data", "seconds": time.perf_counter() - t0,
           "nodes": graph.node_count, "edges": graph.edge_count,
           "incidence": int(graph.inc_edge.numel()),
@@ -416,17 +666,25 @@ def main() -> int:
     with torch.no_grad():
         checks = check_kernels(torch, dev, graph, bag)
     torch.cuda.synchronize()
-    launches, *serving = run_serving(torch, dev, graph_cpu, qw, qc)
+    serve_launches, *serving = run_serving(torch, dev, graph_cpu, qw, qc)
     profile_serving(torch, *serving)
     check_small(torch, dev)
+    del serving
+    train_launches, warm_step = run_train(torch, dev, graph_cpu, uqi, qw, qc)
+    emit(profile_window(torch, "one warm train step", warm_step))
+    del warm_step
+    check_small_train(torch, dev)
 
     kernels = []
     for kname, (source, replaces) in KERNELS.items():
         main_row, *others = checks[kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[kname],
-            "max_abs_err": max(r["max_abs_err"] for r in checks[kname]),
+            "replaces": replaces, "launches": train_launches[kname],
+            "launches_by_path": {"serving": serve_launches.get(kname, 0),
+                                 "train": train_launches[kname]},
+            "max_abs_err": max(r.get("max_abs_err_all", r["max_abs_err"])
+                               for r in checks[kname]),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"], "shape": main_row["shape"],

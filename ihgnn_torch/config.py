@@ -1,7 +1,7 @@
-"""Typed configuration: the model knobs and the evaluation fields.
+"""Typed configuration: the model knobs and the train/eval schedule.
 
-Counterpart of ``ihgnn_tpu/config.py`` (``V``, ``ModelConfig`` and the eval
-fields of ``TrainConfig``). Defaults are the reference's (Main.py:45-59):
+Counterpart of ``ihgnn_tpu/config.py`` (``V``, ``ModelConfig`` and
+``TrainConfig`` without the epoch count and seed of the run controller). Defaults are the reference's (Main.py:45-59):
 ``RawGnn`` over two IHGNN layers, d = 32, interaction order 3 in the first
 layer and 1 after it, mean query transform, dot-product HEM head.
 """
@@ -63,12 +63,30 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The evaluation schedule and batching of the reference's trainer
-    (GlobalSettings.py:26-41). The optimisation fields come with the
-    train step."""
+    """Optimisation and evaluation schedule (reference:
+    GlobalSettings.py:26-41, Main.py:27-31)."""
 
+    batch_size: int = 100                 # positives per step
+    learning_rate: float = 1e-3
+    weight_decay: float = 0.0
+    random_negative_sample_size: int = 10
+    non_random_negative_sample_size: int = 0
+    # lr *= 0.98 whenever epoch avg loss < 0.008 while lr > 4e-4
+    # (reference: Helpers/TrainTestHelper.py:155-159)
+    adjust_learning_rate: bool = True
+    lr_decay_factor: float = 0.98
+    lr_decay_loss_threshold: float = 0.008
+    lr_floor: float = 4e-4
+    # gradient accumulation over k batches per optimizer step
+    # (the reference's Gs.batch_size_times, TrainTestHelper.py:137-143)
+    grad_accum_steps: int = 1
     epoch_start_test: int = 10
     epoch_test_frequency: int = 10
     use_valid_dataset: bool = True
     # logs scored against the whole catalog per batch
     eval_batch_size: int = 256
+
+    @property
+    def negative_sample_size(self) -> int:
+        return (self.random_negative_sample_size
+                + self.non_random_negative_sample_size)

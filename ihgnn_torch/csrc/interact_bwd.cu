@@ -1,0 +1,528 @@
+// K3 interact_bwd: fused hyperedge feature interaction, backward.
+//
+// For out[e] = b + sum_j part_j[e] . W_j (csrc/interact.cu) and an output
+// cotangent cot [E, out]:
+//
+//   dpart_j[e] = cot[e] . W_j^T                 (registers only)
+//   du, dq, di = the product rule on the dparts  -> droles [3, E, d]
+//   dW_j       = sum_e part_j[e]^T (x) cot[e]     -> [parts * d, out]
+//   db         = sum_e cot[e]                     -> [out]
+//
+// Replaces ihgnn_tpu/ops/pallas/interact.py interact_bwd (interact.py:340)
+// with its kernels _bwd_kernel (:253) and _bwd_kernel_batchk (:80). The
+// TPU kernel carries dW/db in a VMEM accumulator across its sequential
+// grid. Blocks on the card run in no order, so one launch of the C entry
+// point runs three kernels:
+//
+// 1. interact_bwd_data_kernel: one thread an edge. W is staged once per
+//    persistent block in shared memory and read as warp-wide broadcasts. A
+//    block stages a tile of up to 128 edges (u, q, i and cot rows) with
+//    coalesced loads; each thread keeps its cotangent row in registers,
+//    forms each dpart one feature at a time and folds it into du/dq/di at
+//    once (no dpart is written), in place over the staged u/q/i; the tile
+//    leaves with coalesced stores to one [3, E, d] buffer, which the
+//    gather's backward reads as [3E, d].
+// 2. interact_bwd_param_kernel: dW and db as per-chunk partials. A block
+//    owns a fixed chunk of edges (chunk_edges, chosen by the caller) and a
+//    slab of dW's rows; the chunk streams through shared memory 32 edges
+//    at a time, double-buffered with cp.async, and each thread keeps a
+//    register tile of up to 8 rows x 4 columns of dW. Partials are written
+//    to partial[chunk][parts * d + 1][out]; the last row is db.
+// 3. reduce_partials_kernel: sums the partials over chunks in chunk order.
+//
+// No atomics: every sum runs in a fixed order that depends only on E, so
+// the result repeats bit for bit.
+//
+// Bound on the H100: arithmetic at order 3, memory at order 1. Per edge
+// the data gradient and dW each take 2 * parts * d * out FLOPs (14,336 each
+// at order 3, d = out = 32) on the f32 CUDA cores (no tensor-core type
+// keeps f32 accuracy); the bytes are u, q, i and cot read and du, dq, di
+// written. Kernels 1 and 2 each read u, q, i and cot, so the kernel pair
+// moves 1.6 times the bytes of the bound; fusing them is later work.
+//
+// Layout: u/q/i [E, d] f32 row-major (d % 4 == 0), W [parts * d, out] f32,
+// cot [E, out] f32; droles [3, E, d] f32; partial [chunks, parts * d + 1,
+// out] f32 scratch; dw_ext [parts * d + 1, out] f32 (dW, then db). out is
+// one of 8, 16, 32, 64.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kDataThreads = 128;
+constexpr int kParamThreads = 256;
+constexpr int kTileEdges = 32;   // edges staged at once by the param kernel
+constexpr int kMaxRows = 8;      // dW rows a param-kernel thread owns
+constexpr int kReduceOut = 32;   // outputs a reduce block owns
+constexpr int kReduceLanes = 16; // chunk lanes of a reduce block
+constexpr size_t kSmemLimit = 232448;  // shared memory a block may use
+
+template <int ORDER>
+__host__ __device__ constexpr int parts_of() {
+  return ORDER == 1 ? 3 : (ORDER == 2 ? 6 : 7);
+}
+
+template <int P>
+__device__ __forceinline__ void make_parts(float u, float q, float i,
+                                           float (&p)[P]) {
+  p[0] = u;
+  p[1] = q;
+  p[2] = i;
+  if constexpr (P >= 6) {
+    p[3] = u * q;
+    p[4] = q * i;
+    p[5] = i * u;
+  }
+  if constexpr (P >= 7) p[6] = p[3] * i;
+}
+
+// Asynchronous 16-byte copy from device to shared memory; when !valid it
+// writes 16 zero bytes and reads nothing.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned saddr =
+      static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int bytes = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(saddr),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// A block stages a tile of blockDim.x edges (u, q, i and cot rows) in
+// shared memory by cp.async, 16 bytes a copy. Rows are padded by four
+// floats, so the 16-byte reads of one row by each of 8 neighbouring threads
+// fall in distinct banks. Each thread computes its edge's du/dq/di in place
+// over u/q/i, and the block stores the tile back, 16 bytes a thread.
+template <int OUT, int ORDER>
+__global__ void __launch_bounds__(kDataThreads)
+interact_bwd_data_kernel(const float* __restrict__ u,
+                         const float* __restrict__ q,
+                         const float* __restrict__ it,
+                         const float* __restrict__ w,
+                         const float* __restrict__ cot,
+                         float* __restrict__ droles, int edges, int d) {
+  constexpr int P = parts_of<ORDER>();
+  constexpr int SC = OUT + 4;  // padded cotangent row
+  constexpr int C4 = OUT / 4;
+  extern __shared__ float4 smem[];
+  float* ws = reinterpret_cast<float*>(smem);
+  const int wn = P * d * OUT;
+  const int T = blockDim.x;
+  const int sd = d + 4;        // padded role row
+  const int v4 = d / 4;        // 16-byte vectors a role row
+  float* us = ws + wn;         // [T][sd] u, then du
+  float* qs = us + T * sd;     // [T][sd] q, then dq
+  float* is = qs + T * sd;     // [T][sd] i, then di
+  float* cs = is + T * sd;     // [T][SC] cot
+  for (int t = threadIdx.x; t < wn; t += T) ws[t] = w[t];
+
+  const size_t plane = static_cast<size_t>(edges) * d;
+  for (long long base = static_cast<long long>(blockIdx.x) * T;
+       base < edges; base += static_cast<long long>(gridDim.x) * T) {
+    const int rows = static_cast<int>(edges - base < T ? edges - base : T);
+    __syncthreads();  // W is staged; the previous tile is stored
+    for (int idx = threadIdx.x; idx < T * v4; idx += T) {
+      const int te = idx / v4;
+      const int s4 = te * sd + 4 * (idx - te * v4);
+      const bool in = te < rows;
+      const size_t g = static_cast<size_t>(base) * d + 4 * idx;
+      cp_async16(us + s4, in ? u + g : u, in);
+      cp_async16(qs + s4, in ? q + g : q, in);
+      cp_async16(is + s4, in ? it + g : it, in);
+    }
+    for (int idx = threadIdx.x; idx < T * C4; idx += T) {
+      const int te = idx / C4;
+      const bool in = te < rows;
+      const size_t g = static_cast<size_t>(base) * OUT + 4 * idx;
+      cp_async16(cs + te * SC + 4 * (idx - te * C4), in ? cot + g : cot, in);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+
+    float c[OUT];
+    const float4* cr = reinterpret_cast<const float4*>(cs + threadIdx.x * SC);
+#pragma unroll
+    for (int o4 = 0; o4 < C4; ++o4) {
+      const float4 v = cr[o4];
+      c[4 * o4 + 0] = v.x;
+      c[4 * o4 + 1] = v.y;
+      c[4 * o4 + 2] = v.z;
+      c[4 * o4 + 3] = v.w;
+    }
+    float4* ur = reinterpret_cast<float4*>(us + threadIdx.x * sd);
+    float4* qr = reinterpret_cast<float4*>(qs + threadIdx.x * sd);
+    float4* ir = reinterpret_cast<float4*>(is + threadIdx.x * sd);
+    for (int k4 = 0; k4 < v4; ++k4) {
+      const float4 a = ur[k4];
+      const float4 bq = qr[k4];
+      const float4 cc = ir[k4];
+      const float uv[4] = {a.x, a.y, a.z, a.w};
+      const float qv[4] = {bq.x, bq.y, bq.z, bq.w};
+      const float iv[4] = {cc.x, cc.y, cc.z, cc.w};
+      float gu[4], gq[4], gi[4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int k = 4 * k4 + kk;
+        float dp[P];
+#pragma unroll
+        for (int j = 0; j < P; ++j) {
+          const float4* wrow = reinterpret_cast<const float4*>(
+              ws + static_cast<size_t>(j * d + k) * OUT);
+          // four partial sums shorten the dependent FMA chain
+          float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int o4 = 0; o4 < C4; ++o4) {
+            const float4 wv = wrow[o4];
+            s[0] = fmaf(c[4 * o4 + 0], wv.x, s[0]);
+            s[1] = fmaf(c[4 * o4 + 1], wv.y, s[1]);
+            s[2] = fmaf(c[4 * o4 + 2], wv.z, s[2]);
+            s[3] = fmaf(c[4 * o4 + 3], wv.w, s[3]);
+          }
+          dp[j] = (s[0] + s[1]) + (s[2] + s[3]);
+        }
+        // the product rule as _bwd_kernel writes it (interact.py:284-294)
+        const float x = uv[kk], y = qv[kk], z = iv[kk];
+        float du = dp[0], dq = dp[1], di = dp[2];
+        if constexpr (P >= 6) {
+          du += dp[3] * y + dp[5] * z;
+          dq += dp[3] * x + dp[4] * z;
+          di += dp[4] * y + dp[5] * x;
+        }
+        if constexpr (P >= 7) {
+          du += dp[6] * (y * z);
+          dq += dp[6] * (x * z);
+          di += dp[6] * (x * y);
+        }
+        gu[kk] = du;
+        gq[kk] = dq;
+        gi[kk] = di;
+      }
+      ur[k4] = make_float4(gu[0], gu[1], gu[2], gu[3]);
+      qr[k4] = make_float4(gq[0], gq[1], gq[2], gq[3]);
+      ir[k4] = make_float4(gi[0], gi[1], gi[2], gi[3]);
+    }
+    __syncthreads();
+    float4* out = reinterpret_cast<float4*>(droles) + base * v4;
+    const size_t plane4 = plane / 4;
+    for (int idx = threadIdx.x; idx < rows * v4; idx += T) {
+      const int te = idx / v4;
+      const int s4 = te * sd + 4 * (idx - te * v4);
+      out[idx] = *reinterpret_cast<const float4*>(us + s4);
+      out[plane4 + idx] = *reinterpret_cast<const float4*>(qs + s4);
+      out[2 * plane4 + idx] = *reinterpret_cast<const float4*>(is + s4);
+    }
+  }
+}
+
+// acc[m] += parts row pr[m * RG] (x) the cotangent columns 4 cg .. 4 cg + 3,
+// over the staged tile's edges; MR rows, known at compile time, so the
+// loop has no branch.
+template <int MR, int CG, int RG>
+__device__ __forceinline__ void accumulate(const float* __restrict__ pr,
+                                           const float4* __restrict__ cs,
+                                           int slab_rows, int cg,
+                                           float (&acc)[kMaxRows][4]) {
+#pragma unroll 4
+  for (int te = 0; te < kTileEdges; ++te) {
+    const float4 cv = cs[te * CG + cg];
+#pragma unroll
+    for (int m = 0; m < MR; ++m) {
+      const float pv = pr[te * slab_rows + m * RG];
+      acc[m][0] = fmaf(pv, cv.x, acc[m][0]);
+      acc[m][1] = fmaf(pv, cv.y, acc[m][1]);
+      acc[m][2] = fmaf(pv, cv.z, acc[m][2]);
+      acc[m][3] = fmaf(pv, cv.w, acc[m][3]);
+    }
+  }
+}
+
+// grid (chunks, slabs). The block's chunk streams through shared memory 32
+// edges at a time, in two stages: while one tile's raw rows are used, the
+// next tile's arrive by cp.async. Thread (rg, cg) owns dW rows
+// slab_lo + rg + m * RG (m < kMaxRows) and columns 4 cg .. 4 cg + 3.
+template <int OUT, int ORDER>
+__global__ void __launch_bounds__(kParamThreads)
+interact_bwd_param_kernel(const float* __restrict__ u,
+                          const float* __restrict__ q,
+                          const float* __restrict__ it,
+                          const float* __restrict__ cot,
+                          float* __restrict__ partial, int edges, int d,
+                          int chunk_edges, int slab_rows) {
+  constexpr int P = parts_of<ORDER>();
+  constexpr int CG = OUT / 4;
+  constexpr int RG = kParamThreads / CG;
+  const int R = P * d;
+  const int slab_lo = blockIdx.y * slab_rows;
+  const int rows = min(slab_rows, R - slab_lo);
+  // per stage: u, q, i rows [kTileEdges][d] each, then cot [kTileEdges][OUT]
+  const int plane = kTileEdges * d;
+  const int stage_floats = 3 * plane + kTileEdges * OUT;
+  extern __shared__ float4 smem[];
+  float* stages = reinterpret_cast<float*>(smem);
+  float* ps = stages + 2 * stage_floats;  // [kTileEdges][slab_rows] parts
+  const int cg = threadIdx.x % CG;
+  const int rg = threadIdx.x / CG;
+  const bool db_lane = blockIdx.y == 0 && threadIdx.x < OUT;
+  // this thread's rows: rg + m * RG < rows for m < my_rows (<= kMaxRows)
+  const int my_rows = rg < rows ? (rows - rg + RG - 1) / RG : 0;
+
+  float acc[kMaxRows][4];
+#pragma unroll
+  for (int m = 0; m < kMaxRows; ++m)
+    acc[m][0] = acc[m][1] = acc[m][2] = acc[m][3] = 0.f;
+  float bacc = 0.f;
+
+  const long long begin = static_cast<long long>(blockIdx.x) * chunk_edges;
+  const int e_begin = static_cast<int>(begin);
+  const int e_end = static_cast<int>(
+      begin + chunk_edges < edges ? begin + chunk_edges : edges);
+  const int tiles = (e_end - e_begin + kTileEdges - 1) / kTileEdges;
+
+  auto issue = [&](int t) {
+    float* buf = stages + (t & 1) * stage_floats;
+    const int e0 = e_begin + t * kTileEdges;
+    const int n_e = min(kTileEdges, e_end - e0);
+    const int v4 = plane / 4;
+    for (int idx = threadIdx.x; idx < 3 * v4; idx += kParamThreads) {
+      const int a = idx / v4;
+      const int v = idx - a * v4;
+      const float* src = a == 0 ? u : (a == 1 ? q : it);
+      const bool valid = 4 * v < n_e * d;
+      cp_async16(buf + a * plane + 4 * v,
+                 valid ? src + static_cast<size_t>(e0) * d + 4 * v : src,
+                 valid);
+    }
+    for (int idx = threadIdx.x; idx < kTileEdges * CG;
+         idx += kParamThreads) {
+      const bool valid = idx < n_e * CG;
+      cp_async16(buf + 3 * plane + 4 * idx,
+                 valid ? cot + static_cast<size_t>(e0) * OUT + 4 * idx : cot,
+                 valid);
+    }
+    cp_async_commit();
+  };
+
+  if (tiles > 0) issue(0);
+  for (int t = 0; t < tiles; ++t) {
+    if (t + 1 < tiles) {
+      issue(t + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile t has landed for every thread
+    const float* buf = stages + (t & 1) * stage_floats;
+    for (int idx = threadIdx.x; idx < plane; idx += kParamThreads) {
+      const int te = idx / d;
+      const int k = idx - te * d;
+      float p[P];
+      make_parts<P>(buf[idx], buf[plane + idx], buf[2 * plane + idx], p);
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const int r = j * d + k - slab_lo;
+        if (r >= 0 && r < rows) ps[te * slab_rows + r] = p[j];
+      }
+    }
+    __syncthreads();
+    const float4* cs = reinterpret_cast<const float4*>(buf + 3 * plane);
+    const float* pr = ps + rg;
+    switch (my_rows) {
+      case 1: accumulate<1, CG, RG>(pr, cs, slab_rows, cg, acc); break;
+      case 2: accumulate<2, CG, RG>(pr, cs, slab_rows, cg, acc); break;
+      case 3: accumulate<3, CG, RG>(pr, cs, slab_rows, cg, acc); break;
+      case 4: accumulate<4, CG, RG>(pr, cs, slab_rows, cg, acc); break;
+      case 5: accumulate<5, CG, RG>(pr, cs, slab_rows, cg, acc); break;
+      case 6: accumulate<6, CG, RG>(pr, cs, slab_rows, cg, acc); break;
+      case 7: accumulate<7, CG, RG>(pr, cs, slab_rows, cg, acc); break;
+      case 8: accumulate<8, CG, RG>(pr, cs, slab_rows, cg, acc); break;
+      default: break;
+    }
+    if (db_lane) {
+      const float* cf = reinterpret_cast<const float*>(cs) + threadIdx.x;
+      for (int te = 0; te < kTileEdges; ++te) bacc += cf[te * OUT];
+    }
+    __syncthreads();  // ps and this stage are read before they are reused
+  }
+
+  float* out = partial + static_cast<size_t>(blockIdx.x) * (R + 1) * OUT;
+#pragma unroll
+  for (int m = 0; m < kMaxRows; ++m) {
+    const int r = rg + m * RG;
+    if (r < rows) {
+      reinterpret_cast<float4*>(out + static_cast<size_t>(slab_lo + r) * OUT)
+          [cg] = make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+    }
+  }
+  if (db_lane) out[static_cast<size_t>(R) * OUT + threadIdx.x] = bacc;
+}
+
+// out[n] = sum over chunks c of partial[c][n], in a fixed order: lane l of
+// a block sums chunks l, l + 16, ... in turn, then lane 0 sums the 16 lane
+// sums in lane order.
+__global__ void __launch_bounds__(kReduceOut * kReduceLanes)
+reduce_partials_kernel(const float* __restrict__ partial,
+                       float* __restrict__ out, int chunks, int n) {
+  __shared__ float red[kReduceLanes][kReduceOut];
+  const int oi = threadIdx.x % kReduceOut;
+  const int lane = threadIdx.x / kReduceOut;
+  const int idx = blockIdx.x * kReduceOut + oi;
+  float s = 0.f;
+  if (idx < n) {
+    for (int c = lane; c < chunks; c += kReduceLanes)
+      s += partial[static_cast<size_t>(c) * n + idx];
+  }
+  red[lane][oi] = s;
+  __syncthreads();
+  if (lane == 0 && idx < n) {
+    float t = 0.f;
+#pragma unroll
+    for (int l = 0; l < kReduceLanes; ++l) t += red[l][oi];
+    out[idx] = t;
+  }
+}
+
+cudaError_t resident_blocks(const void* kernel, int threads, size_t smem,
+                            long long needed, int* blocks) {
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+  if (err != cudaSuccess) return err;
+  const long long resident =
+      static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  *blocks = static_cast<int>(needed < resident ? needed : resident);
+  return cudaSuccess;
+}
+
+template <int OUT, int ORDER>
+cudaError_t launch(const void* u, const void* q, const void* i, const void* w,
+                   const void* cot, void* droles, void* partial, void* dw_ext,
+                   int edges, int d, int chunk_edges, cudaStream_t stream) {
+  constexpr int P = parts_of<ORDER>();
+  constexpr int RG = kParamThreads / (OUT / 4);
+  const int R = P * d;
+
+  // Shared memory of both main kernels; a shape that does not fit is
+  // refused before anything is launched. Kernel 1 holds W and a tile of T
+  // edges, T the largest of 128, 64, 32 that fits; kernel 2 holds two
+  // 32-edge stages and a slab of parts.
+  const size_t w_smem = static_cast<size_t>(R) * OUT * sizeof(float);
+  int threads = kDataThreads;
+  size_t d_smem = 0;
+  for (;; threads /= 2) {
+    d_smem = w_smem + static_cast<size_t>(threads) *
+                          (3 * (d + 4) + OUT + 4) * sizeof(float);
+    if (d_smem <= kSmemLimit || threads == 32) break;
+  }
+  const int slab_rows = R < RG * kMaxRows ? R : RG * kMaxRows;
+  const size_t p_smem =
+      (2 * static_cast<size_t>(kTileEdges) * (3 * d + OUT) +
+       static_cast<size_t>(kTileEdges) * slab_rows) * sizeof(float);
+  if (d_smem > kSmemLimit || p_smem > kSmemLimit)
+    return cudaErrorInvalidValue;
+
+  // 1. data gradients
+  auto data = interact_bwd_data_kernel<OUT, ORDER>;
+  cudaError_t err = cudaFuncSetAttribute(
+      data, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(d_smem));
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = resident_blocks(reinterpret_cast<const void*>(data), threads,
+                          d_smem, (static_cast<long long>(edges) + threads -
+                                   1) / threads, &blocks);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it: the caller gets it as the return value
+    return err;
+  }
+  data<<<blocks, threads, d_smem, stream>>>(
+      static_cast<const float*>(u), static_cast<const float*>(q),
+      static_cast<const float*>(i), static_cast<const float*>(w),
+      static_cast<const float*>(cot), static_cast<float*>(droles), edges, d);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  // 2. dW/db partials, one per chunk of edges
+  const int slabs = (R + slab_rows - 1) / slab_rows;
+  const int chunks = static_cast<int>(
+      (static_cast<long long>(edges) + chunk_edges - 1) / chunk_edges);
+  auto param = interact_bwd_param_kernel<OUT, ORDER>;
+  err = cudaFuncSetAttribute(param,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(p_smem));
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return err;
+  }
+  param<<<dim3(chunks, slabs), kParamThreads, p_smem, stream>>>(
+      static_cast<const float*>(u), static_cast<const float*>(q),
+      static_cast<const float*>(i), static_cast<const float*>(cot),
+      static_cast<float*>(partial), edges, d, chunk_edges, slab_rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  // 3. the fixed-order sum over chunks
+  const int n = (R + 1) * OUT;
+  reduce_partials_kernel<<<(n + kReduceOut - 1) / kReduceOut,
+                           kReduceOut * kReduceLanes, 0, stream>>>(
+      static_cast<const float*>(partial), static_cast<float*>(dw_ext), chunks,
+      n);
+  return cudaGetLastError();
+}
+
+template <int OUT>
+cudaError_t launch_order(int order, const void* u, const void* q,
+                         const void* i, const void* w, const void* cot,
+                         void* droles, void* partial, void* dw_ext, int edges,
+                         int d, int chunk_edges, cudaStream_t stream) {
+  switch (order) {
+    case 1: return launch<OUT, 1>(u, q, i, w, cot, droles, partial, dw_ext,
+                                  edges, d, chunk_edges, stream);
+    case 2: return launch<OUT, 2>(u, q, i, w, cot, droles, partial, dw_ext,
+                                  edges, d, chunk_edges, stream);
+    case 3: return launch<OUT, 3>(u, q, i, w, cot, droles, partial, dw_ext,
+                                  edges, d, chunk_edges, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+extern "C" const char* ihgnn_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+extern "C" int ihgnn_interact_bwd(const void* u, const void* q, const void* i,
+                                  const void* w, const void* cot, void* droles,
+                                  void* partial, void* dw_ext, int edges,
+                                  int d, int out_dim, int order,
+                                  int chunk_edges, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (edges <= 0 || chunk_edges <= 0 || chunk_edges % kTileEdges != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (out_dim) {
+    case 8: err = launch_order<8>(order, u, q, i, w, cot, droles, partial,
+                                  dw_ext, edges, d, chunk_edges, s); break;
+    case 16: err = launch_order<16>(order, u, q, i, w, cot, droles, partial,
+                                    dw_ext, edges, d, chunk_edges, s); break;
+    case 32: err = launch_order<32>(order, u, q, i, w, cot, droles, partial,
+                                    dw_ext, edges, d, chunk_edges, s); break;
+    case 64: err = launch_order<64>(order, u, q, i, w, cot, droles, partial,
+                                    dw_ext, edges, d, chunk_edges, s); break;
+    default: break;
+  }
+  return static_cast<int>(err);
+}

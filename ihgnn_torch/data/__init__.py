@@ -1,1 +1,1 @@
-"""Search logs and evaluation batches (NumPy only)."""
+"""Search logs, training batches and evaluation batches (NumPy only)."""

@@ -1,6 +1,8 @@
-"""Search-log data model (the integer-encoded ``SearchLog``).
+"""Search-log data model (the integer-encoded ``SearchLog`` and the
+``PosInteraction`` rows flattened from it).
 
-Counterpart of ``ihgnn_tpu/data/schema.py`` ``SearchLog``, file-format
+Counterpart of ``ihgnn_tpu/data/schema.py`` ``SearchLog`` and
+``PosInteraction``, file-format
 compatible with the reference artifacts (Helpers/SearchLog.py). CSV row:
 ``user,query,search_time,items,pages,positions,interactions,times`` with
 space-separated list columns (SearchLog.py:15-31).
@@ -73,3 +75,36 @@ class SearchLog(NamedTuple):
             items.append(item)
             flags.append(pick(fs))
         return items, flags, all(f <= 1 for f in flags)
+
+
+class PosInteraction(NamedTuple):
+    """One positive (user, query, item) interaction, flattened from a log."""
+
+    user: int
+    query: int
+    search_time: str
+    item: int
+    page: int
+    position: int
+    interaction: int
+    time: str
+
+    def uqif(self) -> Tuple[int, int, int, int]:
+        return self.user, self.query, self.item, self.interaction
+
+    @staticmethod
+    def from_search_log(log: SearchLog,
+                        treat_all_1: bool) -> List["PosInteraction"]:
+        """All flag>0 items of a log; flags clamped to 1 when
+        ``treat_all_1`` (SearchLog.py:199-207)."""
+        out = []
+        for item, page, pos, flag, t in zip(log.items, log.pages,
+                                            log.positions, log.interactions,
+                                            log.times):
+            if flag > 0:
+                if treat_all_1 and flag > 1:
+                    flag = 1
+                out.append(PosInteraction(log.user, log.query,
+                                          log.search_time, item, page, pos,
+                                          flag, t))
+        return out

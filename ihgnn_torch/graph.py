@@ -8,7 +8,12 @@ ids by ``user_count + query_count``.
 
 The node update H·E is a CSR gather-sum over the node-major incidence:
 ``rowptr`` delimits each node's entries of ``inc_edge``, so the GPU kernel
-sums a node's edges in a fixed order, with no atomics.
+sums a node's edges in a fixed order, with no atomics. The same CSR with
+``inc_slot`` as its column is the gather's backward: users, queries and
+items hold disjoint node ranges, so every node has one role, and entry k
+reads row ``role·E + edge`` of the ``[3E, d]`` role cotangents. The
+scatter's backward is the edge-major CSR ``(edge_rowptr, i3.view(-1))``:
+edge e sums the rows of its three nodes.
 """
 
 from __future__ import annotations
@@ -34,6 +39,8 @@ class HyperGraph:
     inc_node: torch.Tensor  # [3E] int32 — node ids, sorted ascending
     inc_edge: torch.Tensor  # [3E] int32 — edge id of each incidence entry
     rowptr: torch.Tensor    # [N+1] int32 — CSR offsets of inc_node
+    inc_slot: torch.Tensor  # [3E] int32 — role · E + edge of each entry
+    edge_rowptr: torch.Tensor  # [E+1] int32 — 0, 3, 6, …, 3E
     node_count: int
     edge_count: int
 
@@ -42,7 +49,8 @@ class HyperGraph:
         return dataclasses.replace(
             self, i3=self.i3.to(dev), dv=self.dv.to(dev),
             inc_node=self.inc_node.to(dev), inc_edge=self.inc_edge.to(dev),
-            rowptr=self.rowptr.to(dev))
+            rowptr=self.rowptr.to(dev), inc_slot=self.inc_slot.to(dev),
+            edge_rowptr=self.edge_rowptr.to(dev))
 
 
 def build_hypergraph(uqi: np.ndarray, node_count: int, user_count: int,
@@ -73,7 +81,7 @@ def build_hypergraph(uqi: np.ndarray, node_count: int, user_count: int,
     dv = np.bincount(flat_nodes, minlength=node_count).astype(np.float32)
     dv[dv == 0] = DEGREE_FLOOR
 
-    flat_edges = np.repeat(np.arange(e_count, dtype=np.int64), 3)
+    # flat entry f = 3·edge + role
     order = np.argsort(flat_nodes, kind="stable")
     inc_node = flat_nodes[order].astype(np.int32)
     rowptr = np.zeros(node_count + 1, np.int64)
@@ -83,8 +91,12 @@ def build_hypergraph(uqi: np.ndarray, node_count: int, user_count: int,
         i3=torch.from_numpy(i3),
         dv=torch.from_numpy(dv.reshape(-1, 1)),
         inc_node=torch.from_numpy(inc_node),
-        inc_edge=torch.from_numpy(flat_edges[order].astype(np.int32)),
+        inc_edge=torch.from_numpy((order // 3).astype(np.int32)),
         rowptr=torch.from_numpy(rowptr.astype(np.int32)),
+        inc_slot=torch.from_numpy(
+            ((order % 3) * e_count + order // 3).astype(np.int32)),
+        edge_rowptr=torch.from_numpy(
+            np.arange(0, 3 * e_count + 1, 3, dtype=np.int32)),
         node_count=int(node_count),
         edge_count=int(e_count),
     )

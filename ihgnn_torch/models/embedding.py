@@ -7,8 +7,9 @@ Counterpart of ``ihgnn_tpu/models/embedding.py`` ``EmbeddingTables``
   entity ``i`` lives at row ``i+1`` (Dataset.py:149-155).
 * the query vector is the mean of its word vectors
   (``nn.EmbeddingBag(mode='mean')``, EmbeddingLayers.py:100-104), computed
-  by K1 over a ``WordBag``: one CSR row per query, one entry per non-padding
-  word, weight 1/max(count, 1).
+  by ``ops/bag.py`` ``BagMeanFn`` (K1 both ways) over a ``WordBag``: one
+  CSR row per query, one entry per non-padding word, weight
+  1/max(count, 1).
 * optional Linear + ReLU on query vectors (``query_transform ==
   'activation'``, EmbeddingLayers.py:38-48).
 
@@ -18,51 +19,17 @@ feature-major ``[d, rows]``), xavier-uniform over (rows, d).
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Optional
 
-import numpy as np
 import torch
 from torch import nn
 
 from ihgnn_torch.config import V
-from ihgnn_torch.device import DeviceLike, resolve_device
 from ihgnn_torch.models.common import TorchDense
 from ihgnn_torch.models.initializers import xavier_uniform_
-from ihgnn_torch.ops.segsum import csr_gather_sum
+from ihgnn_torch.ops.bag import BagMeanFn, WordBag, make_word_bag
 
-
-@dataclasses.dataclass(frozen=True)
-class WordBag:
-    """The query word bags as CSR: query ``q`` owns entries
-    ``[rowptr[q], rowptr[q+1])`` of ``col`` (vocab table rows)."""
-
-    rowptr: torch.Tensor   # [Q+1] int32
-    col: torch.Tensor      # [K] int32 — word table row (word id + 1)
-    weight: torch.Tensor   # [K] f32 — 1 / max(count, 1) of the entry's query
-
-    def to(self, device: DeviceLike) -> "WordBag":
-        dev = resolve_device(device)
-        return WordBag(self.rowptr.to(dev), self.col.to(dev),
-                       self.weight.to(dev))
-
-
-def make_word_bag(query_words, query_word_counts) -> WordBag:
-    """CPU ``WordBag`` from ``query_words`` ``[Q, L]`` (word table rows,
-    0-padded) and ``query_word_counts`` ``[Q]``. Entries whose word is 0
-    are dropped; every entry of query q weighs 1/max(count_q, 1), as the
-    JAX package's masked mean does (embedding.py:133-137)."""
-    qw = np.asarray(query_words, np.int64)
-    qc = np.asarray(query_word_counts, np.int64)
-    mask = qw > 0
-    per_query = mask.sum(axis=1)
-    rowptr = np.zeros(len(qw) + 1, np.int64)
-    np.cumsum(per_query, out=rowptr[1:])
-    inv = (1.0 / np.maximum(qc, 1)).astype(np.float32)
-    return WordBag(
-        rowptr=torch.from_numpy(rowptr.astype(np.int32)),
-        col=torch.from_numpy(qw[mask].astype(np.int32)),
-        weight=torch.from_numpy(np.repeat(inv, per_query)))
+__all__ = ["EmbeddingTables", "WordBag", "make_word_bag"]
 
 
 def _table(rows: int, d: int, zero_row0: bool,
@@ -94,8 +61,7 @@ class EmbeddingTables(nn.Module):
 
     def embed_query(self, bag: WordBag) -> torch.Tensor:
         """``[Q, d]`` bag means (then Linear + ReLU under 'activation')."""
-        out = csr_gather_sum(self.vocab_table, bag.col, bag.rowptr,
-                             bag.weight)
+        out = BagMeanFn.apply(self.vocab_table, bag)
         if self.query_transform == V.ACTIVATION:
             out = torch.relu(self.query_mlp(out))
         return out

@@ -7,7 +7,8 @@ Counterpart of ``ihgnn_tpu/models/interaction.py`` ``FeatureInteractor``
   order 2: [u, q, i, u⊙q, q⊙i, i⊙u]       → Linear(6d, out)
   order 3: order 2 + [u⊙q⊙i]              → Linear(7d, out)
 
-The projection runs in K3 (``ops/interact.py``), which never writes a part
+The projection runs in K3 through ``InteractFn`` (``ops/interact.py``):
+``interact_fwd`` forward, ``interact_bwd`` backward; neither writes a part
 to memory. The parameters are one Linear named ``aggregation``, as in the
 JAX package's ``aggregation/dense`` tree.
 """
@@ -20,7 +21,7 @@ import torch
 from torch import nn
 
 from ihgnn_torch.models.common import TorchDense
-from ihgnn_torch.ops.interact import ORDER_PARTS, interact_fwd
+from ihgnn_torch.ops.interact import ORDER_PARTS, InteractFn
 
 
 class FeatureInteractor(nn.Module):
@@ -34,9 +35,8 @@ class FeatureInteractor(nn.Module):
         self.aggregation = TorchDense(ORDER_PARTS[max_order] * feature_dim,
                                       output_dim, generator=generator)
 
-    def forward(self, u: torch.Tensor, q: torch.Tensor,
-                i: torch.Tensor) -> torch.Tensor:
-        """(u, q, i) role rows ``[E, d]`` in edge order → ``[E, out]``."""
+    def forward(self, roles: torch.Tensor) -> torch.Tensor:
+        """``[3, E, d]`` (u, q, i) role rows in edge order → ``[E, out]``."""
         agg = self.aggregation
-        return interact_fwd(u, q, i, agg.weight.t().contiguous(), agg.bias,
-                            self.max_order)
+        return InteractFn.apply(roles, agg.weight.t().contiguous(), agg.bias,
+                                self.max_order)

@@ -1,4 +1,4 @@
-"""IHGNN layer (forward, without phase-2 attention).
+"""IHGNN layer (without phase-2 attention).
 
 Counterpart of ``ihgnn_tpu/models/layers.py`` ``IHGNNLayer``
 (reference: Models/GnnLayers.py:221-236):
@@ -6,7 +6,8 @@ Counterpart of ``ihgnn_tpu/models/layers.py`` ``IHGNNLayer``
   X' = X·W;  E = FeatureInteractor(X'[u], X'[q], X'[i]);  out = Dv⁻¹ · H · E
 
 Row-major: ``x`` is ``[N, in]`` and the result ``[N, out]``. The gather is
-K2, the interaction K3 and the node update H·E K1 (``ops/hyperagg.py``).
+K2, the interaction K3 and the node update H·E K1 (``ops/hyperagg.py``),
+each through its autograd Function, so the layer trains on the card.
 """
 
 from __future__ import annotations
@@ -37,8 +38,7 @@ class IHGNNLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, graph: HyperGraph) -> torch.Tensor:
         gather, scatter = make_hyper_ops(graph)
-        u, q, i = gather(self.feature_transform(x))
-        edge = self.interactor(u, q, i)
+        edge = self.interactor(gather(self.feature_transform(x)))
         # node update: Dv^-1 · H · E (GnnLayers.py:232-234); zero-degree
         # nodes sum to 0 and 0 / 1e-8 stays 0
         return scatter(edge) / graph.dv

@@ -26,7 +26,7 @@ from typing import Dict, Iterable, List, Sequence
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "build"
-SOURCES = ("segsum", "gather", "interact")
+SOURCES = ("segsum", "gather", "interact", "interact_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -133,7 +133,11 @@ def use_kernel(what: str, *tensors) -> bool:
     """Dispatch rule of every wrapper: False when the tensors lie on the
     CPU (run the plain twin), True when they lie on one CUDA device (launch
     the kernel). Raises on any other device or on mixed devices, and on a
-    CUDA call that would need a gradient: the kernels are forward only."""
+    CUDA call with grad mode on and an input that requires grad: a kernel's
+    output has no ``grad_fn``, so the gradient would be silently dropped.
+    Gradients go through the autograd Functions (``InteractFn``,
+    ``GatherRolesFn``, ``ScatterIncidenceFn``, ``BagMeanFn``), whose
+    forward and backward run with grad mode off and launch the kernels."""
     import torch
     devices = {t.device for t in tensors if t is not None}
     if len(devices) != 1:
@@ -145,8 +149,9 @@ def use_kernel(what: str, *tensors) -> bool:
         raise ValueError(f"{what}: unsupported device {dev}")
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
-        raise RuntimeError(f"{what}: the CUDA kernel is forward only; "
-                           "call it under torch.no_grad()")
+        raise RuntimeError(f"{what}: the CUDA kernel's output carries no "
+                           "gradient; call it through its autograd Function "
+                           "or under torch.no_grad()")
     return True
 
 

@@ -9,13 +9,13 @@ expand followed by routed permutations; on the card it is one indexed row
 copy that reads ``i3`` directly.
 
 Layout: ``x`` row-major ``[N, d]``, ``i3`` int32 ``[E, 3]``; the result is
-a 3-tuple of ``[E, d]`` tensors in edge order, with ``x``'s dtype.
+one ``[3, E, d]`` tensor (planes u, q, i, each in edge order) with ``x``'s
+dtype, so the gradient that comes back to it is one ``[3E, d]`` buffer.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
 
 import torch
 
@@ -24,18 +24,16 @@ from ihgnn_torch.ops import _build
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
                                      ctypes.c_void_p]
 
-Roles = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
-
-def gather_roles_plain(x: torch.Tensor, i3: torch.Tensor) -> Roles:
+def gather_roles_plain(x: torch.Tensor, i3: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch twin of ``gather_roles`` (any device)."""
-    return tuple(x[i3[:, r].long()] for r in range(3))
+    return x[i3.t().long()]
 
 
-def gather_roles(x: torch.Tensor, i3: torch.Tensor) -> Roles:
-    """(u, q, i) endpoint rows ``[E, d]`` of every edge. CPU tensors run
-    the plain twin; CUDA tensors launch ``csrc/gather.cu`` and count one in
-    ``gather_roles.launches``."""
+def gather_roles(x: torch.Tensor, i3: torch.Tensor) -> torch.Tensor:
+    """``[3, E, d]``: the (u, q, i) endpoint rows of every edge. CPU
+    tensors run the plain twin; CUDA tensors launch ``csrc/gather.cu`` and
+    count one in ``gather_roles.launches``."""
     what = "gather_roles"
     if not _build.use_kernel(what, x, i3):
         return gather_roles_plain(x, i3)
@@ -49,17 +47,16 @@ def gather_roles(x: torch.Tensor, i3: torch.Tensor) -> Roles:
                    "i3 must be contiguous [E, 3] int32")
     e, d = i3.shape[0], x.shape[1]
     _build.require(e * d // 4 < 2 ** 31, what, "E * d / 4 must fit in int32")
-    outs = tuple(torch.empty(e, d, dtype=x.dtype, device=x.device)
-                 for _ in range(3))
+    out = torch.empty(3, e, d, dtype=x.dtype, device=x.device)
     if e == 0 or d == 0:
-        return outs
+        return out
     fn = _build.function("gather", "ihgnn_gather_roles", _ARGTYPES)
-    err = fn(x.data_ptr(), i3.data_ptr(), outs[0].data_ptr(),
-             outs[1].data_ptr(), outs[2].data_ptr(), e, d,
+    err = fn(x.data_ptr(), i3.data_ptr(), out[0].data_ptr(),
+             out[1].data_ptr(), out[2].data_ptr(), e, d,
              _build.stream_ptr(x.device))
     _build.check("gather", what, err)
     gather_roles.launches += 1
-    return outs
+    return out
 
 
 gather_roles.launches = 0

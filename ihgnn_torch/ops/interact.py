@@ -1,13 +1,19 @@
-"""K3: the fused hyperedge feature interaction (forward), and its plain twin.
+"""K3: the fused hyperedge feature interaction, its backward, their plain
+twins, and the autograd Function that joins them.
 
   out[e, :] = b + Σ_j part_j[e, :] · W[j·d:(j+1)·d, :]
   parts = [u, q, i]                                   (order 1)
         + [u⊙q, q⊙i, i⊙u]                              (order 2)
         + [u⊙q⊙i]                                      (order 3)
 
-Counterpart of ``ihgnn_tpu/ops/pallas/interact.py`` ``interact_fwd``; the
-part order is that of ``_parts`` there (Models/CommonLayers.py:58-85). The
-kernel keeps every part in registers: none is written to device memory.
+Counterpart of ``ihgnn_tpu/ops/pallas/interact.py`` ``interact_fwd``,
+``interact_bwd`` and the custom VJP ``fused_interaction``; the part order
+is that of ``_parts`` there (Models/CommonLayers.py:58-85). Both kernels
+keep every part (and every dpart) in registers: none is written to device
+memory. The backward writes du/dq/di into one ``[3, E, d]`` buffer;
+``InteractFn`` takes the roles as one ``[3, E, d]`` tensor (as the gather
+gives them) and returns that buffer as their gradient, which the gather's
+backward (``ops/hyperagg.py``) reads as ``[3E, d]``.
 
 Layout: ``u``/``q``/``i`` row-major ``[E, d]`` f32, ``w`` ``[parts·d, out]``
 (the flax kernel layout, ``Linear.weight.T``), ``b`` ``[out]``; the result
@@ -24,10 +30,43 @@ import torch
 from ihgnn_torch.ops import _build
 
 ORDER_PARTS = {1: 3, 2: 6, 3: 7}
-KERNEL_OUT_DIMS = (8, 16, 32, 64)     # instantiated in csrc/interact.cu
+KERNEL_OUT_DIMS = (8, 16, 32, 64)     # instantiated in csrc/interact*.cu
 SMEM_LIMIT = 232_448                  # bytes of shared memory per block
+# edges summed into one dW/db partial by csrc/interact_bwd.cu; a multiple
+# of its 32-edge tile. The partials are summed in a fixed order, so the
+# result depends on E and this constant only.
+CHUNK_EDGES = 1024
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def _check_weights(what: str, u: torch.Tensor, w: torch.Tensor,
+                   order: int) -> None:
+    if order not in ORDER_PARTS:
+        raise ValueError(f"{what}: order must be 1, 2 or 3, got {order}")
+    d = u.shape[1]
+    if w.dim() != 2 or w.shape[0] != ORDER_PARTS[order] * d:
+        raise ValueError(f"{what}: w {tuple(w.shape)} does not fit order "
+                         f"{order} at d = {d}")
+
+
+def _require_kernel_inputs(what: str, tensors, u, q, i, w) -> None:
+    """What both kernels take: contiguous 16-byte aligned f32, one [E, d]
+    shape for the roles with d % 4 == 0, an instantiated output width and
+    a W that fits in one block's shared memory."""
+    for t in tensors:
+        _build.require(t.dtype == torch.float32 and t.is_contiguous()
+                       and t.data_ptr() % 16 == 0, what,
+                       "inputs must be contiguous, 16-byte aligned f32")
+    _build.require(q.shape == u.shape and i.shape == u.shape, what,
+                   "u, q and i must have one shape [E, d]")
+    _build.require(u.shape[1] % 4 == 0, what, "d must be a multiple of 4")
+    _build.require(w.shape[1] in KERNEL_OUT_DIMS, what,
+                   f"out must be one of {KERNEL_OUT_DIMS}")
+    _build.require(w.numel() * 4 <= SMEM_LIMIT, what,
+                   "W does not fit in one block's shared memory")
+    _build.require(u.numel() < 2 ** 31, what, "E * d must fit in int32")
 
 
 def interact_parts(u, q, i, order: int):
@@ -58,27 +97,14 @@ def interact_fwd(u: torch.Tensor, q: torch.Tensor, i: torch.Tensor,
     tensors run the plain twin; CUDA tensors launch ``csrc/interact.cu``
     and count one in ``interact_fwd.launches``."""
     what = "interact_fwd"
-    if order not in ORDER_PARTS:
-        raise ValueError(f"{what}: order must be 1, 2 or 3, got {order}")
-    e, d = u.shape
-    n_parts = ORDER_PARTS[order]
-    if w.shape[0] != n_parts * d or b.shape != (w.shape[1],):
-        raise ValueError(f"{what}: w {tuple(w.shape)} / b {tuple(b.shape)} "
-                         f"do not fit order {order} at d = {d}")
+    _check_weights(what, u, w, order)
+    if b.shape != (w.shape[1],):
+        raise ValueError(f"{what}: b {tuple(b.shape)} does not fit w "
+                         f"{tuple(w.shape)}")
     if not _build.use_kernel(what, u, q, i, w, b):
         return interact_fwd_plain(u, q, i, w, b, order)
-    out_dim = w.shape[1]
-    for t in (u, q, i, w, b):
-        _build.require(t.dtype == torch.float32 and t.is_contiguous()
-                       and t.data_ptr() % 16 == 0, what,
-                       "inputs must be contiguous, 16-byte aligned f32")
-    _build.require(q.shape == u.shape and i.shape == u.shape, what,
-                   "u, q and i must have one shape [E, d]")
-    _build.require(d % 4 == 0, what, "d must be a multiple of 4")
-    _build.require(out_dim in KERNEL_OUT_DIMS, what,
-                   f"out must be one of {KERNEL_OUT_DIMS}")
-    _build.require(w.numel() * 4 <= SMEM_LIMIT, what,
-                   "W does not fit in one block's shared memory")
+    _require_kernel_inputs(what, (u, q, i, w, b), u, q, i, w)
+    (e, d), out_dim = u.shape, w.shape[1]
     out = torch.empty(e, out_dim, dtype=torch.float32, device=u.device)
     if e == 0:
         return out
@@ -92,3 +118,88 @@ def interact_fwd(u: torch.Tensor, q: torch.Tensor, i: torch.Tensor,
 
 
 interact_fwd.launches = 0
+
+
+def interact_bwd_plain(u: torch.Tensor, q: torch.Tensor, i: torch.Tensor,
+                       w: torch.Tensor, cot: torch.Tensor, order: int):
+    """Plain PyTorch twin of ``interact_bwd``: one matmul per part for the
+    dparts and for dW, then the product rule as ``_bwd_kernel`` writes it
+    (``ihgnn_tpu/ops/pallas/interact.py:284-294``). Any device."""
+    d = u.shape[1]
+    parts = interact_parts(u, q, i, order)
+    dparts = [cot @ w[j * d:(j + 1) * d].t() for j in range(len(parts))]
+    dw = torch.cat([p.t() @ cot for p in parts])
+    db = cot.sum(0)
+    du, dq, di = dparts[0], dparts[1], dparts[2]
+    if order >= 2:
+        du = du + (dparts[3] * q + dparts[5] * i)
+        dq = dq + (dparts[3] * u + dparts[4] * i)
+        di = di + (dparts[4] * q + dparts[5] * u)
+    if order >= 3:
+        du = du + dparts[6] * (q * i)
+        dq = dq + dparts[6] * (u * i)
+        di = di + dparts[6] * (u * q)
+    return torch.stack([du, dq, di]), dw, db
+
+
+def interact_bwd(u: torch.Tensor, q: torch.Tensor, i: torch.Tensor,
+                 w: torch.Tensor, cot: torch.Tensor, order: int):
+    """``(droles, dw, db)`` of ``interact_fwd`` for the output cotangent
+    ``cot`` ``[E, out]``: droles is ``[3, E, d]`` (planes du, dq, di), dw
+    ``[parts·d, out]`` and db ``[out]``. CPU tensors run the plain twin;
+    CUDA tensors launch ``csrc/interact_bwd.cu`` and count one in
+    ``interact_bwd.launches``. A shape whose W and edge tiles do not fit
+    in shared memory is refused by the C entry point, and the wrapper
+    raises."""
+    what = "interact_bwd"
+    _check_weights(what, u, w, order)
+    if cot.shape != (u.shape[0], w.shape[1]):
+        raise ValueError(f"{what}: cot {tuple(cot.shape)} is not "
+                         f"[{u.shape[0]}, {w.shape[1]}]")
+    if not _build.use_kernel(what, u, q, i, w, cot):
+        return interact_bwd_plain(u, q, i, w, cot, order)
+    _require_kernel_inputs(what, (u, q, i, w, cot), u, q, i, w)
+    (e, d), out_dim = u.shape, w.shape[1]
+    rows = w.shape[0]
+    droles = torch.empty(3, e, d, dtype=torch.float32, device=u.device)
+    # dW then db as one [parts·d + 1, out] buffer
+    dw_ext = torch.empty(rows + 1, out_dim, dtype=torch.float32,
+                         device=u.device)
+    if e == 0:
+        dw_ext.zero_()
+    else:
+        chunks = -(-e // CHUNK_EDGES)
+        partial = torch.empty(chunks, rows + 1, out_dim, dtype=torch.float32,
+                              device=u.device)
+        fn = _build.function("interact_bwd", "ihgnn_interact_bwd",
+                             _BWD_ARGTYPES)
+        err = fn(u.data_ptr(), q.data_ptr(), i.data_ptr(), w.data_ptr(),
+                 cot.data_ptr(), droles.data_ptr(), partial.data_ptr(),
+                 dw_ext.data_ptr(), e, d, out_dim, order, CHUNK_EDGES,
+                 _build.stream_ptr(u.device))
+        _build.check("interact_bwd", what, err)
+        interact_bwd.launches += 1
+    return droles, dw_ext[:rows], dw_ext[rows]
+
+
+interact_bwd.launches = 0
+
+
+class InteractFn(torch.autograd.Function):
+    """``interact_fwd`` with ``interact_bwd`` as its backward: the
+    counterpart of the custom VJP ``fused_interaction``
+    (``ihgnn_tpu/ops/pallas/interact.py:566-581``)."""
+
+    @staticmethod
+    def forward(ctx, roles, w, b, order: int):
+        """``roles`` ``[3, E, d]`` (u, q, i) → ``[E, out]``."""
+        ctx.order = order
+        ctx.save_for_backward(roles, w)
+        return interact_fwd(roles[0], roles[1], roles[2], w, b, order)
+
+    @staticmethod
+    def backward(ctx, cot):
+        roles, w = ctx.saved_tensors
+        droles, dw, db = interact_bwd(roles[0], roles[1], roles[2], w,
+                                      cot.contiguous(), ctx.order)
+        return droles, dw, db, None

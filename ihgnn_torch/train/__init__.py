@@ -1,1 +1,2 @@
-"""Serving-side evaluation: full-catalog scoring and ranking metrics."""
+"""Training and evaluation: the train step with Adam, full-catalog
+scoring and ranking metrics."""

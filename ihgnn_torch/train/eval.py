@@ -54,7 +54,7 @@ def make_eval_fns(model: RawGnn, graph: HyperGraph, query_words,
         raise ValueError(f"query_words must be [{model.query_count}, L] "
                          f"word rows in [0, {vocab_rows})")
     graph = graph.to(dev)
-    bag = make_word_bag(words, query_word_counts).to(dev)
+    bag = make_word_bag(words, query_word_counts, vocab_rows).to(dev)
 
     def features_fn() -> torch.Tensor:
         with torch.inference_mode():

@@ -1,0 +1,117 @@
+"""The training step: full-graph forward, weighted BCE, Adam.
+
+Counterpart of ``ihgnn_tpu/train/train.py``. Each step recomputes the
+full-graph convolution (the reference's per-step semantics, SURVEY.md
+§3.1), scores the batch's padded positive + negative rows, takes the
+weighted-mean BCE-with-logits (Main.py:191, TrainTestHelper.py:126-134),
+backpropagates through the kernels' autograd Functions and applies one
+Adam update with torch-style (coupled) weight decay. The learning rate is
+the optimizer's ``lr``, changed on the host between epochs
+(TrainTestHelper.py:155-159).
+
+The Adam update and the BCE are PyTorch calls, as the JAX package leaves
+them to XLA.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Iterable
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ihgnn_torch.config import TrainConfig
+from ihgnn_torch.data.dataset import Batch
+from ihgnn_torch.device import DeviceLike, resolve_device
+from ihgnn_torch.graph import HyperGraph
+from ihgnn_torch.models.embedding import make_word_bag
+from ihgnn_torch.models.rawgnn import RawGnn
+
+
+def make_optimizer(params: Iterable[torch.nn.Parameter],
+                   cfg: TrainConfig) -> torch.optim.Adam:
+    """Adam (0.9, 0.999, eps 1e-8). Its ``weight_decay`` adds
+    ``decay · param`` to the gradient before the moments, which is what
+    ``optax.add_decayed_weights`` before ``scale_by_adam`` computes in the
+    JAX package (``train.py:33-41``)."""
+    return torch.optim.Adam(params, lr=cfg.learning_rate, betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=cfg.weight_decay)
+
+
+def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor,
+                    weight: torch.Tensor) -> torch.Tensor:
+    """Weighted mean sigmoid BCE (padding rows carry weight 0)."""
+    per_row = F.binary_cross_entropy_with_logits(logits, labels,
+                                                 reduction="none")
+    return (per_row * weight).sum() / torch.clamp(weight.sum(), min=1.0)
+
+
+def make_train_step(model: RawGnn, graph: HyperGraph, query_words,
+                    query_word_counts, optimizer: torch.optim.Optimizer,
+                    grad_accum_steps: int = 1,
+                    device: DeviceLike = "cuda") -> Callable[[Batch],
+                                                             torch.Tensor]:
+    """Returns ``train_step(batch) -> loss`` on ``device``; the model must
+    already be there (``model.to(device)``) and ``optimizer`` hold its
+    parameters.
+
+    ``grad_accum_steps`` = k > 1 replicates the reference's
+    ``batch_size_times`` (TrainTestHelper.py:137-143): the step takes k
+    stacked batches (``Batch.stack``, ``[k, R]`` arrays), sums their
+    gradients (``backward`` accumulates) and applies one update. The loss
+    is a 0-d tensor on ``device``: the batch's loss, or the sum over the
+    k microbatches (the caller averages)."""
+    dev = resolve_device(device)
+    model_dev = next(model.parameters()).device
+    if model_dev != dev:
+        raise ValueError(f"the model is on {model_dev}, not {dev}; "
+                         "move it with model.to(device)")
+    if grad_accum_steps < 1:
+        raise ValueError(f"grad_accum_steps must be >= 1, got "
+                         f"{grad_accum_steps}")
+    graph = graph.to(dev)
+    bag = make_word_bag(query_words, query_word_counts,
+                        model.embeddings.vocab_table.shape[0]).to(dev)
+
+    def put(a) -> torch.Tensor:
+        t = torch.as_tensor(np.asarray(a))
+        if dev.type != "cuda":
+            return t
+        # a copy from pageable memory waits for the stream to drain; from
+        # pinned memory it queues behind the previous step instead
+        return t.pin_memory().to(dev, non_blocking=True)
+
+    def loss_of(batch: Batch) -> torch.Tensor:
+        logits = model(graph, bag, put(batch.users), put(batch.queries),
+                       put(batch.items))
+        return bce_with_logits(logits, put(batch.flags), put(batch.weight))
+
+    def train_step(batch: Batch) -> torch.Tensor:
+        micro = batch.unstack()
+        if len(micro) != grad_accum_steps:
+            raise ValueError(f"expected {grad_accum_steps} stacked "
+                             f"batch(es), got users {batch.users.shape}")
+        optimizer.zero_grad(set_to_none=True)
+        total = None
+        for mb in micro:
+            loss = loss_of(mb)
+            loss.backward()
+            total = loss.detach() if total is None else total + loss.detach()
+        optimizer.step()
+        return total
+
+    return train_step
+
+
+def adjust_lr_after_epoch(optimizer: torch.optim.Optimizer, avg_loss: float,
+                          cfg: TrainConfig, is_rawgnn: bool = True) -> bool:
+    """Host-side epoch-level LR decay (TrainTestHelper.py:155-159) on the
+    optimizer's ``lr``; returns whether it fired."""
+    lr = optimizer.param_groups[0]["lr"]
+    if (cfg.adjust_learning_rate and is_rawgnn
+            and avg_loss < cfg.lr_decay_loss_threshold and lr > cfg.lr_floor):
+        for group in optimizer.param_groups:
+            group["lr"] = lr * cfg.lr_decay_factor
+        return True
+    return False

@@ -1,7 +1,8 @@
 """The CUDA kernels of ``ihgnn_torch`` against their plain PyTorch twins, on
-the card, at shapes the serving path does not reach: other widths d,
-ragged edge counts, empty segments, every interaction order and output
-width, and the wrappers' refusals.
+the card, at shapes the main paths do not reach: other widths d, ragged
+edge counts, empty segments, every interaction order and output width,
+the wrappers' refusals, and the autograd Functions' gradients on the card
+against the same Functions on the CPU.
 
 Needs a CUDA card and nvcc; every test is marked ``cuda`` and skips
 without a card. On the machine with the card (which has no JAX, so the
@@ -11,15 +12,25 @@ repository's conftest is left out):
 
 Tolerances: K2 is a copy and must be bitwise exact; K1 and K3 sum in
 another order than the twins, 1e-5 absolute (K1) and 1e-5 of the largest
-output (K3).
+output (K3). ``interact_bwd``'s dW and db sum every edge in another order
+than the twin's matmuls: 1e-4 of each output's largest value. Values and
+gradients of a small graph on the card against the CPU: 1e-5 of each
+tensor's largest value (dW sums 400 edges of products of three normals).
 """
 
 import pytest
 import torch
 
+import numpy as np
+
+from ihgnn_torch.graph import build_hypergraph
+from ihgnn_torch.ops.bag import BagMeanFn, make_word_bag
 from ihgnn_torch.ops.gather import gather_roles, gather_roles_plain
+from ihgnn_torch.ops.hyperagg import make_hyper_ops
 from ihgnn_torch.ops.interact import (KERNEL_OUT_DIMS, ORDER_PARTS,
-                                      interact_fwd, interact_fwd_plain)
+                                      InteractFn, interact_bwd,
+                                      interact_bwd_plain, interact_fwd,
+                                      interact_fwd_plain)
 from ihgnn_torch.ops.segsum import csr_gather_sum, csr_gather_sum_plain
 
 pytestmark = pytest.mark.cuda
@@ -149,6 +160,146 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):                  # no kernel for out = 24
         interact_fwd(u, u, u, torch.randn(56, 24, device=dev),
                      torch.randn(24, device=dev), 3)
-    with pytest.raises(RuntimeError):                # forward only
-        interact_fwd(u.requires_grad_(), u, u, torch.randn(24, 8, device=dev),
-                     torch.randn(8, device=dev), 1)
+    w = torch.randn(24, 8, device=dev)
+    with pytest.raises(ValueError):                  # cot of the wrong width
+        interact_bwd(u, u, u, w, torch.randn(4, 16, device=dev), 1)
+    with pytest.raises(ValueError):                  # non-contiguous cot
+        interact_bwd(u, u, u, w, torch.randn(8, 4, device=dev).t(), 1)
+    with pytest.raises(ValueError):                  # d not a multiple of 4
+        v = torch.randn(4, 6, device=dev)
+        interact_bwd(v, v, v, torch.randn(18, 8, device=dev),
+                     torch.randn(4, 8, device=dev), 1)
+    # a kernel's output has no grad_fn: outside its Function, a CUDA call
+    # that needs a gradient raises
+    with pytest.raises(RuntimeError):
+        interact_fwd(u.requires_grad_(), u, u, w, torch.randn(8, device=dev),
+                     1)
+    with pytest.raises(RuntimeError):
+        csr_gather_sum(x.requires_grad_(), col, rowptr)
+
+
+def _bwd_inputs(dev, edges, d, out, order, seed):
+    g = _gen(dev, seed)
+    u, q, i = (torch.randn(edges, d, device=dev, generator=g)
+               for _ in range(3))
+    parts = ORDER_PARTS[order]
+    w = torch.randn(parts * d, out, device=dev, generator=g) / (parts * d) ** .5
+    cot = torch.randn(edges, out, device=dev, generator=g)
+    return u, q, i, w, cot
+
+
+def _five(bwd):
+    """``interact_bwd``'s ``(droles, dw, db)`` as (du, dq, di, dw, db)."""
+    droles, dw, db = bwd
+    return (*droles, dw, db)
+
+
+def _assert_bwd_close(got, want):
+    for name, a, b in zip(("du", "dq", "di", "dw", "db"), _five(got),
+                          _five(want)):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-4 * b.abs().max().item(),
+                                   msg=name)
+
+
+@pytest.mark.parametrize("order", [1, 2, 3])
+@pytest.mark.parametrize("out", KERNEL_OUT_DIMS)
+@pytest.mark.parametrize("edges", [1, 999, 4097])
+def test_interact_bwd(dev, order, out, edges):
+    u, q, i, w, cot = _bwd_inputs(dev, edges, 32, out, order,
+                                  100 * order + out + edges)
+    before = interact_bwd.launches
+    got = interact_bwd(u, q, i, w, cot, order)
+    torch.cuda.synchronize()
+    assert interact_bwd.launches == before + 1
+    _assert_bwd_close(got, interact_bwd_plain(u, q, i, w, cot, order))
+    # du, dq, di are the planes of one [3, E, d] buffer
+    assert got[0].shape == (3, edges, 32) and got[0].is_contiguous()
+
+
+@pytest.mark.parametrize("d,out", [(16, 16), (8, 32), (64, 8), (48, 64)])
+def test_interact_bwd_other_widths(dev, d, out):
+    """Other d: at d = 64 and out = 8 the dW rows span several slabs."""
+    u, q, i, w, cot = _bwd_inputs(dev, 5000, d, out, 3, d + out)
+    _assert_bwd_close(interact_bwd(u, q, i, w, cot, 3),
+                      interact_bwd_plain(u, q, i, w, cot, 3))
+
+
+def test_interact_bwd_is_bitwise_repeatable(dev):
+    """dW and db are per-chunk partials summed in a fixed order: two calls
+    agree bit for bit, over many chunks."""
+    u, q, i, w, cot = _bwd_inputs(dev, 300_001, 32, 32, 3, 7)
+    a = interact_bwd(u, q, i, w, cot, 3)
+    b = interact_bwd(u, q, i, w, cot, 3)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    _assert_bwd_close(a, interact_bwd_plain(u, q, i, w, cot, 3))
+
+
+def _small_graph():
+    rng = np.random.default_rng(0)
+    users, queries, items, edges = 30, 20, 50, 400
+    uqi = np.stack([rng.integers(0, users, edges),
+                    rng.integers(0, queries, edges),
+                    rng.integers(0, items, edges)], axis=1)
+    return build_hypergraph(uqi, users + queries + items, users, queries)
+
+
+def _grads(dev, fn, *inputs):
+    """Gradients of ``sum(fn(*inputs) * fixed weights)`` on ``dev``."""
+    xs = [x.detach().to(dev).requires_grad_() for x in inputs]
+    out = fn(dev, *xs)
+    outs = out if isinstance(out, tuple) else (out,)
+    g = torch.Generator().manual_seed(1)
+    loss = sum((o * torch.randn(o.shape, generator=g).to(dev)).sum()
+               for o in outs)
+    loss.backward()
+    return [o.detach().cpu() for o in outs], [x.grad.cpu() for x in xs]
+
+
+def test_functions_grads_on_card_match_cpu(dev):
+    """GatherRolesFn, InteractFn, ScatterIncidenceFn and BagMeanFn: values
+    and gradients on the card against the plain twins on the CPU."""
+    graph = _small_graph()
+    gathers = {}
+
+    def layer(device, x, w, b):
+        if device not in gathers:
+            gathers[device] = make_hyper_ops(graph.to(device))
+        gather, scatter = gathers[device]
+        edge = InteractFn.apply(gather(x), w, b, 3)
+        return scatter(edge)
+
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(graph.node_count, 32, generator=g)
+    w = torch.randn(7 * 32, 32, generator=g) / 15
+    b = torch.randn(32, generator=g)
+    launches = (csr_gather_sum.launches, gather_roles.launches,
+                interact_fwd.launches, interact_bwd.launches)
+    cuda = _grads(dev, layer, x, w, b)
+    assert (csr_gather_sum.launches - launches[0],
+            gather_roles.launches - launches[1],
+            interact_fwd.launches - launches[2],
+            interact_bwd.launches - launches[3]) == (3, 1, 1, 1)
+    cpu = _grads(torch.device("cpu"), layer, x, w, b)
+    for a, c in zip(cuda[0] + cuda[1], cpu[0] + cpu[1]):
+        torch.testing.assert_close(a, c, rtol=0,
+                                   atol=1e-5 * c.abs().max().item())
+
+    qw = np.random.default_rng(3).integers(0, 41, (20, 4)).astype(np.int32)
+    qc = (qw > 0).sum(1).astype(np.int32)
+    bag = make_word_bag(qw, qc, 41)
+    bags = {}
+
+    def bag_mean(device, table):
+        if device not in bags:
+            bags[device] = bag.to(device)
+        return BagMeanFn.apply(table, bags[device])
+
+    table = torch.randn(41, 32, generator=g)
+    cuda = _grads(dev, bag_mean, table)
+    cpu = _grads(torch.device("cpu"), bag_mean, table)
+    for a, c in zip(cuda[0] + cuda[1], cpu[0] + cpu[1]):
+        torch.testing.assert_close(a, c, rtol=0,
+                                   atol=1e-5 * c.abs().max().item())
+    assert torch.equal(cuda[1][0][0], torch.zeros(32))

@@ -27,7 +27,7 @@ from ihgnn_torch.models.interaction import \
     FeatureInteractor as TFeatureInteractor
 from ihgnn_torch.models.layers import IHGNNLayer as TIHGNNLayer
 from ihgnn_torch.models.rawgnn import RawGnn as TRawGnn
-from ihgnn_tpu.config import ModelConfig, V
+from ihgnn_tpu.config import ModelConfig, TrainConfig, V
 from ihgnn_tpu.data.synthetic import make_synthetic_data
 from ihgnn_tpu.models.embedding import EmbeddingTables
 from ihgnn_tpu.models.interaction import FeatureInteractor
@@ -89,7 +89,16 @@ def test_config_defaults_match_jax():
         b = ModelConfig(feature_interaction_order=order)
         assert [a.layer_order(k) for k in range(3)] == \
             [b.layer_order(k) for k in range(3)]
-    assert tcfg.TrainConfig().eval_batch_size == 256
+    ours, theirs = tcfg.TrainConfig(), TrainConfig()
+    for f in dataclasses.fields(ours):
+        assert getattr(ours, f.name) == getattr(theirs, f.name), f.name
+    assert ours.negative_sample_size == theirs.negative_sample_size
+    assert {f.name for f in dataclasses.fields(ours)} >= {
+        "batch_size", "learning_rate", "weight_decay",
+        "random_negative_sample_size", "non_random_negative_sample_size",
+        "adjust_learning_rate", "lr_decay_factor", "lr_decay_loss_threshold",
+        "lr_floor", "grad_accum_steps", "eval_batch_size"}
+    assert ours.eval_batch_size == 256
 
 
 # ---------------------------------------------------------------------------
@@ -118,7 +127,8 @@ def test_embedding_all_features_match_jax(data, transform):
             params, ("params", "query_mlp", "dense")).items()})
     ours.load_state_dict(sd, strict=True)
     got = ours.all_features(make_word_bag(data.query_words,
-                                          data.query_word_counts))
+                                          data.query_word_counts,
+                                          data.vocab_size + 1))
     assert got.shape == (data.node_count, D)
     np.testing.assert_allclose(got.detach().numpy(), ref, **TOL)
 
@@ -126,7 +136,7 @@ def test_embedding_all_features_match_jax(data, transform):
 def test_word_bag_drops_padding_and_weighs_by_count():
     qw = np.array([[3, 0, 5], [0, 0, 0], [2, 2, 0]], np.int32)
     qc = np.array([2, 0, 2], np.int32)
-    bag = make_word_bag(qw, qc)
+    bag = make_word_bag(qw, qc, 6)
     assert bag.rowptr.tolist() == [0, 2, 2, 4]
     assert bag.col.tolist() == [3, 5, 2, 2]
     np.testing.assert_allclose(bag.weight.numpy(), [0.5, 0.5, 0.5, 0.5])
@@ -145,7 +155,7 @@ def test_feature_interactor_matches_jax(order):
     ours = TFeatureInteractor(order, D, out)
     ours.aggregation.load_state_dict(
         _state_dict(params, ("params", "aggregation", "dense")))
-    got = ours(*(torch.from_numpy(r) for r in roles))
+    got = ours(torch.from_numpy(np.stack(roles)))
     np.testing.assert_allclose(got.detach().numpy(), ref, **TOL)
 
 
@@ -221,7 +231,8 @@ def test_rawgnn_matches_jax(data, graphs, order, transform, cosine, lam):
     ours = TRawGnn(tcfg.ModelConfig(**kw), data.user_count,
                    data.query_count, data.item_count, data.vocab_size)
     ours.load_state_dict(params_from_jax(_numpy_tree(params)), strict=True)
-    bag = make_word_bag(data.query_words, data.query_word_counts)
+    bag = make_word_bag(data.query_words, data.query_word_counts,
+                        data.vocab_size + 1)
     t = [torch.from_numpy(a) for a in (users, queries, items)]
     with torch.no_grad():
         got_feats = ours.all_features(tg, bag)
