@@ -29,7 +29,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
 9. three train steps on a small graph, on the card and on the CPU, from
    the same weights and batches, must agree: the losses, every
    parameter's step-0 gradient and the parameters after the last step; a
-   second card run says whether the card repeats itself bit for bit.
+   second card run says whether the card repeats itself bit for bit;
+10. the GAT serving path: ``RawGnn`` with two concat-head ``GATLayer``s
+    (d = 32) over the uqi 2D graph of the same interactions (N = 700k,
+    about 12M coalesced entries), one full-graph forward, then
+    ``evaluate`` as in phase 4; K1, K4 and the scalar segment sum must
+    have launched;
+11. the GAT train path as in phase 7, on the 2D graph; K1, K4, the scalar
+    sum and ``csr_edge_dot`` must have launched; then one warm GAT train
+    step under ``torch.profiler``;
+12. the layer zoo on a small graph, card against CPU as in phase 9: GCN,
+    GAT (concat and product heads), HGCN on the hypergraph and on the log
+    hypergraph, and IHGNN with phase-2 attention.
+
+Phase 3 also checks K4 ``csr_segment_max`` and the scalar
+``csr_segment_sum`` at the GAT (12M entries → 700k) and phase-2 (6M →
+700k) shapes, ``csr_edge_dot`` at the GAT backward's shape and K1 at the
+GAT weighted sum's.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Needs a CUDA card; exits non-zero without one.
@@ -58,6 +74,8 @@ SMALL_LOSS_RTOL, SMALL_PARAM_ATOL = 1e-4, 1e-4
 # order). Adam all but ignores a gradient's scale, so the parameters alone
 # would miss a backward that is off by a constant factor
 SMALL_GRAD_RTOL = 1e-5
+# features of the small graph, card against CPU (as phase 6)
+SMALL_FEATURE_ATOL = 1e-4
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
 # outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -98,10 +116,28 @@ def time_ms(torch, fn) -> float:
 
 def _wrappers():
     """The kernel wrappers, whose ``launches`` counts the phases read."""
+    from ihgnn_torch.ops.edgedot import csr_edge_dot
     from ihgnn_torch.ops.gather import gather_roles
     from ihgnn_torch.ops.interact import interact_bwd, interact_fwd
+    from ihgnn_torch.ops.segmax import csr_segment_max, csr_segment_sum
     from ihgnn_torch.ops.segsum import csr_gather_sum
-    return (csr_gather_sum, gather_roles, interact_fwd, interact_bwd)
+    return (csr_gather_sum, gather_roles, interact_fwd, interact_bwd,
+            csr_segment_max, csr_segment_sum, csr_edge_dot)
+
+
+def _zero_launches():
+    for fn in _wrappers():
+        fn.launches = 0
+
+
+def _read_launches(path, expected):
+    """Every wrapper's count since ``_zero_launches``; fails when a kernel
+    of ``expected`` was not launched on ``path``."""
+    launches = {fn.__name__: fn.launches for fn in _wrappers()}
+    for name in expected:
+        if launches[name] <= 0:
+            fail(f"{name} was not launched on the {path} path")
+    return launches
 
 
 def random_graph(users, queries, items, edges, seed):
@@ -160,7 +196,7 @@ def random_eval_logs(users, queries, items, count, seed):
     return EvalLogs(logs)
 
 
-def check_kernels(torch, dev, graph, bag):
+def check_kernels(torch, dev, graph, bag, graph2d):
     """Phase 3: each kernel against its plain twin, timed beside its
     bound and one library call."""
     from ihgnn_torch.ops.gather import gather_roles, gather_roles_plain
@@ -168,6 +204,11 @@ def check_kernels(torch, dev, graph, bag):
                                           interact_bwd_plain, interact_fwd,
                                           interact_fwd_plain)
     from ihgnn_torch.ops.segsum import csr_gather_sum, csr_gather_sum_plain
+    from ihgnn_torch.ops.edgedot import csr_edge_dot, csr_edge_dot_plain
+    from ihgnn_torch.ops.segmax import (EMPTY_MAX, csr_segment_max,
+                                        csr_segment_max_plain,
+                                        csr_segment_sum,
+                                        csr_segment_sum_plain)
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -344,30 +385,143 @@ def check_kernels(torch, dev, graph, bag):
                max_abs_err_all=max(v["max_abs_err"]
                                    for v in errors.values()))
         del k_droles, k_params, p_droles, p_params
+    del u, q, i, cot
+
+    # K4 and the scalar sum: the GAT softmax over the 2D graph's
+    # destinations (12M entries -> 700k) and the phase-2 softmax over the
+    # hypergraph's nodes (6M -> 700k); scores with a share at -1e30 as
+    # masked entries give them
+    att = graph2d.attention
+    for label, rowptr in (("GAT", att.dst_rowptr),
+                          ("phase 2", graph.phase2.dst_rowptr)):
+        k, s_out = int(rowptr[-1].item()), rowptr.numel() - 1
+        offsets = rowptr.long()
+        scores = randn(k) * 4
+        scores[torch.rand(k, device=dev, generator=gen) < 0.01] = -1e30
+        k_out = csr_segment_max(scores, rowptr)
+        p_out = csr_segment_max_plain(scores, rowptr)
+        if not torch.equal(k_out, p_out):
+            fail(f"csr_segment_max ({label}) is not bitwise exact")
+        lib = torch.segment_reduce(scores, "max", offsets=offsets,
+                                   initial=EMPTY_MAX)
+        record("csr_segment_max", f"{label} [{k} entries -> [{s_out}]]",
+               0.0, 0.0, lambda: csr_segment_max(scores, rowptr),
+               lambda: csr_segment_max_plain(scores, rowptr),
+               lambda: torch.segment_reduce(scores, "max", offsets=offsets,
+                                            initial=EMPTY_MAX),
+               4 * (k + rowptr.numel() + s_out), k,
+               (lib - p_out).abs().max().item())
+        w = torch.rand(k, device=dev, generator=gen)
+        k_out = csr_segment_sum(w, rowptr)
+        p_out = csr_segment_sum_plain(w, rowptr)
+        lib = torch.segment_reduce(w, "sum", offsets=offsets)
+        record("csr_segment_sum", f"{label} [{k} entries -> [{s_out}]]",
+               (k_out - p_out).abs().max().item(), 1e-4,
+               lambda: csr_segment_sum(w, rowptr),
+               lambda: csr_segment_sum_plain(w, rowptr),
+               lambda: torch.segment_reduce(w, "sum", offsets=offsets),
+               4 * (k + rowptr.numel() + s_out), k,
+               (lib - p_out).abs().max().item())
+        del scores, w, k_out, p_out, lib
+
+    # csr_edge_dot at the GAT backward: tt = <cot[dst], x[src]> over 12M
+    # destination-sorted entries; the library call is cuSPARSE's SDDMM on
+    # the same destination CSR
+    n = graph2d.node_count
+    k = att.entry_count
+    cot_n, x = randn(n, D), randn(n, D)
+    src, rowptr = att.src, att.dst_rowptr
+    k_out = csr_edge_dot(cot_n, x, src, rowptr)
+    p_out = csr_edge_dot_plain(cot_n, x, src, rowptr)
+    scale = p_out.abs().max().item()
+    pattern = torch.sparse_csr_tensor(rowptr, src, torch.ones(k, device=dev),
+                                      size=(n, n))
+    x_t = x.t()
+    lib = torch.sparse.sampled_addmm(pattern, cot_n, x_t, beta=0.0)
+    record("csr_edge_dot", f"GAT backward [{k} entries of [{n}, {D}] x "
+           f"[{n}, {D}] -> [{k}]]", (k_out - p_out).abs().max().item(),
+           1e-5 * scale, lambda: csr_edge_dot(cot_n, x, src, rowptr),
+           lambda: csr_edge_dot_plain(cot_n, x, src, rowptr),
+           lambda: torch.sparse.sampled_addmm(pattern, cot_n, x_t, beta=0.0),
+           4 * (2 * n * D + k + rowptr.numel() + k), 2 * k * D,
+           (lib.values() - p_out).abs().max().item())
+    del k_out, p_out, lib, cot_n
+
+    # K1 at the GAT weighted sum: α-weighted source rows into [N, d]
+    alpha = torch.rand(k, device=dev, generator=gen)
+    k_out = csr_gather_sum(x, src, rowptr, alpha)
+    p_out = csr_gather_sum_plain(x, src, rowptr, alpha)
+    csr = torch.sparse_csr_tensor(rowptr, src, alpha, size=(n, n))
+    lib_err = (torch.sparse.mm(csr, x) - p_out).abs().max().item()
+    record("csr_gather_sum", f"GAT weighted sum [{k} entries of [{n}, {D}]"
+           f" -> [{n}, {D}]]", (k_out - p_out).abs().max().item(), 1e-4,
+           lambda: csr_gather_sum(x, src, rowptr, alpha),
+           lambda: csr_gather_sum_plain(x, src, rowptr, alpha),
+           lambda: torch.sparse.mm(csr, x),
+           4 * (x.numel() + 2 * k + rowptr.numel() + n * D), 2 * k * D,
+           lib_err)
+    del x, alpha, k_out, p_out, csr
     return results
 
 
-def run_serving(torch, dev, graph, qw, qc):
-    """Phase 4: the serving path at full width; returns the launch counts
-    and what the profile phase reuses."""
-    from ihgnn_torch.config import ModelConfig, TrainConfig
+IHGNN_SERVING = ("csr_gather_sum", "gather_roles", "interact_fwd")
+IHGNN_TRAIN = IHGNN_SERVING + ("interact_bwd",)
+GAT_SERVING = ("csr_gather_sum", "csr_segment_max", "csr_segment_sum")
+GAT_TRAIN = GAT_SERVING + ("csr_edge_dot",)
+# the kernels' launches of one GAT forward and of one GAT train step: every
+# [K, d] row stream of the attention is one of these kernels, so any other
+# count means a row stream went elsewhere. A forward: K1 for the bag and
+# for each layer's weighted sum, K4 and one sum (denominators) a layer. A
+# step adds the bag's backward and, a layer, K1 for dx, csr_edge_dot for tt
+# and three sums (tsum, gd, gs)
+GAT_FORWARD_LAUNCHES = {"csr_gather_sum": 3, "csr_segment_max": 2,
+                        "csr_segment_sum": 2}
+GAT_STEP_LAUNCHES = {"csr_gather_sum": 6, "csr_segment_max": 2,
+                     "csr_segment_sum": 8, "csr_edge_dot": 2}
+
+
+def _describe(cfg, graph):
+    """The model and graph fields of a path's JSON row."""
+    from ihgnn_torch.config import V
+    row = {"gnn": cfg.gnn, "nodes": graph.node_count,
+           "layers": cfg.gnn_layer_count, "d": cfg.embedding_size}
+    if cfg.gnn == V.IHGNN:
+        row.update(edges=graph.edge_count,
+                   orders=[cfg.layer_order(k)
+                           for k in range(cfg.gnn_layer_count)])
+    else:
+        row.update(entries=graph.nnz, head=cfg.gat_head)
+    return row
+
+
+def _check_counts(path, launches, per_unit, units):
+    """Fails unless each kernel of ``per_unit`` launched ``units`` times its
+    count there."""
+    if per_unit is None:
+        return
+    want = {k: v * units for k, v in per_unit.items()}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        fail(f"{path}: kernel launches {got}, expected {want}")
+
+
+def run_serving(torch, dev, cfg, graph, qw, qc, path, expected,
+                per_forward=None):
+    """Phases 4 and 10: a serving path at full width; returns the launch
+    counts and what the profile phase reuses."""
+    from ihgnn_torch.config import TrainConfig
     from ihgnn_torch.models.rawgnn import RawGnn
-    from ihgnn_torch.ops.gather import gather_roles
-    from ihgnn_torch.ops.interact import interact_fwd
-    from ihgnn_torch.ops.segsum import csr_gather_sum
     from ihgnn_torch.train.eval import evaluate, make_eval_fns
 
-    cfg = ModelConfig()
     model = RawGnn(cfg, U, Q, I, VOCAB,
                    generator=torch.Generator().manual_seed(0)).to(dev)
     model.eval()
     logs = random_eval_logs(U, Q, I, EVAL_LOGS, seed=2)
     features_fn, metrics_fn = make_eval_fns(model, graph, qw, qc,
                                             device=dev)
-    wrappers = (csr_gather_sum, gather_roles, interact_fwd)
-    for fn in _wrappers():
-        fn.launches = 0
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_launches()
     t0 = time.perf_counter()
     features = features_fn()
     torch.cuda.synchronize()
@@ -384,35 +538,31 @@ def run_serving(torch, dev, graph, qw, qc):
             features_fn, metrics_fn, logs, TrainConfig().eval_batch_size,
             collect_rows=True, features=features)
         timings.append(eval_s)
-    launches = {fn.__name__: fn.launches for fn in wrappers}
+    launches = _read_launches(path, expected)
+    _check_counts(path, launches, per_forward, 2)
 
     n = graph.node_count
     if tuple(features.shape) != (n, cfg.output_feature_size):
-        fail(f"features shape {tuple(features.shape)}")
+        fail(f"{path}: features shape {tuple(features.shape)}")
     if not torch.isfinite(features).all():
-        fail("non-finite features")
+        fail(f"{path}: non-finite features")
     with torch.inference_mode():
         users = torch.as_tensor(logs.users[:EVAL_BATCH]).to(dev)
         queries = torch.as_tensor(logs.queries[:EVAL_BATCH]).to(dev)
         scores = model.score_all_items(features, users, queries)
     if tuple(scores.shape) != (EVAL_BATCH, I) or not torch.isfinite(scores).all():
-        fail(f"bad scores {tuple(scores.shape)}")
+        fail(f"{path}: bad scores {tuple(scores.shape)}")
     row = metrics.as_row()
     if rows.shape != (logs.count, 4) or not np.isfinite(rows).all() \
             or not all(0.0 <= v <= 1.0 for v in row):
-        fail(f"bad metrics {row}")
-    for name, count in launches.items():
-        if count <= 0:
-            fail(f"{name} was not launched on the serving path")
-    emit({"phase": "serving", "nodes": n, "edges": graph.edge_count,
-          "layers": cfg.gnn_layer_count, "orders": [cfg.layer_order(k) for k
-                                                   in range(cfg.gnn_layer_count)],
-          "d": cfg.embedding_size, "forwards": 2,
+        fail(f"{path}: bad metrics {row}")
+    emit({"phase": path, **_describe(cfg, graph), "forwards": 2,
           "first_features_ms": first_ms, "features_ms": features_ms,
           "eval_logs": logs.count, "eval_batch": EVAL_BATCH,
           "first_eval_s": timings[0], "eval_s": timings[1],
           "eval_pairs_per_s": logs.count / timings[1],
           "metrics": dict(zip(["HR@10", "NDCG@10", "MAP@10", "MRR@10"], row)),
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev),
           "launches": launches})
     return launches, features_fn, metrics_fn, features, logs
 
@@ -502,14 +652,14 @@ def check_small(torch, dev):
         fail(f"card and CPU disagree on the small graph ({err}, {m_err})")
 
 
-def run_train(torch, dev, graph, uqi, qw, qc):
-    """Phase 7: the train path at full width; returns the launch counts
-    and the step the profile phase reuses."""
-    from ihgnn_torch.config import ModelConfig, TrainConfig
+def run_train(torch, dev, cfg, graph, uqi, qw, qc, path, expected,
+              per_step=None):
+    """Phases 7 and 11: a train path at full width; returns the launch
+    counts and the step the profile phase reuses."""
+    from ihgnn_torch.config import TrainConfig
     from ihgnn_torch.models.rawgnn import RawGnn
     from ihgnn_torch.train.train import make_optimizer, make_train_step
 
-    cfg = ModelConfig()
     tcfg = TrainConfig(batch_size=TRAIN_B,
                        random_negative_sample_size=TRAIN_K)
     model = RawGnn(cfg, U, Q, I, VOCAB,
@@ -520,9 +670,7 @@ def run_train(torch, dev, graph, uqi, qw, qc):
                range(4)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    wrappers = _wrappers()
-    for fn in wrappers:
-        fn.launches = 0
+    _zero_launches()
     losses = [step(batches[k % 4]) for k in range(WARM_STEPS)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -530,50 +678,68 @@ def run_train(torch, dev, graph, uqi, qw, qc):
         losses.append(step(batches[(WARM_STEPS + k) % 4]))
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / TIMED_STEPS
-    launches = {fn.__name__: fn.launches for fn in wrappers}
+    launches = _read_launches(path, expected)
     steps = WARM_STEPS + TIMED_STEPS
+    _check_counts(path, launches, per_step, steps)
     losses = [x.item() for x in losses]
     if not all(np.isfinite(losses)):
-        fail(f"non-finite train losses {losses}")
-    for name, count in launches.items():
-        if count <= 0:
-            fail(f"{name} was not launched on the train path")
-    emit({"phase": "train", "nodes": graph.node_count,
-          "edges": graph.edge_count, "layers": cfg.gnn_layer_count,
-          "orders": [cfg.layer_order(k) for k in range(cfg.gnn_layer_count)],
-          "d": cfg.embedding_size, "rows": TRAIN_B * (1 + TRAIN_K),
-          "warm_steps": WARM_STEPS, "timed_steps": TIMED_STEPS,
-          "train_step_ms": step_s * 1e3,
-          "hyperedge_aggregations_per_s":
-              graph.edge_count * cfg.gnn_layer_count / step_s,
-          "losses": losses,
-          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev),
-          "launches": launches,
-          "launches_per_step": {k: v / steps for k, v in launches.items()}})
+        fail(f"{path}: non-finite train losses {losses}")
+    row = {"phase": path, **_describe(cfg, graph),
+           "rows": TRAIN_B * (1 + TRAIN_K), "warm_steps": WARM_STEPS,
+           "timed_steps": TIMED_STEPS, "train_step_ms": step_s * 1e3}
+    if path == "train":
+        row["hyperedge_aggregations_per_s"] = \
+            graph.edge_count * cfg.gnn_layer_count / step_s
+    else:
+        row["entry_aggregations_per_s"] = \
+            graph.nnz * cfg.gnn_layer_count / step_s
+    row.update({"losses": losses,
+                "max_memory_allocated_bytes":
+                    torch.cuda.max_memory_allocated(dev),
+                "launches": launches,
+                "launches_per_step": {k: v / steps
+                                      for k, v in launches.items()}})
+    emit(row)
     return launches, lambda: step(batches[0])
 
 
-def check_small_train(torch, dev):
-    """Phase 9: SMALL_STEPS train steps on a small graph, on the card and
-    on the CPU (plain twins), from the same weights and batches; then the
-    card once more, to see whether it repeats itself bit for bit."""
+def grad_scale(name, grads):
+    """The largest value of gradient ``name``, or for an attention score
+    head (``*.feature_aggregate.*``) the largest gradient of its layer: the
+    softmax ignores a shift of all scores of a destination, so the head's
+    bias gradient (and the concat head's destination half) sum terms that
+    cancel but for the LeakyReLU's two slopes, and where a layer's slopes
+    are alike their own largest value is f32 rounding noise."""
+    if ".feature_aggregate." in name:
+        layer = name.split(".")[:2]
+        return max(g.abs().max().item() for k, g in grads.items()
+                   if k.split(".")[:2] == layer)
+    return max(grads[name].abs().max().item(), 1e-30)
+
+
+def train_card_vs_cpu(torch, dev, cfg, graph, uqi, qw, qc, seed):
+    """SMALL_STEPS train steps of ``RawGnn(cfg)`` on ``graph``, on the card
+    and on the CPU (plain twins), from the same weights and batches, then
+    the card once more. Returns the JSON fields of the comparison and
+    whether it holds the limits."""
     import copy
 
-    from ihgnn_torch.config import ModelConfig, TrainConfig
+    from ihgnn_torch.config import TrainConfig
+    from ihgnn_torch.models.embedding import make_word_bag
     from ihgnn_torch.models.rawgnn import RawGnn
     from ihgnn_torch.train.train import make_optimizer, make_train_step
 
     s = SMALL
-    graph, uqi = random_graph(s["users"], s["queries"], s["items"],
-                              s["edges"], 8)
-    qw, qc = random_words(s["queries"], s["vocab"], 9)
-    model = RawGnn(ModelConfig(), s["users"], s["queries"], s["items"],
-                   s["vocab"], generator=torch.Generator().manual_seed(10))
-    batches = [train_batch(uqi, s["items"], SMALL_B, TRAIN_K, 11 + k)
+    model = RawGnn(cfg, s["users"], s["queries"], s["items"], s["vocab"],
+                   generator=torch.Generator().manual_seed(seed))
+    batches = [train_batch(uqi, s["items"], SMALL_B, TRAIN_K, seed + 1 + k)
                for k in range(SMALL_STEPS)]
+    bag = make_word_bag(qw, qc, s["vocab"] + 1)
 
     def train(device):
         m = copy.deepcopy(model).to(device)
+        with torch.no_grad():
+            feats = m.all_features(graph.to(device), bag.to(device)).cpu()
         opt = make_optimizer(m.parameters(), TrainConfig())
         step = make_train_step(m, graph, qw, qc, opt, device=device)
         losses, grads0 = [], None
@@ -583,34 +749,106 @@ def check_small_train(torch, dev):
                 # the step leaves its gradients in .grad until the next one
                 grads0 = {k: p.grad.detach().cpu().clone()
                           for k, p in m.named_parameters()}
-        return losses, grads0, {k: v.detach().cpu() for k, v in
-                                m.state_dict().items()}
+        return feats, losses, grads0, {k: v.detach().cpu() for k, v in
+                                       m.state_dict().items()}
 
-    cpu_losses, cpu_grads, cpu_params = train("cpu")
-    card_losses, card_grads, card_params = train(dev)
-    again_losses, _, again_params = train(dev)
+    cpu_feats, cpu_losses, cpu_grads, cpu_params = train("cpu")
+    card_feats, card_losses, card_grads, card_params = train(dev)
+    _, again_losses, _, again_params = train(dev)
+    feat_err = (card_feats - cpu_feats).abs().max().item()
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(card_losses,
                                                        cpu_losses))
     grad_err = {k: (card_grads[k] - g).abs().max().item() /
-                max(g.abs().max().item(), 1e-30)
-                for k, g in cpu_grads.items()}
-    param_err = max((card_params[k] - cpu_params[k]).abs().max().item()
-                    for k in cpu_params)
+                grad_scale(k, cpu_grads) for k, g in cpu_grads.items()}
+    param_errs = {k: (card_params[k] - cpu_params[k]).abs().max().item()
+                  for k in cpu_params}
+    # a score head's parameters are left out of the parameter limit: their
+    # gradients are rounding noise of about Adam's eps (see grad_scale), and
+    # Adam turns noise of either sign into moves of up to lr; their step-0
+    # gradients are held above
+    param_err = max(v for k, v in param_errs.items()
+                    if ".feature_aggregate." not in k)
+    head_errs = {k: v for k, v in param_errs.items()
+                 if ".feature_aggregate." in k}
     repeatable = again_losses == card_losses and all(
         torch.equal(again_params[k], card_params[k]) for k in card_params)
-    emit({"phase": "small_train_reference", "steps": SMALL_STEPS,
-          "card_losses": card_losses, "cpu_losses": cpu_losses,
-          "loss_max_rel_err": loss_err, "loss_rtol": SMALL_LOSS_RTOL,
-          "grad0_rel_err": grad_err, "grad0_rtol": SMALL_GRAD_RTOL,
-          "param_max_abs_err": param_err, "param_atol": SMALL_PARAM_ATOL,
-          "repeatable": repeatable})
     bad_grads = {k: v for k, v in grad_err.items()
                  if not v <= SMALL_GRAD_RTOL}
-    if (not loss_err <= SMALL_LOSS_RTOL or bad_grads
-            or not param_err <= SMALL_PARAM_ATOL):
-        fail(f"card and CPU training disagree on the small graph "
-             f"(losses {loss_err}, step-0 gradients {bad_grads}, "
-             f"parameters {param_err})")
+    ok = (feat_err <= SMALL_FEATURE_ATOL and loss_err <= SMALL_LOSS_RTOL
+          and not bad_grads and param_err <= SMALL_PARAM_ATOL)
+    row = {"steps": SMALL_STEPS, "features_max_abs_err": feat_err,
+           "card_losses": card_losses, "cpu_losses": cpu_losses,
+           "loss_max_rel_err": loss_err, "loss_rtol": SMALL_LOSS_RTOL,
+           "grad0_rel_err": grad_err, "grad0_rtol": SMALL_GRAD_RTOL,
+           "param_max_abs_err": param_err, "param_atol": SMALL_PARAM_ATOL,
+           "repeatable": repeatable}
+    if head_errs:
+        row["score_head_param_abs_err"] = head_errs
+    return row, ok
+
+
+def check_small_train(torch, dev):
+    """Phase 9: the default model's train steps, card against CPU."""
+    from ihgnn_torch.config import ModelConfig
+
+    s = SMALL
+    graph, uqi = random_graph(s["users"], s["queries"], s["items"],
+                              s["edges"], 8)
+    qw, qc = random_words(s["queries"], s["vocab"], 9)
+    row, ok = train_card_vs_cpu(torch, dev, ModelConfig(), graph, uqi, qw,
+                                qc, 10)
+    emit({"phase": "small_train_reference", **row})
+    if not ok:
+        fail(f"card and CPU training disagree on the small graph: {row}")
+
+
+def small_log_graph(users, queries, items, logs, seed):
+    """A CPU ``LogHyperGraph`` of ``logs`` random {u, q, 1-3 items} logs."""
+    from ihgnn_torch.graph import build_log_hypergraph
+    rng = np.random.default_rng(seed)
+    nodes = [[int(rng.integers(0, users)), users + int(rng.integers(0, queries))]
+             + [users + queries + int(i) for i in
+                rng.choice(items, int(rng.integers(1, 4)), replace=False)]
+             for _ in range(logs)]
+    return build_log_hypergraph(nodes, users + queries + items)
+
+
+def check_small_zoo(torch, dev):
+    """Phase 12: every layer type of the zoo, card against CPU on a small
+    graph: features, SMALL_STEPS losses, every step-0 gradient and the
+    parameters after the last step. A tenth of the 2D graph's flags are 0,
+    so GAT also masks entries."""
+    from ihgnn_torch.config import ModelConfig, V
+    from ihgnn_torch.graph import build_graph2d
+
+    s = SMALL
+    hyper, uqi = random_graph(s["users"], s["queries"], s["items"],
+                              s["edges"], 20)
+    flags = (np.random.default_rng(21).random(len(uqi)) > 0.1).astype(
+        np.int64)
+    graph2d = build_graph2d(np.column_stack([uqi, flags]),
+                            hyper.node_count, s["users"], s["queries"])
+    log_graph = small_log_graph(s["users"], s["queries"], s["items"], 150,
+                                22)
+    qw, qc = random_words(s["queries"], s["vocab"], 23)
+    cases = {
+        "gcn": (ModelConfig(gnn=V.GCN), graph2d),
+        "gat": (ModelConfig(gnn=V.GAT), graph2d),
+        "gat_product": (ModelConfig(gnn=V.GAT, gat_head=V.PRODUCT), graph2d),
+        "hgcn": (ModelConfig(gnn=V.HGCN), hyper),
+        "hgcn_log": (ModelConfig(gnn=V.HGCN, use_log_hypergraph=True),
+                     log_graph),
+        "phase2": (ModelConfig(phase2_attention=True), hyper),
+    }
+    failed = []
+    for j, (case, (cfg, graph)) in enumerate(cases.items()):
+        row, ok = train_card_vs_cpu(torch, dev, cfg, graph, uqi, qw, qc,
+                                    30 + 10 * j)
+        emit({"phase": "small_zoo_reference", "case": case, **row})
+        if not ok:
+            failed.append(case)
+    if failed:
+        fail(f"card and CPU disagree on the small zoo cases {failed}")
 
 
 KERNELS = {
@@ -622,6 +860,15 @@ KERNELS = {
                      "ihgnn_tpu/ops/pallas/interact.py:319"),
     "interact_bwd": ("ihgnn_torch/csrc/interact_bwd.cu",
                      "ihgnn_tpu/ops/pallas/interact.py:340"),
+    "csr_segment_max": ("ihgnn_torch/csrc/segmax.cu",
+                        "ihgnn_tpu/ops/pallas/segsum.py:848"),
+    # K1's csr_segment_sum_t on a scalar stream
+    "csr_segment_sum": ("ihgnn_torch/csrc/segmax.cu",
+                        "ihgnn_tpu/ops/pallas/segsum.py:458"),
+    # no TPU kernel of its own: it folds the K2 windowed_gather expansions
+    # and the XLA multiply-reduce of the attention's per-entry dots
+    "csr_edge_dot": ("ihgnn_torch/csrc/edgedot.cu",
+                     "ihgnn_tpu/ops/gatconv.py:256"),
 }
 
 
@@ -655,34 +902,62 @@ def main() -> int:
     t0 = time.perf_counter()
     graph_cpu, uqi = random_graph(U, Q, I, E, seed=0)
     qw, qc = random_words(Q, VOCAB, seed=1)
+    from ihgnn_torch.config import ModelConfig, V
+    from ihgnn_torch.graph import build_graph2d
     from ihgnn_torch.models.embedding import make_word_bag
     graph = graph_cpu.to(dev)
     bag = make_word_bag(qw, qc, VOCAB + 1).to(dev)
-    emit({"phase": "data", "seconds": time.perf_counter() - t0,
+    hyper_s = time.perf_counter() - t0
+    # the uqi 2D graph of the same interactions, flags 1
+    t0 = time.perf_counter()
+    graph2d_cpu = build_graph2d(np.column_stack([uqi, np.ones(len(uqi),
+                                                              np.int64)]),
+                                U + Q + I, U, Q, completeness=V.GRAPH_UQI)
+    graph2d_s = time.perf_counter() - t0
+    graph2d = graph2d_cpu.to(dev)
+    emit({"phase": "data", "seconds": hyper_s,
           "nodes": graph.node_count, "edges": graph.edge_count,
           "incidence": int(graph.inc_edge.numel()),
-          "bag_entries": int(bag.col.numel())})
+          "bag_entries": int(bag.col.numel()),
+          "graph2d_build_s": graph2d_s, "graph2d_entries": graph2d.nnz,
+          "graph2d_masked_entries": 0 if graph2d.attention.mask is None
+          else int((graph2d.attention.mask == 0).sum().item())})
 
     with torch.no_grad():
-        checks = check_kernels(torch, dev, graph, bag)
+        checks = check_kernels(torch, dev, graph, bag, graph2d)
     torch.cuda.synchronize()
-    serve_launches, *serving = run_serving(torch, dev, graph_cpu, qw, qc)
+    del graph, graph2d, bag
+    ihgnn, gat = ModelConfig(), ModelConfig(gnn=V.GAT)
+    launches = {}
+    launches["serving"], *serving = run_serving(
+        torch, dev, ihgnn, graph_cpu, qw, qc, "serving", IHGNN_SERVING)
     profile_serving(torch, *serving)
     check_small(torch, dev)
     del serving
-    train_launches, warm_step = run_train(torch, dev, graph_cpu, uqi, qw, qc)
+    launches["train"], warm_step = run_train(
+        torch, dev, ihgnn, graph_cpu, uqi, qw, qc, "train", IHGNN_TRAIN)
     emit(profile_window(torch, "one warm train step", warm_step))
     del warm_step
     check_small_train(torch, dev)
+    launches["gat_serving"], *serving = run_serving(
+        torch, dev, gat, graph2d_cpu, qw, qc, "gat_serving", GAT_SERVING,
+        GAT_FORWARD_LAUNCHES)
+    del serving
+    launches["gat_train"], warm_step = run_train(
+        torch, dev, gat, graph2d_cpu, uqi, qw, qc, "gat_train", GAT_TRAIN,
+        GAT_STEP_LAUNCHES)
+    emit(profile_window(torch, "one warm GAT train step", warm_step))
+    del warm_step
+    check_small_zoo(torch, dev)
 
     kernels = []
     for kname, (source, replaces) in KERNELS.items():
         main_row, *others = checks[kname]
+        by_path = {path: counts[kname] for path, counts in launches.items()}
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": train_launches[kname],
-            "launches_by_path": {"serving": serve_launches.get(kname, 0),
-                                 "train": train_launches[kname]},
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(r.get("max_abs_err_all", r["max_abs_err"])
                                for r in checks[kname]),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],

@@ -49,11 +49,19 @@ class ModelConfig:
     use_cosine_similarity: bool = False   # GlobalSettings.py:78-81
     query_transform: str = V.MEAN         # GlobalSettings.py:68-76
     gat_head: str = V.CONCAT              # GlobalSettings.py:59-66
+    # one hyperedge per whole search log = {u, q, positive items} instead of
+    # one per interaction (Helpers/Graph.py:138-189); HGCN only (ragged
+    # edges have no fixed-order feature interaction)
+    use_log_hypergraph: bool = False
 
     @property
     def output_feature_size(self) -> int:
         """Width of the concat [X0, X1, ..., XL] (Models/RawGnn.py:49)."""
         return self.embedding_size * (1 + self.gnn_layer_count)
+
+    @property
+    def uses_hypergraph(self) -> bool:
+        return self.gnn in (V.HGCN, V.IHGNN)
 
     def layer_order(self, layer: int) -> int:
         """Interaction order of IHGNN layer ``layer`` (RawGnn.py:76-78)."""

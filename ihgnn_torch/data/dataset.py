@@ -3,7 +3,8 @@
 Counterpart of ``ihgnn_tpu/data/dataset.py`` (reference: Dataset.py):
 
 * ``GraphData``    — the training split as NumPy arrays: flat positive
-  interactions, per-(u, q) logged negatives and the hypergraph.
+  interactions, per-(u, q) logged negatives, and the hypergraph, the 2D
+  graph and the log hypergraph, each built once on first use.
 * ``TrainSampler`` — host-side uniform negative sampling into fixed-shape
   ``Batch``es; it draws from ``np.random.default_rng(seed)`` exactly as
   the JAX sampler does, so one seed gives the same batches in both.
@@ -22,9 +23,12 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ihgnn_torch.config import V
 from ihgnn_torch.data.collections import SearchLogCollection
 from ihgnn_torch.data.schema import PosInteraction
-from ihgnn_torch.graph import HyperGraph, build_hypergraph
+from ihgnn_torch.graph import (Graph2D, HyperGraph, LogHyperGraph,
+                               build_graph2d, build_hypergraph,
+                               build_log_hypergraph)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,13 +60,15 @@ class Batch:
 
 
 class GraphData:
-    """Training split (replaces Dataset.py:11-293), the hypergraph path's
-    part of ``ihgnn_tpu.data.dataset.GraphData``."""
+    """Training split (replaces Dataset.py:11-293): the part of
+    ``ihgnn_tpu.data.dataset.GraphData`` that the layers read.
+    ``graph_completeness`` picks the 2D graph's mode (uqi/uq/ui/qi)."""
 
     def __init__(self, user_count: int, query_count: int, item_count: int,
                  vocab_size: int, query_words: np.ndarray,
                  query_word_counts: np.ndarray,
-                 search_logs: SearchLogCollection):
+                 search_logs: SearchLogCollection,
+                 graph_completeness: str = V.GRAPH_UQI):
         self.user_count = int(user_count)
         self.query_count = int(query_count)
         self.item_count = int(item_count)
@@ -75,6 +81,7 @@ class GraphData:
         self.query_words = np.asarray(query_words, np.int32)
         self.query_word_counts = np.asarray(query_word_counts, np.int32)
         self.search_logs = search_logs
+        self.graph_completeness = graph_completeness
 
         # positives with flags clamped to 1 (Dataset.py:200 treat_all_1),
         # and the logged negatives of each (u, q) (Dataset.py:201-209)
@@ -89,6 +96,8 @@ class GraphData:
         self.pos_uqif = np.asarray(pos, np.int32).reshape(-1, 4)   # [P, 4]
         self.neg_items_for_uq = neg_items_for_uq
         self._hypergraph: Optional[HyperGraph] = None
+        self._graph2d: Optional[Graph2D] = None
+        self._log_hypergraph: Optional[LogHyperGraph] = None
 
     @property
     def pos_count(self) -> int:
@@ -103,8 +112,35 @@ class GraphData:
                 self.query_count)
         return self._hypergraph
 
+    @property
+    def graph2d(self) -> Graph2D:
+        """The CPU 2D graph of the positives in ``graph_completeness``
+        mode, built once."""
+        if self._graph2d is None:
+            self._graph2d = build_graph2d(
+                self.pos_uqif, self.node_count, self.user_count,
+                self.query_count, completeness=self.graph_completeness)
+        return self._graph2d
+
+    @property
+    def log_hypergraph(self) -> LogHyperGraph:
+        """The CPU log hypergraph, built once: one edge per log with at
+        least one positive item; logs with only {u, q} are dropped."""
+        if self._log_hypergraph is None:
+            log_nodes = []
+            for log in self.search_logs:
+                nodes = [log.user, log.query + self.query_start]
+                nodes.extend(i + self.item_start for i, f in
+                             zip(log.items, log.interactions) if f > 0)
+                if len(nodes) > 2:
+                    log_nodes.append(nodes)
+            self._log_hypergraph = build_log_hypergraph(log_nodes,
+                                                        self.node_count)
+        return self._log_hypergraph
+
     @classmethod
-    def from_files(cls, data_dir: str, split: str = "train") -> "GraphData":
+    def from_files(cls, data_dir: str, split: str = "train",
+                   graph_completeness: str = V.GRAPH_UQI) -> "GraphData":
         """Load graph_info.txt + queries_multihot.txt + {split}_data.csv
         (the Step-3 artifact layout,
         PreProcess/Step3-ConvertToOnehot.py:136-158)."""
@@ -125,7 +161,7 @@ class GraphData:
         logs = SearchLogCollection.read(
             os.path.join(data_dir, f"{split}_data.csv"))
         return cls(user_count, query_count, item_count, vocab_size,
-                   query_words, query_word_counts, logs)
+                   query_words, query_word_counts, logs, graph_completeness)
 
 
 def pad_ragged(rows: Sequence[Sequence[int]], pad_value: int = 0,

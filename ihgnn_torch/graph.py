@@ -1,31 +1,99 @@
-"""Hypergraph packing: positive (u, q, i) interactions → sorted index tensors.
+"""Graph packing: interactions → sorted index tensors and the CSRs the
+kernels read.
 
-Counterpart of ``ihgnn_tpu/graph.py`` ``HyperGraph``/``build_hypergraph``
-without the TPU kernel packs. One hyperedge per positive interaction
-(reference: Helpers/Graph.py:84-134). Node ids are grouped
+Counterpart of ``ihgnn_tpu/graph.py`` without the TPU kernel packs
+(reference: Helpers/Graph.py). Node ids are grouped
 [users | queries | items]: query ids are offset by ``user_count`` and item
-ids by ``user_count + query_count``.
+ids by ``user_count + query_count``. Zero-degree vertices get degree 1e-8
+(Helpers/Graph.py:68,120,175).
 
-The node update H·E is a CSR gather-sum over the node-major incidence:
-``rowptr`` delimits each node's entries of ``inc_edge``, so the GPU kernel
-sums a node's edges in a fixed order, with no atomics. The same CSR with
-``inc_slot`` as its column is the gather's backward: users, queries and
-items hold disjoint node ranges, so every node has one role, and entry k
-reads row ``role·E + edge`` of the ``[3E, d]`` role cotangents. The
-scatter's backward is the edge-major CSR ``(edge_rowptr, i3.view(-1))``:
-edge e sums the rows of its three nodes.
+* ``HyperGraph`` — one hyperedge per positive (u, q, i) interaction
+  (Helpers/Graph.py:84-134). The node update H·E is a CSR gather-sum over
+  the node-major incidence: ``rowptr`` delimits each node's entries of
+  ``inc_edge``, so the GPU kernel sums a node's edges in a fixed order,
+  with no atomics. The same CSR with ``inc_slot`` as its column is the
+  gather's backward: users, queries and items hold disjoint node ranges,
+  so every node has one role, and entry k reads row ``role·E + edge`` of
+  the ``[3E, d]`` role cotangents. The scatter's backward is the
+  edge-major CSR ``(edge_rowptr, i3.view(-1))``: edge e sums the rows of
+  its three nodes. ``phase2`` is the bipartite attention graph of IHGNN
+  phase 2 (edge node ``N + e`` → its member nodes).
+* ``Graph2D`` — the symmetric 2D graph of one completeness mode
+  (uqi/uq/ui/qi, Helpers/Graph.py:12-81), coalesced (duplicates summed)
+  and sorted by (row, col). ``rowptr`` over ``row`` makes it GCN's SpMM;
+  ``attention`` is GAT's destination-sorted edge list.
+* ``LogHyperGraph`` — one hyperedge per search log = {u, q, positive
+  items}, ragged edge degree (Helpers/Graph.py:138-189), with an
+  edge-major and a node-major CSR.
+* ``AttentionCSR`` — one edge list for the attention conv
+  (``ops/gatconv.py``) in both orders: destination-sorted for the softmax
+  and the weighted sum, source-sorted for the backward's source sums.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from ihgnn_torch.config import V
 from ihgnn_torch.device import DeviceLike, resolve_device
 
 DEGREE_FLOOR = 1e-8   # Helpers/Graph.py:120 — zero-degree vertices
+
+
+def _moved(obj, dev: torch.device):
+    """A copy of the frozen dataclass ``obj`` with every tensor field (and
+    every nested ``AttentionCSR``) on ``dev``."""
+    changes = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, torch.Tensor):
+            changes[f.name] = v.to(dev)
+        elif isinstance(v, AttentionCSR):
+            changes[f.name] = _moved(v, dev)
+    return dataclasses.replace(obj, **changes)
+
+
+def _rowptr(sorted_ids: np.ndarray, segments: int) -> np.ndarray:
+    """int32 CSR offsets ``[segments + 1]`` of ascending ids."""
+    rowptr = np.zeros(segments + 1, np.int64)
+    np.cumsum(np.bincount(sorted_ids, minlength=segments), out=rowptr[1:])
+    return rowptr.astype(np.int32)
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionCSR:
+    """An edge list src → dst over ``node_count`` source rows and
+    ``dst_count`` destinations (the first ``dst_count`` node ids), in two
+    orders.
+
+    Destination order: destination s owns entries
+    ``[dst_rowptr[s], dst_rowptr[s+1])``; ``src[k]`` and ``dst[k]`` are the
+    ends of entry k. Source order: source n owns entries
+    ``[src_rowptr[n], src_rowptr[n+1])``, ``src_dst`` holds their
+    destinations, and source-order entry j is destination-order entry
+    ``to_dst[j]``. ``mask`` (destination order, 1 live / 0 excluded) or
+    None when every entry is live."""
+
+    dst_rowptr: torch.Tensor   # [S+1] int32
+    src: torch.Tensor          # [K] int32 — source of each entry, dst order
+    dst: torch.Tensor          # [K] int32 — destination, dst order
+    src_rowptr: torch.Tensor   # [M+1] int32
+    src_dst: torch.Tensor      # [K] int32 — destination, source order
+    to_dst: torch.Tensor       # [K] int32 — dst-order position, source order
+    mask: Optional[torch.Tensor]   # [K] f32 or None
+    node_count: int                # M
+    dst_count: int                 # S
+
+    @property
+    def entry_count(self) -> int:
+        return self.src.shape[0]
+
+    def to(self, device: DeviceLike) -> "AttentionCSR":
+        return _moved(self, resolve_device(device))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,16 +109,100 @@ class HyperGraph:
     rowptr: torch.Tensor    # [N+1] int32 — CSR offsets of inc_node
     inc_slot: torch.Tensor  # [3E] int32 — role · E + edge of each entry
     edge_rowptr: torch.Tensor  # [E+1] int32 — 0, 3, 6, …, 3E
+    phase2: AttentionCSR    # edge node N + e → its three member nodes
     node_count: int
     edge_count: int
 
     def to(self, device: DeviceLike) -> "HyperGraph":
-        dev = resolve_device(device)
-        return dataclasses.replace(
-            self, i3=self.i3.to(dev), dv=self.dv.to(dev),
-            inc_node=self.inc_node.to(dev), inc_edge=self.inc_edge.to(dev),
-            rowptr=self.rowptr.to(dev), inc_slot=self.inc_slot.to(dev),
-            edge_rowptr=self.edge_rowptr.to(dev))
+        return _moved(self, resolve_device(device))
+
+
+@dataclasses.dataclass(frozen=True)
+class Graph2D:
+    """Coalesced symmetric 2D graph in sorted COO form, with its CSRs."""
+
+    row: torch.Tensor        # [nnz] int32, sorted (lexicographic with col)
+    col: torch.Tensor        # [nnz] int32
+    val: torch.Tensor        # [nnz] f32 — summed duplicate multiplicities
+    dv: torch.Tensor         # [N, 1] f32
+    dst_order: torch.Tensor  # [nnz] int32 — stable permutation sorting by col
+    rowptr: torch.Tensor     # [N+1] int32 — CSR offsets of row
+    attention: AttentionCSR  # row → col entries, masked where val <= 0
+    node_count: int
+    nnz: int
+
+    def to(self, device: DeviceLike) -> "Graph2D":
+        return _moved(self, resolve_device(device))
+
+
+@dataclasses.dataclass(frozen=True)
+class LogHyperGraph:
+    """Ragged hypergraph: one edge per search log with >= 1 positive item."""
+
+    inc_node: torch.Tensor     # [nnz] int32 — node ids, node-major sorted
+    inc_edge: torch.Tensor     # [nnz] int32 — matching edge ids
+    rowptr: torch.Tensor       # [N+1] int32 — CSR offsets of inc_node
+    edge_nodes: torch.Tensor   # [nnz] int32 — node ids, edge-major
+    edge_ids: torch.Tensor     # [nnz] int32 — sorted edge ids (edge-major)
+    edge_rowptr: torch.Tensor  # [E+1] int32 — CSR offsets of edge_ids
+    dv: torch.Tensor           # [N, 1] f32
+    de: torch.Tensor           # [E, 1] f32 — edge degrees
+    node_count: int
+    edge_count: int
+
+    def to(self, device: DeviceLike) -> "LogHyperGraph":
+        return _moved(self, resolve_device(device))
+
+
+AnyGraph = Union[HyperGraph, Graph2D, LogHyperGraph]
+
+
+def build_attention_csr(src: np.ndarray, dst: np.ndarray, node_count: int,
+                        dst_count: int, mask: Optional[np.ndarray] = None
+                        ) -> AttentionCSR:
+    """A CPU ``AttentionCSR`` from entries sorted by destination:
+    ``src``/``dst`` ids below ``node_count``/``dst_count``, ``mask`` (> 0
+    live) or None. The source order is a stable sort of the destination
+    order by source."""
+    src = np.asarray(src, np.int64)
+    dst = np.asarray(dst, np.int64)
+    if np.any(np.diff(dst) < 0):
+        raise ValueError("attention entries must be sorted by destination")
+    if len(src) and (src.min() < 0 or src.max() >= node_count
+                     or dst.min() < 0 or dst.max() >= dst_count):
+        raise ValueError(f"ids must lie in [0, {node_count}) (sources) and "
+                         f"[0, {dst_count}) (destinations)")
+    to_dst = np.argsort(src, kind="stable")
+    return AttentionCSR(
+        dst_rowptr=_i32(_rowptr(dst, dst_count)),
+        src=_i32(src),
+        dst=_i32(dst),
+        src_rowptr=_i32(_rowptr(src, node_count)),
+        src_dst=_i32(dst[to_dst]),
+        to_dst=_i32(to_dst),
+        mask=None if mask is None else torch.from_numpy(
+            (np.asarray(mask) > 0).astype(np.float32)),
+        node_count=int(node_count),
+        dst_count=int(dst_count))
+
+
+def _i32(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, np.int32))
+
+
+def _global_ids(uqi: np.ndarray, user_count: int, query_count: int):
+    return (uqi[:, 0].astype(np.int64),
+            uqi[:, 1].astype(np.int64) + user_count,
+            uqi[:, 2].astype(np.int64) + user_count + query_count)
+
+
+def _check_ids(uqi: np.ndarray, user_count: int, query_count: int,
+               item_count: int) -> None:
+    for col, name, count in ((0, "user", user_count), (1, "query", query_count),
+                             (2, "item", item_count)):
+        ids = uqi[:, col]
+        if len(ids) and (ids.min() < 0 or ids.max() >= count):
+            raise ValueError(f"{name} ids must lie in [0, {count})")
 
 
 def build_hypergraph(uqi: np.ndarray, node_count: int, user_count: int,
@@ -62,15 +214,9 @@ def build_hypergraph(uqi: np.ndarray, node_count: int, user_count: int,
     ``ihgnn_tpu.graph.build_hypergraph`` numbers them, so edge ``e`` is the
     same edge in both packages."""
     uqi = np.asarray(uqi)
-    item_count = node_count - user_count - query_count
-    for col, name, count in ((0, "user", user_count), (1, "query", query_count),
-                             (2, "item", item_count)):
-        ids = uqi[:, col]
-        if len(ids) and (ids.min() < 0 or ids.max() >= count):
-            raise ValueError(f"{name} ids must lie in [0, {count})")
-    u = uqi[:, 0].astype(np.int64)
-    q = uqi[:, 1].astype(np.int64) + user_count
-    i = uqi[:, 2].astype(np.int64) + user_count + query_count
+    _check_ids(uqi, user_count, query_count,
+               node_count - user_count - query_count)
+    u, q, i = _global_ids(uqi, user_count, query_count)
     e_count = len(u)
 
     edge_order = np.argsort(u, kind="stable")
@@ -83,20 +229,129 @@ def build_hypergraph(uqi: np.ndarray, node_count: int, user_count: int,
 
     # flat entry f = 3·edge + role
     order = np.argsort(flat_nodes, kind="stable")
-    inc_node = flat_nodes[order].astype(np.int32)
-    rowptr = np.zeros(node_count + 1, np.int64)
-    np.cumsum(np.bincount(inc_node, minlength=node_count), out=rowptr[1:])
+    inc_node = flat_nodes[order]
+    inc_edge = order // 3
+
+    # phase 2: edge node N + e sends to its member nodes; the incidence is
+    # already sorted by member node = destination
+    phase2 = build_attention_csr(inc_edge + node_count, inc_node,
+                                 node_count + e_count, node_count)
 
     return HyperGraph(
         i3=torch.from_numpy(i3),
         dv=torch.from_numpy(dv.reshape(-1, 1)),
-        inc_node=torch.from_numpy(inc_node),
-        inc_edge=torch.from_numpy((order // 3).astype(np.int32)),
-        rowptr=torch.from_numpy(rowptr.astype(np.int32)),
-        inc_slot=torch.from_numpy(
-            ((order % 3) * e_count + order // 3).astype(np.int32)),
-        edge_rowptr=torch.from_numpy(
-            np.arange(0, 3 * e_count + 1, 3, dtype=np.int32)),
+        inc_node=phase2.dst,
+        inc_edge=_i32(inc_edge),
+        rowptr=phase2.dst_rowptr,
+        inc_slot=_i32((order % 3) * e_count + order // 3),
+        edge_rowptr=_i32(np.arange(0, 3 * e_count + 1, 3)),
+        phase2=phase2,
+        node_count=int(node_count),
+        edge_count=int(e_count),
+    )
+
+
+def build_graph2d(uqif: np.ndarray, node_count: int, user_count: int,
+                  query_count: int, completeness: str = V.GRAPH_UQI,
+                  use_self_connection: bool = False) -> Graph2D:
+    """Pack positive interactions ``[P, 4]`` of (u, q, i, flag) into the
+    CPU 2D graph (Helpers/Graph.py:19-81, ``ihgnn_tpu.graph.build_graph2d``).
+
+    Per interaction, symmetric entry pairs are appended by completeness
+    mode (i-u entries carry the flag); COO duplicates are summed and the
+    entries sorted by (row, col), with one ``np.unique`` over int64 keys.
+    Vertex degrees count incidences: 2 per interaction in uqi mode, 1
+    otherwise, plus 1 with self connections; without them zero degrees
+    are floored at 1e-8."""
+    uqif = np.asarray(uqif)
+    _check_ids(uqif, user_count, query_count,
+               node_count - user_count - query_count)
+    u, q, i = _global_ids(uqif, user_count, query_count)
+    flag = (uqif[:, 3].astype(np.float32) if uqif.shape[1] > 3
+            else np.ones(len(u), np.float32))
+    ones = np.ones_like(flag)
+
+    if completeness == V.GRAPH_UQI:
+        rows = np.concatenate([u, q, i, i, q, u])
+        cols = np.concatenate([q, i, u, q, u, i])
+        vals = np.concatenate([ones, ones, flag, ones, ones, flag])
+        deg_nodes, deg_inc = np.concatenate([u, q, i]), 2.0
+    elif completeness == V.GRAPH_ONLY_UQ:
+        rows, cols = np.concatenate([u, q]), np.concatenate([q, u])
+        vals = np.concatenate([ones, ones])
+        deg_nodes, deg_inc = np.concatenate([u, q]), 1.0
+    elif completeness == V.GRAPH_ONLY_UI:
+        rows, cols = np.concatenate([u, i]), np.concatenate([i, u])
+        vals = np.concatenate([ones, ones])
+        deg_nodes, deg_inc = np.concatenate([u, i]), 1.0
+    elif completeness == V.GRAPH_ONLY_QI:
+        rows, cols = np.concatenate([q, i]), np.concatenate([i, q])
+        vals = np.concatenate([ones, ones])
+        deg_nodes, deg_inc = np.concatenate([q, i]), 1.0
+    else:
+        raise ValueError(f"unknown graph completeness {completeness!r}")
+
+    dv = (np.bincount(deg_nodes, minlength=node_count).astype(np.float32)
+          * np.float32(deg_inc))
+    if use_self_connection:
+        loops = np.arange(node_count, dtype=np.int64)
+        rows = np.concatenate([rows, loops])
+        cols = np.concatenate([cols, loops])
+        vals = np.concatenate([vals, np.ones(node_count, np.float32)])
+        dv += 1.0
+    else:
+        dv[dv == 0] = DEGREE_FLOOR
+
+    # coalesce: sum duplicates, sort by (row, col)
+    uniq, inverse = np.unique(rows * node_count + cols, return_inverse=True)
+    val_sum = np.bincount(inverse.reshape(-1), weights=vals,
+                          minlength=len(uniq)).astype(np.float32)
+    crow = uniq // node_count
+    ccol = uniq % node_count
+    dst_order = np.argsort(ccol, kind="stable")
+    live = val_sum[dst_order] > 0
+    attention = build_attention_csr(crow[dst_order], ccol[dst_order],
+                                    node_count, node_count,
+                                    None if live.all() else live)
+
+    # the graph is symmetric, so its (row, col) order is the attention's
+    # source order: the row CSR is also the attention's source side
+    return Graph2D(
+        row=_i32(crow), col=attention.src_dst, val=torch.from_numpy(val_sum),
+        dv=torch.from_numpy(dv.reshape(-1, 1)),
+        dst_order=_i32(dst_order), rowptr=attention.src_rowptr,
+        attention=attention,
+        node_count=int(node_count), nnz=int(len(uniq)))
+
+
+def build_log_hypergraph(log_nodes: Sequence[Sequence[int]],
+                         node_count: int) -> LogHyperGraph:
+    """Pack per-log node lists (global ids, each list = {u, q, positive
+    items}; lists with only {u, q} must be dropped by the caller) into a
+    CPU ``LogHyperGraph`` (Helpers/Graph.py:148-189)."""
+    de = np.asarray([len(nodes) for nodes in log_nodes], np.int64)
+    e_count = len(de)
+    flat_nodes = np.fromiter((n for nodes in log_nodes for n in nodes),
+                             np.int64, count=int(de.sum()))
+    if len(flat_nodes) and (flat_nodes.min() < 0
+                            or flat_nodes.max() >= node_count):
+        raise ValueError(f"node ids must lie in [0, {node_count})")
+    edge_ids = np.repeat(np.arange(e_count, dtype=np.int64), de)
+
+    dv = np.bincount(flat_nodes, minlength=node_count).astype(np.float32)
+    dv[dv == 0] = DEGREE_FLOOR
+
+    node_order = np.argsort(flat_nodes, kind="stable")
+    inc_node = flat_nodes[node_order]
+    return LogHyperGraph(
+        inc_node=_i32(inc_node),
+        inc_edge=_i32(edge_ids[node_order]),
+        rowptr=_i32(_rowptr(inc_node, node_count)),
+        edge_nodes=_i32(flat_nodes),
+        edge_ids=_i32(edge_ids),
+        edge_rowptr=_i32(_rowptr(edge_ids, e_count)),
+        dv=torch.from_numpy(dv.reshape(-1, 1)),
+        de=torch.from_numpy(de.astype(np.float32).reshape(-1, 1)),
         node_count=int(node_count),
         edge_count=int(e_count),
     )

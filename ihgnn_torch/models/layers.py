@@ -1,44 +1,147 @@
-"""IHGNN layer (without phase-2 attention).
+"""GNN layers: GCN, GAT, HGCN and IHGNN (with optional phase-2 attention).
 
-Counterpart of ``ihgnn_tpu/models/layers.py`` ``IHGNNLayer``
-(reference: Models/GnnLayers.py:221-236):
+Counterpart of ``ihgnn_tpu/models/layers.py`` (reference:
+Models/GnnLayers.py). Row-major: ``x`` is ``[N, in]`` and the result
+``[N, out]``. Every sparse aggregation is a kernel behind an autograd
+Function (``ops/hyperagg.py``, ``ops/gatconv.py``), so each layer trains
+on the card.
 
-  X' = X·W;  E = FeatureInteractor(X'[u], X'[q], X'[i]);  out = Dv⁻¹ · H · E
-
-Row-major: ``x`` is ``[N, in]`` and the result ``[N, out]``. The gather is
-K2, the interaction K3 and the node update H·E K1 (``ops/hyperagg.py``),
-each through its autograd Function, so the layer trains on the card.
+* ``GCNLayer``   — Dv^-1/2 · A · Dv^-1/2 · X · W over the 2D graph, the
+  transform first when in_dim >= out_dim (GnnLayers.py:28-45).
+* ``GATLayer``   — X' = X·W, then the attention conv over the 2D graph's
+  destination-sorted entries (GnnLayers.py:96-115).
+* ``HGCNLayer``  — Dv^-1/2 · H · De^-1 · Hᵀ · Dv^-1/2 · X · W over the
+  hypergraph (De = 3: the mean of the three roles) or the log hypergraph
+  (GnnLayers.py:142-153).
+* ``IHGNNLayer`` — X' = X·W; E = FeatureInteractor(X'[u], X'[q], X'[i]);
+  out = Dv⁻¹ · H · E, or with phase-2 attention a GAT over the bipartite
+  graph edge node → member node on ``[X' | E]`` (GnnLayers.py:200-236).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Optional, Union
 
 import torch
 from torch import nn
 
-from ihgnn_torch.graph import HyperGraph
-from ihgnn_torch.models.common import TorchDenseT
+from ihgnn_torch.config import V
+from ihgnn_torch.graph import AttentionCSR, Graph2D, HyperGraph, LogHyperGraph
+from ihgnn_torch.models.common import TorchDense, TorchDenseT
+from ihgnn_torch.models.initializers import xavier_uniform_
 from ihgnn_torch.models.interaction import FeatureInteractor
-from ihgnn_torch.ops.hyperagg import make_hyper_ops
+from ihgnn_torch.ops.gatconv import LEAKY_SLOPE, gat_conv
+from ihgnn_torch.ops.hyperagg import (make_hyper_ops, make_log_ops,
+                                      make_spmm_op)
+
+# torch.nn.init.calculate_gain('leaky_relu') at the default slope
+LEAKY_RELU_GAIN = math.sqrt(2.0 / (1.0 + LEAKY_SLOPE ** 2))
+
+
+class GCNLayer(nn.Module):
+    def __init__(self, in_dim: int, out_dim: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.in_dim, self.out_dim = in_dim, out_dim
+        self.feature_transform = TorchDenseT(in_dim, out_dim,
+                                             generator=generator)
+
+    def forward(self, x: torch.Tensor, graph: Graph2D) -> torch.Tensor:
+        d_inv_sqrt = graph.dv ** -0.5
+        adj = make_spmm_op(graph)
+
+        def conv(h):
+            return d_inv_sqrt * adj(d_inv_sqrt * h)
+
+        # cheaper side first (GnnLayers.py:33-43)
+        if self.in_dim >= self.out_dim:
+            return conv(self.feature_transform(x))
+        return self.feature_transform(conv(x))
+
+
+class GatCore(nn.Module):
+    """Attention scoring and destination-softmax aggregation over an
+    ``AttentionCSR`` (``_GatCore``): the score head ``feature_aggregate``
+    is a Linear over ``[x_src ; x_dst]`` (concat head, ``[2d] → 1``) or
+    ``x_src ⊙ x_dst`` (product head, ``[d] → 1``), xavier-uniform with the
+    LeakyReLU gain (GnnLayers.py:66-70)."""
+
+    def __init__(self, out_dim: int, head: str = V.CONCAT,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if head not in (V.CONCAT, V.PRODUCT):
+            raise ValueError(f"unknown GAT head {head!r}")
+        self.head = head
+        score_in = 2 * out_dim if head == V.CONCAT else out_dim
+        self.feature_aggregate = nn.Linear(score_in, 1)
+        with torch.no_grad():
+            xavier_uniform_(self.feature_aggregate.weight, LEAKY_RELU_GAIN,
+                            generator=generator)
+            bound = 1.0 / math.sqrt(score_in)
+            self.feature_aggregate.bias.uniform_(-bound, bound,
+                                                 generator=generator)
+
+    def forward(self, x: torch.Tensor, csr: AttentionCSR) -> torch.Tensor:
+        agg = self.feature_aggregate
+        return gat_conv(x, agg.weight[0], agg.bias, csr, self.head)
+
+
+class GATLayer(nn.Module):
+    def __init__(self, in_dim: int, out_dim: int, head: str = V.CONCAT,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.feature_transform = TorchDense(in_dim, out_dim,
+                                            generator=generator)
+        self.gat = GatCore(out_dim, head, generator=generator)
+
+    def forward(self, x: torch.Tensor, graph: Graph2D) -> torch.Tensor:
+        return self.gat(self.feature_transform(x), graph.attention)
+
+
+class HGCNLayer(nn.Module):
+    def __init__(self, in_dim: int, out_dim: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.feature_transform = TorchDenseT(in_dim, out_dim,
+                                             generator=generator)
+
+    def forward(self, x: torch.Tensor,
+                graph: Union[HyperGraph, LogHyperGraph]) -> torch.Tensor:
+        d_inv_sqrt = graph.dv ** -0.5
+        x = d_inv_sqrt * self.feature_transform(x)
+        if isinstance(graph, HyperGraph):
+            gather, scatter = make_hyper_ops(graph)
+            edge = gather(x).sum(0) / 3.0
+            return d_inv_sqrt * scatter(edge)
+        edge_sum, node_sum = make_log_ops(graph)
+        return d_inv_sqrt * node_sum(edge_sum(x) / graph.de)
 
 
 class IHGNNLayer(nn.Module):
     def __init__(self, in_dim: int, out_dim: int, interaction_order: int = 3,
-                 phase2_attention: bool = False,
+                 phase2_attention: bool = False, gat_head: str = V.CONCAT,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if phase2_attention:
-            raise NotImplementedError(
-                "IHGNN phase-2 attention is not ported yet")
+        self.phase2_attention = phase2_attention
         self.feature_transform = TorchDenseT(in_dim, out_dim,
                                              generator=generator)
         self.interactor = FeatureInteractor(interaction_order, out_dim,
                                             out_dim, generator=generator)
+        if phase2_attention:
+            self.phase2_transform = TorchDense(out_dim, out_dim,
+                                               generator=generator)
+            self.phase2_gat = GatCore(out_dim, gat_head, generator=generator)
 
     def forward(self, x: torch.Tensor, graph: HyperGraph) -> torch.Tensor:
         gather, scatter = make_hyper_ops(graph)
-        edge = self.interactor(gather(self.feature_transform(x)))
+        x = self.feature_transform(x)
+        edge = self.interactor(gather(x))
+        if self.phase2_attention:
+            # GAT from edge node N + e to its member nodes over
+            # [x' | edge], keeping the node rows; no / dv
+            both = self.phase2_transform(torch.cat([x, edge], dim=0))
+            return self.phase2_gat(both, graph.phase2)
         # node update: Dv^-1 · H · E (GnnLayers.py:232-234); zero-degree
         # nodes sum to 0 and 0 / 1e-8 stays 0
         return scatter(edge) / graph.dv

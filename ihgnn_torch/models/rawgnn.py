@@ -1,4 +1,4 @@
-"""RawGnn: embeddings → L IHGNN layers (full graph) → concat → HEM head.
+"""RawGnn: embeddings → L GNN layers (full graph) → concat → HEM head.
 
 Counterpart of ``ihgnn_tpu/models/rawgnn.py`` ``RawGnn`` (reference:
 Models/RawGnn.py). Serving computes ``all_features`` once and scores many
@@ -6,8 +6,11 @@ Models/RawGnn.py). Serving computes ``all_features`` once and scores many
 protocol, RawGnn.py:147-158).
 
 Features are row-major ``[N, d·(1+L)]`` (the JAX package returns them
-feature-major ``[d·(1+L), N]``). IHGNN layers after the first run at
-interaction order 1 (RawGnn.py:76-78). Only the IHGNN layer is ported.
+feature-major ``[d·(1+L), N]``). ``cfg.gnn`` picks the layer and the
+graph it runs on: GCN and GAT the ``Graph2D``, HGCN the ``HyperGraph`` or
+(``use_log_hypergraph``) the ``LogHyperGraph``, IHGNN the ``HyperGraph``.
+IHGNN layers after the first run at interaction order 1
+(RawGnn.py:76-78).
 """
 
 from __future__ import annotations
@@ -18,9 +21,9 @@ import torch
 from torch import nn
 
 from ihgnn_torch.config import ModelConfig, V
-from ihgnn_torch.graph import HyperGraph
+from ihgnn_torch.graph import AnyGraph, Graph2D, HyperGraph, LogHyperGraph
 from ihgnn_torch.models.embedding import EmbeddingTables, WordBag
-from ihgnn_torch.models.layers import IHGNNLayer
+from ihgnn_torch.models.layers import GATLayer, GCNLayer, HGCNLayer, IHGNNLayer
 from ihgnn_torch.models.prediction import HemPredictionLayer
 
 
@@ -32,9 +35,6 @@ class RawGnn(nn.Module):
                  item_count: int, vocab_size: int,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.gnn != V.IHGNN:
-            raise NotImplementedError(
-                f"gnn {cfg.gnn!r} is not ported yet; only {V.IHGNN!r} is")
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.cfg = cfg
@@ -45,15 +45,39 @@ class RawGnn(nn.Module):
         self.embeddings = EmbeddingTables(
             user_count, item_count, vocab_size, d,
             query_transform=cfg.query_transform, generator=generator)
-        self.gnns = nn.ModuleList([
-            IHGNNLayer(d, d, interaction_order=cfg.layer_order(layer),
-                       phase2_attention=cfg.phase2_attention,
-                       generator=generator)
-            for layer in range(cfg.gnn_layer_count)])
+        self.gnns = nn.ModuleList([self._layer(cfg, layer, generator)
+                                   for layer in range(cfg.gnn_layer_count)])
         self.prediction = HemPredictionLayer(
             item_count, lambda_muq=cfg.lambda_muq,
             use_cosine_similarity=cfg.use_cosine_similarity,
             generator=generator)
+
+    @staticmethod
+    def _layer(cfg: ModelConfig, layer: int,
+               generator: torch.Generator) -> nn.Module:
+        d = cfg.embedding_size
+        if cfg.gnn == V.GCN:
+            return GCNLayer(d, d, generator=generator)
+        if cfg.gnn == V.GAT:
+            return GATLayer(d, d, head=cfg.gat_head, generator=generator)
+        if cfg.gnn == V.HGCN:
+            return HGCNLayer(d, d, generator=generator)
+        if cfg.gnn == V.IHGNN:
+            return IHGNNLayer(d, d, interaction_order=cfg.layer_order(layer),
+                              phase2_attention=cfg.phase2_attention,
+                              gat_head=cfg.gat_head, generator=generator)
+        raise ValueError(f"unknown gnn layer {cfg.gnn!r}")
+
+    def _check_graph(self, graph: AnyGraph) -> None:
+        """The layers of ``cfg.gnn`` read one graph type (``cli.py``
+        ``pick_graph`` in the JAX package)."""
+        gnn = self.cfg.gnn
+        want = {V.GCN: Graph2D, V.GAT: Graph2D, V.IHGNN: HyperGraph,
+                V.HGCN: LogHyperGraph if self.cfg.use_log_hypergraph
+                else HyperGraph}[gnn]
+        if not isinstance(graph, want):
+            raise TypeError(f"gnn {gnn!r} runs on a {want.__name__}, got a "
+                            f"{type(graph).__name__}")
 
     @property
     def query_start(self) -> int:
@@ -63,8 +87,9 @@ class RawGnn(nn.Module):
     def item_start(self) -> int:
         return self.user_count + self.query_count
 
-    def all_features(self, graph: HyperGraph, bag: WordBag) -> torch.Tensor:
+    def all_features(self, graph: AnyGraph, bag: WordBag) -> torch.Tensor:
         """Full-graph forward: ``[N, d·(1+L)]`` = [X0 | X1 | ... | XL]."""
+        self._check_graph(graph)
         x = self.embeddings.all_features(bag)
         outs = [x]
         for gnn in self.gnns:
@@ -88,7 +113,7 @@ class RawGnn(nn.Module):
             features[users], features[queries + self.query_start],
             features[self.item_start:])
 
-    def forward(self, graph: HyperGraph, bag: WordBag, users: torch.Tensor,
+    def forward(self, graph: AnyGraph, bag: WordBag, users: torch.Tensor,
                 queries: torch.Tensor,
                 items: Optional[torch.Tensor] = None) -> torch.Tensor:
         feats = self.all_features(graph, bag)

@@ -1,13 +1,22 @@
 """Kernel wrappers and their plain PyTorch twins.
 
 * ``segsum``   — K1 ``csr_gather_sum``: CSR weighted row gather-sum (the
-  node update H·E, the query word-bag mean, and the backward sums of the
-  gather, the scatter and the bag).
+  node update H·E, the query word-bag mean, GCN's SpMM, the log
+  hypergraph's sums, the attention's weighted sum, and the backward sums
+  of all of them).
 * ``gather``   — K2 ``gather_roles``: the three endpoint rows of each edge.
 * ``interact`` — K3 ``interact_fwd`` and ``interact_bwd``: the fused
   order-1/2/3 interaction and its backward, joined by ``InteractFn``.
-* ``hyperagg`` — the gather/scatter pair of one hypergraph, as
-  ``GatherRolesFn`` and ``ScatterIncidenceFn``.
+* ``segmax``   — K4 ``csr_segment_max`` and the scalar ``csr_segment_sum``
+  over a CSR: the attention softmax's max and denominators.
+* ``edgedot``  — ``csr_edge_dot``: the dot of two gathered rows per entry
+  (the attention backward and the product head; no TPU kernel of its own).
+* ``segment``  — plain segment sum/max/softmax, SpMM and hyperedge
+  gather/scatter: the reference semantics the twins are written with.
+* ``hyperagg`` — the hypergraph's gather/scatter pair (``GatherRolesFn``,
+  ``SpmmFn``), GCN's SpMM and the log hypergraph's sums (``SpmmFn``).
+* ``gatconv``  — the attention conv of GAT and IHGNN phase 2,
+  ``GatConvFn``.
 * ``bag``      — the word-bag mean, as ``BagMeanFn``.
 
 Each wrapper runs its plain twin on CPU tensors and its CUDA kernel on CUDA

@@ -26,7 +26,8 @@ from typing import Dict, Iterable, List, Sequence
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "build"
-SOURCES = ("segsum", "gather", "interact", "interact_bwd")
+SOURCES = ("segsum", "gather", "interact", "interact_bwd", "segmax",
+           "edgedot")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -136,7 +137,7 @@ def use_kernel(what: str, *tensors) -> bool:
     CUDA call with grad mode on and an input that requires grad: a kernel's
     output has no ``grad_fn``, so the gradient would be silently dropped.
     Gradients go through the autograd Functions (``InteractFn``,
-    ``GatherRolesFn``, ``ScatterIncidenceFn``, ``BagMeanFn``), whose
+    ``GatherRolesFn``, ``SpmmFn``, ``BagMeanFn``, ``GatConvFn``), whose
     forward and backward run with grad mode off and launch the kernels."""
     import torch
     devices = {t.device for t in tensors if t is not None}

@@ -25,6 +25,7 @@ from typing import Optional
 import torch
 
 from ihgnn_torch.ops import _build
+from ihgnn_torch.ops.segment import segment_ids, segment_sum
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
                                      ctypes.c_void_p]
@@ -35,15 +36,10 @@ def csr_gather_sum_plain(x: torch.Tensor, col: torch.Tensor,
                          weight: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
     """Plain PyTorch twin of ``csr_gather_sum`` (any device)."""
-    s = rowptr.shape[0] - 1
-    counts = (rowptr[1:] - rowptr[:-1]).long()
-    seg = torch.repeat_interleave(
-        torch.arange(s, device=x.device), counts)
     vals = x.index_select(0, col.long()).float()
     if weight is not None:
         vals = vals * weight[:, None]
-    out = torch.zeros(s, x.shape[1], dtype=torch.float32, device=x.device)
-    return out.index_add_(0, seg, vals)
+    return segment_sum(vals, segment_ids(rowptr), rowptr.shape[0] - 1)
 
 
 def csr_gather_sum(x: torch.Tensor, col: torch.Tensor, rowptr: torch.Tensor,

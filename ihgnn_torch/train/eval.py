@@ -21,13 +21,13 @@ import torch
 
 from ihgnn_torch.data.dataset import EvalLogs
 from ihgnn_torch.device import DeviceLike, resolve_device
-from ihgnn_torch.graph import HyperGraph
+from ihgnn_torch.graph import AnyGraph
 from ihgnn_torch.models.embedding import make_word_bag
 from ihgnn_torch.models.rawgnn import RawGnn
 from ihgnn_torch.train.metrics import Metrics, ranking_metrics
 
 
-def make_eval_fns(model: RawGnn, graph: HyperGraph, query_words,
+def make_eval_fns(model: RawGnn, graph: AnyGraph, query_words,
                   query_word_counts, device: DeviceLike = "cuda"
                   ) -> Tuple[Callable[[], torch.Tensor], Callable]:
     """``(features_fn, metrics_fn)`` on ``device``; the model must already

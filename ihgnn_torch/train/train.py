@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from ihgnn_torch.config import TrainConfig
 from ihgnn_torch.data.dataset import Batch
 from ihgnn_torch.device import DeviceLike, resolve_device
-from ihgnn_torch.graph import HyperGraph
+from ihgnn_torch.graph import AnyGraph
 from ihgnn_torch.models.embedding import make_word_bag
 from ihgnn_torch.models.rawgnn import RawGnn
 
@@ -47,7 +47,7 @@ def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor,
     return (per_row * weight).sum() / torch.clamp(weight.sum(), min=1.0)
 
 
-def make_train_step(model: RawGnn, graph: HyperGraph, query_words,
+def make_train_step(model: RawGnn, graph: AnyGraph, query_words,
                     query_word_counts, optimizer: torch.optim.Optimizer,
                     grad_accum_steps: int = 1,
                     device: DeviceLike = "cuda") -> Callable[[Batch],

@@ -10,12 +10,16 @@ repository's conftest is left out):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerances: K2 is a copy and must be bitwise exact; K1 and K3 sum in
-another order than the twins, 1e-5 absolute (K1) and 1e-5 of the largest
-output (K3). ``interact_bwd``'s dW and db sum every edge in another order
+Tolerances: K2 is a copy and K4 a max, both bitwise exact; K1, K3, the
+scalar segment sum and ``csr_edge_dot`` sum in another order than the
+twins, 1e-5 absolute (K1, the scalar sum) and 1e-5 of the largest output
+(K3, ``csr_edge_dot``). ``interact_bwd``'s dW and db sum every edge in another order
 than the twin's matmuls: 1e-4 of each output's largest value. Values and
 gradients of a small graph on the card against the CPU: 1e-5 of each
-tensor's largest value (dW sums 400 edges of products of three normals).
+tensor's largest value (dW sums 400 edges of products of three normals);
+the attention score head's kernel and bias, whose gradients are sums that
+nearly cancel (the softmax ignores a per-destination shift), within 1e-5
+of the largest gradient of x.
 """
 
 import pytest
@@ -23,14 +27,21 @@ import torch
 
 import numpy as np
 
-from ihgnn_torch.graph import build_hypergraph
+from ihgnn_torch.config import V
+from ihgnn_torch.graph import (build_attention_csr, build_graph2d,
+                               build_hypergraph, build_log_hypergraph)
 from ihgnn_torch.ops.bag import BagMeanFn, make_word_bag
+from ihgnn_torch.ops.edgedot import csr_edge_dot, csr_edge_dot_plain
+from ihgnn_torch.ops.gatconv import GatConvFn
 from ihgnn_torch.ops.gather import gather_roles, gather_roles_plain
-from ihgnn_torch.ops.hyperagg import make_hyper_ops
+from ihgnn_torch.ops.hyperagg import make_hyper_ops, make_log_ops, make_spmm_op
 from ihgnn_torch.ops.interact import (KERNEL_OUT_DIMS, ORDER_PARTS,
                                       InteractFn, interact_bwd,
                                       interact_bwd_plain, interact_fwd,
                                       interact_fwd_plain)
+from ihgnn_torch.ops.segmax import (EMPTY_MAX, csr_segment_max,
+                                    csr_segment_max_plain, csr_segment_sum,
+                                    csr_segment_sum_plain)
 from ihgnn_torch.ops.segsum import csr_gather_sum, csr_gather_sum_plain
 
 pytestmark = pytest.mark.cuda
@@ -258,7 +269,7 @@ def _grads(dev, fn, *inputs):
 
 
 def test_functions_grads_on_card_match_cpu(dev):
-    """GatherRolesFn, InteractFn, ScatterIncidenceFn and BagMeanFn: values
+    """GatherRolesFn, InteractFn, SpmmFn (the scatter) and BagMeanFn: values
     and gradients on the card against the plain twins on the CPU."""
     graph = _small_graph()
     gathers = {}
@@ -303,3 +314,201 @@ def test_functions_grads_on_card_match_cpu(dev):
         torch.testing.assert_close(a, c, rtol=0,
                                    atol=1e-5 * c.abs().max().item())
     assert torch.equal(cuda[1][0][0], torch.zeros(32))
+
+
+# ---------------------------------------------------------------------------
+# K4, the scalar segment sum, csr_edge_dot and the attention conv
+# ---------------------------------------------------------------------------
+
+
+def _rowptr(dev, counts):
+    rowptr = torch.zeros(len(counts) + 1, dtype=torch.int64)
+    rowptr[1:] = torch.tensor(counts).cumsum(0)
+    return rowptr.int().to(dev)
+
+
+def test_csr_segment_max(dev):
+    """Random scores over 1000 segments, every 7th empty: bitwise equal to
+    the twin, and -3e38 where empty."""
+    _, rowptr = _csr(dev, 1000, 1, 20_000, seed=4)
+    k = int(rowptr[-1])
+    scores = torch.randn(k, device=dev, generator=_gen(dev, 5)) * 10
+    before = csr_segment_max.launches
+    got = csr_segment_max(scores, rowptr)
+    torch.cuda.synchronize()
+    assert csr_segment_max.launches == before + 1
+    assert torch.equal(got, csr_segment_max_plain(scores, rowptr))
+    empty = rowptr[1:] == rowptr[:-1]
+    assert empty.any() and (got[empty] == EMPTY_MAX).all()
+
+
+def test_csr_segment_max_long_and_masked_segments(dev):
+    """One segment over 10k entries, one whose entries are all -1e30 (the
+    attention's masked score), empty ones around them."""
+    rowptr = _rowptr(dev, [0, 10_000, 0, 37, 5, 0])
+    scores = torch.randn(10_042, device=dev, generator=_gen(dev, 6))
+    scores[10_000:10_037] = -1e30
+    scores[1234] = 50.0
+    got = csr_segment_max(scores, rowptr)
+    assert torch.equal(got, csr_segment_max_plain(scores, rowptr))
+    assert got[1] == 50.0 and got[3] == -1e30
+    assert got[0] == EMPTY_MAX and got[2] == EMPTY_MAX and got[5] == EMPTY_MAX
+
+
+def test_csr_segment_sum(dev):
+    """The scalar sum mode against its twin, a 10k-entry segment included;
+    two calls agree bit for bit."""
+    _, rowptr = _csr(dev, 1000, 1, 20_000, seed=7)
+    rowptr = torch.cat([rowptr, rowptr[-1:] + 10_000])
+    v = torch.rand(int(rowptr[-1]), device=dev, generator=_gen(dev, 8))
+    before = csr_segment_sum.launches
+    got = csr_segment_sum(v, rowptr)
+    torch.cuda.synchronize()
+    assert csr_segment_sum.launches == before + 1
+    want = csr_segment_sum_plain(v, rowptr)
+    torch.testing.assert_close(got[:-1], want[:-1], rtol=0, atol=1e-5)
+    # 10k uniforms in another order than the twin's
+    torch.testing.assert_close(got[-1], want[-1], rtol=1e-5, atol=0)
+    assert torch.equal(got, csr_segment_sum(v, rowptr))
+    empty = rowptr[1:] == rowptr[:-1]
+    assert (got[empty] == 0).all()
+
+
+@pytest.mark.parametrize("d", [4, 8, 12, 32, 64, 136])
+def test_csr_edge_dot(dev, d):
+    """Every lane-group width: d/4 of 1 to over 32 float4s a row."""
+    col, rowptr = _csr(dev, 800, 500, 12_000, seed=d)
+    g = _gen(dev, 200 + d)
+    a = torch.randn(800, d, device=dev, generator=g)
+    b = torch.randn(500, d, device=dev, generator=g)
+    before = csr_edge_dot.launches
+    got = csr_edge_dot(a, b, col, rowptr)
+    torch.cuda.synchronize()
+    assert csr_edge_dot.launches == before + 1
+    want = csr_edge_dot_plain(a, b, col, rowptr)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * want.abs().max().item())
+    assert torch.equal(got, csr_edge_dot(a, b, col, rowptr))
+
+
+def test_new_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    v = torch.randn(6, device=dev)
+    rowptr = torch.tensor([0, 2, 6], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):                  # int64 rowptr
+        csr_segment_max(v, rowptr.long())
+    with pytest.raises(ValueError):                  # [K, 1] scores
+        csr_segment_sum(v[:, None], rowptr)
+    col = torch.zeros(6, dtype=torch.int32, device=dev)
+    a = torch.randn(2, 6, device=dev)
+    with pytest.raises(ValueError):                  # d not a multiple of 4
+        csr_edge_dot(a, a, col, rowptr)
+    a = torch.randn(2, 8, device=dev)
+    with pytest.raises(ValueError):                  # widths differ
+        csr_edge_dot(a, torch.randn(2, 4, device=dev), col, rowptr)
+    with pytest.raises(ValueError):                  # misaligned rows
+        csr_edge_dot(a, torch.randn(17, device=dev)[1:].view(2, 8), col,
+                     rowptr)
+    with pytest.raises(RuntimeError):                # needs a gradient
+        csr_segment_max(v.requires_grad_(), rowptr)
+
+
+def _small_inputs():
+    rng = np.random.default_rng(0)
+    users, queries, items, edges = 30, 20, 50, 400
+    uqif = np.stack([rng.integers(0, users, edges),
+                     rng.integers(0, queries, edges),
+                     rng.integers(0, items, edges),
+                     (rng.random(edges) > 0.1).astype(np.int64)], axis=1)
+    logs = [[int(rng.integers(0, users)), users + int(rng.integers(0, queries))]
+            + [users + queries + int(i)
+               for i in rng.choice(items, int(rng.integers(1, 4)), replace=False)]
+            for _ in range(150)]
+    return uqif, logs, users + queries + items, users, queries
+
+
+def _assert_grads_close(cuda, cpu, head_grads=()):
+    """Values and gradients within 1e-5 of each tensor's largest value;
+    the entries of ``head_grads`` (positions in the gradient list) within
+    1e-5 of the largest gradient of the first input."""
+    (c_out, c_grads), (p_out, p_grads) = cuda, cpu
+    for a, c in zip(c_out, p_out):
+        torch.testing.assert_close(a, c, rtol=0,
+                                   atol=1e-5 * c.abs().max().item())
+    x_scale = p_grads[0].abs().max().item()
+    for j, (a, c) in enumerate(zip(c_grads, p_grads)):
+        scale = x_scale if j in head_grads else c.abs().max().item()
+        torch.testing.assert_close(a, c, rtol=0, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("head", [V.CONCAT, V.PRODUCT])
+@pytest.mark.parametrize("kind", ["graph2d", "phase2"])
+def test_gat_conv_grads_on_card_match_cpu(dev, head, kind):
+    """``GatConvFn`` on the card against the CPU: values and the gradients
+    of x, the head's kernel and bias; then the launches one forward and
+    backward makes."""
+    uqif, _, n, users, queries = _small_inputs()
+    if kind == "graph2d":
+        csr = build_graph2d(uqif, n, users, queries).attention
+        assert csr.mask is not None           # some i-u entries sum to 0
+    else:
+        csr = build_hypergraph(uqif, n, users, queries).phase2
+    csrs = {}
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(csr.node_count, 32, generator=g)
+    k = torch.randn(64 if head == V.CONCAT else 32, generator=g) / 8
+    b = torch.randn(1, generator=g)
+
+    def conv(device, x, k, b):
+        if device not in csrs:
+            csrs[device] = csr.to(device)
+        return GatConvFn.apply(x, k, b, csrs[device], head)
+
+    wrappers = (csr_gather_sum, csr_segment_max, csr_segment_sum,
+                csr_edge_dot)
+    before = [w.launches for w in wrappers]
+    cuda = _grads(dev, conv, x, k, b)
+    torch.cuda.synchronize()
+    launched = [w.launches - n0 for w, n0 in zip(wrappers, before)]
+    # forward: K1, K4, one sum (+ the product head's scores); backward: K1,
+    # tt, then tsum, gd, gs (concat) or tsum and one K1 a side (product)
+    assert launched == ([2, 1, 4, 1] if head == V.CONCAT else [4, 1, 2, 2])
+    _assert_grads_close(cuda, _grads(torch.device("cpu"), conv, x, k, b),
+                        head_grads=(1, 2))
+
+
+def test_gat_backward_is_bitwise_repeatable(dev):
+    uqif, _, n, users, queries = _small_inputs()
+    csr = build_graph2d(uqif, n, users, queries).attention.to(dev)
+    g = _gen(dev, 9)
+    x = torch.randn(n, 32, device=dev, generator=g)
+    k = torch.randn(64, device=dev, generator=g) / 8
+    b = torch.randn(1, device=dev, generator=g)
+    cot = torch.randn(n, 32, device=dev, generator=g)
+    grads = []
+    for _ in range(2):
+        xs = [t.clone().requires_grad_() for t in (x, k, b)]
+        GatConvFn.apply(*xs, csr, V.CONCAT).backward(cot)
+        grads.append([t.grad for t in xs])
+    for a, c in zip(*grads):
+        assert torch.equal(a, c)
+
+
+def test_spmm_and_log_ops_grads_on_card_match_cpu(dev):
+    uqif, logs, n, users, queries = _small_inputs()
+    graph2d = build_graph2d(uqif, n, users, queries)
+    log_graph = build_log_hypergraph(logs, n)
+    ops = {}
+
+    def aggregate(device, x):
+        if device not in ops:
+            ops[device] = (make_spmm_op(graph2d.to(device)),
+                           make_log_ops(log_graph.to(device)),
+                           log_graph.de.to(device))
+        spmm, (edge_sum, node_sum), de = ops[device]
+        return spmm(x), node_sum(edge_sum(x) / de)
+
+    x = torch.randn(n, 32, generator=torch.Generator().manual_seed(4))
+    before = csr_gather_sum.launches
+    cuda = _grads(dev, aggregate, x)
+    assert csr_gather_sum.launches - before == 6
+    _assert_grads_close(cuda, _grads(torch.device("cpu"), aggregate, x))

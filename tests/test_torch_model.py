@@ -189,8 +189,18 @@ def test_ihgnn_layer_zero_degree_nodes_stay_zero():
 
 
 def test_ihgnn_layer_phase2_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        TIHGNNLayer(4, 4, phase2_attention=True)
+    """Phase 2 is ported now: the layer holds the JAX package's
+    phase-2 parameters (``phase2_transform``, ``phase2_gat``) with their
+    shapes, and only with phase 2 on."""
+    shapes = {k: tuple(v.shape) for k, v in
+              TIHGNNLayer(4, 4, phase2_attention=True).state_dict().items()}
+    assert shapes["phase2_transform.weight"] == (4, 4)
+    assert shapes["phase2_gat.feature_aggregate.weight"] == (1, 8)
+    assert shapes["phase2_gat.feature_aggregate.bias"] == (1,)
+    product = TIHGNNLayer(4, 4, phase2_attention=True, gat_head=V.PRODUCT)
+    assert product.phase2_gat.feature_aggregate.weight.shape == (1, 4)
+    assert not any(k.startswith("phase2") for k in
+                   TIHGNNLayer(4, 4).state_dict())
 
 
 # ---------------------------------------------------------------------------
@@ -290,6 +300,16 @@ def test_port_init_statistics():
     assert abs(bias.mean().item()) < 0.2 and 0.8 < bias.std().item() < 1.2
 
 
-def test_rawgnn_rejects_unported_layers():
-    with pytest.raises(NotImplementedError):
-        TRawGnn(tcfg.ModelConfig(gnn=V.GCN), 3, 3, 3, 3)
+def test_rawgnn_rejects_unported_layers(graphs):
+    """Every layer type is ported now; an unknown one is refused, and so is
+    a graph of another type than the layers read."""
+    with pytest.raises(ValueError):
+        TRawGnn(tcfg.ModelConfig(gnn="sage"), 3, 3, 3, 3)
+    _, tg = graphs
+    bag = make_word_bag(np.ones((12, 1), np.int32), np.ones(12, np.int32),
+                        26)
+    for gnn in (V.GCN, V.GAT):
+        model = TRawGnn(tcfg.ModelConfig(gnn=gnn, embedding_size=4), 20, 12,
+                        30, 25)
+        with pytest.raises(TypeError):
+            model.all_features(tg, bag)

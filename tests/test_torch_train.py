@@ -44,7 +44,7 @@ from ihgnn_torch.graph import build_hypergraph
 from ihgnn_torch.models.rawgnn import RawGnn as TRawGnn
 from ihgnn_torch.ops.bag import BagMeanFn, make_word_bag
 from ihgnn_torch.ops.gather import gather_roles
-from ihgnn_torch.ops.hyperagg import (GatherRolesFn, ScatterIncidenceFn,
+from ihgnn_torch.ops.hyperagg import (GatherRolesFn, SpmmFn,
                                       make_hyper_ops as torch_hyper_ops)
 from ihgnn_torch.ops.interact import (ORDER_PARTS, InteractFn, interact_bwd,
                                       interact_bwd_plain, interact_fwd)
@@ -245,8 +245,8 @@ def test_scatter_incidence_fn_grad_matches_jax(graphs):
         scatter_x(e_t) * jnp.asarray(cot.T)))(jnp.asarray(edge.T))).T
 
     et = torch.from_numpy(edge).requires_grad_()
-    out = ScatterIncidenceFn.apply(et, tg.inc_edge, tg.rowptr,
-                                   tg.i3.view(-1), tg.edge_rowptr)
+    out = SpmmFn.apply(et, tg.inc_edge, tg.rowptr, None, tg.i3.view(-1),
+                       tg.edge_rowptr, None)
     torch.testing.assert_close(out, csr_gather_sum(
         et.detach(), tg.inc_edge, tg.rowptr))
     (out * torch.from_numpy(cot)).sum().backward()
