@@ -45,7 +45,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
 Phase 3 also checks K4 ``csr_segment_max`` and the scalar
 ``csr_segment_sum`` at the GAT (12M entries → 700k) and phase-2 (6M →
 700k) shapes, ``csr_edge_dot`` at the GAT backward's shape and K1 at the
-GAT weighted sum's.
+GAT weighted sum's; and the routed path's kernels on the routed pack of the
+2M-edge graph (``build_hypergraph(..., pack_kernels=True)``, grid
+[2048, 1024], e_pad = 2,097,152): K2's single-index forms, the K6/K7
+permute forms (f32 and bf16), K5 forward and backward at orders 3 and 1
+with the σ-pad mask, K1's three-region form and K8 on the node-update
+stream. Between phases 9 and 10 the routed path runs as the direct one
+did, with the same weights and batches: ``routed_serving`` (its features
+within 1e-4 of the direct path's, its metrics equal), ``routed_scan`` (the
+first layer's node-update stream summed by K8, equal to K1's sum),
+``routed_train`` (its step-0 loss within 1e-4 relative of the direct
+path's) and a profiled routed train step, then ``small_routed_reference``
+(the default model, HGCN and phase 2 on a small packed graph, card
+against CPU as in phase 9). Every launch count of a routed path is
+checked exactly.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Needs a CUDA card; exits non-zero without one.
@@ -117,12 +130,19 @@ def time_ms(torch, fn) -> float:
 def _wrappers():
     """The kernel wrappers, whose ``launches`` counts the phases read."""
     from ihgnn_torch.ops.edgedot import csr_edge_dot
-    from ihgnn_torch.ops.gather import gather_roles
-    from ihgnn_torch.ops.interact import interact_bwd, interact_fwd
+    from ihgnn_torch.ops.gather import gather_roles, gather_rows, gather_rows_t
+    from ihgnn_torch.ops.interact import (interact_bwd, interact_bwd_absorb,
+                                          interact_fwd, interact_fwd_absorb)
+    from ihgnn_torch.ops.permute import (row_local_permute,
+                                         transposed_local_permute)
     from ihgnn_torch.ops.segmax import csr_segment_max, csr_segment_sum
-    from ihgnn_torch.ops.segsum import csr_gather_sum
+    from ihgnn_torch.ops.segscan import csr_segment_scan
+    from ihgnn_torch.ops.segsum import csr_gather_sum, csr_segment_sum3
     return (csr_gather_sum, gather_roles, interact_fwd, interact_bwd,
-            csr_segment_max, csr_segment_sum, csr_edge_dot)
+            csr_segment_max, csr_segment_sum, csr_edge_dot, gather_rows,
+            gather_rows_t, csr_segment_sum3, row_local_permute,
+            transposed_local_permute, interact_fwd_absorb,
+            interact_bwd_absorb, csr_segment_scan)
 
 
 def _zero_launches():
@@ -140,15 +160,16 @@ def _read_launches(path, expected):
     return launches
 
 
-def random_graph(users, queries, items, edges, seed):
-    """(CPU ``HyperGraph``, its ``[E, 3]`` (u, q, i) rows)."""
+def random_graph(users, queries, items, edges, seed, pack_kernels=False):
+    """(CPU ``HyperGraph``, its ``[E, 3]`` (u, q, i) rows); with
+    ``pack_kernels`` the graph carries the routed pack."""
     from ihgnn_torch.graph import build_hypergraph
     rng = np.random.default_rng(seed)
     uqi = np.stack([rng.integers(0, users, edges),
                     rng.integers(0, queries, edges),
                     rng.integers(0, items, edges)], axis=1)
-    return build_hypergraph(uqi, users + queries + items, users,
-                            queries), uqi
+    return build_hypergraph(uqi, users + queries + items, users, queries,
+                            pack_kernels=pack_kernels), uqi
 
 
 def train_batch(uqi, items, batch, negs, seed):
@@ -196,6 +217,26 @@ def random_eval_logs(users, queries, items, count, seed):
     return EvalLogs(logs)
 
 
+def record_row(torch, results, name, shape, err, tol, k_fn, p_fn, l_fn,
+               nbytes, flops, lib_err=None, **extra):
+    """Fails unless ``err <= tol``; times the kernel, its plain twin and the
+    library call; emits one ``kernel_check`` row and keeps it in
+    ``results[name]``."""
+    if not err <= tol:
+        fail(f"{name} at {shape}: max error {err} > {tol}")
+    b_ms, b_by = bound(nbytes, flops)
+    row = {"shape": shape, "max_abs_err": err, "tolerance": tol,
+           "ms": time_ms(torch, k_fn), "plain_ms": time_ms(torch, p_fn),
+           "library_ms": None if l_fn is None else time_ms(torch, l_fn),
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+           "flops": flops}
+    if lib_err is not None:
+        row["library_max_abs_err"] = lib_err
+    row.update(extra)
+    emit({"phase": "kernel_check", "kernel": name, **row})
+    results.setdefault(name, []).append(row)
+
+
 def check_kernels(torch, dev, graph, bag, graph2d):
     """Phase 3: each kernel against its plain twin, timed beside its
     bound and one library call."""
@@ -217,21 +258,8 @@ def check_kernels(torch, dev, graph, bag, graph2d):
 
     results = {}
 
-    def record(name, shape, err, tol, k_fn, p_fn, l_fn, nbytes, flops,
-               lib_err=None, **extra):
-        if not err <= tol:
-            fail(f"{name} at {shape}: max error {err} > {tol}")
-        b_ms, b_by = bound(nbytes, flops)
-        row = {"shape": shape, "max_abs_err": err, "tolerance": tol,
-               "ms": time_ms(torch, k_fn), "plain_ms": time_ms(torch, p_fn),
-               "library_ms": None if l_fn is None else time_ms(torch, l_fn),
-               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-               "flops": flops}
-        if lib_err is not None:
-            row["library_max_abs_err"] = lib_err
-        row.update(extra)
-        emit({"phase": "kernel_check", "kernel": name, **row})
-        results.setdefault(name, []).append(row)
+    def record(*args, **kwargs):
+        record_row(torch, results, *args, **kwargs)
 
     # K1 node update: 3E entries of [E, d] edge rows → [N, d]
     n = graph.node_count
@@ -464,6 +492,189 @@ def check_kernels(torch, dev, graph, bag, graph2d):
     return results
 
 
+def check_routed_kernels(torch, dev, kp, results):
+    """Phase 3, the routed path: each of its kernels at the shapes of the
+    routed pack of the 2M-edge graph (E padded to R x C), against its plain
+    twin, timed beside its bound and one library call."""
+    from ihgnn_torch.ops.gather import (gather_rows, gather_rows_plain,
+                                        gather_rows_t)
+    from ihgnn_torch.ops.interact import (ORDER_PARTS, interact_bwd_absorb,
+                                          interact_bwd_absorb_plain,
+                                          interact_fwd_absorb,
+                                          interact_fwd_absorb_plain)
+    from ihgnn_torch.ops.permute import (row_local_permute,
+                                         row_local_permute_plain,
+                                         transposed_local_permute,
+                                         transposed_local_permute_plain)
+    from ihgnn_torch.ops.segscan import csr_segment_scan, csr_segment_scan_plain
+    from ihgnn_torch.ops.segsum import (csr_gather_sum, csr_segment_sum3,
+                                        csr_segment_sum3_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    def record(*args, **kwargs):
+        record_row(torch, results, *args, **kwargs)
+
+    n, e, rows, cols = kp.node_count, kp.edge_count, kp.rows, kp.cols
+    e_pad = rows * cols
+    grid = f"[{rows}, {cols}, {D}]"
+    tgrid = f"[{cols}, {rows}, {D}]"
+
+    # K2's single-index forms: the u expand and the q expand (transposed)
+    x = randn(n, D)
+    for kname, fn, idx, transposed, label in (
+            ("gather_rows", gather_rows, kp.u.idx, False, f"u expand -> {grid}"),
+            ("gather_rows_t", gather_rows_t, kp.q.idx, True,
+             f"q expand -> {tgrid}")):
+        flat = (idx.t() if transposed else idx).reshape(-1).long()
+        k_out = fn(x, idx)
+        if not torch.equal(k_out, gather_rows_plain(x, idx, transposed)):
+            fail(f"{kname} is not bitwise exact")
+        record(kname, f"{label}, [{n}, {D}] rows", 0.0, 0.0,
+               lambda: fn(x, idx),
+               lambda: gather_rows_plain(x, idx, transposed),
+               lambda: torch.index_select(x, 0, flat),
+               4 * (x.numel() + e_pad + e_pad * D), 0)
+        del k_out, flat
+    del x
+
+    # K6/K7: each form on the grid of the chains that run it, exact; the
+    # library call is one index_select of the composed source rows
+    def perm_row(kname, label, x, p, pre=False):
+        if kname == "row_local_permute":
+            k_fn = lambda: row_local_permute(x, p)          # noqa: E731
+            p_fn = lambda: row_local_permute_plain(x, p)    # noqa: E731
+            plain = lambda v: row_local_permute_plain(v, p)  # noqa: E731
+        else:
+            k_fn = lambda: transposed_local_permute(x, p, pre)  # noqa: E731
+            p_fn = lambda: transposed_local_permute_plain(x, p, pre)  # noqa
+            plain = lambda v: transposed_local_permute_plain(  # noqa: E731
+                v, p, pre)
+        if not torch.equal(k_fn(), p_fn()):
+            fail(f"{kname} ({label}) is not bitwise exact")
+        # the source row of each output row, by the twin on row numbers
+        src = plain(torch.arange(e_pad, device=dev).view(*x.shape[:2], 1))
+        src = src.reshape(-1)
+        flat = x.view(-1, x.shape[-1])
+        record(kname, label, 0.0, 0.0, k_fn, p_fn,
+               lambda: torch.index_select(flat, 0, src),
+               2 * x.numel() * x.element_size()
+               + (0 if p is None else 4 * e_pad), 0,
+               dtype=str(x.dtype).replace("torch.", ""))
+
+    xg = randn(rows, cols, D)
+    xt = randn(cols, rows, D)
+    perm_row("row_local_permute", f"i stage 2, {grid} f32", xg, kp.i.p2)
+    perm_row("row_local_permute", f"i stage 2, {grid} bf16",
+             xg.bfloat16(), kp.i.p2)
+    perm_row("transposed_local_permute",
+             f"q stage 1 then transpose, {tgrid} -> {grid} f32", xt, kp.q.p1)
+    perm_row("transposed_local_permute",
+             f"transpose, q stage 1 inverse, transpose back, {grid} f32",
+             xg, kp.q.p1_inv, pre=True)
+    perm_row("transposed_local_permute",
+             f"i stage 2 inverse then transpose, {grid} -> {tgrid} f32",
+             xg, kp.i.p2_inv)
+    perm_row("transposed_local_permute", f"transpose, {grid} -> {tgrid} f32",
+             xg, None)
+    perm_row("transposed_local_permute",
+             f"q stage 1 then transpose, {tgrid} -> {grid} bf16",
+             xt.bfloat16(), kp.q.p1)
+    del xg, xt
+
+    # K5 at orders 3 and 1, masked, over the grid's e_pad edges
+    u, q, i_t1 = randn(e_pad, D), randn(e_pad, D), randn(e_pad, D)
+    c1, c2 = randn(e_pad, D), randn(e_pad, D)
+    pi, mask = kp.i.p2, kp.sig_mask
+    names = ("du", "dq", "di_t1", "dw", "db")
+    for order in (3, 1):
+        parts = ORDER_PARTS[order]
+        w = randn(parts * D, D) / (parts * D) ** 0.5
+        b = randn(D)
+        k_out = interact_fwd_absorb(u, q, i_t1, pi, w, b, order)
+        p_out = interact_fwd_absorb_plain(u, q, i_t1, pi, w, b, order)
+        err = max((a - c).abs().max().item() for a, c in zip(k_out, p_out))
+        scale = p_out[0].abs().max().item()
+        hadamard = {1: 0, 2: 3, 3: 4}[order]
+        record("interact_fwd_absorb", f"order {order}, 3 x [{e_pad}, {D}] "
+               f"-> 2 x [{e_pad}, {D}]", err, 1e-4 * scale,
+               lambda: interact_fwd_absorb(u, q, i_t1, pi, w, b, order),
+               lambda: interact_fwd_absorb_plain(u, q, i_t1, pi, w, b, order),
+               None, 4 * (3 * e_pad * D + e_pad + w.numel() + D
+                          + 2 * e_pad * D),
+               e_pad * (hadamard * D + 2 * parts * D * D + D))
+        del k_out, p_out
+        k_b = interact_bwd_absorb(u, q, i_t1, pi, w, c1, c2, mask, order)
+        p_b = interact_bwd_absorb_plain(u, q, i_t1, pi, w, c1, c2, mask,
+                                        order)
+        errors = {}
+        for nm, a, c in zip(names, (*k_b[0], *k_b[1:]), (*p_b[0], *p_b[1:])):
+            errors[nm] = {"max_abs_err": (a - c).abs().max().item(),
+                          "tolerance": 1e-4 * c.abs().max().item()}
+            if not errors[nm]["max_abs_err"] <= errors[nm]["tolerance"]:
+                fail(f"interact_bwd_absorb order {order} {nm}: {errors[nm]}")
+        pads = mask == 0
+        if not (k_b[0][0][pads] == 0).all():
+            fail("interact_bwd_absorb: a sigma pad reached du")
+        worst = max(errors.values(),
+                    key=lambda v: v["max_abs_err"] / max(v["tolerance"],
+                                                         1e-30))
+        product_rule = {1: 0, 2: 12, 3: 21}[order]
+        record("interact_bwd_absorb", f"order {order}, 3 x [{e_pad}, {D}] + "
+               f"2 cot [{e_pad}, {D}] + mask -> [3, {e_pad}, {D}], dW, db",
+               worst["max_abs_err"], worst["tolerance"],
+               lambda: interact_bwd_absorb(u, q, i_t1, pi, w, c1, c2, mask,
+                                           order),
+               lambda: interact_bwd_absorb_plain(u, q, i_t1, pi, w, c1, c2,
+                                                 mask, order), None,
+               4 * (3 * e_pad * D + e_pad + w.numel() + 2 * e_pad * D
+                    + e_pad + 3 * e_pad * D + w.numel() + D),
+               # and the merged cotangent: an add and a mask a value
+               e_pad * (2 * 2 * parts * D * D
+                        + D * (hadamard + product_rule) + D + 2 * D),
+               errors=errors, max_abs_err_all=max(
+                   v["max_abs_err"] for v in errors.values()))
+        del k_b, p_b
+    del u, q, i_t1, c1, c2
+
+    # K1's three-region form and K8, on the routed node-update stream: the
+    # [u | q | i] regions of 3 e_pad rows, 3E of them real
+    regions = [randn(e_pad, D) for _ in range(3)]
+    stream = torch.cat(regions)
+    col, rowptr = kp.seg_col, kp.seg_rowptr
+    k1 = csr_segment_sum3(*regions, col, rowptr)
+    p1 = csr_segment_sum3_plain(*regions, col, rowptr)
+    csr = torch.sparse_csr_tensor(rowptr, col, torch.ones(col.numel(),
+                                  device=dev), size=(n, 3 * e_pad))
+    lib_err = (torch.sparse.mm(csr, stream) - p1).abs().max().item()
+    sum_bytes = 4 * (3 * e * D + 3 * e + rowptr.numel() + n * D)
+    record("csr_segment_sum3", f"routed node update [3 x [{e_pad}, {D}] "
+           f"regions, {3 * e} entries -> [{n}, {D}]]",
+           (k1 - p1).abs().max().item(), 1e-4,
+           lambda: csr_segment_sum3(*regions, col, rowptr),
+           lambda: csr_segment_sum3_plain(*regions, col, rowptr),
+           lambda: torch.sparse.mm(csr, stream), sum_bytes, 3 * e * D,
+           lib_err)
+    k8 = csr_segment_scan(stream, kp.scan)
+    p8 = csr_segment_scan_plain(stream, kp.scan)
+    if not torch.equal(k8, csr_gather_sum(stream, col, rowptr)):
+        fail("csr_segment_scan differs from K1 over the same entries")
+    if not torch.equal(k8, k1):
+        fail("csr_segment_scan differs from K1's three-region form")
+    record("csr_segment_scan", f"routed node update [{3 * e_pad} entries, "
+           f"{3 * e} real, block-sorted -> [{n}, {D}]]",
+           (k8 - p8).abs().max().item(), 1e-4,
+           lambda: csr_segment_scan(stream, kp.scan),
+           lambda: csr_segment_scan_plain(stream, kp.scan),
+           lambda: torch.sparse.mm(csr, stream),
+           4 * (3 * e * D + n * D) + 9 * 3 * e_pad, 3 * e * D, lib_err,
+           equal_to_k1=True)
+    del regions, stream, k1, p1, k8, p8, csr
+
+
 IHGNN_SERVING = ("csr_gather_sum", "gather_roles", "interact_fwd")
 IHGNN_TRAIN = IHGNN_SERVING + ("interact_bwd",)
 GAT_SERVING = ("csr_gather_sum", "csr_segment_max", "csr_segment_sum")
@@ -488,7 +699,11 @@ def _describe(cfg, graph):
     if cfg.gnn == V.IHGNN:
         row.update(edges=graph.edge_count,
                    orders=[cfg.layer_order(k)
-                           for k in range(cfg.gnn_layer_count)])
+                           for k in range(cfg.gnn_layer_count)],
+                   routed=graph.kp is not None)
+        if graph.kp is not None:
+            row.update(grid=[graph.kp.rows, graph.kp.cols],
+                       e_pad=graph.kp.e_pad)
     else:
         row.update(entries=graph.nnz, head=cfg.gat_head)
     return row
@@ -564,7 +779,7 @@ def run_serving(torch, dev, cfg, graph, qw, qc, path, expected,
           "metrics": dict(zip(["HR@10", "NDCG@10", "MAP@10", "MRR@10"], row)),
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev),
           "launches": launches})
-    return launches, features_fn, metrics_fn, features, logs
+    return launches, (features_fn, metrics_fn, features, logs), row
 
 
 def profile_window(torch, label, fn):
@@ -656,7 +871,7 @@ def run_train(torch, dev, cfg, graph, uqi, qw, qc, path, expected,
               per_step=None):
     """Phases 7 and 11: a train path at full width; returns the launch
     counts and the step the profile phase reuses."""
-    from ihgnn_torch.config import TrainConfig
+    from ihgnn_torch.config import TrainConfig, V
     from ihgnn_torch.models.rawgnn import RawGnn
     from ihgnn_torch.train.train import make_optimizer, make_train_step
 
@@ -687,7 +902,7 @@ def run_train(torch, dev, cfg, graph, uqi, qw, qc, path, expected,
     row = {"phase": path, **_describe(cfg, graph),
            "rows": TRAIN_B * (1 + TRAIN_K), "warm_steps": WARM_STEPS,
            "timed_steps": TIMED_STEPS, "train_step_ms": step_s * 1e3}
-    if path == "train":
+    if cfg.gnn == V.IHGNN:
         row["hyperedge_aggregations_per_s"] = \
             graph.edge_count * cfg.gnn_layer_count / step_s
     else:
@@ -700,7 +915,7 @@ def run_train(torch, dev, cfg, graph, uqi, qw, qc, path, expected,
                 "launches_per_step": {k: v / steps
                                       for k, v in launches.items()}})
     emit(row)
-    return launches, lambda: step(batches[0])
+    return launches, lambda: step(batches[0]), losses
 
 
 def grad_scale(name, grads):
@@ -851,6 +1066,115 @@ def check_small_zoo(torch, dev):
         fail(f"card and CPU disagree on the small zoo cases {failed}")
 
 
+# the routed path's launches a forward of the default model: K1 for the bag;
+# a layer: the u expand, the q and i expands (transposed), stage 1 of q and
+# of i, K5, the two inverse chains' first steps and K1's three-region sum.
+# A train step adds the bag's backward and, a layer, the scatter's
+# backward (three expands, two stage-1 permutes), K5's backward and the
+# gather's backward (two inverse permutes and a three-region sum). A kernel
+# at 0 must not run on the path
+ROUTED_SERVING = ("csr_gather_sum", "gather_rows", "gather_rows_t",
+                  "transposed_local_permute", "csr_segment_sum3",
+                  "interact_fwd_absorb")
+ROUTED_TRAIN = ROUTED_SERVING + ("interact_bwd_absorb",)
+ROUTED_FORWARD_LAUNCHES = {"csr_gather_sum": 1, "gather_rows": 2,
+                           "gather_rows_t": 4, "transposed_local_permute": 8,
+                           "csr_segment_sum3": 2, "interact_fwd_absorb": 2,
+                           "row_local_permute": 0, "gather_roles": 0,
+                           "interact_fwd": 0, "csr_segment_scan": 0}
+ROUTED_STEP_LAUNCHES = {"csr_gather_sum": 2, "gather_rows": 4,
+                        "gather_rows_t": 8, "transposed_local_permute": 16,
+                        "csr_segment_sum3": 4, "interact_fwd_absorb": 2,
+                        "interact_bwd_absorb": 2, "row_local_permute": 0,
+                        "gather_roles": 0, "interact_fwd": 0,
+                        "interact_bwd": 0, "csr_segment_scan": 0}
+# the first layer's node update, its sum by K8: the bag, the layer's
+# gather and K5, the two inverse chains' first steps, then K8
+ROUTED_SCAN_LAUNCHES = {"csr_gather_sum": 1, "gather_rows": 1,
+                        "gather_rows_t": 2, "transposed_local_permute": 4,
+                        "interact_fwd_absorb": 1, "csr_segment_scan": 1,
+                        "csr_segment_sum3": 0}
+# the routed path against the direct one at full width: features (a
+# node's rows summed in another order) and the step-0 loss
+ROUTED_FEATURE_ATOL, ROUTED_LOSS_RTOL = 1e-4, 1e-4
+
+
+def run_routed_scan(torch, dev, cfg, graph_cpu, qw, qc):
+    """Phase ``routed_scan``: the first layer's routed node-update stream
+    (the interaction's σ-ordered output and the q and i inverse chains'
+    first steps, 3 e_pad rows) summed by K8, which must equal the layer's
+    own K1 three-region sum bit for bit."""
+    from ihgnn_torch.models.embedding import make_word_bag
+    from ihgnn_torch.models.rawgnn import RawGnn
+    from ihgnn_torch.ops.hyperagg import make_hyper_ops
+    from ihgnn_torch.ops.permute import transposed_local_permute
+    from ihgnn_torch.ops.segscan import csr_segment_scan
+    from ihgnn_torch.ops.segsum import csr_segment_sum3
+
+    model = RawGnn(cfg, U, Q, I, VOCAB,
+                   generator=torch.Generator().manual_seed(0)).to(dev)
+    graph = graph_cpu.to(dev)
+    kp = graph.kp
+    bag = make_word_bag(qw, qc, VOCAB + 1).to(dev)
+    gather, _ = make_hyper_ops(graph, absorb=True)
+    layer = model.gnns[0]
+    torch.cuda.synchronize()
+    _zero_launches()
+    with torch.no_grad():
+        x = layer.feature_transform(model.embeddings.all_features(bag))
+        o1, o2 = layer.interactor(gather(x), absorb=kp)
+        rq = transposed_local_permute(o1.view(kp.rows, kp.cols, -1),
+                                      kp.q.p1_inv, pre=True)
+        ri = transposed_local_permute(o2.view(kp.rows, kp.cols, -1),
+                                      kp.i.p1_inv, pre=True)
+        stream = torch.cat([o1, rq.view(kp.e_pad, -1), ri.view(kp.e_pad, -1)])
+        scan = csr_segment_scan(stream, kp.scan)
+        torch.cuda.synchronize()
+        launches = _read_launches("routed_scan", ("csr_segment_scan",))
+        _check_counts("routed_scan", launches, ROUTED_SCAN_LAUNCHES, 1)
+        k1 = csr_segment_sum3(*stream.view(3, kp.e_pad, -1), kp.seg_col,
+                              kp.seg_rowptr)
+    equal = torch.equal(scan, k1)
+    emit({"phase": "routed_scan", "stream_rows": stream.shape[0],
+          "nodes": kp.node_count, "equal_to_k1": equal,
+          "max_abs_diff": (scan - k1).abs().max().item(),
+          "finite": bool(torch.isfinite(scan).all().item()),
+          "launches": launches})
+    if not equal:
+        fail("routed_scan: K8 and K1 disagree on the node-update stream")
+    return launches
+
+
+def check_small_routed(torch, dev):
+    """Phase ``small_routed_reference``: the routed path on a small packed
+    graph (E = 300 on a 16384-slot grid, so most σ positions are pads),
+    card against CPU as in phase 9, for the default model, HGCN and IHGNN
+    with phase 2; returns the card's launches (two card runs a case)."""
+    from ihgnn_torch.config import ModelConfig, V
+
+    s = SMALL
+    graph, uqi = random_graph(s["users"], s["queries"], s["items"],
+                              s["edges"], 40, pack_kernels=True)
+    qw, qc = random_words(s["queries"], s["vocab"], 41)
+    cases = {"ihgnn": ModelConfig(), "hgcn": ModelConfig(gnn=V.HGCN),
+             "phase2": ModelConfig(phase2_attention=True)}
+    failed = []
+    _zero_launches()
+    for j, (case, cfg) in enumerate(cases.items()):
+        row, ok = train_card_vs_cpu(torch, dev, cfg, graph, uqi, qw, qc,
+                                    50 + 10 * j)
+        emit({"phase": "small_routed_reference", "case": case, **row})
+        if not ok:
+            failed.append(case)
+    if failed:
+        fail(f"card and CPU disagree on the small routed cases {failed}")
+    # HGCN and phase 2 run the chains without the absorbed interaction:
+    # the i role's stage 2 and phase 2's relabelling to edge order
+    return _read_launches("small_routed_reference",
+                          ROUTED_TRAIN + ("row_local_permute", "interact_fwd",
+                                          "interact_bwd"))
+
+
 KERNELS = {
     "csr_gather_sum": ("ihgnn_torch/csrc/segsum.cu",
                        "ihgnn_tpu/ops/pallas/segsum.py:403"),
@@ -869,6 +1193,23 @@ KERNELS = {
     # and the XLA multiply-reduce of the attention's per-entry dots
     "csr_edge_dot": ("ihgnn_torch/csrc/edgedot.cu",
                      "ihgnn_tpu/ops/gatconv.py:256"),
+    # the routed path
+    "gather_rows": ("ihgnn_torch/csrc/gather.cu",
+                    "ihgnn_tpu/ops/pallas/gather.py:188"),
+    "gather_rows_t": ("ihgnn_torch/csrc/gather.cu",
+                      "ihgnn_tpu/ops/pallas/gather.py:374"),
+    "csr_segment_sum3": ("ihgnn_torch/csrc/segsum.cu",
+                         "ihgnn_tpu/ops/pallas/segsum.py:403"),
+    "row_local_permute": ("ihgnn_torch/csrc/permute.cu",
+                          "ihgnn_tpu/ops/pallas/permute.py:114"),
+    "transposed_local_permute": ("ihgnn_torch/csrc/permute.cu",
+                                 "ihgnn_tpu/ops/pallas/permute.py:289"),
+    "interact_fwd_absorb": ("ihgnn_torch/csrc/interact.cu",
+                            "ihgnn_tpu/ops/pallas/interact.py:397"),
+    "interact_bwd_absorb": ("ihgnn_torch/csrc/interact_bwd.cu",
+                            "ihgnn_tpu/ops/pallas/interact.py:422"),
+    "csr_segment_scan": ("ihgnn_torch/csrc/segscan.cu",
+                         "ihgnn_tpu/ops/pallas/segscan.py:294"),
 }
 
 
@@ -893,21 +1234,34 @@ def main() -> int:
     emit({"phase": "device", "name": name, "nvidia_smi": smi.stdout.strip(),
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
+    from ihgnn_torch.ops import native
     t0 = time.perf_counter()
     libs = _build.build()
+    native.load()        # g++: the routed pack's router
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": [str(p.relative_to(_build.PACKAGE.parent))
-                        for p in libs.values()]})
+                        for p in (*libs.values(), native.library_path())]})
 
     t0 = time.perf_counter()
     graph_cpu, uqi = random_graph(U, Q, I, E, seed=0)
+    direct_s = time.perf_counter() - t0
     qw, qc = random_words(Q, VOCAB, seed=1)
     from ihgnn_torch.config import ModelConfig, V
-    from ihgnn_torch.graph import build_graph2d
+    from ihgnn_torch.graph import build_graph2d, build_hypergraph
     from ihgnn_torch.models.embedding import make_word_bag
     graph = graph_cpu.to(dev)
     bag = make_word_bag(qw, qc, VOCAB + 1).to(dev)
     hyper_s = time.perf_counter() - t0
+    # the same interactions with the routed pack
+    t0 = time.perf_counter()
+    routed_cpu = build_hypergraph(uqi, U + Q + I, U, Q, pack_kernels=True)
+    routed_s = time.perf_counter() - t0
+    kp = routed_cpu.kp
+    emit({"phase": "routed_data", "build_s": routed_s,
+          "unpacked_build_s": direct_s, "pack_s": routed_s - direct_s,
+          "grid": [kp.rows, kp.cols], "e_pad": kp.e_pad,
+          "sigma_pads": kp.e_pad - kp.edge_count,
+          "node_update_entries": int(kp.seg_col.numel())})
     # the uqi 2D graph of the same interactions, flags 1
     t0 = time.perf_counter()
     graph2d_cpu = build_graph2d(np.column_stack([uqi, np.ones(len(uqi),
@@ -925,25 +1279,56 @@ def main() -> int:
 
     with torch.no_grad():
         checks = check_kernels(torch, dev, graph, bag, graph2d)
+        check_routed_kernels(torch, dev, kp.to(dev), checks)
     torch.cuda.synchronize()
     del graph, graph2d, bag
     ihgnn, gat = ModelConfig(), ModelConfig(gnn=V.GAT)
     launches = {}
-    launches["serving"], *serving = run_serving(
+    launches["serving"], serving, direct_metrics = run_serving(
         torch, dev, ihgnn, graph_cpu, qw, qc, "serving", IHGNN_SERVING)
     profile_serving(torch, *serving)
+    direct_features = serving[2].cpu()
     check_small(torch, dev)
     del serving
-    launches["train"], warm_step = run_train(
+    launches["train"], warm_step, direct_losses = run_train(
         torch, dev, ihgnn, graph_cpu, uqi, qw, qc, "train", IHGNN_TRAIN)
     emit(profile_window(torch, "one warm train step", warm_step))
     del warm_step
     check_small_train(torch, dev)
-    launches["gat_serving"], *serving = run_serving(
+
+    # the routed path: same interactions, weights and batches
+    launches["routed_serving"], serving, routed_metrics = run_serving(
+        torch, dev, ihgnn, routed_cpu, qw, qc, "routed_serving",
+        ROUTED_SERVING, ROUTED_FORWARD_LAUNCHES)
+    feature_err = (serving[2].cpu() - direct_features).abs().max().item()
+    del serving, direct_features
+    launches["routed_scan"] = run_routed_scan(torch, dev, ihgnn, routed_cpu,
+                                              qw, qc)
+    launches["routed_train"], warm_step, routed_losses = run_train(
+        torch, dev, ihgnn, routed_cpu, uqi, qw, qc, "routed_train",
+        ROUTED_TRAIN, ROUTED_STEP_LAUNCHES)
+    emit(profile_window(torch, "one warm routed train step", warm_step))
+    del warm_step
+    loss_err = abs(routed_losses[0] - direct_losses[0]) / abs(direct_losses[0])
+    emit({"phase": "routed_vs_direct", "features_max_abs_err": feature_err,
+          "features_atol": ROUTED_FEATURE_ATOL,
+          "metrics_routed": routed_metrics, "metrics_direct": direct_metrics,
+          "step0_loss_routed": routed_losses[0],
+          "step0_loss_direct": direct_losses[0],
+          "step0_loss_rel_err": loss_err, "loss_rtol": ROUTED_LOSS_RTOL})
+    if not feature_err <= ROUTED_FEATURE_ATOL:
+        fail(f"routed features differ from the direct path's by {feature_err}")
+    if routed_metrics != direct_metrics:
+        fail(f"routed metrics {routed_metrics} != direct {direct_metrics}")
+    if not loss_err <= ROUTED_LOSS_RTOL:
+        fail(f"routed step-0 loss differs from the direct one by {loss_err}")
+    launches["small_routed_reference"] = check_small_routed(torch, dev)
+
+    launches["gat_serving"], serving, _ = run_serving(
         torch, dev, gat, graph2d_cpu, qw, qc, "gat_serving", GAT_SERVING,
         GAT_FORWARD_LAUNCHES)
     del serving
-    launches["gat_train"], warm_step = run_train(
+    launches["gat_train"], warm_step, _ = run_train(
         torch, dev, gat, graph2d_cpu, uqi, qw, qc, "gat_train", GAT_TRAIN,
         GAT_STEP_LAUNCHES)
     emit(profile_window(torch, "one warm GAT train step", warm_step))
@@ -954,6 +1339,8 @@ def main() -> int:
     for kname, (source, replaces) in KERNELS.items():
         main_row, *others = checks[kname]
         by_path = {path: counts[kname] for path, counts in launches.items()}
+        if not any(by_path.values()):
+            fail(f"{kname} was launched on no path")
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),

@@ -16,12 +16,59 @@
 //
 // Layout: x [N, d] f32 row-major (d % 4 == 0, 16-byte aligned),
 // i3 [E, 3] int32, out_u/out_q/out_i [E, d] f32.
+//
+// The routed path's single-index forms, same bound and design:
+//
+//   gather_rows:   out[k, :] = x[idx[k], :]                 (k < R * C)
+//   gather_rows_t: out[c, r, :] = x[idx[r * C + c], :]      (out [C, R, d])
+//
+// They replace windowed_gather and windowed_gather_t themselves: the TPU's
+// banded expand of the role-sorted ids (u composed with the sigma order,
+// q and i with their first Clos stage). The index table holds the absolute
+// source row, so the window offsets of the TPU pack are folded in. The
+// transposed form writes in order and reads idx with a stride of C.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+
+template <bool TRANSPOSED>
+__global__ void gather_rows_kernel(const float4* __restrict__ x,
+                                   const int* __restrict__ idx,
+                                   float4* __restrict__ out, int rows,
+                                   int cols, int vecs) {
+  const long long total = static_cast<long long>(rows) * cols * vecs;
+  const long long t = static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  if (t >= total) return;
+  const int o = static_cast<int>(t / vecs);
+  const int v = static_cast<int>(t - static_cast<long long>(o) * vecs);
+  int k = o;                       // the entry of idx this output row reads
+  if (TRANSPOSED) {                // o = c * R + r  ->  k = r * C + c
+    const int c = o / rows;
+    k = (o - c * rows) * cols + c;
+  }
+  out[t] = x[static_cast<long long>(idx[k]) * vecs + v];
+}
+
+template <bool TRANSPOSED>
+int launch_gather_rows(const void* x, const void* idx, void* out, int rows,
+                       int cols, int d, void* stream) {
+  const int vecs = d / 4;
+  const long long total = static_cast<long long>(rows) * cols * vecs;
+  if (total == 0) return 0;
+  if (total / kThreads >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) /
+                                                kThreads);
+  gather_rows_kernel<TRANSPOSED><<<blocks, kThreads, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(x), static_cast<const int*>(idx),
+      static_cast<float4*>(out), rows, cols, vecs);
+  return static_cast<int>(cudaGetLastError());
+}
 
 __global__ void gather_roles_kernel(const float4* __restrict__ x,
                                     const int* __restrict__ i3,
@@ -57,4 +104,16 @@ extern "C" int ihgnn_gather_roles(const void* x, const void* i3, void* out_u,
       static_cast<float4*>(out_u), static_cast<float4*>(out_q),
       static_cast<float4*>(out_i), edges, vecs);
   return static_cast<int>(cudaGetLastError());
+}
+
+// out [R * C, d]: out[k] = x[idx[k]]
+extern "C" int ihgnn_gather_rows(const void* x, const void* idx, void* out,
+                                 int rows, int cols, int d, void* stream) {
+  return launch_gather_rows<false>(x, idx, out, rows, cols, d, stream);
+}
+
+// out [C, R, d]: out[c, r] = x[idx[r * C + c]]
+extern "C" int ihgnn_gather_rows_t(const void* x, const void* idx, void* out,
+                                   int rows, int cols, int d, void* stream) {
+  return launch_gather_rows<true>(x, idx, out, rows, cols, d, stream);
 }

@@ -21,6 +21,18 @@
 //
 // Layout: u/q/i [E, d] f32 row-major (d % 4 == 0), W [parts * d, out] f32,
 // b [out] f32, out [E, out] f32; out is one of 8, 16, 32, 64.
+//
+// ABSORB (K5, interact_fwd_absorb, interact.py:397): the routed path's
+// absorbed interaction. The edges are an [R, C] grid in sigma order and i
+// arrives one row-local stage early (t1 order); pi [R, C] int32 is that
+// stage (i's stage 2 composed with sigma) and rho = pi^-1 row-locally. The
+// kernel reads i through pi, i_sigma[r C + c] = i_t1[r C + pi[r, c]], and
+// writes o1 = out as above and a second output o2 = rho(o1), the first
+// stage of the scatter's i chain, as a scatter store
+// o2[r C + pi[r, c]] = o1[r C + c]: each position is written once. On the
+// TPU pi and rho had to nest inside the kernel's VMEM block; here each is
+// one index load an edge. The load of i and the store of o2 are whole
+// rows, so the bound is K3's plus one more [E, out] write.
 
 #include <cuda_runtime.h>
 
@@ -33,12 +45,13 @@ __host__ __device__ constexpr int parts_of() {
   return ORDER == 1 ? 3 : (ORDER == 2 ? 6 : 7);
 }
 
-template <int OUT, int ORDER>
+template <int OUT, int ORDER, bool ABSORB>
 __global__ void __launch_bounds__(kThreads)
 interact_fwd_kernel(const float* __restrict__ u, const float* __restrict__ q,
                     const float* __restrict__ it, const float* __restrict__ w,
                     const float* __restrict__ b, float* __restrict__ out,
-                    int edges, int d) {
+                    const int* __restrict__ pi, float* __restrict__ out2,
+                    int edges, int d, int cols) {
   constexpr int P = parts_of<ORDER>();
   extern __shared__ float4 smem[];
   float* ws = reinterpret_cast<float*>(smem);
@@ -53,9 +66,12 @@ interact_fwd_kernel(const float* __restrict__ u, const float* __restrict__ q,
 #pragma unroll
     for (int o = 0; o < OUT; ++o) acc[o] = 0.f;
     const size_t row = static_cast<size_t>(e) * vecs;
+    // ABSORB: the pi-permuted edge of e's grid row
+    const int e_pi = ABSORB ? e - e % cols + pi[e] : e;
     const float4* u4 = reinterpret_cast<const float4*>(u) + row;
     const float4* q4 = reinterpret_cast<const float4*>(q) + row;
-    const float4* i4 = reinterpret_cast<const float4*>(it) + row;
+    const float4* i4 = reinterpret_cast<const float4*>(it) +
+                       static_cast<size_t>(e_pi) * vecs;
     for (int k4 = 0; k4 < vecs; ++k4) {
       const float4 a = u4[k4];
       const float4 bq = q4[k4];
@@ -93,23 +109,27 @@ interact_fwd_kernel(const float* __restrict__ u, const float* __restrict__ q,
     }
     float4* o4p = reinterpret_cast<float4*>(out) +
                   static_cast<size_t>(e) * (OUT / 4);
+    float4* o4q = reinterpret_cast<float4*>(out2) +
+                  static_cast<size_t>(e_pi) * (OUT / 4);
 #pragma unroll
     for (int o4 = 0; o4 < OUT / 4; ++o4) {
-      o4p[o4] = make_float4(acc[4 * o4 + 0] + b[4 * o4 + 0],
-                            acc[4 * o4 + 1] + b[4 * o4 + 1],
-                            acc[4 * o4 + 2] + b[4 * o4 + 2],
-                            acc[4 * o4 + 3] + b[4 * o4 + 3]);
+      const float4 v = make_float4(acc[4 * o4 + 0] + b[4 * o4 + 0],
+                                   acc[4 * o4 + 1] + b[4 * o4 + 1],
+                                   acc[4 * o4 + 2] + b[4 * o4 + 2],
+                                   acc[4 * o4 + 3] + b[4 * o4 + 3]);
+      o4p[o4] = v;
+      if (ABSORB) o4q[o4] = v;
     }
   }
 }
 
-template <int OUT, int ORDER>
+template <int OUT, int ORDER, bool ABSORB>
 cudaError_t launch(const void* u, const void* q, const void* i, const void* w,
-                   const void* b, void* out, int edges, int d,
-                   cudaStream_t stream) {
+                   const void* b, void* out, const void* pi, void* out2,
+                   int edges, int d, int cols, cudaStream_t stream) {
   const size_t smem =
       static_cast<size_t>(parts_of<ORDER>()) * d * OUT * sizeof(float);
-  auto kernel = interact_fwd_kernel<OUT, ORDER>;
+  auto kernel = interact_fwd_kernel<OUT, ORDER, ABSORB>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -132,20 +152,46 @@ cudaError_t launch(const void* u, const void* q, const void* i, const void* w,
   kernel<<<blocks, kThreads, smem, stream>>>(
       static_cast<const float*>(u), static_cast<const float*>(q),
       static_cast<const float*>(i), static_cast<const float*>(w),
-      static_cast<const float*>(b), static_cast<float*>(out), edges, d);
+      static_cast<const float*>(b), static_cast<float*>(out),
+      static_cast<const int*>(pi), static_cast<float*>(out2), edges, d, cols);
   return cudaGetLastError();
 }
 
-template <int OUT>
+template <int OUT, bool ABSORB>
 cudaError_t launch_order(int order, const void* u, const void* q,
                          const void* i, const void* w, const void* b,
-                         void* out, int edges, int d, cudaStream_t stream) {
+                         void* out, const void* pi, void* out2, int edges,
+                         int d, int cols, cudaStream_t stream) {
   switch (order) {
-    case 1: return launch<OUT, 1>(u, q, i, w, b, out, edges, d, stream);
-    case 2: return launch<OUT, 2>(u, q, i, w, b, out, edges, d, stream);
-    case 3: return launch<OUT, 3>(u, q, i, w, b, out, edges, d, stream);
+    case 1: return launch<OUT, 1, ABSORB>(u, q, i, w, b, out, pi, out2, edges,
+                                          d, cols, stream);
+    case 2: return launch<OUT, 2, ABSORB>(u, q, i, w, b, out, pi, out2, edges,
+                                          d, cols, stream);
+    case 3: return launch<OUT, 3, ABSORB>(u, q, i, w, b, out, pi, out2, edges,
+                                          d, cols, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <bool ABSORB>
+int launch_out(const void* u, const void* q, const void* i, const void* w,
+               const void* b, void* out, const void* pi, void* out2,
+               int edges, int d, int out_dim, int order, int cols,
+               void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (out_dim) {
+    case 8: err = launch_order<8, ABSORB>(order, u, q, i, w, b, out, pi, out2,
+                                          edges, d, cols, s); break;
+    case 16: err = launch_order<16, ABSORB>(order, u, q, i, w, b, out, pi,
+                                            out2, edges, d, cols, s); break;
+    case 32: err = launch_order<32, ABSORB>(order, u, q, i, w, b, out, pi,
+                                            out2, edges, d, cols, s); break;
+    case 64: err = launch_order<64, ABSORB>(order, u, q, i, w, b, out, pi,
+                                            out2, edges, d, cols, s); break;
+    default: break;
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -158,14 +204,19 @@ extern "C" int ihgnn_interact_fwd(const void* u, const void* q, const void* i,
                                   const void* w, const void* b, void* out,
                                   int edges, int d, int out_dim, int order,
                                   void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  switch (out_dim) {
-    case 8: err = launch_order<8>(order, u, q, i, w, b, out, edges, d, s); break;
-    case 16: err = launch_order<16>(order, u, q, i, w, b, out, edges, d, s); break;
-    case 32: err = launch_order<32>(order, u, q, i, w, b, out, edges, d, s); break;
-    case 64: err = launch_order<64>(order, u, q, i, w, b, out, edges, d, s); break;
-    default: break;
-  }
-  return static_cast<int>(err);
+  return launch_out<false>(u, q, i, w, b, out, nullptr, nullptr, edges, d,
+                           out_dim, order, 1, stream);
+}
+
+// K5 forward: i_t1 read through pi [edges / cols, cols]; out2 = rho(out).
+extern "C" int ihgnn_interact_fwd_absorb(const void* u, const void* q,
+                                         const void* i_t1, const void* pi,
+                                         const void* w, const void* b,
+                                         void* out, void* out2, int edges,
+                                         int d, int out_dim, int order,
+                                         int cols, void* stream) {
+  if (cols <= 0 || edges % cols != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_out<true>(u, q, i_t1, w, b, out, pi, out2, edges, d, out_dim,
+                          order, cols, stream);
 }

@@ -44,6 +44,23 @@
 // cot [E, out] f32; droles [3, E, d] f32; partial [chunks, parts * d + 1,
 // out] f32 scratch; dw_ext [parts * d + 1, out] f32 (dW, then db). out is
 // one of 8, 16, 32, 64.
+//
+// ABSORB (K5, interact_bwd_absorb, interact.py:422): the backward of the
+// absorbed forward (csrc/interact.cu), for the edges of an [R, C] grid in
+// sigma order with i given in t1 order and pi [R, C] the row-local stage
+// between them (rho = pi^-1). Both kernels read i through pi (i_sigma[e] =
+// i_t1[e_pi], e_pi = r C + pi[r, c] for e = r C + c) and form the merged
+// cotangent cot[e] = (c1[e] + c2[e_pi]) * mask[e]: o2 = rho(o1), whose
+// vector-Jacobian product is the pi-gather of c2, and the mask zeroes the
+// sigma pads (copies of real rows, which must reach no gradient). The data
+// kernel reads each edge's c2 row straight into registers (staging it too
+// would halve the blocks an SM holds) and stores di for i_t1, di_t1[e_pi]
+// = di_sigma[e] (the rho-gather, a scatter store that writes each row
+// once); the param kernel stages c2 beside c1 and merges them in shared
+// memory. dW/db keep the fixed-order
+// chunk partials, so a step repeats bit for bit. On the TPU pi and rho
+// were dynamic gathers inside the VMEM block; here they are the row
+// addresses of cp.async copies.
 
 #include <cuda_runtime.h>
 
@@ -101,14 +118,24 @@ __device__ __forceinline__ void cp_async_wait() {
 // floats, so the 16-byte reads of one row by each of 8 neighbouring threads
 // fall in distinct banks. Each thread computes its edge's du/dq/di in place
 // over u/q/i, and the block stores the tile back, 16 bytes a thread.
-template <int OUT, int ORDER>
+// The pi-permuted edge of e in its grid row of `cols` edges (ABSORB).
+__device__ __forceinline__ int permuted_edge(const int* __restrict__ pi,
+                                             int e, int cols) {
+  return e - e % cols + pi[e];
+}
+
+template <int OUT, int ORDER, bool ABSORB>
 __global__ void __launch_bounds__(kDataThreads)
 interact_bwd_data_kernel(const float* __restrict__ u,
                          const float* __restrict__ q,
                          const float* __restrict__ it,
                          const float* __restrict__ w,
                          const float* __restrict__ cot,
-                         float* __restrict__ droles, int edges, int d) {
+                         const float* __restrict__ cot2,
+                         const int* __restrict__ pi,
+                         const float* __restrict__ mask,
+                         float* __restrict__ droles, int edges, int d,
+                         int cols) {
   constexpr int P = parts_of<ORDER>();
   constexpr int SC = OUT + 4;  // padded cotangent row
   constexpr int C4 = OUT / 4;
@@ -134,9 +161,15 @@ interact_bwd_data_kernel(const float* __restrict__ u,
       const int s4 = te * sd + 4 * (idx - te * v4);
       const bool in = te < rows;
       const size_t g = static_cast<size_t>(base) * d + 4 * idx;
+      size_t gi = g;
+      if (ABSORB && in) {
+        const int e = static_cast<int>(base) + te;
+        gi = static_cast<size_t>(permuted_edge(pi, e, cols)) * d +
+             4 * (idx - te * v4);
+      }
       cp_async16(us + s4, in ? u + g : u, in);
       cp_async16(qs + s4, in ? q + g : q, in);
-      cp_async16(is + s4, in ? it + g : it, in);
+      cp_async16(is + s4, in ? it + gi : it, in);
     }
     for (int idx = threadIdx.x; idx < T * C4; idx += T) {
       const int te = idx / C4;
@@ -157,6 +190,24 @@ interact_bwd_data_kernel(const float* __restrict__ u,
       c[4 * o4 + 1] = v.y;
       c[4 * o4 + 2] = v.z;
       c[4 * o4 + 3] = v.w;
+    }
+    if (ABSORB && threadIdx.x < rows) {
+      // the merged, masked cotangent: the thread's own row of cot2 at e_pi
+      // goes straight to registers (a whole 16-byte-vector row, no staging,
+      // so the tile's shared memory and the blocks an SM holds stay as
+      // without ABSORB); rows past the tile's end are zeros
+      const int e = static_cast<int>(base) + threadIdx.x;
+      const float4* c2r = reinterpret_cast<const float4*>(cot2) +
+                          static_cast<size_t>(permuted_edge(pi, e, cols)) * C4;
+      const float m = mask != nullptr ? mask[e] : 1.f;
+#pragma unroll
+      for (int o4 = 0; o4 < C4; ++o4) {
+        const float4 v = __ldg(c2r + o4);
+        c[4 * o4 + 0] = (c[4 * o4 + 0] + v.x) * m;
+        c[4 * o4 + 1] = (c[4 * o4 + 1] + v.y) * m;
+        c[4 * o4 + 2] = (c[4 * o4 + 2] + v.z) * m;
+        c[4 * o4 + 3] = (c[4 * o4 + 3] + v.w) * m;
+      }
     }
     float4* ur = reinterpret_cast<float4*>(us + threadIdx.x * sd);
     float4* qr = reinterpret_cast<float4*>(qs + threadIdx.x * sd);
@@ -216,9 +267,15 @@ interact_bwd_data_kernel(const float* __restrict__ u,
     for (int idx = threadIdx.x; idx < rows * v4; idx += T) {
       const int te = idx / v4;
       const int s4 = te * sd + 4 * (idx - te * v4);
+      long long di_at = idx;   // ABSORB: di for i_t1, at row e_pi
+      if (ABSORB) {
+        const int e = static_cast<int>(base) + te;
+        di_at = (static_cast<long long>(permuted_edge(pi, e, cols)) - base) *
+                    v4 + (idx - te * v4);
+      }
       out[idx] = *reinterpret_cast<const float4*>(us + s4);
       out[plane4 + idx] = *reinterpret_cast<const float4*>(qs + s4);
-      out[2 * plane4 + idx] = *reinterpret_cast<const float4*>(is + s4);
+      out[2 * plane4 + di_at] = *reinterpret_cast<const float4*>(is + s4);
     }
   }
 }
@@ -249,14 +306,17 @@ __device__ __forceinline__ void accumulate(const float* __restrict__ pr,
 // edges at a time, in two stages: while one tile's raw rows are used, the
 // next tile's arrive by cp.async. Thread (rg, cg) owns dW rows
 // slab_lo + rg + m * RG (m < kMaxRows) and columns 4 cg .. 4 cg + 3.
-template <int OUT, int ORDER>
+template <int OUT, int ORDER, bool ABSORB>
 __global__ void __launch_bounds__(kParamThreads)
 interact_bwd_param_kernel(const float* __restrict__ u,
                           const float* __restrict__ q,
                           const float* __restrict__ it,
                           const float* __restrict__ cot,
+                          const float* __restrict__ cot2,
+                          const int* __restrict__ pi,
+                          const float* __restrict__ mask,
                           float* __restrict__ partial, int edges, int d,
-                          int chunk_edges, int slab_rows) {
+                          int chunk_edges, int slab_rows, int cols) {
   constexpr int P = parts_of<ORDER>();
   constexpr int CG = OUT / 4;
   constexpr int RG = kParamThreads / CG;
@@ -264,8 +324,9 @@ interact_bwd_param_kernel(const float* __restrict__ u,
   const int slab_lo = blockIdx.y * slab_rows;
   const int rows = min(slab_rows, R - slab_lo);
   // per stage: u, q, i rows [kTileEdges][d] each, then cot [kTileEdges][OUT]
+  // (ABSORB: then cot2 [kTileEdges][OUT], gathered)
   const int plane = kTileEdges * d;
-  const int stage_floats = 3 * plane + kTileEdges * OUT;
+  const int stage_floats = 3 * plane + (ABSORB ? 2 : 1) * kTileEdges * OUT;
   extern __shared__ float4 smem[];
   float* stages = reinterpret_cast<float*>(smem);
   float* ps = stages + 2 * stage_floats;  // [kTileEdges][slab_rows] parts
@@ -297,9 +358,13 @@ interact_bwd_param_kernel(const float* __restrict__ u,
       const int v = idx - a * v4;
       const float* src = a == 0 ? u : (a == 1 ? q : it);
       const bool valid = 4 * v < n_e * d;
-      cp_async16(buf + a * plane + 4 * v,
-                 valid ? src + static_cast<size_t>(e0) * d + 4 * v : src,
-                 valid);
+      size_t g = static_cast<size_t>(e0) * d + 4 * v;
+      if (ABSORB && a == 2 && valid) {
+        const int te = 4 * v / d;
+        g = static_cast<size_t>(permuted_edge(pi, e0 + te, cols)) * d +
+            (4 * v - te * d);
+      }
+      cp_async16(buf + a * plane + 4 * v, valid ? src + g : src, valid);
     }
     for (int idx = threadIdx.x; idx < kTileEdges * CG;
          idx += kParamThreads) {
@@ -307,6 +372,16 @@ interact_bwd_param_kernel(const float* __restrict__ u,
       cp_async16(buf + 3 * plane + 4 * idx,
                  valid ? cot + static_cast<size_t>(e0) * OUT + 4 * idx : cot,
                  valid);
+      if (ABSORB) {
+        size_t g2 = 0;
+        if (valid) {
+          const int te = idx / CG;
+          g2 = static_cast<size_t>(permuted_edge(pi, e0 + te, cols)) * OUT +
+               4 * (idx - te * CG);
+        }
+        cp_async16(buf + 3 * plane + kTileEdges * OUT + 4 * idx, cot2 + g2,
+                   valid);
+      }
     }
     cp_async_commit();
   };
@@ -320,7 +395,19 @@ interact_bwd_param_kernel(const float* __restrict__ u,
       cp_async_wait<0>();
     }
     __syncthreads();  // tile t has landed for every thread
-    const float* buf = stages + (t & 1) * stage_floats;
+    float* buf = stages + (t & 1) * stage_floats;
+    if (ABSORB) {
+      // the merged, masked cotangent, in place over cot; read after the
+      // barrier below
+      const int e0 = e_begin + t * kTileEdges;
+      const int n_e = min(kTileEdges, e_end - e0);
+      float* c1 = buf + 3 * plane;
+      const float* c2 = c1 + kTileEdges * OUT;
+      for (int idx = threadIdx.x; idx < n_e * OUT; idx += kParamThreads) {
+        const float m = mask != nullptr ? mask[e0 + idx / OUT] : 1.f;
+        c1[idx] = (c1[idx] + c2[idx]) * m;
+      }
+    }
     for (int idx = threadIdx.x; idx < plane; idx += kParamThreads) {
       const int te = idx / d;
       const int k = idx - te * d;
@@ -406,10 +493,19 @@ cudaError_t resident_blocks(const void* kernel, int threads, size_t smem,
   return cudaSuccess;
 }
 
-template <int OUT, int ORDER>
+// ABSORB: cot2, pi, mask (or null) and cols as above; else all unused.
+struct Absorb {
+  const void* cot2;
+  const void* pi;
+  const void* mask;
+  int cols;
+};
+
+template <int OUT, int ORDER, bool ABSORB>
 cudaError_t launch(const void* u, const void* q, const void* i, const void* w,
-                   const void* cot, void* droles, void* partial, void* dw_ext,
-                   int edges, int d, int chunk_edges, cudaStream_t stream) {
+                   const void* cot, Absorb ab, void* droles, void* partial,
+                   void* dw_ext, int edges, int d, int chunk_edges,
+                   cudaStream_t stream) {
   constexpr int P = parts_of<ORDER>();
   constexpr int RG = kParamThreads / (OUT / 4);
   const int R = P * d;
@@ -428,13 +524,14 @@ cudaError_t launch(const void* u, const void* q, const void* i, const void* w,
   }
   const int slab_rows = R < RG * kMaxRows ? R : RG * kMaxRows;
   const size_t p_smem =
-      (2 * static_cast<size_t>(kTileEdges) * (3 * d + OUT) +
+      (2 * static_cast<size_t>(kTileEdges) * (3 * d + (ABSORB ? 2 : 1) *
+                                                  OUT) +
        static_cast<size_t>(kTileEdges) * slab_rows) * sizeof(float);
   if (d_smem > kSmemLimit || p_smem > kSmemLimit)
     return cudaErrorInvalidValue;
 
   // 1. data gradients
-  auto data = interact_bwd_data_kernel<OUT, ORDER>;
+  auto data = interact_bwd_data_kernel<OUT, ORDER, ABSORB>;
   cudaError_t err = cudaFuncSetAttribute(
       data, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(d_smem));
@@ -450,7 +547,9 @@ cudaError_t launch(const void* u, const void* q, const void* i, const void* w,
   data<<<blocks, threads, d_smem, stream>>>(
       static_cast<const float*>(u), static_cast<const float*>(q),
       static_cast<const float*>(i), static_cast<const float*>(w),
-      static_cast<const float*>(cot), static_cast<float*>(droles), edges, d);
+      static_cast<const float*>(cot), static_cast<const float*>(ab.cot2),
+      static_cast<const int*>(ab.pi), static_cast<const float*>(ab.mask),
+      static_cast<float*>(droles), edges, d, ab.cols);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -458,7 +557,7 @@ cudaError_t launch(const void* u, const void* q, const void* i, const void* w,
   const int slabs = (R + slab_rows - 1) / slab_rows;
   const int chunks = static_cast<int>(
       (static_cast<long long>(edges) + chunk_edges - 1) / chunk_edges);
-  auto param = interact_bwd_param_kernel<OUT, ORDER>;
+  auto param = interact_bwd_param_kernel<OUT, ORDER, ABSORB>;
   err = cudaFuncSetAttribute(param,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(p_smem));
@@ -469,7 +568,9 @@ cudaError_t launch(const void* u, const void* q, const void* i, const void* w,
   param<<<dim3(chunks, slabs), kParamThreads, p_smem, stream>>>(
       static_cast<const float*>(u), static_cast<const float*>(q),
       static_cast<const float*>(i), static_cast<const float*>(cot),
-      static_cast<float*>(partial), edges, d, chunk_edges, slab_rows);
+      static_cast<const float*>(ab.cot2), static_cast<const int*>(ab.pi),
+      static_cast<const float*>(ab.mask), static_cast<float*>(partial), edges,
+      d, chunk_edges, slab_rows, ab.cols);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -482,20 +583,51 @@ cudaError_t launch(const void* u, const void* q, const void* i, const void* w,
   return cudaGetLastError();
 }
 
-template <int OUT>
+template <int OUT, bool ABSORB>
 cudaError_t launch_order(int order, const void* u, const void* q,
                          const void* i, const void* w, const void* cot,
-                         void* droles, void* partial, void* dw_ext, int edges,
-                         int d, int chunk_edges, cudaStream_t stream) {
+                         Absorb ab, void* droles, void* partial, void* dw_ext,
+                         int edges, int d, int chunk_edges,
+                         cudaStream_t stream) {
   switch (order) {
-    case 1: return launch<OUT, 1>(u, q, i, w, cot, droles, partial, dw_ext,
-                                  edges, d, chunk_edges, stream);
-    case 2: return launch<OUT, 2>(u, q, i, w, cot, droles, partial, dw_ext,
-                                  edges, d, chunk_edges, stream);
-    case 3: return launch<OUT, 3>(u, q, i, w, cot, droles, partial, dw_ext,
-                                  edges, d, chunk_edges, stream);
+    case 1: return launch<OUT, 1, ABSORB>(u, q, i, w, cot, ab, droles,
+                                          partial, dw_ext, edges, d,
+                                          chunk_edges, stream);
+    case 2: return launch<OUT, 2, ABSORB>(u, q, i, w, cot, ab, droles,
+                                          partial, dw_ext, edges, d,
+                                          chunk_edges, stream);
+    case 3: return launch<OUT, 3, ABSORB>(u, q, i, w, cot, ab, droles,
+                                          partial, dw_ext, edges, d,
+                                          chunk_edges, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <bool ABSORB>
+int launch_out(const void* u, const void* q, const void* i, const void* w,
+               const void* cot, Absorb ab, void* droles, void* partial,
+               void* dw_ext, int edges, int d, int out_dim, int order,
+               int chunk_edges, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (edges <= 0 || chunk_edges <= 0 || chunk_edges % kTileEdges != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (out_dim) {
+    case 8: err = launch_order<8, ABSORB>(order, u, q, i, w, cot, ab, droles,
+                                          partial, dw_ext, edges, d,
+                                          chunk_edges, s); break;
+    case 16: err = launch_order<16, ABSORB>(order, u, q, i, w, cot, ab,
+                                            droles, partial, dw_ext, edges, d,
+                                            chunk_edges, s); break;
+    case 32: err = launch_order<32, ABSORB>(order, u, q, i, w, cot, ab,
+                                            droles, partial, dw_ext, edges, d,
+                                            chunk_edges, s); break;
+    case 64: err = launch_order<64, ABSORB>(order, u, q, i, w, cot, ab,
+                                            droles, partial, dw_ext, edges, d,
+                                            chunk_edges, s); break;
+    default: break;
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -509,20 +641,23 @@ extern "C" int ihgnn_interact_bwd(const void* u, const void* q, const void* i,
                                   void* partial, void* dw_ext, int edges,
                                   int d, int out_dim, int order,
                                   int chunk_edges, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (edges <= 0 || chunk_edges <= 0 || chunk_edges % kTileEdges != 0)
+  return launch_out<false>(u, q, i, w, cot, Absorb{nullptr, nullptr, nullptr,
+                                                   1},
+                           droles, partial, dw_ext, edges, d, out_dim, order,
+                           chunk_edges, stream);
+}
+
+// K5 backward: i_t1 and cot2 read through pi [edges / cols, cols], the
+// merged cotangent masked by mask [edges] (or null); droles plane 2 is di
+// for i_t1.
+extern "C" int ihgnn_interact_bwd_absorb(
+    const void* u, const void* q, const void* i_t1, const void* pi,
+    const void* w, const void* cot1, const void* cot2, const void* mask,
+    void* droles, void* partial, void* dw_ext, int edges, int d, int out_dim,
+    int order, int cols, int chunk_edges, void* stream) {
+  if (cols <= 0 || edges % cols != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaErrorInvalidValue;
-  switch (out_dim) {
-    case 8: err = launch_order<8>(order, u, q, i, w, cot, droles, partial,
-                                  dw_ext, edges, d, chunk_edges, s); break;
-    case 16: err = launch_order<16>(order, u, q, i, w, cot, droles, partial,
-                                    dw_ext, edges, d, chunk_edges, s); break;
-    case 32: err = launch_order<32>(order, u, q, i, w, cot, droles, partial,
-                                    dw_ext, edges, d, chunk_edges, s); break;
-    case 64: err = launch_order<64>(order, u, q, i, w, cot, droles, partial,
-                                    dw_ext, edges, d, chunk_edges, s); break;
-    default: break;
-  }
-  return static_cast<int>(err);
+  return launch_out<true>(u, q, i_t1, w, cot1, Absorb{cot2, pi, mask, cols},
+                          droles, partial, dw_ext, edges, d, out_dim, order,
+                          chunk_edges, stream);
 }

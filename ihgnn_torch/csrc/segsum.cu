@@ -18,6 +18,13 @@
 //
 // Layout: x [M, d] f32 row-major, col [K] int32, rowptr [S+1] int32,
 // w [K] f32 or null, out [S, d] f32.
+//
+// csr_segment_sum3 is the three-region form of csr_segment_sum3_t itself
+// (segsum.py:403): the node update of the routed path sums the [u | q | i]
+// regions of its sigma-ordered edge stream, each [e_pad, d], read through
+// three base pointers (region = column / e_pad), so the [3 e_pad, d]
+// concatenation is never written. Its CSR lists each node's stream
+// positions in stream order; sigma pads have no entry.
 
 #include <cuda_runtime.h>
 
@@ -25,7 +32,14 @@ namespace {
 
 constexpr int kWarpsPerBlock = 8;
 
-__global__ void csr_gather_sum_kernel(const float* __restrict__ x,
+// THREE: the entry rows come from three [region_rows, d] regions read
+// through their own base pointers, column c naming row c % region_rows of
+// region c / region_rows (x0, x1, x2), with no concatenated copy.
+template <bool THREE>
+__global__ void csr_gather_sum_kernel(const float* __restrict__ x0,
+                                      const float* __restrict__ x1,
+                                      const float* __restrict__ x2,
+                                      int region_rows,
                                       const int* __restrict__ col,
                                       const int* __restrict__ rowptr,
                                       const float* __restrict__ weight,
@@ -52,7 +66,15 @@ __global__ void csr_gather_sum_kernel(const float* __restrict__ x,
       for (int j = 0; j < n; ++j) {
         const int cj = __shfl_sync(0xffffffffu, c, j);
         const float wj = __shfl_sync(0xffffffffu, w, j);
-        if (f < d) acc = fmaf(wj, x[static_cast<size_t>(cj) * d + f], acc);
+        const float* row;
+        if (THREE) {
+          const int region = cj / region_rows;
+          const float* xr = region == 0 ? x0 : (region == 1 ? x1 : x2);
+          row = xr + static_cast<size_t>(cj - region * region_rows) * d;
+        } else {
+          row = x0 + static_cast<size_t>(cj) * d;
+        }
+        if (f < d) acc = fmaf(wj, row[f], acc);
       }
     }
     if (f < d) out[static_cast<size_t>(seg) * d + f] = acc;
@@ -70,10 +92,27 @@ extern "C" int ihgnn_csr_gather_sum(const void* x, const void* col,
                                     void* out, int num_segments, int d,
                                     void* stream) {
   const int blocks = (num_segments + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  csr_gather_sum_kernel<<<blocks, kWarpsPerBlock * 32, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const int*>(col),
-      static_cast<const int*>(rowptr), static_cast<const float*>(weight),
+  csr_gather_sum_kernel<false><<<blocks, kWarpsPerBlock * 32, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), nullptr, nullptr, 0,
+      static_cast<const int*>(col), static_cast<const int*>(rowptr),
+      static_cast<const float*>(weight), static_cast<float*>(out),
+      num_segments, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The three-region form: col in [0, 3 * region_rows), no weight.
+extern "C" int ihgnn_csr_segment_sum3(const void* x0, const void* x1,
+                                      const void* x2, int region_rows,
+                                      const void* col, const void* rowptr,
+                                      void* out, int num_segments, int d,
+                                      void* stream) {
+  const int blocks = (num_segments + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  csr_gather_sum_kernel<true><<<blocks, kWarpsPerBlock * 32, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x0), static_cast<const float*>(x1),
+      static_cast<const float*>(x2), region_rows,
+      static_cast<const int*>(col), static_cast<const int*>(rowptr), nullptr,
       static_cast<float*>(out), num_segments, d);
   return static_cast<int>(cudaGetLastError());
 }

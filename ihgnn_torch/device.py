@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Union
 
 import torch
@@ -27,3 +28,17 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def moved(obj, device: DeviceLike):
+    """A copy of the frozen dataclass ``obj`` with every tensor field on
+    ``device``, and every nested dataclass field moved by its own ``to``."""
+    dev = resolve_device(device)
+    changes = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, torch.Tensor):
+            changes[f.name] = v.to(dev)
+        elif dataclasses.is_dataclass(v):
+            changes[f.name] = v.to(dev)
+    return dataclasses.replace(obj, **changes)

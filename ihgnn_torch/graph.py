@@ -1,11 +1,12 @@
 """Graph packing: interactions → sorted index tensors and the CSRs the
 kernels read.
 
-Counterpart of ``ihgnn_tpu/graph.py`` without the TPU kernel packs
-(reference: Helpers/Graph.py). Node ids are grouped
-[users | queries | items]: query ids are offset by ``user_count`` and item
-ids by ``user_count + query_count``. Zero-degree vertices get degree 1e-8
-(Helpers/Graph.py:68,120,175).
+Counterpart of ``ihgnn_tpu/graph.py`` (reference: Helpers/Graph.py); of
+its TPU kernel packs only the hypergraph's routed pack is ported
+(``ops/packing.py``, ``build_hypergraph(pack_kernels=True)``). Node ids
+are grouped [users | queries | items]: query ids are offset by
+``user_count`` and item ids by ``user_count + query_count``. Zero-degree
+vertices get degree 1e-8 (Helpers/Graph.py:68,120,175).
 
 * ``HyperGraph`` — one hyperedge per positive (u, q, i) interaction
   (Helpers/Graph.py:84-134). The node update H·E is a CSR gather-sum over
@@ -39,22 +40,10 @@ import numpy as np
 import torch
 
 from ihgnn_torch.config import V
-from ihgnn_torch.device import DeviceLike, resolve_device
+from ihgnn_torch.device import DeviceLike, moved
+from ihgnn_torch.ops.packing import HyperKernelPack, build_hyper_kernel_pack
 
 DEGREE_FLOOR = 1e-8   # Helpers/Graph.py:120 — zero-degree vertices
-
-
-def _moved(obj, dev: torch.device):
-    """A copy of the frozen dataclass ``obj`` with every tensor field (and
-    every nested ``AttentionCSR``) on ``dev``."""
-    changes = {}
-    for f in dataclasses.fields(obj):
-        v = getattr(obj, f.name)
-        if isinstance(v, torch.Tensor):
-            changes[f.name] = v.to(dev)
-        elif isinstance(v, AttentionCSR):
-            changes[f.name] = _moved(v, dev)
-    return dataclasses.replace(obj, **changes)
 
 
 def _rowptr(sorted_ids: np.ndarray, segments: int) -> np.ndarray:
@@ -93,7 +82,7 @@ class AttentionCSR:
         return self.src.shape[0]
 
     def to(self, device: DeviceLike) -> "AttentionCSR":
-        return _moved(self, resolve_device(device))
+        return moved(self, device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,9 +101,11 @@ class HyperGraph:
     phase2: AttentionCSR    # edge node N + e → its three member nodes
     node_count: int
     edge_count: int
+    # the routed pack (ops/packing.py), or None: the direct path
+    kp: Optional[HyperKernelPack] = None
 
     def to(self, device: DeviceLike) -> "HyperGraph":
-        return _moved(self, resolve_device(device))
+        return moved(self, device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,7 +123,7 @@ class Graph2D:
     nnz: int
 
     def to(self, device: DeviceLike) -> "Graph2D":
-        return _moved(self, resolve_device(device))
+        return moved(self, device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,7 +142,7 @@ class LogHyperGraph:
     edge_count: int
 
     def to(self, device: DeviceLike) -> "LogHyperGraph":
-        return _moved(self, resolve_device(device))
+        return moved(self, device)
 
 
 AnyGraph = Union[HyperGraph, Graph2D, LogHyperGraph]
@@ -206,13 +197,21 @@ def _check_ids(uqi: np.ndarray, user_count: int, query_count: int,
 
 
 def build_hypergraph(uqi: np.ndarray, node_count: int, user_count: int,
-                     query_count: int) -> HyperGraph:
+                     query_count: int,
+                     pack_kernels: bool = False) -> HyperGraph:
     """Pack positive interactions ``[P, >=3]`` of (u, q, i[, flag]) columns
     into a CPU ``HyperGraph``; the caller filters out flag <= 0.
 
     Edges are numbered in user-sorted order (stable), as
     ``ihgnn_tpu.graph.build_hypergraph`` numbers them, so edge ``e`` is the
-    same edge in both packages."""
+    same edge in both packages.
+
+    ``pack_kernels`` also builds the routed pack ``kp``
+    (``ops/packing.py``), and the layers then run the TPU's σ-ordered
+    pipeline of expands, Clos permutes and the absorbed interaction
+    (``ops/hyperagg.py``). The default here is False, the direct path of
+    one indexed gather and CSR sums, which is the faster one on the card;
+    the JAX package's default is True."""
     uqi = np.asarray(uqi)
     _check_ids(uqi, user_count, query_count,
                node_count - user_count - query_count)
@@ -248,6 +247,8 @@ def build_hypergraph(uqi: np.ndarray, node_count: int, user_count: int,
         phase2=phase2,
         node_count=int(node_count),
         edge_count=int(e_count),
+        kp=(build_hyper_kernel_pack(i3, node_count)
+            if pack_kernels and e_count else None),
     )
 
 

@@ -9,8 +9,10 @@ Counterpart of ``ihgnn_tpu/models/interaction.py`` ``FeatureInteractor``
 
 The projection runs in K3 through ``InteractFn`` (``ops/interact.py``):
 ``interact_fwd`` forward, ``interact_bwd`` backward; neither writes a part
-to memory. The parameters are one Linear named ``aggregation``, as in the
-JAX package's ``aggregation/dense`` tree.
+to memory. On a routed pack the IHGNN layer asks for the absorbed form
+(``interaction.py:81-107,135-138``): K5 through ``InteractAbsorbFn``, the
+i rows in t1 order and two outputs. The parameters are one Linear named
+``aggregation``, as in the JAX package's ``aggregation/dense`` tree.
 """
 
 from __future__ import annotations
@@ -21,7 +23,9 @@ import torch
 from torch import nn
 
 from ihgnn_torch.models.common import TorchDense
-from ihgnn_torch.ops.interact import ORDER_PARTS, InteractFn
+from ihgnn_torch.ops.interact import (ORDER_PARTS, InteractAbsorbFn,
+                                      InteractFn)
+from ihgnn_torch.ops.packing import HyperKernelPack
 
 
 class FeatureInteractor(nn.Module):
@@ -35,8 +39,16 @@ class FeatureInteractor(nn.Module):
         self.aggregation = TorchDense(ORDER_PARTS[max_order] * feature_dim,
                                       output_dim, generator=generator)
 
-    def forward(self, roles: torch.Tensor) -> torch.Tensor:
-        """``[3, E, d]`` (u, q, i) role rows in edge order → ``[E, out]``."""
+    def forward(self, roles: torch.Tensor,
+                absorb: Optional[HyperKernelPack] = None):
+        """``[3, E, d]`` (u, q, i) role rows in edge order → ``[E, out]``.
+
+        ``absorb``: the routed pack whose σ-ordered rows ``roles`` holds,
+        with the i rows in t1 order; returns the absorbed interaction's
+        ``(o1, o2)``, o1 in σ order and o2 = ρ(o1)."""
         agg = self.aggregation
-        return InteractFn.apply(roles, agg.weight.t().contiguous(), agg.bias,
-                                self.max_order)
+        w = agg.weight.t().contiguous()
+        if absorb is not None:
+            return InteractAbsorbFn.apply(roles, w, agg.bias, absorb.i.p2,
+                                          absorb.sig_mask, self.max_order)
+        return InteractFn.apply(roles, w, agg.bias, self.max_order)

@@ -16,6 +16,13 @@ on the card.
 * ``IHGNNLayer`` — X' = X·W; E = FeatureInteractor(X'[u], X'[q], X'[i]);
   out = Dv⁻¹ · H · E, or with phase-2 attention a GAT over the bipartite
   graph edge node → member node on ``[X' | E]`` (GnnLayers.py:200-236).
+
+On a hypergraph with a routed pack (``graph.kp``) HGCN and IHGNN take the
+routed path (``ops/hyperagg.py``): the edge rows are in σ order, and
+IHGNN without phase 2 absorbs the i role's last stage into its
+interaction (``ihgnn_tpu/models/layers.py:215-238``; the TPU's table and
+block gates of ``absorb_i_ok`` do not apply here). Phase 2 puts the edge
+rows back in edge order before the attention (``:254-262``).
 """
 
 from __future__ import annotations
@@ -33,7 +40,7 @@ from ihgnn_torch.models.initializers import xavier_uniform_
 from ihgnn_torch.models.interaction import FeatureInteractor
 from ihgnn_torch.ops.gatconv import LEAKY_SLOPE, gat_conv
 from ihgnn_torch.ops.hyperagg import (make_hyper_ops, make_log_ops,
-                                      make_spmm_op)
+                                      make_spmm_op, sigma_to_edge_order)
 
 # torch.nn.init.calculate_gain('leaky_relu') at the default slope
 LEAKY_RELU_GAIN = math.sqrt(2.0 / (1.0 + LEAKY_SLOPE ** 2))
@@ -134,10 +141,14 @@ class IHGNNLayer(nn.Module):
             self.phase2_gat = GatCore(out_dim, gat_head, generator=generator)
 
     def forward(self, x: torch.Tensor, graph: HyperGraph) -> torch.Tensor:
-        gather, scatter = make_hyper_ops(graph)
+        kp = graph.kp
+        absorb = kp is not None and not self.phase2_attention
+        gather, scatter = make_hyper_ops(graph, absorb=absorb)
         x = self.feature_transform(x)
-        edge = self.interactor(gather(x))
+        edge = self.interactor(gather(x), absorb=kp if absorb else None)
         if self.phase2_attention:
+            if kp is not None:
+                edge = sigma_to_edge_order(edge, kp)
             # GAT from edge node N + e to its member nodes over
             # [x' | edge], keeping the node rows; no / dv
             both = self.phase2_transform(torch.cat([x, edge], dim=0))

@@ -19,6 +19,19 @@
   ``GatConvFn``.
 * ``bag``      — the word-bag mean, as ``BagMeanFn``.
 
+The routed path (a ``HyperGraph`` built with ``pack_kernels=True``):
+
+* ``packing``  — the routed pack ``HyperKernelPack``: expand indices, Clos
+  stage tables, the node sums' ids with their CSR and K8's scan order;
+* ``benes`` / ``native`` — the Clos router: the NumPy oracle and the g++
+  build of ``csrc/routing.cc``;
+* ``permute``  — K6/K7 ``row_local_permute`` and
+  ``transposed_local_permute`` (``pick_grid``, the routed grid);
+* ``segscan``  — K8 ``csr_segment_scan`` and its pack;
+* ``gather``, ``segsum``, ``interact`` also hold K2's single-index forms,
+  K1's three-region form and K5, the absorbed interaction
+  (``InteractAbsorbFn``); ``hyperagg`` the routed chains' Functions.
+
 Each wrapper runs its plain twin on CPU tensors and its CUDA kernel on CUDA
 tensors, and counts its kernel launches in ``<wrapper>.launches``. The
 ``*Fn`` classes are ``torch.autograd.Function``s whose forward and backward

@@ -27,7 +27,7 @@ PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "build"
 SOURCES = ("segsum", "gather", "interact", "interact_bwd", "segmax",
-           "edgedot")
+           "edgedot", "permute", "segscan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -137,8 +137,10 @@ def use_kernel(what: str, *tensors) -> bool:
     CUDA call with grad mode on and an input that requires grad: a kernel's
     output has no ``grad_fn``, so the gradient would be silently dropped.
     Gradients go through the autograd Functions (``InteractFn``,
-    ``GatherRolesFn``, ``SpmmFn``, ``BagMeanFn``, ``GatConvFn``), whose
-    forward and backward run with grad mode off and launch the kernels."""
+    ``GatherRolesFn``, ``SpmmFn``, ``BagMeanFn``, ``GatConvFn``, and on the
+    routed path ``RoutedGatherFn``, ``RoutedScatterFn``, ``GatherPreFn``,
+    ``Scatter2Fn``, ``SigmaToEdgeFn``, ``InteractAbsorbFn``), whose forward
+    and backward run with grad mode off and launch the kernels."""
     import torch
     devices = {t.device for t in tensors if t is not None}
     if len(devices) != 1:

@@ -11,11 +11,21 @@ copy that reads ``i3`` directly.
 Layout: ``x`` row-major ``[N, d]``, ``i3`` int32 ``[E, 3]``; the result is
 one ``[3, E, d]`` tensor (planes u, q, i, each in edge order) with ``x``'s
 dtype, so the gradient that comes back to it is one ``[3E, d]`` buffer.
+
+The routed path (``ops/hyperagg.py``) expands through the single-index
+forms, the TPU's windowed expands themselves, over a pack's absolute
+``[R, C]`` index tables:
+
+* ``gather_rows(x, idx)``   — ``[R, C, d]``, ``out[r, c] = x[idx[r, c]]``
+  (``windowed_gather``, ``gather.py:188``);
+* ``gather_rows_t(x, idx)`` — ``[C, R, d]``, ``out[c, r] = x[idx[r, c]]``
+  (``windowed_gather_t``, ``:374``: the expand and a block transpose).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -23,6 +33,8 @@ from ihgnn_torch.ops import _build
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
                                      ctypes.c_void_p]
+_ROWS_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+    ctypes.c_void_p]
 
 
 def gather_roles_plain(x: torch.Tensor, i3: torch.Tensor) -> torch.Tensor:
@@ -60,3 +72,71 @@ def gather_roles(x: torch.Tensor, i3: torch.Tensor) -> torch.Tensor:
 
 
 gather_roles.launches = 0
+
+
+def gather_rows_plain(x: torch.Tensor, idx: torch.Tensor,
+                      transposed: bool = False) -> torch.Tensor:
+    """Plain twin of ``gather_rows`` / ``gather_rows_t`` (any device)."""
+    out = x[idx.long()]
+    return out.transpose(0, 1).contiguous() if transposed else out
+
+
+def _gather_rows(what: str, name: str, x: torch.Tensor, idx: torch.Tensor,
+                 out: Optional[torch.Tensor], transposed: bool):
+    """Checks, then the CPU twin or one launch of ``name``; returns the
+    result and whether the kernel ran."""
+    if idx.dim() != 2:
+        raise ValueError(f"{what}: idx must be an [R, C] table")
+    rows, cols = idx.shape
+    shape = ((cols, rows) if transposed else (rows, cols)) + (x.shape[1],)
+    if not _build.use_kernel(what, x, idx, out):
+        y = gather_rows_plain(x, idx, transposed)
+        return (y if out is None else out.copy_(y)), False
+    _build.require(x.dim() == 2 and x.dtype == torch.float32
+                   and x.is_contiguous() and x.shape[1] % 4 == 0
+                   and x.data_ptr() % 16 == 0, what,
+                   "x must be contiguous, 16-byte aligned [N, d] f32 with "
+                   "d a multiple of 4")
+    _build.require(idx.dtype == torch.int32 and idx.is_contiguous(), what,
+                   "idx must be a contiguous int32 table")
+    if out is None:
+        out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    else:
+        _build.require(tuple(out.shape) == shape and out.dtype == x.dtype
+                       and out.is_contiguous() and out.data_ptr() % 16 == 0,
+                       what, f"out must be a contiguous, aligned {shape} f32 "
+                       "tensor")
+    fn = _build.function("gather", name, _ROWS_ARGTYPES)
+    err = fn(x.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, cols,
+             x.shape[1], _build.stream_ptr(x.device))
+    _build.check("gather", what, err)
+    return out, True
+
+
+def gather_rows(x: torch.Tensor, idx: torch.Tensor,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``[R, C, d]``: ``out[r, c] = x[idx[r, c]]`` for an int32 ``idx``
+    ``[R, C]`` of row ids of ``x`` ``[N, d]``. CPU tensors run the plain
+    twin; CUDA tensors launch ``csrc/gather.cu`` (written into ``out`` when
+    given) and count one in ``gather_rows.launches``."""
+    y, launched = _gather_rows("gather_rows", "ihgnn_gather_rows", x, idx,
+                               out, False)
+    gather_rows.launches += launched
+    return y
+
+
+gather_rows.launches = 0
+
+
+def gather_rows_t(x: torch.Tensor, idx: torch.Tensor,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``[C, R, d]``: ``out[c, r] = x[idx[r, c]]``, ``gather_rows`` written
+    transposed. CPU tensors run the plain twin; CUDA tensors launch
+    ``csrc/gather.cu`` and count one in ``gather_rows_t.launches``."""
+    y, launched = _gather_rows("gather_rows_t", "ihgnn_gather_rows_t", x, idx,
+                               out, True)
+    gather_rows_t.launches += launched
+    return y
+
+
+gather_rows_t.launches = 0

@@ -31,13 +31,17 @@ CSR, both K1. Besides the scatter it carries:
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Tuple
 
 import torch
 
 from ihgnn_torch.graph import Graph2D, HyperGraph, LogHyperGraph
-from ihgnn_torch.ops.gather import gather_roles
-from ihgnn_torch.ops.segsum import csr_gather_sum
+from ihgnn_torch.ops.gather import gather_roles, gather_rows, gather_rows_t
+from ihgnn_torch.ops.packing import HyperKernelPack, RoleTables
+from ihgnn_torch.ops.permute import (row_local_permute,
+                                     transposed_local_permute)
+from ihgnn_torch.ops.segsum import csr_gather_sum, csr_segment_sum3
 
 
 class GatherRolesFn(torch.autograd.Function):
@@ -73,15 +77,224 @@ class SpmmFn(torch.autograd.Function):
         return dx, None, None, None, None, None, None
 
 
-def make_hyper_ops(graph: HyperGraph) -> Tuple[
+# ---------------------------------------------------------------------------
+# the routed path (graph.kp): the TPU's σ-ordered kernel pipeline
+# ---------------------------------------------------------------------------
+#
+# ``ihgnn_tpu/ops/hyperagg.py:138-320,403-649`` on the routed pack
+# (``ops/packing.py``). Streams are row-major ``[e_pad, d]``, viewed as the
+# ``[R, C, d]`` grid (or ``[C, R, d]`` after a transpose). Forward chains
+# (role-sorted → σ order), one kernel each step:
+#
+#   u: gather_rows(idx)
+#   q: gather_rows_t(idx) [C, R] → transposed_local_permute(p1) [R, C]
+#   i: as q, then row_local_permute(p2) (stopped before it, "t1" order,
+#      when the absorbed interaction applies p2 itself)
+#
+# and inverse chains (σ order → the stage-0 order of the node sums' ids):
+#
+#   q: transposed_local_permute(p1_inv, pre=True)
+#   i: transposed_local_permute(p2_inv) [C, R] → transposed_local_permute(
+#      p1_inv) [R, C]; from t1 order (o2 of the absorbed interaction) the
+#      q form with i's p1_inv
+#
+# Node sums are K1's three-region form over the pack's CSR. A gather's
+# backward is the inverse chains and a node sum; a scatter's backward the
+# forward chains, summed over the roles.
+
+
+def _role_forward(x: torch.Tensor, rt: RoleTables, stop_pre_p2: bool = False,
+                  out=None) -> torch.Tensor:
+    """Role rows in σ order ``[R, C, d]`` (t1 order for the i role with
+    ``stop_pre_p2``), written into ``out`` when given."""
+    last = rt.p2 is None or stop_pre_p2
+    t0 = gather_rows_t(x, rt.idx)                            # [C, R, d]
+    t1 = transposed_local_permute(t0, rt.p1, out=out if last else None)
+    if last:
+        return t1
+    return row_local_permute(t1, rt.p2, out=out)
+
+
+def _sig_inverse(y: torch.Tensor, rt: RoleTables,
+                 from_pre: bool = False) -> torch.Tensor:
+    """σ order (t1 order with ``from_pre``) → stage-0 order, ``[R, C, d]``."""
+    if rt.p2_inv is None or from_pre:
+        return transposed_local_permute(y, rt.p1_inv, pre=True)
+    return transposed_local_permute(transposed_local_permute(y, rt.p2_inv),
+                                    rt.p1_inv)
+
+
+def _grid(t: torch.Tensor, kp: HyperKernelPack) -> torch.Tensor:
+    return t.contiguous().view(kp.rows, kp.cols, t.shape[-1])
+
+
+def _segsum_regions(u, q, i, kp: HyperKernelPack) -> torch.Tensor:
+    """``[N, d]`` f32 node sums of the ``[u | q | i]`` regions; σ pads are
+    dropped."""
+    d = u.shape[-1]
+    return csr_segment_sum3(u.reshape(-1, d), q.reshape(-1, d),
+                            i.reshape(-1, d), kp.seg_col, kp.seg_rowptr)
+
+
+def _gather_roles(x: torch.Tensor, kp: HyperKernelPack,
+                  stop_pre_p2: bool) -> torch.Tensor:
+    """``[3, e_pad, d]``: u and q in σ order, i in σ (or t1) order."""
+    x = x.contiguous()
+    roles = torch.empty(3, kp.rows, kp.cols, x.shape[1], dtype=x.dtype,
+                        device=x.device)
+    gather_rows(x, kp.u.idx, out=roles[0])
+    _role_forward(x, kp.q, out=roles[1])
+    _role_forward(x, kp.i, stop_pre_p2, out=roles[2])
+    return roles.view(3, kp.e_pad, x.shape[1])
+
+
+def _scatter_gradient(cot: torch.Tensor, kp: HyperKernelPack,
+                      stop_pre_p2: bool):
+    """The three role expansions of a node cotangent, each ``[R, C, d]``."""
+    cot = cot.contiguous()
+    return (gather_rows(cot, kp.u.idx), _role_forward(cot, kp.q),
+            _role_forward(cot, kp.i, stop_pre_p2))
+
+
+class RoutedGatherFn(torch.autograd.Function):
+    """``x [N, d]`` → ``[3, e_pad, d]`` role rows in σ order
+    (``_gather_roles_pallas``, ``hyperagg.py:403-432``); the gradient of
+    ``x`` is the inverse chains' node sum."""
+
+    @staticmethod
+    def forward(ctx, x, kp):
+        ctx.kp = kp
+        return _gather_roles(x, kp, stop_pre_p2=False)
+
+    @staticmethod
+    def backward(ctx, cot):
+        kp = ctx.kp
+        cu, cq, ci = (_grid(c, kp) for c in cot)
+        return _segsum_regions(cu, _sig_inverse(cq, kp.q),
+                               _sig_inverse(ci, kp.i), kp), None
+
+
+class RoutedScatterFn(torch.autograd.Function):
+    """``edge [e_pad, d]`` (σ order) → ``[N, d]`` f32 node sums
+    (``_scatter_pallas``, ``hyperagg.py:435-493``); the gradient of
+    ``edge`` is the sum of the three role expansions of the node
+    cotangent, zero at the σ pads (copies of real rows: they would reach
+    the interaction's dW)."""
+
+    @staticmethod
+    def forward(ctx, edge, kp):
+        ctx.kp = kp
+        g = _grid(edge, kp)
+        return _segsum_regions(g, _sig_inverse(g, kp.q),
+                               _sig_inverse(g, kp.i), kp)
+
+    @staticmethod
+    def backward(ctx, cot):
+        kp = ctx.kp
+        gu, gq, gi = _scatter_gradient(cot, kp, stop_pre_p2=False)
+        grad = (gu + gq + gi).view(kp.e_pad, -1)
+        if kp.sig_mask is not None:
+            grad = grad * kp.sig_mask[:, None]
+        return grad, None
+
+
+class GatherPreFn(torch.autograd.Function):
+    """``RoutedGatherFn`` with the i role in t1 order, for the absorbed
+    interaction (``_gather_pre_pallas``, ``hyperagg.py:556-599``); its
+    backward takes the i cotangent in t1 order."""
+
+    @staticmethod
+    def forward(ctx, x, kp):
+        ctx.kp = kp
+        return _gather_roles(x, kp, stop_pre_p2=True)
+
+    @staticmethod
+    def backward(ctx, cot):
+        kp = ctx.kp
+        cu, cq, ci = (_grid(c, kp) for c in cot)
+        return _segsum_regions(cu, _sig_inverse(cq, kp.q),
+                               _sig_inverse(ci, kp.i, from_pre=True),
+                               kp), None
+
+
+class Scatter2Fn(torch.autograd.Function):
+    """``(edge, pre_i)`` → ``[N, d]``: the node sums of the absorbed
+    interaction's two outputs, ``edge`` in σ order for the u and q regions
+    and ``pre_i`` = ρ(edge) for the i region (``_scatter2_pallas``,
+    ``hyperagg.py:602-649``). Its backward leaves the σ pads unmasked: the
+    absorbed interaction's backward masks the merged cotangent."""
+
+    @staticmethod
+    def forward(ctx, edge, pre_i, kp):
+        ctx.kp = kp
+        g = _grid(edge, kp)
+        return _segsum_regions(g, _sig_inverse(g, kp.q),
+                               _sig_inverse(_grid(pre_i, kp), kp.i,
+                                            from_pre=True), kp)
+
+    @staticmethod
+    def backward(ctx, cot):
+        kp = ctx.kp
+        gu, gq, gi = _scatter_gradient(cot, kp, stop_pre_p2=True)
+        return ((gu + gq).view(kp.e_pad, -1), gi.view(kp.e_pad, -1), None)
+
+
+class SigmaToEdgeFn(torch.autograd.Function):
+    """``edge [e_pad, d]`` in σ order → ``[E, d]`` in edge order, q's last
+    stage (``sigma_to_edge_order``, ``hyperagg.py:284-298``), for phase 2,
+    which indexes edges by id. The backward is the same permute by the
+    inverse table; the σ pads get 0."""
+
+    @staticmethod
+    def forward(ctx, edge, kp):
+        ctx.kp = kp
+        out = row_local_permute(_grid(edge, kp), kp.sig)
+        return out.view(kp.e_pad, -1)[:kp.edge_count]
+
+    @staticmethod
+    def backward(ctx, cot):
+        kp = ctx.kp
+        full = cot.new_zeros(kp.e_pad, cot.shape[1])
+        full[:kp.edge_count] = cot
+        grad = row_local_permute(_grid(full, kp), kp.sig_inv)
+        return grad.view(kp.e_pad, -1), None
+
+
+def sigma_to_edge_order(edge: torch.Tensor,
+                        kp: HyperKernelPack) -> torch.Tensor:
+    """``[E, d]``: the σ-ordered ``edge`` ``[e_pad, d]`` in edge order."""
+    return SigmaToEdgeFn.apply(edge, kp)
+
+
+def strip_kernel_packing(graph: HyperGraph) -> HyperGraph:
+    """``graph`` without its routed pack: the layers take the direct
+    path."""
+    return dataclasses.replace(graph, kp=None)
+
+
+def make_hyper_ops(graph: HyperGraph, absorb: bool = False) -> Tuple[
         Callable[[torch.Tensor], torch.Tensor],
         Callable[[torch.Tensor], torch.Tensor]]:
     """Returns ``(gather_roles, scatter_incidence)`` bound to ``graph``,
     each through its autograd Function.
 
-    ``gather_roles(x [N, d])`` is the ``[3, E, d]`` (u, q, i) endpoint rows
-    in edge order; ``scatter_incidence(edge [E, d])`` is the ``[N, d]``
-    f32 sum, per node, of the rows of the edges it belongs to."""
+    ``gather_roles(x [N, d])`` is the ``[3, E', d]`` (u, q, i) endpoint
+    rows; ``scatter_incidence(edge [E', d])`` is the ``[N, d]`` f32 sum,
+    per node, of the rows of the edges it belongs to. On the direct path
+    (``graph.kp`` None) E' = E and the rows are in edge order. With a
+    routed pack E' = e_pad and the rows are in σ order, the σ pads holding
+    copies of real rows that the scatter drops; with ``absorb`` the i rows
+    are in t1 order and the scatter takes the absorbed interaction's pair
+    ``(o1, o2)`` (``InteractAbsorbFn``)."""
+    kp = graph.kp
+    if kp is not None:
+        if absorb:
+            return (lambda x: GatherPreFn.apply(x, kp),
+                    lambda pair: Scatter2Fn.apply(pair[0], pair[1], kp))
+        return (lambda x: RoutedGatherFn.apply(x, kp),
+                lambda edge: RoutedScatterFn.apply(edge, kp))
+    if absorb:
+        raise ValueError("the absorbed interaction needs a routed pack")
 
     def gather(x: torch.Tensor) -> torch.Tensor:
         return GatherRolesFn.apply(x, graph.i3, graph.inc_slot, graph.rowptr)

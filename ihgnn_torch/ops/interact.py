@@ -203,3 +203,178 @@ class InteractFn(torch.autograd.Function):
         droles, dw, db = interact_bwd(roles[0], roles[1], roles[2], w,
                                       cot.contiguous(), ctx.order)
         return droles, dw, db, None
+
+
+# ---------------------------------------------------------------------------
+# K5: the absorbed interaction of the routed path
+# ---------------------------------------------------------------------------
+#
+# ``ihgnn_tpu/ops/pallas/interact.py`` ``interact_fwd_absorb`` (``:397``),
+# ``interact_bwd_absorb`` (``:422``) and the custom VJP
+# ``fused_interaction_absorb`` (``:591-616``). The E edges form an
+# ``[R, C]`` grid in σ order; the i role arrives one row-local stage early
+# (t1 order), and ``pi`` ``[R, C]`` is that stage (the routed pack's
+# ``i.p2``), ρ = π⁻¹ row-locally. With e = r·C + c and e_π = r·C + π[r, c]:
+#
+#   forward:  i_σ[e] = i_t1[e_π];  o1 = interact(u, q, i_σ);  o2[e_π] = o1[e]
+#             (o2 = ρ(o1), the first stage of the scatter's i chain);
+#   backward: cot[e] = (c1[e] + c2[e_π])·mask[e] (the σ pads masked);
+#             du, dq, dW, db as ``interact_bwd`` on cot; di_t1[e_π] = di_σ[e].
+#
+# On the card π is one index load an edge inside K3's kernels
+# (``csrc/interact.cu``, ``csrc/interact_bwd.cu``, ABSORB).
+
+_FWD_ABSORB_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
+    ctypes.c_void_p]
+_BWD_ABSORB_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
+    ctypes.c_void_p]
+
+
+def _permuted_edges(pi: torch.Tensor) -> torch.Tensor:
+    """``[E]`` int64 e_π = r·C + π[r, c] of every edge e = r·C + c."""
+    rows, cols = pi.shape
+    base = torch.arange(rows, device=pi.device)[:, None] * cols
+    return (base + pi.long()).reshape(-1)
+
+
+def _check_absorb(what: str, u: torch.Tensor, pi: torch.Tensor) -> None:
+    if pi.dim() != 2 or pi.numel() != u.shape[0]:
+        raise ValueError(f"{what}: pi {tuple(pi.shape)} is not an [R, C] "
+                         f"grid of the {u.shape[0]} edges")
+
+
+def interact_fwd_absorb_plain(u, q, i_t1, pi, w, b, order: int):
+    """Plain twin of ``interact_fwd_absorb`` (any device)."""
+    e_pi = _permuted_edges(pi)
+    o1 = interact_fwd_plain(u, q, i_t1[e_pi], w, b, order)
+    o2 = torch.empty_like(o1)
+    o2[e_pi] = o1
+    return o1, o2
+
+
+def interact_fwd_absorb(u: torch.Tensor, q: torch.Tensor, i_t1: torch.Tensor,
+                        pi: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                        order: int):
+    """``(o1, o2)``, each ``[E, out]``: the interaction of the σ-ordered
+    ``u``/``q`` and the t1-ordered ``i_t1`` read through ``pi``, and
+    ``o1`` permuted by ρ = π⁻¹. CPU tensors run the plain twin; CUDA
+    tensors launch ``csrc/interact.cu`` and count one in
+    ``interact_fwd_absorb.launches``."""
+    what = "interact_fwd_absorb"
+    _check_weights(what, u, w, order)
+    _check_absorb(what, u, pi)
+    if b.shape != (w.shape[1],):
+        raise ValueError(f"{what}: b {tuple(b.shape)} does not fit w "
+                         f"{tuple(w.shape)}")
+    if not _build.use_kernel(what, u, q, i_t1, pi, w, b):
+        return interact_fwd_absorb_plain(u, q, i_t1, pi, w, b, order)
+    _require_kernel_inputs(what, (u, q, i_t1, w, b), u, q, i_t1, w)
+    _build.require(pi.dtype == torch.int32 and pi.is_contiguous(), what,
+                   "pi must be a contiguous int32 table")
+    (e, d), out_dim = u.shape, w.shape[1]
+    o1 = torch.empty(e, out_dim, dtype=torch.float32, device=u.device)
+    o2 = torch.empty_like(o1)
+    if e == 0:
+        return o1, o2
+    fn = _build.function("interact", "ihgnn_interact_fwd_absorb",
+                         _FWD_ABSORB_ARGTYPES)
+    err = fn(u.data_ptr(), q.data_ptr(), i_t1.data_ptr(), pi.data_ptr(),
+             w.data_ptr(), b.data_ptr(), o1.data_ptr(), o2.data_ptr(), e, d,
+             out_dim, order, pi.shape[1], _build.stream_ptr(u.device))
+    _build.check("interact", what, err)
+    interact_fwd_absorb.launches += 1
+    return o1, o2
+
+
+interact_fwd_absorb.launches = 0
+
+
+def interact_bwd_absorb_plain(u, q, i_t1, pi, w, c1, c2, mask, order: int):
+    """Plain twin of ``interact_bwd_absorb`` (any device)."""
+    e_pi = _permuted_edges(pi)
+    cot = c1 + c2[e_pi]
+    if mask is not None:
+        cot = cot * mask[:, None]
+    droles, dw, db = interact_bwd_plain(u, q, i_t1[e_pi], w, cot, order)
+    di_t1 = torch.empty_like(droles[2])
+    di_t1[e_pi] = droles[2]
+    return torch.stack([droles[0], droles[1], di_t1]), dw, db
+
+
+def interact_bwd_absorb(u: torch.Tensor, q: torch.Tensor, i_t1: torch.Tensor,
+                        pi: torch.Tensor, w: torch.Tensor, c1: torch.Tensor,
+                        c2: torch.Tensor, mask, order: int):
+    """``(droles, dw, db)`` of ``interact_fwd_absorb`` for the cotangents
+    ``c1`` of o1 and ``c2`` of o2 (each ``[E, out]``), the merged
+    cotangent zeroed where ``mask`` ``[E]`` is 0 (None: no mask): droles
+    ``[3, E, d]`` holds du, dq (σ order) and di for ``i_t1`` (t1 order).
+    CPU tensors run the plain twin; CUDA tensors launch
+    ``csrc/interact_bwd.cu`` and count one in
+    ``interact_bwd_absorb.launches``."""
+    what = "interact_bwd_absorb"
+    _check_weights(what, u, w, order)
+    _check_absorb(what, u, pi)
+    for name, c in (("c1", c1), ("c2", c2)):
+        if c.shape != (u.shape[0], w.shape[1]):
+            raise ValueError(f"{what}: {name} {tuple(c.shape)} is not "
+                             f"[{u.shape[0]}, {w.shape[1]}]")
+    if mask is not None and mask.shape != (u.shape[0],):
+        raise ValueError(f"{what}: mask {tuple(mask.shape)} is not "
+                         f"[{u.shape[0]}]")
+    if not _build.use_kernel(what, u, q, i_t1, pi, w, c1, c2, mask):
+        return interact_bwd_absorb_plain(u, q, i_t1, pi, w, c1, c2, mask,
+                                         order)
+    _require_kernel_inputs(what, (u, q, i_t1, w, c1, c2), u, q, i_t1, w)
+    _build.require(pi.dtype == torch.int32 and pi.is_contiguous(), what,
+                   "pi must be a contiguous int32 table")
+    if mask is not None:
+        _build.require(mask.dtype == torch.float32 and mask.is_contiguous(),
+                       what, "mask must be contiguous f32")
+    (e, d), out_dim = u.shape, w.shape[1]
+    rows = w.shape[0]
+    droles = torch.empty(3, e, d, dtype=torch.float32, device=u.device)
+    dw_ext = torch.empty(rows + 1, out_dim, dtype=torch.float32,
+                         device=u.device)
+    if e == 0:
+        dw_ext.zero_()
+    else:
+        chunks = -(-e // CHUNK_EDGES)
+        partial = torch.empty(chunks, rows + 1, out_dim, dtype=torch.float32,
+                              device=u.device)
+        fn = _build.function("interact_bwd", "ihgnn_interact_bwd_absorb",
+                             _BWD_ABSORB_ARGTYPES)
+        err = fn(u.data_ptr(), q.data_ptr(), i_t1.data_ptr(), pi.data_ptr(),
+                 w.data_ptr(), c1.data_ptr(), c2.data_ptr(),
+                 None if mask is None else mask.data_ptr(), droles.data_ptr(),
+                 partial.data_ptr(), dw_ext.data_ptr(), e, d, out_dim, order,
+                 pi.shape[1], CHUNK_EDGES, _build.stream_ptr(u.device))
+        _build.check("interact_bwd", what, err)
+        interact_bwd_absorb.launches += 1
+    return droles, dw_ext[:rows], dw_ext[rows]
+
+
+interact_bwd_absorb.launches = 0
+
+
+class InteractAbsorbFn(torch.autograd.Function):
+    """``interact_fwd_absorb`` with ``interact_bwd_absorb`` as its
+    backward: the counterpart of ``fused_interaction_absorb``
+    (``ihgnn_tpu/ops/pallas/interact.py:591-616``). ``pi`` and ``mask``
+    are graph structure and get no gradient."""
+
+    @staticmethod
+    def forward(ctx, roles, w, b, pi, mask, order: int):
+        """``roles`` ``[3, E, d]`` (u and q in σ order, i in t1 order) →
+        ``(o1, o2)``."""
+        ctx.order = order
+        ctx.save_for_backward(roles, w, pi, mask)
+        return interact_fwd_absorb(roles[0], roles[1], roles[2], pi, w, b,
+                                   order)
+
+    @staticmethod
+    def backward(ctx, c1, c2):
+        roles, w, pi, mask = ctx.saved_tensors
+        droles, dw, db = interact_bwd_absorb(
+            roles[0], roles[1], roles[2], pi, w, c1.contiguous(),
+            c2.contiguous(), mask, ctx.order)
+        return droles, dw, db, None, None, None

@@ -75,3 +75,51 @@ def csr_gather_sum(x: torch.Tensor, col: torch.Tensor, rowptr: torch.Tensor,
 
 
 csr_gather_sum.launches = 0
+
+_SUM3_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] + [
+    ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+def csr_segment_sum3_plain(u: torch.Tensor, q: torch.Tensor, i: torch.Tensor,
+                           col: torch.Tensor, rowptr: torch.Tensor
+                           ) -> torch.Tensor:
+    """Plain twin of ``csr_segment_sum3`` (any device)."""
+    return csr_gather_sum_plain(torch.cat([u, q, i]), col, rowptr)
+
+
+def csr_segment_sum3(u: torch.Tensor, q: torch.Tensor, i: torch.Tensor,
+                     col: torch.Tensor, rowptr: torch.Tensor) -> torch.Tensor:
+    """``[S, d]`` CSR sum over the rows of three regions ``u``, ``q``,
+    ``i`` (each ``[M, d]``): column ``c`` reads row ``c % M`` of region
+    ``c // M``, as if from ``cat([u, q, i])``, which is never built.
+    Counterpart of ``csr_segment_sum3_t`` (``segsum.py:403``). CPU tensors
+    run the plain twin; CUDA tensors launch ``csrc/segsum.cu`` and count
+    one in ``csr_segment_sum3.launches``."""
+    what = "csr_segment_sum3"
+    if not (u.shape == q.shape == i.shape and u.dim() == 2):
+        raise ValueError(f"{what}: u, q and i must have one [M, d] shape")
+    if not _build.use_kernel(what, u, q, i, col, rowptr):
+        return csr_segment_sum3_plain(u, q, i, col, rowptr)
+    for t in (u, q, i):
+        _build.require(t.dtype == torch.float32 and t.is_contiguous(), what,
+                       "u, q and i must be contiguous f32")
+    for name, t in (("col", col), ("rowptr", rowptr)):
+        _build.require(t.dim() == 1 and t.dtype == torch.int32
+                       and t.is_contiguous(), what,
+                       f"{name} must be contiguous 1-D int32")
+    _build.require(3 * u.shape[0] < 2 ** 31, what,
+                   "3 M must fit in int32")
+    s, d = rowptr.shape[0] - 1, u.shape[1]
+    out = torch.empty(s, d, dtype=torch.float32, device=u.device)
+    if s == 0 or d == 0:
+        return out
+    fn = _build.function("segsum", "ihgnn_csr_segment_sum3", _SUM3_ARGTYPES)
+    err = fn(u.data_ptr(), q.data_ptr(), i.data_ptr(), u.shape[0],
+             col.data_ptr(), rowptr.data_ptr(), out.data_ptr(), s, d,
+             _build.stream_ptr(u.device))
+    _build.check("segsum", what, err)
+    csr_segment_sum3.launches += 1
+    return out
+
+
+csr_segment_sum3.launches = 0

@@ -10,11 +10,16 @@ repository's conftest is left out):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerances: K2 is a copy and K4 a max, both bitwise exact; K1, K3, the
+The routed path's kernels (K6/K7 permutes, K2's single-index forms, K1's
+three-region form, K5, K8) and Functions are covered at the end.
+
+Tolerances: K2, K6/K7 are copies and K4 a max, all bitwise exact; K1, K3, the
 scalar segment sum and ``csr_edge_dot`` sum in another order than the
 twins, 1e-5 absolute (K1, the scalar sum) and 1e-5 of the largest output
 (K3, ``csr_edge_dot``). ``interact_bwd``'s dW and db sum every edge in another order
-than the twin's matmuls: 1e-4 of each output's largest value. Values and
+than the twin's matmuls: 1e-4 of each output's largest value; so do K5's.
+K8 sums each segment in stream order, as K1 does over the same entries:
+bitwise equal to K1, 1e-5 of the largest run length from its twin. Values and
 gradients of a small graph on the card against the CPU: 1e-5 of each
 tensor's largest value (dW sums 400 edges of products of three normals);
 the attention score head's kernel and bias, whose gradients are sums that
@@ -33,16 +38,31 @@ from ihgnn_torch.graph import (build_attention_csr, build_graph2d,
 from ihgnn_torch.ops.bag import BagMeanFn, make_word_bag
 from ihgnn_torch.ops.edgedot import csr_edge_dot, csr_edge_dot_plain
 from ihgnn_torch.ops.gatconv import GatConvFn
-from ihgnn_torch.ops.gather import gather_roles, gather_roles_plain
-from ihgnn_torch.ops.hyperagg import make_hyper_ops, make_log_ops, make_spmm_op
+from ihgnn_torch.ops.gather import (gather_roles, gather_roles_plain,
+                                   gather_rows, gather_rows_plain,
+                                   gather_rows_t)
+from ihgnn_torch.ops.hyperagg import (make_hyper_ops, make_log_ops,
+                                      make_spmm_op, sigma_to_edge_order)
 from ihgnn_torch.ops.interact import (KERNEL_OUT_DIMS, ORDER_PARTS,
-                                      InteractFn, interact_bwd,
+                                      InteractAbsorbFn, InteractFn,
+                                      interact_bwd, interact_bwd_absorb,
+                                      interact_bwd_absorb_plain,
                                       interact_bwd_plain, interact_fwd,
+                                      interact_fwd_absorb,
+                                      interact_fwd_absorb_plain,
                                       interact_fwd_plain)
+from ihgnn_torch.ops.permute import (row_local_permute,
+                                     row_local_permute_plain,
+                                     transposed_local_permute,
+                                     transposed_local_permute_plain)
 from ihgnn_torch.ops.segmax import (EMPTY_MAX, csr_segment_max,
                                     csr_segment_max_plain, csr_segment_sum,
                                     csr_segment_sum_plain)
-from ihgnn_torch.ops.segsum import csr_gather_sum, csr_gather_sum_plain
+from ihgnn_torch.ops.segscan import BLOCK as SCAN_BLOCK
+from ihgnn_torch.ops.segscan import (csr_segment_scan, csr_segment_scan_plain,
+                                     pack_scan_inputs)
+from ihgnn_torch.ops.segsum import (csr_gather_sum, csr_gather_sum_plain,
+                                    csr_segment_sum3, csr_segment_sum3_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -512,3 +532,279 @@ def test_spmm_and_log_ops_grads_on_card_match_cpu(dev):
     cuda = _grads(dev, aggregate, x)
     assert csr_gather_sum.launches - before == 6
     _assert_grads_close(cuda, _grads(torch.device("cpu"), aggregate, x))
+
+
+# ---------------------------------------------------------------------------
+# the routed path: K6/K7 permutes, K2's single-index forms, K1's three-region
+# form, K5 (the absorbed interaction), K8 and the routed Functions
+# ---------------------------------------------------------------------------
+
+
+def _perm_table(dev, rows, cols, seed):
+    """An int32 [rows, cols] table whose rows are permutations."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.stack([torch.randperm(cols, generator=g)
+                        for _ in range(rows)]).int().to(dev)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 32), (torch.float32, 4),
+                                     (torch.bfloat16, 32),
+                                     (torch.bfloat16, 8)])
+@pytest.mark.parametrize("rows,cols", [(128, 128), (256, 512)])
+def test_permute_forms(dev, dtype, d, rows, cols):
+    """The four forms, bitwise against their twins, f32 and bf16 rows."""
+    x = torch.randn(rows, cols, d, device=dev,
+                    generator=_gen(dev, rows + d)).to(dtype)
+    p = _perm_table(dev, rows, cols, 1)
+    pt = _perm_table(dev, cols, rows, 2)
+    before = (row_local_permute.launches, transposed_local_permute.launches)
+    got = [row_local_permute(x, p), transposed_local_permute(x),
+           transposed_local_permute(x, p),
+           transposed_local_permute(x, pt, pre=True)]
+    torch.cuda.synchronize()
+    assert (row_local_permute.launches - before[0],
+            transposed_local_permute.launches - before[1]) == (1, 3)
+    want = [row_local_permute_plain(x, p),
+            transposed_local_permute_plain(x),
+            transposed_local_permute_plain(x, p),
+            transposed_local_permute_plain(x, pt, pre=True)]
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.equal(a, b)
+    # the pre form is a transpose, then the transposed permute
+    assert torch.equal(got[3], transposed_local_permute(
+        transposed_local_permute(x), pt))
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+def test_gather_rows(dev, transposed):
+    g = _gen(dev, 11)
+    x = torch.randn(999, 32, device=dev, generator=g)
+    idx = torch.randint(0, 999, (128, 256), device=dev, generator=g).int()
+    fn = gather_rows_t if transposed else gather_rows
+    before = fn.launches
+    got = fn(x, idx)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert torch.equal(got, gather_rows_plain(x, idx, transposed))
+    out = torch.empty_like(got)
+    assert fn(x, idx, out=out) is out and torch.equal(out, got)
+
+
+def test_csr_segment_sum3(dev):
+    """Three regions through three base pointers: bitwise what K1 gives on
+    their concatenation, every 7th segment empty."""
+    col, rowptr = _csr(dev, 1000, 3 * 700, 9000, seed=12)
+    g = _gen(dev, 13)
+    u, q, i = (torch.randn(700, 32, device=dev, generator=g)
+               for _ in range(3))
+    before = csr_segment_sum3.launches
+    got = csr_segment_sum3(u, q, i, col, rowptr)
+    torch.cuda.synchronize()
+    assert csr_segment_sum3.launches == before + 1
+    torch.testing.assert_close(
+        got, csr_segment_sum3_plain(u, q, i, col, rowptr), rtol=0, atol=1e-5)
+    assert torch.equal(got, csr_gather_sum(torch.cat([u, q, i]), col, rowptr))
+
+
+def _absorb_inputs(dev, rows, cols, d, order, seed, masked):
+    g = _gen(dev, seed)
+    e = rows * cols
+    u, q, i_t1 = (torch.randn(e, d, device=dev, generator=g)
+                  for _ in range(3))
+    parts = ORDER_PARTS[order]
+    w = torch.randn(parts * d, 32, device=dev, generator=g) / (parts * d) ** .5
+    b = torch.randn(32, device=dev, generator=g)
+    c1, c2 = (torch.randn(e, 32, device=dev, generator=g) for _ in range(2))
+    mask = ((torch.rand(e, device=dev, generator=g) > 0.1).float()
+            if masked else None)
+    return u, q, i_t1, _perm_table(dev, rows, cols, seed), w, b, c1, c2, mask
+
+
+@pytest.mark.parametrize("order", [1, 2, 3])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("rows,cols,d", [(16, 128, 32), (40, 256, 16)])
+def test_interact_absorb(dev, order, masked, rows, cols, d):
+    """K5 against its twin: o1 and o2 within 1e-5, du/dq/di_t1/dW/db within
+    1e-4 of their largest values; masked σ pads reach no gradient."""
+    u, q, i_t1, pi, w, b, c1, c2, mask = _absorb_inputs(
+        dev, rows, cols, d, order, 10 * order + rows + masked, masked)
+    before = (interact_fwd_absorb.launches, interact_bwd_absorb.launches)
+    got = interact_fwd_absorb(u, q, i_t1, pi, w, b, order)
+    got_b = interact_bwd_absorb(u, q, i_t1, pi, w, c1, c2, mask, order)
+    torch.cuda.synchronize()
+    assert (interact_fwd_absorb.launches - before[0],
+            interact_bwd_absorb.launches - before[1]) == (1, 1)
+    for a, c in zip(got, interact_fwd_absorb_plain(u, q, i_t1, pi, w, b,
+                                                   order)):
+        torch.testing.assert_close(a, c, rtol=0,
+                                   atol=1e-5 * c.abs().max().item())
+    want_b = interact_bwd_absorb_plain(u, q, i_t1, pi, w, c1, c2, mask, order)
+    _assert_bwd_close(got_b, want_b)
+    if masked:
+        pads = mask == 0
+        assert (got_b[0][0][pads] == 0).all() and (got_b[0][1][pads] == 0).all()
+
+
+def test_interact_absorb_is_bitwise_repeatable(dev):
+    u, q, i_t1, pi, w, b, c1, c2, mask = _absorb_inputs(
+        dev, 256, 1024, 32, 3, 5, True)
+    a = interact_bwd_absorb(u, q, i_t1, pi, w, c1, c2, mask, 3)
+    c = interact_bwd_absorb(u, q, i_t1, pi, w, c1, c2, mask, 3)
+    for x, y in zip(a, c):
+        assert torch.equal(x, y)
+
+
+def _scan_ids(seed, k, n, shuffle=True):
+    """``tests/test_segscan.py``'s id streams: k sorted ids in [0, n),
+    shuffled within each 1024-entry block, int32-max padded."""
+    rng = np.random.default_rng(seed)
+    k_pad = -(-k // SCAN_BLOCK) * SCAN_BLOCK
+    ids = np.sort(rng.integers(0, n, size=k))
+    if shuffle:
+        for b in range(0, k - SCAN_BLOCK + 1, SCAN_BLOCK):
+            rng.shuffle(ids[b:b + SCAN_BLOCK])
+    return np.concatenate([ids, np.full(k_pad - k, 2**31 - 1, np.int64)])
+
+
+@pytest.mark.parametrize("seed,k,n,shuffle", [(0, 5000, 700, False),
+                                              (1, 5000, 700, True),
+                                              (2, 4096, 10, True),
+                                              (3, 2000, 3000, True),
+                                              (4, 300_000, 7000, True)])
+def test_csr_segment_scan(dev, seed, k, n, shuffle):
+    """K8 against its twin (1e-5), bitwise what K1 gives over the same
+    entries in stream order, and repeatable."""
+    ids = _scan_ids(seed, k, n, shuffle)
+    pack = pack_scan_inputs(ids, n).to(dev)
+    vals = torch.randn(len(ids), 32, device=dev, generator=_gen(dev, seed))
+    before = csr_segment_scan.launches
+    got = csr_segment_scan(vals, pack)
+    torch.cuda.synchronize()
+    assert csr_segment_scan.launches == before + 1
+    torch.testing.assert_close(got, csr_segment_scan_plain(vals, pack),
+                               rtol=0, atol=1e-5 * max(1.0, k / n))
+    order = np.argsort(ids, kind="stable")[:k]
+    rowptr = np.searchsorted(ids[order], np.arange(n + 1))
+    k1 = csr_gather_sum(vals, torch.from_numpy(order).int().to(dev),
+                        torch.from_numpy(rowptr).int().to(dev))
+    assert torch.equal(got, k1)
+    assert torch.equal(got, csr_segment_scan(vals, pack))
+
+
+def _routed_graph():
+    rng = np.random.default_rng(0)
+    users, queries, items, edges = 30, 20, 50, 400
+    uqi = np.stack([rng.integers(0, users, edges),
+                    rng.integers(0, queries, edges),
+                    rng.integers(0, items, edges)], axis=1)
+    return build_hypergraph(uqi, users + queries + items, users, queries,
+                            pack_kernels=True)
+
+
+_ROUTED_WRAPPERS = ("gather_rows", "gather_rows_t", "row_local_permute",
+                    "transposed_local_permute", "csr_segment_sum3",
+                    "interact_fwd", "interact_bwd", "interact_fwd_absorb",
+                    "interact_bwd_absorb")
+
+
+def _routed_launches():
+    return {name: globals()[name].launches for name in _ROUTED_WRAPPERS}
+
+
+@pytest.mark.parametrize("absorb", [False, True])
+def test_routed_functions_grads_on_card_match_cpu(dev, absorb):
+    """One routed IHGNN layer (gather, interaction, scatter; absorbed or
+    not) on the card against the CPU: values and the gradients of x, W and
+    b within 1e-5 of their largest values; the exact launches of one
+    forward and backward."""
+    graph = _routed_graph()
+    assert graph.kp.sig_mask is not None      # 400 edges, e_pad 16384
+    ops = {}
+
+    def layer(device, x, w, b):
+        if device not in ops:
+            g = graph.to(device)
+            ops[device] = (make_hyper_ops(g, absorb=absorb), g.kp)
+        (gather, scatter), kp = ops[device]
+        if absorb:
+            return scatter(InteractAbsorbFn.apply(gather(x), w, b, kp.i.p2,
+                                                  kp.sig_mask, 3))
+        return scatter(InteractFn.apply(gather(x), w, b, 3))
+
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(graph.node_count, 32, generator=g)
+    w = torch.randn(7 * 32, 32, generator=g) / 15
+    b = torch.randn(32, generator=g)
+    before = _routed_launches()
+    cuda = _grads(dev, layer, x, w, b)
+    launched = {k: v - before[k] for k, v in _routed_launches().items()}
+    if absorb:
+        want = dict(gather_rows=2, gather_rows_t=4, row_local_permute=0,
+                    transposed_local_permute=8, csr_segment_sum3=2,
+                    interact_fwd=0, interact_bwd=0, interact_fwd_absorb=1,
+                    interact_bwd_absorb=1)
+    else:
+        want = dict(gather_rows=2, gather_rows_t=4, row_local_permute=2,
+                    transposed_local_permute=10, csr_segment_sum3=2,
+                    interact_fwd=1, interact_bwd=1, interact_fwd_absorb=0,
+                    interact_bwd_absorb=0)
+    assert launched == want
+    _assert_grads_close(cuda, _grads(torch.device("cpu"), layer, x, w, b))
+
+
+def test_sigma_to_edge_order_grads_on_card_match_cpu(dev):
+    graph = _routed_graph()
+    kps = {}
+
+    def relabel(device, edge):
+        if device not in kps:
+            kps[device] = graph.kp.to(device)
+        return sigma_to_edge_order(edge, kps[device])
+
+    edge = torch.randn(graph.kp.e_pad, 32,
+                       generator=torch.Generator().manual_seed(5))
+    cuda = _grads(dev, relabel, edge)
+    cpu = _grads(torch.device("cpu"), relabel, edge)
+    for a, c in zip(cuda[0] + cuda[1], cpu[0] + cpu[1]):
+        assert torch.equal(a, c)
+
+
+def test_routed_backward_is_bitwise_repeatable(dev):
+    """The absorbed layer's backward: no atomics, so two runs agree."""
+    graph = _routed_graph().to(dev)
+    kp = graph.kp
+    gather, scatter = make_hyper_ops(graph, absorb=True)
+    g = _gen(dev, 6)
+    x = torch.randn(graph.node_count, 32, device=dev, generator=g)
+    w = torch.randn(7 * 32, 32, device=dev, generator=g) / 15
+    b = torch.randn(32, device=dev, generator=g)
+    cot = torch.randn(graph.node_count, 32, device=dev, generator=g)
+    grads = []
+    for _ in range(2):
+        xs = [t.clone().requires_grad_() for t in (x, w, b)]
+        scatter(InteractAbsorbFn.apply(gather(xs[0]), xs[1], xs[2], kp.i.p2,
+                                       kp.sig_mask, 3)).backward(cot)
+        grads.append([t.grad for t in xs])
+    for a, c in zip(*grads):
+        assert torch.equal(a, c)
+
+
+def test_routed_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x = torch.randn(128, 128, 32, device=dev)
+    p = _perm_table(dev, 128, 128, 3)
+    with pytest.raises(ValueError):                  # int64 table
+        row_local_permute(x, p.long())
+    with pytest.raises(ValueError):                  # table of another grid
+        transposed_local_permute(x, p[:64])
+    with pytest.raises(ValueError):                  # 12-byte rows
+        row_local_permute(torch.randn(128, 128, 3, device=dev), p)
+    with pytest.raises(ValueError):                  # f64 rows
+        row_local_permute(x.double(), p)
+    with pytest.raises(ValueError):                  # int64 index
+        gather_rows(x[0], p.long())
+    u = torch.randn(1000, 32, device=dev)
+    w = torch.randn(96, 32, device=dev)
+    with pytest.raises(ValueError):                  # pi not a grid of E
+        interact_fwd_absorb(u, u, u, p, w, torch.randn(32, device=dev), 1)
+    with pytest.raises(RuntimeError):                # needs a gradient
+        row_local_permute(x.requires_grad_(), p)
