@@ -90,9 +90,10 @@ SMALL_GRAD_RTOL = 1e-5
 # features of the small graph, card against CPU (as phase 6)
 SMALL_FEATURE_ATOL = 1e-4
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
-# outside the tensor cores
+# outside the tensor cores, dense TF32 FLOP/s on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 WARMUP, REPS = 3, 20
 
 
@@ -104,11 +105,14 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def bound(nbytes: float, flops: float):
-    """(bound_ms, bound_by): the larger of bytes over HBM rate and
-    operations over the f32 rate."""
+def bound(nbytes: float, flops: float, tf32_flops: float = 0.0):
+    """(bound_ms, bound_by): the larger of bytes over HBM rate and the
+    operations' time: ``flops`` over the f32 rate, and ``tf32_flops`` (the
+    FLOPs of products run on the tensor cores in 3xTF32, three TF32
+    products each) times 3 over the TF32 rate; the two pipes run side by
+    side, so the operations take the longer of the two."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = max(flops / F32_FLOPS, 3 * tf32_flops / TF32_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -218,13 +222,19 @@ def random_eval_logs(users, queries, items, count, seed):
 
 
 def record_row(torch, results, name, shape, err, tol, k_fn, p_fn, l_fn,
-               nbytes, flops, lib_err=None, **extra):
+               nbytes, flops, lib_err=None, tf32_flops=0.0, **extra):
     """Fails unless ``err <= tol``; times the kernel, its plain twin and the
     library call; emits one ``kernel_check`` row and keeps it in
-    ``results[name]``."""
+    ``results[name]``. ``flops`` run on the f32 cores and ``tf32_flops`` on
+    the tensor cores in 3xTF32 (see ``bound``)."""
     if not err <= tol:
         fail(f"{name} at {shape}: max error {err} > {tol}")
-    b_ms, b_by = bound(nbytes, flops)
+    b_ms, b_by = bound(nbytes, flops, tf32_flops)
+    if tf32_flops:
+        extra.update(bound_bytes_ms=bound(nbytes, 0)[0],
+                     bound_tf32_ms=3 * tf32_flops / TF32_FLOPS * 1e3,
+                     bound_f32_cores_ms=(flops + tf32_flops)
+                     / F32_FLOPS * 1e3)
     row = {"shape": shape, "max_abs_err": err, "tolerance": tol,
            "ms": time_ms(torch, k_fn), "plain_ms": time_ms(torch, p_fn),
            "library_ms": None if l_fn is None else time_ms(torch, l_fn),
@@ -299,21 +309,25 @@ def check_kernels(torch, dev, graph, bag, graph2d):
     del vocab, k_out, p_out, csr
 
     # K1 in the backward sums of the train step; each row has the bytes of
-    # its inputs read once and its output written once
-    def backward_sum(label, x, col, rowptr, weight, lib_fn):
+    # its inputs read once and its output written once (a fixed-width CSR,
+    # width entries a segment, reads no rowptr)
+    def backward_sum(label, x, col, rowptr, weight, lib_fn, width=None):
         s_out = rowptr.numel() - 1
-        k_out = csr_gather_sum(x, col, rowptr, weight)
+        k_out = csr_gather_sum(x, col, rowptr, weight, width=width)
         p_out = csr_gather_sum_plain(x, col, rowptr, weight)
         lib_err = (lib_fn() - p_out).abs().max().item()
         per_entry = 2 if weight is not None else 1
         record("csr_gather_sum", f"{label} [{col.numel()} entries of "
                f"[{x.shape[0]}, {D}] -> [{s_out}, {D}]]",
                (k_out - p_out).abs().max().item(), 1e-4,
-               lambda: csr_gather_sum(x, col, rowptr, weight),
+               lambda: csr_gather_sum(x, col, rowptr, weight, width=width),
                lambda: csr_gather_sum_plain(x, col, rowptr, weight), lib_fn,
-               4 * (x.numel() + col.numel() * per_entry + rowptr.numel()
-                    + s_out * D),
-               per_entry * col.numel() * D, lib_err)
+               4 * (x.numel() + col.numel() * per_entry
+                    + (0 if width else rowptr.numel()) + s_out * D),
+               per_entry * col.numel() * D, lib_err,
+               # the same sum through the CSR form, which reads rowptr
+               **({} if width is None else {"csr_form_ms": time_ms(
+                   torch, lambda: csr_gather_sum(x, col, rowptr, weight))}))
 
     # gather backward: the [3E, d] role cotangents into [N, d]
     cot3 = randn(3 * E, D)
@@ -323,14 +337,16 @@ def check_kernels(torch, dev, graph, bag, graph2d):
     backward_sum("gather backward", cot3, graph.inc_slot, rowptr, None,
                  lambda: torch.sparse.mm(csr, cot3))
     del cot3, csr
-    # scatter backward: E segments of the 3 node rows of each edge
+    # scatter backward: E segments of the 3 node rows of each edge, in K1's
+    # fixed-width form as the train step runs it
     cot_n = randn(n, D)
     i3_flat = graph.i3.view(-1)
-    i3_long = i3_flat.long()
+    csr = torch.sparse_csr_tensor(graph.edge_rowptr, i3_flat,
+                                  torch.ones(i3_flat.numel(), device=dev),
+                                  size=(E, n))
     backward_sum("scatter backward", cot_n, i3_flat, graph.edge_rowptr, None,
-                 lambda: torch.index_select(cot_n, 0, i3_long)
-                 .view(E, 3, D).sum(1))
-    del cot_n, i3_long
+                 lambda: torch.sparse.mm(csr, cot_n), width=3)
+    del cot_n, csr
     # bag backward: the word-major transpose, [Q, d] into [V+1, d]
     cot_q = randn(Q, D)
     csr = torch.sparse_csr_tensor(bag.t_rowptr, bag.t_col, bag.t_weight,
@@ -401,6 +417,8 @@ def check_kernels(torch, dev, graph, bag, graph2d):
         worst = max(errors.values(),
                     key=lambda v: v["max_abs_err"] / max(v["tolerance"],
                                                          1e-30))
+        # the two products (dparts and dW) run on the tensor cores in
+        # 3xTF32; the parts, the product rule and db on the f32 cores
         record("interact_bwd", f"order {order}, 3 x [{E}, {D}] + cot "
                f"[{E}, {D}] -> [3, {E}, {D}], dW [{parts * D}, {D}], db",
                worst["max_abs_err"], worst["tolerance"],
@@ -408,8 +426,8 @@ def check_kernels(torch, dev, graph, bag, graph2d):
                lambda: interact_bwd_plain(u, q, i, w, cot, order), None,
                4 * (3 * E * D + E * D + w.numel() + 3 * E * D + w.numel()
                     + D),
-               E * (2 * 2 * parts * D * D + D * (hadamard + product_rule)
-                    + D), errors=errors,
+               E * (D * (hadamard + product_rule) + D),
+               tf32_flops=E * 2 * 2 * parts * D * D, errors=errors,
                max_abs_err_all=max(v["max_abs_err"]
                                    for v in errors.values()))
         del k_droles, k_params, p_droles, p_params

@@ -12,33 +12,34 @@
 // with its kernels _bwd_kernel (:253) and _bwd_kernel_batchk (:80). The
 // TPU kernel carries dW/db in a VMEM accumulator across its sequential
 // grid. Blocks on the card run in no order, so one launch of the C entry
-// point runs three kernels:
+// point runs two kernels:
 //
-// 1. interact_bwd_data_kernel: one thread an edge. W is staged once per
-//    persistent block in shared memory and read as warp-wide broadcasts. A
-//    block stages a tile of up to 128 edges (u, q, i and cot rows) with
-//    coalesced loads; each thread keeps its cotangent row in registers,
-//    forms each dpart one feature at a time and folds it into du/dq/di at
-//    once (no dpart is written), in place over the staged u/q/i; the tile
-//    leaves with coalesced stores to one [3, E, d] buffer, which the
-//    gather's backward reads as [3E, d].
-// 2. interact_bwd_param_kernel: dW and db as per-chunk partials. A block
-//    owns a fixed chunk of edges (chunk_edges, chosen by the caller) and a
-//    slab of dW's rows; the chunk streams through shared memory 32 edges
-//    at a time, double-buffered with cp.async, and each thread keeps a
-//    register tile of up to 8 rows x 4 columns of dW. Partials are written
-//    to partial[chunk][parts * d + 1][out]; the last row is db.
-// 3. reduce_partials_kernel: sums the partials over chunks in chunk order.
+// 1. interact_bwd_fused_kernel: one pass over the edges. A block owns a
+//    fixed chunk of edges (chunk_edges, chosen by the caller), streams it
+//    through shared memory with cp.async, and with each staged tile forms
+//    the dparts (cot . W^T) and the product rule, storing du, dq, di, and
+//    accumulates the chunk's dW (parts^T . cot) and db. Both products run
+//    on the tensor cores in 3xTF32 (three TF32 products a product, f32
+//    accuracy). The partial goes to partial[chunk][parts * d + 1][out]; the
+//    last row is db. Details above the kernel.
+// 2. reduce_partials_kernel: sums the partials over chunks in chunk order.
 //
-// No atomics: every sum runs in a fixed order that depends only on E, so
-// the result repeats bit for bit.
+// No atomics: every sum runs in a fixed order that depends only on E and
+// chunk_edges, so the result repeats bit for bit.
 //
-// Bound on the H100: arithmetic at order 3, memory at order 1. Per edge
-// the data gradient and dW each take 2 * parts * d * out FLOPs (14,336 each
-// at order 3, d = out = 32) on the f32 CUDA cores (no tensor-core type
-// keeps f32 accuracy); the bytes are u, q, i and cot read and du, dq, di
-// written. Kernels 1 and 2 each read u, q, i and cot, so the kernel pair
-// moves 1.6 times the bytes of the bound; fusing them is later work.
+// Bound on the H100: at order 3, d = out = 32 the data gradient and dW
+// each take 2 * parts * d * out FLOPs an edge (14,336 each); on the f32
+// CUDA cores that is 0.86 ms for 2M edges, on the tensor cores in 3xTF32
+// 0.35 ms, below the bytes (u, q, i and cot read once, du, dq, di written
+// once: 0.535 ms), so the bound is memory at every order. What holds the
+// kernel above it is the work around the products: an mma.sync a TF32
+// product, three of them a 3xTF32 product, and a split of each operand
+// element by every warp that needs it, at 12 warps an SM.
+//
+// K5's absorbed backward (ABSORB below) still runs the first design: a
+// data kernel (one thread an edge, W in shared memory, f32 FMAs) and a
+// param kernel (per-chunk dW partials, cp.async tiles), each reading u, q,
+// i and cot, then the same reduction.
 //
 // Layout: u/q/i [E, d] f32 row-major (d % 4 == 0), W [parts * d, out] f32,
 // cot [E, out] f32; droles [3, E, d] f32; partial [chunks, parts * d + 1,
@@ -113,16 +114,18 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// A block stages a tile of blockDim.x edges (u, q, i and cot rows) in
-// shared memory by cp.async, 16 bytes a copy. Rows are padded by four
-// floats, so the 16-byte reads of one row by each of 8 neighbouring threads
-// fall in distinct banks. Each thread computes its edge's du/dq/di in place
-// over u/q/i, and the block stores the tile back, 16 bytes a thread.
 // The pi-permuted edge of e in its grid row of `cols` edges (ABSORB).
 __device__ __forceinline__ int permuted_edge(const int* __restrict__ pi,
                                              int e, int cols) {
   return e - e % cols + pi[e];
 }
+
+// K5's data kernel. A block stages a tile of blockDim.x edges (u, q, i and
+// cot rows) in shared memory by cp.async, 16 bytes a copy. Rows are padded
+// by four floats, so the 16-byte reads of one row by each of 8
+// neighbouring threads fall in distinct banks. Each thread computes its
+// edge's du/dq/di in place over u/q/i, and the block stores the tile back,
+// 16 bytes a thread.
 
 template <int OUT, int ORDER, bool ABSORB>
 __global__ void __launch_bounds__(kDataThreads)
@@ -302,9 +305,10 @@ __device__ __forceinline__ void accumulate(const float* __restrict__ pr,
   }
 }
 
-// grid (chunks, slabs). The block's chunk streams through shared memory 32
-// edges at a time, in two stages: while one tile's raw rows are used, the
-// next tile's arrive by cp.async. Thread (rg, cg) owns dW rows
+// K5's param kernel. grid (chunks, slabs). The block's chunk streams
+// through shared memory 32 edges at a time, in two stages: while one
+// tile's raw rows are used, the next tile's arrive by cp.async. Thread
+// (rg, cg) owns dW rows
 // slab_lo + rg + m * RG (m < kMaxRows) and columns 4 cg .. 4 cg + 3.
 template <int OUT, int ORDER, bool ABSORB>
 __global__ void __launch_bounds__(kParamThreads)
@@ -477,6 +481,352 @@ reduce_partials_kernel(const float* __restrict__ partial,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The fused backward on the tensor cores (interact_bwd)
+// ---------------------------------------------------------------------------
+
+constexpr int kFusedWarps = 4;
+constexpr int kFusedThreads = 32 * kFusedWarps;
+constexpr int kFusedTile = 32;    // edges staged at once
+
+// x = hi + lo, each a TF32 operand: hi is x rounded to 11 significant bits
+// (Veltkamp's split, c = 8193 x, hi = c - (c - x): three f32 operations on
+// the full-rate FP32 pipe, where the integer rounding of the bits would
+// take the half-rate integer pipe), lo = x - hi exactly. The tensor cores
+// read the 11 leading significant bits of lo (they ignore an operand's low
+// 13 bits), so the pair keeps x to about 2^-23 |x|. The _rn intrinsics
+// keep the compiler from fusing the steps into FMAs, which would break the
+// split.
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
+                                           unsigned& lo) {
+  const float c = __fmul_rn(x, 8193.0f);
+  const float h = __fsub_rn(c, __fsub_rn(c, x));
+  hi = __float_as_uint(h);
+  lo = __float_as_uint(__fsub_rn(x, h));
+}
+
+// c += a b for one m16n8k8 tile: a [16, 8] row-major, b [8, 8] column-major
+// (not volatile: independent products may be reordered around it)
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 3xTF32 over N accumulators that share a: c[n] += a_hi b_lo[n] + a_lo
+// b_hi[n] + a_hi b_hi[n], the small terms first. Each term is issued for
+// all N before the next, so neighbouring products are independent and
+// do not wait on each other's accumulator.
+template <int N>
+__device__ __forceinline__ void mma_3xtf32(float (&c)[N][4],
+                                           const unsigned (&ah)[4],
+                                           const unsigned (&al)[4],
+                                           const unsigned (&bh)[N][2],
+                                           const unsigned (&bl)[N][2]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(c[n], ah, bl[n][0], bl[n][1]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(c[n], al, bh[n][0], bh[n][1]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(c[n], ah, bh[n][0], bh[n][1]);
+}
+
+// Fragments of mma.m16n8k8 (tf32), for lane = 4 g + t:
+//   A [16, 8]: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+//   B [8, 8]:  b0 (t, g), b1 (t + 4, g)
+//   C [16, 8]: c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1)
+//
+// grid (chunks, slabs), kFusedThreads threads. A block owns chunk
+// blockIdx.x of chunk_edges edges and streams it through shared memory
+// kFusedTile edges at a time, double-buffered by cp.async: u, q, i rows
+// [kFusedTile][d + 8] and cot rows [kFusedTile][OUT + 8] (pads chosen so
+// that the fragment loads below meet no bank conflict). Each tile is used
+// twice while it is staged, so the inputs are read from device memory once:
+//
+// 1. dW^T [OUT, parts * d] += cot^T [OUT, T] . parts [T, parts * d]: warp w
+//    owns the features f = 32 fs + 8 w + (0..7) of slab fs and, for each
+//    part j, the rows j d + f: it forms the parts of its features in
+//    registers (make_parts on the staged u, q, i), and keeps an [OUT-slab,
+//    8] accumulator tile per part and 16 outputs in registers for the whole
+//    chunk. Slab (fs, os) covers features 32 fs .. 32 fs + 31 and outputs
+//    32 os .. 32 os + 31, so the accumulators stay at P * 2 tiles a warp
+//    for every width; the main path (d = out = 32) is one slab.
+// 2. Slab 0 only: dparts [T, parts * d] = cot [T, OUT] . W^T, W staged in
+//    shared memory once, in [16 edges, 8 features] tiles, warp w taking the
+//    feature blocks 8 w, 8 (w + 4), ...; the product rule runs on the
+//    accumulator fragments in f32, each thread holding every part's dpart at
+//    its (edge, feature) positions beside u, q, i read from the stage, and
+//    du, dq, di go from registers to the [3, E, d] buffer, 32-byte row pieces
+//    a store. No dpart leaves registers. Slab 0 also sums db.
+//
+// Both products run on the tensor cores in 3xTF32 (split_tf32): f32
+// accuracy at three TF32 products a product. At order 3, d = out = 32 the
+// two products are 2 * 2 * 7 * 32 * 32 FLOPs an edge: 3 x 57 GFLOP over 2M
+// edges at 495 TFLOP/s is 0.35 ms, under the 0.535 ms of the bytes (u, q,
+// i, cot read once, du, dq, di written once), where the f32 cores would
+// need 0.86 ms. The partial of the chunk goes to partial[chunk][parts * d +
+// 1][OUT] (the last row db) and reduce_partials_kernel sums the chunks in
+// a fixed order, so the result repeats bit for bit.
+//
+// The role rows are addressed through role_row: K5's absorbed backward
+// (interact_bwd_absorb) reads i and c2 through pi, and can take this kernel
+// by routing those two through pi there.
+template <int OUT, int ORDER>
+__global__ void __launch_bounds__(kFusedThreads)
+interact_bwd_fused_kernel(const float* __restrict__ u,
+                          const float* __restrict__ q,
+                          const float* __restrict__ it,
+                          const float* __restrict__ w,
+                          const float* __restrict__ cot,
+                          float* __restrict__ droles,
+                          float* __restrict__ partial, int edges, int d,
+                          int chunk_edges) {
+  constexpr int P = parts_of<ORDER>();
+  constexpr int T = kFusedTile;
+  constexpr int SC = OUT + 8;              // staged cot row
+  constexpr int SW = OUT <= 32 ? 36 : 68;  // staged W row
+  constexpr int MT = OUT >= 32 ? 2 : 1;    // 16-output tiles of a slab
+  constexpr int OS = (OUT + 31) / 32;      // output slabs
+  constexpr int KO = OUT / 8;              // k steps of the data product
+  const int sd = d + 8;                    // staged role row
+  const int R = P * d;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int fs = blockIdx.y / OS;
+  const int os = blockIdx.y - fs * OS;
+  const bool data = blockIdx.y == 0;
+
+  extern __shared__ float4 smem[];
+  float* ws = reinterpret_cast<float*>(smem);   // [R][SW] W
+  float* stages = ws + static_cast<size_t>(R) * SW;
+  const int stage_floats = T * (3 * sd + SC);
+
+  if (data) {
+    const int c4 = OUT / 4;
+    for (int idx = threadIdx.x; idx < R * c4; idx += kFusedThreads) {
+      const int r = idx / c4;
+      const int v = idx - r * c4;
+      reinterpret_cast<float4*>(ws + r * SW)[v] =
+          __ldg(reinterpret_cast<const float4*>(w) + idx);
+    }
+  }
+
+  const long long begin = static_cast<long long>(blockIdx.x) * chunk_edges;
+  const int e_begin = static_cast<int>(begin);
+  const int e_end = static_cast<int>(
+      begin + chunk_edges < edges ? begin + chunk_edges : edges);
+  const int tiles = (e_end - e_begin + T - 1) / T;
+  const int v4 = d >> 2;
+
+  // the row of role a (0 u, 1 q, 2 i) of edge e
+  auto role_row = [&](int a, int e) -> const float* {
+    const float* src = a == 0 ? u : (a == 1 ? q : it);
+    return src + static_cast<size_t>(e) * d;
+  };
+
+  auto issue = [&](int tile) {
+    float* buf = stages + (tile & 1) * stage_floats;
+    const int e0 = e_begin + tile * T;
+    const int n_e = min(T, e_end - e0);
+    for (int idx = threadIdx.x; idx < 3 * T * v4; idx += kFusedThreads) {
+      const int a = idx / (T * v4);
+      const int rem = idx - a * T * v4;
+      const int te = rem / v4;
+      const int v = rem - te * v4;
+      const bool valid = te < n_e;
+      cp_async16(buf + (a * T + te) * sd + 4 * v,
+                 valid ? role_row(a, e0 + te) + 4 * v : u, valid);
+    }
+    constexpr int C4 = OUT / 4;
+    for (int idx = threadIdx.x; idx < T * C4; idx += kFusedThreads) {
+      const int te = idx / C4;
+      const int v = idx - te * C4;
+      const bool valid = te < n_e;
+      cp_async16(buf + 3 * T * sd + te * SC + 4 * v,
+                 valid ? cot + static_cast<size_t>(e0 + te) * OUT + 4 * v
+                       : cot,
+                 valid);
+    }
+    cp_async_commit();
+  };
+
+  // product 1: this warp's features and accumulators
+  const int F2 = 32 * fs + 8 * warp;
+  const bool has2 = F2 < d;
+  float acc[MT][P][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < P; ++j)
+      acc[m][j][0] = acc[m][j][1] = acc[m][j][2] = acc[m][j][3] = 0.f;
+  float bacc = 0.f;
+  const size_t plane = static_cast<size_t>(edges) * d;
+
+  if (tiles > 0) issue(0);
+  for (int tile = 0; tile < tiles; ++tile) {
+    if (tile + 1 < tiles) {
+      issue(tile + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // the tile (and W) has landed for every thread
+    const float* us = stages + (tile & 1) * stage_floats;
+    const float* qs = us + T * sd;
+    const float* is = qs + T * sd;
+    const float* cs = is + T * sd;
+    const int e0 = e_begin + tile * T;
+    const int n_e = min(T, e_end - e0);
+
+    // 1. dW^T += cot^T . parts, 8 edges a k step
+    if (has2) {
+      const int f = F2 + g;
+      const bool fv = f < d;
+#pragma unroll
+      for (int ks = 0; ks < T / 8; ++ks) {
+        const int ea = 8 * ks + t;
+        const int eb = ea + 4;
+        unsigned bh[P][2], bl[P][2];
+        {
+          float pa[P], pb[P];
+          make_parts<P>(fv ? us[ea * sd + f] : 0.f,
+                        fv ? qs[ea * sd + f] : 0.f,
+                        fv ? is[ea * sd + f] : 0.f, pa);
+          make_parts<P>(fv ? us[eb * sd + f] : 0.f,
+                        fv ? qs[eb * sd + f] : 0.f,
+                        fv ? is[eb * sd + f] : 0.f, pb);
+#pragma unroll
+          for (int j = 0; j < P; ++j) {
+            split_tf32(pa[j], bh[j][0], bl[j][0]);
+            split_tf32(pb[j], bh[j][1], bl[j][1]);
+          }
+        }
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const int o = 32 * os + 16 * m + g;
+          const float x[4] = {
+              o < OUT ? cs[ea * SC + o] : 0.f,
+              o + 8 < OUT ? cs[ea * SC + o + 8] : 0.f,
+              o < OUT ? cs[eb * SC + o] : 0.f,
+              o + 8 < OUT ? cs[eb * SC + o + 8] : 0.f};
+          unsigned ah[4], al[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) split_tf32(x[k], ah[k], al[k]);
+          mma_3xtf32<P>(acc[m], ah, al, bh, bl);
+        }
+      }
+    }
+
+    // 2. the data gradient and db (slab 0)
+    if (data) {
+      for (int fb = warp; 8 * fb < d; fb += kFusedWarps) {
+        const int F1 = 8 * fb;
+        const bool bv = F1 + g < d;     // this lane's W row exists
+#pragma unroll
+        for (int mt = 0; mt < T / 16; ++mt) {
+          float dp[P][4];
+#pragma unroll
+          for (int j = 0; j < P; ++j)
+            dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+          const float* c_lo = cs + (16 * mt + g) * SC;
+          const float* c_hi = c_lo + 8 * SC;
+#pragma unroll
+          for (int kk = 0; kk < KO; ++kk) {
+            const int o = 8 * kk + t;
+            unsigned ah[4], al[4];
+            split_tf32(c_lo[o], ah[0], al[0]);
+            split_tf32(c_hi[o], ah[1], al[1]);
+            split_tf32(c_lo[o + 4], ah[2], al[2]);
+            split_tf32(c_hi[o + 4], ah[3], al[3]);
+            unsigned bh[P][2], bl[P][2];
+#pragma unroll
+            for (int j = 0; j < P; ++j) {
+              const float* wr = ws + (j * d + F1 + g) * SW;
+              split_tf32(bv ? wr[o] : 0.f, bh[j][0], bl[j][0]);
+              split_tf32(bv ? wr[o + 4] : 0.f, bh[j][1], bl[j][1]);
+            }
+            mma_3xtf32<P>(dp, ah, al, bh, bl);
+          }
+          // the product rule as _bwd_kernel writes it (interact.py:284-294),
+          // at features f, f + 1 of edges 16 mt + g and 16 mt + g + 8
+          const int f = F1 + 2 * t;
+          if (f < d) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int te = 16 * mt + g + 8 * h;
+              if (te >= n_e) continue;
+              const int at_s = te * sd + f;
+              const float2 uu = *reinterpret_cast<const float2*>(us + at_s);
+              const float2 qq = *reinterpret_cast<const float2*>(qs + at_s);
+              const float2 ii = *reinterpret_cast<const float2*>(is + at_s);
+              float gu[2], gq[2], gi[2];
+#pragma unroll
+              for (int c = 0; c < 2; ++c) {
+                const float x = c ? uu.y : uu.x;
+                const float y = c ? qq.y : qq.x;
+                const float z = c ? ii.y : ii.x;
+                float du = dp[0][2 * h + c], dq = dp[1][2 * h + c],
+                      di = dp[2][2 * h + c];
+                if constexpr (P >= 6) {
+                  du += dp[3][2 * h + c] * y + dp[5][2 * h + c] * z;
+                  dq += dp[3][2 * h + c] * x + dp[4][2 * h + c] * z;
+                  di += dp[4][2 * h + c] * y + dp[5][2 * h + c] * x;
+                }
+                if constexpr (P >= 7) {
+                  du += dp[6][2 * h + c] * (y * z);
+                  dq += dp[6][2 * h + c] * (x * z);
+                  di += dp[6][2 * h + c] * (x * y);
+                }
+                gu[c] = du;
+                gq[c] = dq;
+                gi[c] = di;
+              }
+              const size_t at = static_cast<size_t>(e0 + te) * d + f;
+              *reinterpret_cast<float2*>(droles + at) =
+                  make_float2(gu[0], gu[1]);
+              *reinterpret_cast<float2*>(droles + plane + at) =
+                  make_float2(gq[0], gq[1]);
+              *reinterpret_cast<float2*>(droles + 2 * plane + at) =
+                  make_float2(gi[0], gi[1]);
+            }
+          }
+        }
+      }
+      if (threadIdx.x < OUT) {
+        for (int te = 0; te < n_e; ++te) bacc += cs[te * SC + threadIdx.x];
+      }
+    }
+    __syncthreads();  // the stage is read before it is refilled
+  }
+
+  float* out = partial + static_cast<size_t>(blockIdx.x) * (R + 1) * OUT;
+  if (has2 && F2 + 2 * t < d) {
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const int r = j * d + F2 + 2 * t;
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const int o = 32 * os + 16 * m + g;
+        if (o < OUT) {
+          out[static_cast<size_t>(r) * OUT + o] = acc[m][j][0];
+          out[static_cast<size_t>(r + 1) * OUT + o] = acc[m][j][1];
+        }
+        if (o + 8 < OUT) {
+          out[static_cast<size_t>(r) * OUT + o + 8] = acc[m][j][2];
+          out[static_cast<size_t>(r + 1) * OUT + o + 8] = acc[m][j][3];
+        }
+      }
+    }
+  }
+  if (data && threadIdx.x < OUT)
+    out[static_cast<size_t>(R) * OUT + threadIdx.x] = bacc;
+}
+
 cudaError_t resident_blocks(const void* kernel, int threads, size_t smem,
                             long long needed, int* blocks) {
   int device = 0, sms = 0, per_sm = 0;
@@ -501,11 +851,66 @@ struct Absorb {
   int cols;
 };
 
+// out [n] = the fixed-order sum of partial [chunks, n] over chunks
+cudaError_t reduce_partials(const void* partial, void* out, int chunks,
+                            int n, cudaStream_t stream) {
+  reduce_partials_kernel<<<(n + kReduceOut - 1) / kReduceOut,
+                           kReduceOut * kReduceLanes, 0, stream>>>(
+      static_cast<const float*>(partial), static_cast<float*>(out), chunks,
+      n);
+  return cudaGetLastError();
+}
+
+int chunk_count(int edges, int chunk_edges) {
+  return static_cast<int>((static_cast<long long>(edges) + chunk_edges - 1) /
+                          chunk_edges);
+}
+
+// interact_bwd: the fused kernel, then the sum over chunks. A shape whose
+// W and two stages do not fit in one block's shared memory is refused
+// before anything is launched.
+template <int OUT, int ORDER>
+cudaError_t launch_fused(const void* u, const void* q, const void* i,
+                         const void* w, const void* cot, void* droles,
+                         void* partial, void* dw_ext, int edges, int d,
+                         int chunk_edges, cudaStream_t stream) {
+  constexpr int P = parts_of<ORDER>();
+  constexpr int SW = OUT <= 32 ? 36 : 68;
+  const int R = P * d;
+  const size_t smem =
+      (static_cast<size_t>(R) * SW +
+       2 * static_cast<size_t>(kFusedTile) * (3 * (d + 8) + OUT + 8)) *
+      sizeof(float);
+  if (smem > kSmemLimit) return cudaErrorInvalidValue;
+  auto kernel = interact_bwd_fused_kernel<OUT, ORDER>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it: the caller gets it as the return value
+    return err;
+  }
+  const int chunks = chunk_count(edges, chunk_edges);
+  const int slabs = ((d + 31) / 32) * ((OUT + 31) / 32);
+  kernel<<<dim3(chunks, slabs), kFusedThreads, smem, stream>>>(
+      static_cast<const float*>(u), static_cast<const float*>(q),
+      static_cast<const float*>(i), static_cast<const float*>(w),
+      static_cast<const float*>(cot), static_cast<float*>(droles),
+      static_cast<float*>(partial), edges, d, chunk_edges);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return reduce_partials(partial, dw_ext, chunks, (R + 1) * OUT, stream);
+}
+
 template <int OUT, int ORDER, bool ABSORB>
 cudaError_t launch(const void* u, const void* q, const void* i, const void* w,
                    const void* cot, Absorb ab, void* droles, void* partial,
                    void* dw_ext, int edges, int d, int chunk_edges,
                    cudaStream_t stream) {
+  if constexpr (!ABSORB) {
+    return launch_fused<OUT, ORDER>(u, q, i, w, cot, droles, partial, dw_ext,
+                                    edges, d, chunk_edges, stream);
+  }
   constexpr int P = parts_of<ORDER>();
   constexpr int RG = kParamThreads / (OUT / 4);
   const int R = P * d;
@@ -555,8 +960,7 @@ cudaError_t launch(const void* u, const void* q, const void* i, const void* w,
 
   // 2. dW/db partials, one per chunk of edges
   const int slabs = (R + slab_rows - 1) / slab_rows;
-  const int chunks = static_cast<int>(
-      (static_cast<long long>(edges) + chunk_edges - 1) / chunk_edges);
+  const int chunks = chunk_count(edges, chunk_edges);
   auto param = interact_bwd_param_kernel<OUT, ORDER, ABSORB>;
   err = cudaFuncSetAttribute(param,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -575,12 +979,7 @@ cudaError_t launch(const void* u, const void* q, const void* i, const void* w,
   if (err != cudaSuccess) return err;
 
   // 3. the fixed-order sum over chunks
-  const int n = (R + 1) * OUT;
-  reduce_partials_kernel<<<(n + kReduceOut - 1) / kReduceOut,
-                           kReduceOut * kReduceLanes, 0, stream>>>(
-      static_cast<const float*>(partial), static_cast<float*>(dw_ext), chunks,
-      n);
-  return cudaGetLastError();
+  return reduce_partials(partial, dw_ext, chunks, (R + 1) * OUT, stream);
 }
 
 template <int OUT, bool ABSORB>

@@ -10,11 +10,35 @@
 //
 // Bound on the H100: memory. Per entry the kernel reads one int32 id (and
 // one f32 weight) and one d-float row of x; it does d FMAs per row, far
-// below the card's 67 TFLOP/s f32 rate. At d = 32 a row is one 128-byte
-// line, so one warp per segment with one lane per feature makes each row
-// read one coalesced transaction. Lanes load 32 (col, w) pairs at once and
-// broadcast them with shuffles. The sum runs in entry order, so results
-// are deterministic and need no atomics.
+// below the card's 67 TFLOP/s f32 rate. Segments are short (3 entries in
+// the scatter's backward, about 9 in the node update, 4 in the word bag),
+// so what limits a kernel that walks them one at a time is latency: each
+// segment is a chain rowptr -> col -> rows -> store.
+//
+// Vector form (d % 4 == 0, 16-byte aligned rows; every width the model
+// uses). A segment belongs to a group of L lanes, L the least power of two
+// >= d / 4 (at most 32), each lane holding one float4 of the row: at
+// d = 32 a warp sums 4 segments at once, 8 lanes each. The warp loads the
+// rowptr entries of all its segments with one instruction, each group
+// loads up to L (col, w) pairs of its segment with one instruction and
+// hands them round with shuffles, and a lane issues the loads of up to 8
+// rows before the first FMA that needs them, so a whole short segment is
+// in flight at once. d > 128 walks the row in chunks of 128 floats.
+//
+// Sum order: every (segment, feature) sum is one f32 accumulator over the
+// segment's entries in entry order, acc = fmaf(w, x, acc) (acc += x
+// without weights, the same rounding), exactly as in the scalar form below
+// and in K8 (csrc/segscan.cu): the results repeat bit for bit and equal
+// K8's. Only the loads are reordered, never the additions. A long segment
+// (a hub node) stays with its group, which keeps 8 rows in flight and
+// leaves the warp's other groups idle once their segments end; splitting it
+// would change the sum order.
+//
+// Fixed width (width > 0): segment s spans entries [s * width, (s + 1) *
+// width) and rowptr is not read (the scatter's backward: 3 entries an edge).
+//
+// Scalar form (any other d or alignment, chosen by the wrapper from the
+// shapes): one warp a segment, one lane a feature.
 //
 // Layout: x [M, d] f32 row-major, col [K] int32, rowptr [S+1] int32,
 // w [K] f32 or null, out [S, d] f32.
@@ -31,10 +55,24 @@
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
+constexpr int kRowsInFlight = 8;   // row loads a lane issues before its FMAs
 
-// THREE: the entry rows come from three [region_rows, d] regions read
-// through their own base pointers, column c naming row c % region_rows of
-// region c / region_rows (x0, x1, x2), with no concatenated copy.
+// The row of column c: THREE reads row c % region_rows of region
+// c / region_rows (x0, x1, x2); otherwise row c of x0.
+template <bool THREE>
+__device__ __forceinline__ const float* entry_row(const float* x0,
+                                                  const float* x1,
+                                                  const float* x2,
+                                                  int region_rows, int c,
+                                                  int d) {
+  if (THREE) {
+    const int region = c / region_rows;
+    const float* xr = region == 0 ? x0 : (region == 1 ? x1 : x2);
+    return xr + static_cast<size_t>(c - region * region_rows) * d;
+  }
+  return x0 + static_cast<size_t>(c) * d;
+}
+
 template <bool THREE>
 __global__ void csr_gather_sum_kernel(const float* __restrict__ x0,
                                       const float* __restrict__ x1,
@@ -66,18 +104,174 @@ __global__ void csr_gather_sum_kernel(const float* __restrict__ x0,
       for (int j = 0; j < n; ++j) {
         const int cj = __shfl_sync(0xffffffffu, c, j);
         const float wj = __shfl_sync(0xffffffffu, w, j);
-        const float* row;
-        if (THREE) {
-          const int region = cj / region_rows;
-          const float* xr = region == 0 ? x0 : (region == 1 ? x1 : x2);
-          row = xr + static_cast<size_t>(cj - region * region_rows) * d;
-        } else {
-          row = x0 + static_cast<size_t>(cj) * d;
-        }
+        const float* row = entry_row<THREE>(x0, x1, x2, region_rows, cj, d);
         if (f < d) acc = fmaf(wj, row[f], acc);
       }
     }
     if (f < d) out[static_cast<size_t>(seg) * d + f] = acc;
+  }
+}
+
+__device__ __forceinline__ void fma4(float w, const float4& v, float4& acc) {
+  acc.x = fmaf(w, v.x, acc.x);
+  acc.y = fmaf(w, v.y, acc.y);
+  acc.z = fmaf(w, v.z, acc.z);
+  acc.w = fmaf(w, v.w, acc.w);
+}
+
+// The vector form: groups of L lanes, 32 / L segments a warp (see above).
+template <int L, bool WEIGHTED, bool THREE, bool FIXED>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+csr_gather_sum_vec_kernel(const float* __restrict__ x0,
+                          const float* __restrict__ x1,
+                          const float* __restrict__ x2, int region_rows,
+                          const int* __restrict__ col,
+                          const int* __restrict__ rowptr,
+                          const float* __restrict__ weight,
+                          float* __restrict__ out, int num_segments, int d,
+                          int width) {
+  constexpr int G = 32 / L;                          // segments a warp
+  constexpr int J = L < kRowsInFlight ? L : kRowsInFlight;
+  const int lane = threadIdx.x & 31;
+  const int grp = lane / L;
+  const int gl = lane - grp * L;
+  const long long warp = static_cast<long long>(blockIdx.x) *
+                             kWarpsPerBlock + (threadIdx.x >> 5);
+  const long long seg0 = warp * G;
+  if (seg0 >= num_segments) return;                  // uniform across the warp
+  const long long seg = seg0 + grp;
+  int begin, end;
+  if (FIXED) {
+    begin = static_cast<int>(seg * width);
+    end = seg < num_segments ? begin + width : begin;
+  } else {
+    // rowptr[seg0 .. seg0 + G] in one load, lane l holding entry l (at
+    // G = 32 the last group reads its end itself)
+    int rp = 0;
+    if (lane <= G && seg0 + lane <= num_segments)
+      rp = rowptr[seg0 + lane];
+    begin = __shfl_sync(0xffffffffu, rp, grp);
+    end = __shfl_sync(0xffffffffu, rp, (grp + 1) & 31);
+    if (seg >= num_segments)
+      end = begin;
+    else if (G == 32 && grp == 31)
+      end = rowptr[seg + 1];
+  }
+  // the group's lanes, for shuffles that stay inside it
+  const unsigned mask = L == 32 ? 0xffffffffu
+                                : ((1u << L) - 1u) << (grp * L);
+  const int v4 = d >> 2;                             // float4s a row
+  for (int c0 = 0; c0 < v4; c0 += L) {
+    const int f4 = c0 + gl;
+    const bool active = f4 < v4;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int base = begin; base < end; base += L) {
+      // up to L (col, w) pairs of the segment, one a lane
+      const int k = base + gl;
+      int c = 0;
+      float w = 1.f;
+      if (k < end) {
+        c = __ldg(col + k);
+        if (WEIGHTED) w = __ldg(weight + k);
+      }
+      const int n = min(L, end - base);
+#pragma unroll 1
+      for (int j0 = 0; j0 < n; j0 += J) {
+        float4 v[J];
+        float wj[J];
+#pragma unroll
+        for (int jj = 0; jj < J; ++jj) {
+          const int cj = __shfl_sync(mask, c, j0 + jj, L);
+          wj[jj] = WEIGHTED ? __shfl_sync(mask, w, j0 + jj, L) : 1.f;
+          v[jj] = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (active && j0 + jj < n) {
+            const float* row =
+                entry_row<THREE>(x0, x1, x2, region_rows, cj, d);
+            v[jj] = __ldg(reinterpret_cast<const float4*>(row) + f4);
+          }
+        }
+        // the FMAs in entry order
+#pragma unroll
+        for (int jj = 0; jj < J; ++jj) {
+          if (j0 + jj < n) fma4(wj[jj], v[jj], acc);
+        }
+      }
+    }
+    if (active && seg < num_segments)
+      reinterpret_cast<float4*>(out + static_cast<size_t>(seg) * d)[f4] = acc;
+  }
+}
+
+// Lanes a segment for d / 4 float4s: the least power of two >= d / 4, at
+// most 32.
+int group_lanes(int d) {
+  const int v4 = d / 4;
+  int lanes = 1;
+  while (lanes < v4 && lanes < 32) lanes *= 2;
+  return lanes;
+}
+
+template <int L, bool THREE>
+cudaError_t launch_vec_l(const float* x0, const float* x1, const float* x2,
+                         int region_rows, const int* col, const int* rowptr,
+                         const float* weight, float* out, int num_segments,
+                         int d, int width, cudaStream_t stream) {
+  constexpr int G = 32 / L;
+  const long long warps = (static_cast<long long>(num_segments) + G - 1) / G;
+  const long long blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const dim3 grid(static_cast<unsigned>(blocks));
+  const int threads = kWarpsPerBlock * 32;
+  if (THREE) {
+    csr_gather_sum_vec_kernel<L, false, true, false>
+        <<<grid, threads, 0, stream>>>(x0, x1, x2, region_rows, col, rowptr,
+                                       nullptr, out, num_segments, d, 0);
+  } else if (width > 0) {
+    if (weight != nullptr)
+      csr_gather_sum_vec_kernel<L, true, false, true>
+          <<<grid, threads, 0, stream>>>(x0, x0, x0, 0, col, rowptr, weight,
+                                         out, num_segments, d, width);
+    else
+      csr_gather_sum_vec_kernel<L, false, false, true>
+          <<<grid, threads, 0, stream>>>(x0, x0, x0, 0, col, rowptr, nullptr,
+                                         out, num_segments, d, width);
+  } else {
+    if (weight != nullptr)
+      csr_gather_sum_vec_kernel<L, true, false, false>
+          <<<grid, threads, 0, stream>>>(x0, x0, x0, 0, col, rowptr, weight,
+                                         out, num_segments, d, 0);
+    else
+      csr_gather_sum_vec_kernel<L, false, false, false>
+          <<<grid, threads, 0, stream>>>(x0, x0, x0, 0, col, rowptr, nullptr,
+                                         out, num_segments, d, 0);
+  }
+  return cudaGetLastError();
+}
+
+template <bool THREE>
+cudaError_t launch_vec(const float* x0, const float* x1, const float* x2,
+                       int region_rows, const int* col, const int* rowptr,
+                       const float* weight, float* out, int num_segments,
+                       int d, int width, cudaStream_t stream) {
+  switch (group_lanes(d)) {
+    case 1: return launch_vec_l<1, THREE>(x0, x1, x2, region_rows, col,
+                                          rowptr, weight, out, num_segments,
+                                          d, width, stream);
+    case 2: return launch_vec_l<2, THREE>(x0, x1, x2, region_rows, col,
+                                          rowptr, weight, out, num_segments,
+                                          d, width, stream);
+    case 4: return launch_vec_l<4, THREE>(x0, x1, x2, region_rows, col,
+                                          rowptr, weight, out, num_segments,
+                                          d, width, stream);
+    case 8: return launch_vec_l<8, THREE>(x0, x1, x2, region_rows, col,
+                                          rowptr, weight, out, num_segments,
+                                          d, width, stream);
+    case 16: return launch_vec_l<16, THREE>(x0, x1, x2, region_rows, col,
+                                            rowptr, weight, out, num_segments,
+                                            d, width, stream);
+    default: return launch_vec_l<32, THREE>(x0, x1, x2, region_rows, col,
+                                            rowptr, weight, out, num_segments,
+                                            d, width, stream);
   }
 }
 
@@ -87,13 +281,26 @@ extern "C" const char* ihgnn_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// vector: 1 for the vector form (the caller guarantees d % 4 == 0 and
+// 16-byte aligned x and out), 0 for the scalar form. width > 0: segments of
+// exactly width entries (vector form only; rowptr is not read).
 extern "C" int ihgnn_csr_gather_sum(const void* x, const void* col,
                                     const void* rowptr, const void* weight,
                                     void* out, int num_segments, int d,
-                                    void* stream) {
+                                    int vector, int width, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vector) {
+    if (d % 4 != 0 || width < 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const float* xf = static_cast<const float*>(x);
+    return static_cast<int>(launch_vec<false>(
+        xf, xf, xf, 0, static_cast<const int*>(col),
+        static_cast<const int*>(rowptr), static_cast<const float*>(weight),
+        static_cast<float*>(out), num_segments, d, width, s));
+  }
+  if (width != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (num_segments + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  csr_gather_sum_kernel<false><<<blocks, kWarpsPerBlock * 32, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
+  csr_gather_sum_kernel<false><<<blocks, kWarpsPerBlock * 32, 0, s>>>(
       static_cast<const float*>(x), nullptr, nullptr, 0,
       static_cast<const int*>(col), static_cast<const int*>(rowptr),
       static_cast<const float*>(weight), static_cast<float*>(out),
@@ -101,15 +308,24 @@ extern "C" int ihgnn_csr_gather_sum(const void* x, const void* col,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The three-region form: col in [0, 3 * region_rows), no weight.
+// The three-region form: col in [0, 3 * region_rows), no weight; vector as
+// above, for all three regions and out.
 extern "C" int ihgnn_csr_segment_sum3(const void* x0, const void* x1,
                                       const void* x2, int region_rows,
                                       const void* col, const void* rowptr,
                                       void* out, int num_segments, int d,
-                                      void* stream) {
+                                      int vector, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vector) {
+    if (d % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(launch_vec<true>(
+        static_cast<const float*>(x0), static_cast<const float*>(x1),
+        static_cast<const float*>(x2), region_rows,
+        static_cast<const int*>(col), static_cast<const int*>(rowptr),
+        nullptr, static_cast<float*>(out), num_segments, d, 0, s));
+  }
   const int blocks = (num_segments + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  csr_gather_sum_kernel<true><<<blocks, kWarpsPerBlock * 32, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
+  csr_gather_sum_kernel<true><<<blocks, kWarpsPerBlock * 32, 0, s>>>(
       static_cast<const float*>(x0), static_cast<const float*>(x1),
       static_cast<const float*>(x2), region_rows,
       static_cast<const int*>(col), static_cast<const int*>(rowptr), nullptr,

@@ -15,7 +15,8 @@ builds once (``graph.py``):
 * scatter — ``SpmmFn``, K1 ``csr_gather_sum`` over ``(rowptr,
   inc_edge)``: ``[E, d]`` → ``[N, d]`` = H·E, accumulated in f32.
   Backward: K1 over ``(edge_rowptr, i3.view(-1))``, ``dedge[e] =
-  cot[u_e] + cot[q_e] + cot[i_e]``.
+  cot[u_e] + cot[q_e] + cot[i_e]``, in K1's fixed-width form (3 entries
+  an edge, no ``rowptr`` read).
 
 ``SpmmFn`` is any CSR product A·x whose backward is Aᵀ·cot over Aᵀ's own
 CSR, both K1. Besides the scatter it carries:
@@ -63,18 +64,23 @@ class GatherRolesFn(torch.autograd.Function):
 class SpmmFn(torch.autograd.Function):
     """``out = A·x`` for the CSR ``A = (rowptr, col, weight)``; the
     gradient of ``x`` is ``Aᵀ·cot`` over ``Aᵀ = (t_rowptr, t_col,
-    t_weight)``. A weight of None is 1 for every entry."""
+    t_weight)``. A weight of None is 1 for every entry; ``t_width``, when
+    given, is the entry count of every row of Aᵀ (``csr_gather_sum``'s
+    ``width``)."""
 
     @staticmethod
-    def forward(ctx, x, col, rowptr, weight, t_col, t_rowptr, t_weight):
+    def forward(ctx, x, col, rowptr, weight, t_col, t_rowptr, t_weight,
+                t_width=None):
         ctx.save_for_backward(t_col, t_rowptr, t_weight)
+        ctx.t_width = t_width
         return csr_gather_sum(x.contiguous(), col, rowptr, weight)
 
     @staticmethod
     def backward(ctx, cot):
         t_col, t_rowptr, t_weight = ctx.saved_tensors
-        dx = csr_gather_sum(cot.contiguous(), t_col, t_rowptr, t_weight)
-        return dx, None, None, None, None, None, None
+        dx = csr_gather_sum(cot.contiguous(), t_col, t_rowptr, t_weight,
+                            width=ctx.t_width)
+        return dx, None, None, None, None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -301,7 +307,7 @@ def make_hyper_ops(graph: HyperGraph, absorb: bool = False) -> Tuple[
 
     def scatter(edge: torch.Tensor) -> torch.Tensor:
         return SpmmFn.apply(edge, graph.inc_edge, graph.rowptr, None,
-                            graph.i3.view(-1), graph.edge_rowptr, None)
+                            graph.i3.view(-1), graph.edge_rowptr, None, 3)
 
     return gather, scatter
 

@@ -32,9 +32,10 @@ from ihgnn_torch.ops import _build
 ORDER_PARTS = {1: 3, 2: 6, 3: 7}
 KERNEL_OUT_DIMS = (8, 16, 32, 64)     # instantiated in csrc/interact*.cu
 SMEM_LIMIT = 232_448                  # bytes of shared memory per block
-# edges summed into one dW/db partial by csrc/interact_bwd.cu; a multiple
-# of its 32-edge tile. The partials are summed in a fixed order, so the
-# result depends on E and this constant only.
+# edges summed into one dW/db partial by csrc/interact_bwd.cu (the fused
+# kernel of interact_bwd, and K5's param kernel); a multiple of their
+# 32-edge tile. The partials are summed in a fixed order, so the result
+# depends on E and this constant only.
 CHUNK_EDGES = 1024
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -147,10 +148,10 @@ def interact_bwd(u: torch.Tensor, q: torch.Tensor, i: torch.Tensor,
     """``(droles, dw, db)`` of ``interact_fwd`` for the output cotangent
     ``cot`` ``[E, out]``: droles is ``[3, E, d]`` (planes du, dq, di), dw
     ``[parts·d, out]`` and db ``[out]``. CPU tensors run the plain twin;
-    CUDA tensors launch ``csrc/interact_bwd.cu`` and count one in
-    ``interact_bwd.launches``. A shape whose W and edge tiles do not fit
-    in shared memory is refused by the C entry point, and the wrapper
-    raises."""
+    CUDA tensors launch ``csrc/interact_bwd.cu`` (its fused kernel, on the
+    tensor cores in 3xTF32) and count one in ``interact_bwd.launches``. A
+    shape whose W and edge tiles do not fit in shared memory is refused by
+    the C entry point, and the wrapper raises."""
     what = "interact_bwd"
     _check_weights(what, u, w, order)
     if cot.shape != (u.shape[0], w.shape[1]):

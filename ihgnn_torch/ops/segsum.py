@@ -15,6 +15,14 @@ Layout: ``x`` is row-major ``[M, d]`` f32, ``col`` int32 ``[K]``,
 ``rowptr`` int32 ``[S+1]``, ``w`` f32 ``[K]`` or None; the result is
 ``[S, d]`` f32. The CUDA kernel sums each segment in entry order, so it is
 deterministic.
+
+The kernel has two forms, chosen from d and the rows' alignment alone
+(``vector_form``): the vector form, for d % 4 == 0 and 16-byte aligned
+rows (every width the model uses), holds a row in float4s and sums
+several segments a warp; the scalar form, one lane a feature, takes
+anything else. Both give the same bits. ``width`` names a CSR whose segments all have that many entries
+(the scatter's backward: 3 a hyperedge), so the vector form reads no
+``rowptr``; the twin ignores it.
 """
 
 from __future__ import annotations
@@ -27,8 +35,13 @@ import torch
 from ihgnn_torch.ops import _build
 from ihgnn_torch.ops.segment import segment_ids, segment_sum
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def vector_form(d: int, *tensors: torch.Tensor) -> bool:
+    """True when K1's vector form takes rows of width ``d`` from
+    ``tensors``: d a multiple of 4 and every tensor 16-byte aligned."""
+    return d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def csr_gather_sum_plain(x: torch.Tensor, col: torch.Tensor,
@@ -43,11 +56,20 @@ def csr_gather_sum_plain(x: torch.Tensor, col: torch.Tensor,
 
 
 def csr_gather_sum(x: torch.Tensor, col: torch.Tensor, rowptr: torch.Tensor,
-                   weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   weight: Optional[torch.Tensor] = None,
+                   width: Optional[int] = None) -> torch.Tensor:
     """``[S, d]`` CSR weighted gather-sum of the rows of ``x`` (see the
-    module docstring). CPU tensors run the plain twin; CUDA tensors launch
-    ``csrc/segsum.cu`` and count one in ``csr_gather_sum.launches``."""
+    module docstring). With ``width``, ``rowptr`` must be ``0, width, 2
+    width, ...``: the caller vouches for it, the wrapper checks only that
+    ``col`` has ``width`` entries a segment. CPU tensors run the plain
+    twin; CUDA tensors launch ``csrc/segsum.cu`` and count one in
+    ``csr_gather_sum.launches``."""
     what = "csr_gather_sum"
+    if width is not None and not (
+            width > 0 and col.shape == ((rowptr.shape[0] - 1) * width,)):
+        raise ValueError(f"{what}: width {width} does not fit "
+                         f"{rowptr.shape[0] - 1} segments of col "
+                         f"{tuple(col.shape)}")
     if not _build.use_kernel(what, x, col, rowptr, weight):
         return csr_gather_sum_plain(x, col, rowptr, weight)
     _build.require(x.dim() == 2 and x.dtype == torch.float32
@@ -65,10 +87,12 @@ def csr_gather_sum(x: torch.Tensor, col: torch.Tensor, rowptr: torch.Tensor,
     out = torch.empty(s, d, dtype=torch.float32, device=x.device)
     if s == 0 or d == 0:
         return out
+    vector = vector_form(d, x, out)
     fn = _build.function("segsum", "ihgnn_csr_gather_sum", _ARGTYPES)
     err = fn(x.data_ptr(), col.data_ptr(), rowptr.data_ptr(),
              None if weight is None else weight.data_ptr(), out.data_ptr(),
-             s, d, _build.stream_ptr(x.device))
+             s, d, int(vector), width if vector and width else 0,
+             _build.stream_ptr(x.device))
     _build.check("segsum", what, err)
     csr_gather_sum.launches += 1
     return out
@@ -77,7 +101,7 @@ def csr_gather_sum(x: torch.Tensor, col: torch.Tensor, rowptr: torch.Tensor,
 csr_gather_sum.launches = 0
 
 _SUM3_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] + [
-    ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def csr_segment_sum3_plain(u: torch.Tensor, q: torch.Tensor, i: torch.Tensor,
@@ -116,7 +140,7 @@ def csr_segment_sum3(u: torch.Tensor, q: torch.Tensor, i: torch.Tensor,
     fn = _build.function("segsum", "ihgnn_csr_segment_sum3", _SUM3_ARGTYPES)
     err = fn(u.data_ptr(), q.data_ptr(), i.data_ptr(), u.shape[0],
              col.data_ptr(), rowptr.data_ptr(), out.data_ptr(), s, d,
-             _build.stream_ptr(u.device))
+             int(vector_form(d, u, q, i, out)), _build.stream_ptr(u.device))
     _build.check("segsum", what, err)
     csr_segment_sum3.launches += 1
     return out

@@ -16,8 +16,10 @@ three-region form, K5, K8) and Functions are covered at the end.
 Tolerances: K2, K6/K7 are copies and K4 a max, all bitwise exact; K1, K3, the
 scalar segment sum and ``csr_edge_dot`` sum in another order than the
 twins, 1e-5 absolute (K1, the scalar sum) and 1e-5 of the largest output
-(K3, ``csr_edge_dot``). ``interact_bwd``'s dW and db sum every edge in another order
-than the twin's matmuls: 1e-4 of each output's largest value; so do K5's.
+(K3, ``csr_edge_dot``); K1 on long segments against float64, 2e-6 a term.
+``interact_bwd``'s dW and db sum every edge in another order than the
+twin's matmuls, on the tensor cores in 3xTF32: 1e-4 of each output's
+largest value; so do K5's (f32 cores).
 K8 sums each segment in stream order, as K1 does over the same entries:
 bitwise equal to K1, 1e-5 of the largest run length from its twin. Values and
 gradients of a small graph on the card against the CPU: 1e-5 of each
@@ -43,7 +45,8 @@ from ihgnn_torch.ops.gather import (gather_roles, gather_roles_plain,
                                    gather_rows_t)
 from ihgnn_torch.ops.hyperagg import (make_hyper_ops, make_log_ops,
                                       make_spmm_op, sigma_to_edge_order)
-from ihgnn_torch.ops.interact import (KERNEL_OUT_DIMS, ORDER_PARTS,
+from ihgnn_torch.ops.interact import (CHUNK_EDGES, KERNEL_OUT_DIMS,
+                                      ORDER_PARTS,
                                       InteractAbsorbFn, InteractFn,
                                       interact_bwd, interact_bwd_absorb,
                                       interact_bwd_absorb_plain,
@@ -62,7 +65,8 @@ from ihgnn_torch.ops.segscan import BLOCK as SCAN_BLOCK
 from ihgnn_torch.ops.segscan import (csr_segment_scan, csr_segment_scan_plain,
                                      pack_scan_inputs)
 from ihgnn_torch.ops.segsum import (csr_gather_sum, csr_gather_sum_plain,
-                                    csr_segment_sum3, csr_segment_sum3_plain)
+                                    csr_segment_sum3, csr_segment_sum3_plain,
+                                    vector_form)
 
 pytestmark = pytest.mark.cuda
 
@@ -125,6 +129,84 @@ def test_csr_gather_sum_long_segment_is_deterministic(dev):
     exact = x.double()[col.long()].sum(0).float()
     assert (a[0] == 0).all() and (a[2] == 0).all()
     torch.testing.assert_close(a[1], exact, rtol=0, atol=5e-2)
+
+
+def _mixed_csr(dev, rows, seed):
+    """A CSR whose segments have 0, 1, 3, 7, 8, 9, 33 and 5000 entries,
+    mixed in one order, each length several times."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.permutation(np.repeat([0, 1, 3, 7, 8, 9, 33, 5000], 5))
+    rowptr = np.concatenate([[0], np.cumsum(lengths)])
+    col = rng.integers(0, rows, rowptr[-1])
+    return (torch.from_numpy(col).int().to(dev),
+            torch.from_numpy(rowptr).int().to(dev), lengths)
+
+
+@pytest.mark.parametrize("d", [32, 48, 8])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_csr_gather_sum_mixed_segment_lengths(dev, d, weighted):
+    """Short and long segments in one launch, against float64: each
+    segment within 2e-6 a term of its length (an f32 sum in entry order);
+    two launches agree bit for bit."""
+    col, rowptr, lengths = _mixed_csr(dev, 3000, d)
+    g = _gen(dev, 200 + d)
+    x = torch.randn(3000, d, device=dev, generator=g)
+    w = (torch.rand(col.numel(), device=dev, generator=g) if weighted
+         else None)
+    before = csr_gather_sum.launches
+    got = csr_gather_sum(x, col, rowptr, w)
+    again = csr_gather_sum(x, col, rowptr, w)
+    torch.cuda.synchronize()
+    assert csr_gather_sum.launches == before + 2
+    assert torch.equal(got, again)
+    exact = csr_gather_sum_plain(x.double(), col, rowptr,
+                                 None if w is None else w.double())
+    tol = torch.from_numpy(2e-6 * lengths + 1e-6).to(dev)[:, None]
+    assert ((got.double() - exact).abs() <= tol).all()
+    assert (got[torch.from_numpy(lengths == 0).to(dev)] == 0).all()
+
+
+@pytest.mark.parametrize("d", [5, 32])
+def test_csr_gather_sum_scalar_form(dev, d):
+    """The scalar form (d % 4 != 0, or rows that are not 16-byte aligned)
+    gives the vector form's bits."""
+    col, rowptr = _csr(dev, 500, 300, 4000, seed=d)
+    base = torch.randn(300 * d + 1, device=dev, generator=_gen(dev, d))
+    x = base[1:].view(300, d)
+    assert not vector_form(d, x)
+    got = csr_gather_sum(x, col, rowptr)
+    torch.testing.assert_close(got, csr_gather_sum_plain(x, col, rowptr),
+                               rtol=0, atol=1e-5)
+    if d % 4 == 0:
+        assert torch.equal(got, csr_gather_sum(x.clone(), col, rowptr))
+
+
+def test_csr_gather_sum_fixed_width(dev):
+    """The scatter's backward form (3 entries a segment, no rowptr read):
+    bitwise the CSR form's result."""
+    g = _gen(dev, 9)
+    x = torch.randn(777, 32, device=dev, generator=g)
+    col = torch.randint(0, 777, (3 * 5001,), device=dev, generator=g).int()
+    rowptr = torch.arange(0, 3 * 5001 + 1, 3, device=dev).int()
+    before = csr_gather_sum.launches
+    got = csr_gather_sum(x, col, rowptr, width=3)
+    torch.cuda.synchronize()
+    assert csr_gather_sum.launches == before + 1
+    assert torch.equal(got, csr_gather_sum(x, col, rowptr))
+    torch.testing.assert_close(got, csr_gather_sum_plain(x, col, rowptr),
+                               rtol=0, atol=1e-5)
+
+
+def test_csr_segment_sum3_mixed_segment_lengths(dev):
+    """The three-region form on short and long segments: bitwise K1 on the
+    concatenation."""
+    col, rowptr, _ = _mixed_csr(dev, 3 * 1000, 3)
+    g = _gen(dev, 14)
+    u, q, i = (torch.randn(1000, 32, device=dev, generator=g)
+               for _ in range(3))
+    got = csr_segment_sum3(u, q, i, col, rowptr)
+    assert torch.equal(got, csr_gather_sum(torch.cat([u, q, i]), col, rowptr))
+    assert torch.equal(got, csr_segment_sum3(u, q, i, col, rowptr))
 
 
 @pytest.mark.parametrize("d,edges", [(4, 1), (16, 999), (32, 4097),
@@ -254,6 +336,39 @@ def test_interact_bwd_other_widths(dev, d, out):
     u, q, i, w, cot = _bwd_inputs(dev, 5000, d, out, 3, d + out)
     _assert_bwd_close(interact_bwd(u, q, i, w, cot, 3),
                       interact_bwd_plain(u, q, i, w, cot, 3))
+
+
+@pytest.mark.parametrize("order", [1, 2, 3])
+@pytest.mark.parametrize("out", KERNEL_OUT_DIMS)
+def test_interact_bwd_ragged_chunks(dev, order, out):
+    """E neither a multiple of the 32-edge tile nor of CHUNK_EDGES: three
+    chunks, the last one ragged."""
+    edges = 2 * CHUNK_EDGES + 45
+    u, q, i, w, cot = _bwd_inputs(dev, edges, 32, out, order,
+                                  300 + 10 * order + out)
+    _assert_bwd_close(interact_bwd(u, q, i, w, cot, order),
+                      interact_bwd_plain(u, q, i, w, cot, order))
+
+
+@pytest.mark.parametrize("order", [1, 2, 3])
+@pytest.mark.parametrize("d,out", [(4, 8), (12, 16), (36, 64), (96, 32)])
+def test_interact_bwd_feature_widths(dev, order, d, out):
+    """Widths whose feature blocks of 8 are ragged (d % 8 == 4) or span
+    several slabs (d > 32, out = 64)."""
+    u, q, i, w, cot = _bwd_inputs(dev, 3001, d, out, order, d + out + order)
+    _assert_bwd_close(interact_bwd(u, q, i, w, cot, order),
+                      interact_bwd_plain(u, q, i, w, cot, order))
+
+
+@pytest.mark.parametrize("order", [1, 3])
+def test_interact_bwd_large_rows(dev, order):
+    """Rows of magnitude 1e3 in u and q: a product on TF32 operands alone
+    (about 11 bits) misses 1e-4 of the largest value; the 3xTF32 split
+    keeps f32 accuracy."""
+    u, q, i, w, cot = _bwd_inputs(dev, 5000, 32, 32, order, 40 + order)
+    u, q = u * 1e3, q * 1e3
+    _assert_bwd_close(interact_bwd(u, q, i, w, cot, order),
+                      interact_bwd_plain(u, q, i, w, cot, order))
 
 
 def test_interact_bwd_is_bitwise_repeatable(dev):
@@ -670,7 +785,8 @@ def _scan_ids(seed, k, n, shuffle=True):
                                               (1, 5000, 700, True),
                                               (2, 4096, 10, True),
                                               (3, 2000, 3000, True),
-                                              (4, 300_000, 7000, True)])
+                                              (4, 300_000, 7000, True),
+                                              (5, 200_000, 20, True)])
 def test_csr_segment_scan(dev, seed, k, n, shuffle):
     """K8 against its twin (1e-5), bitwise what K1 gives over the same
     entries in stream order, and repeatable."""

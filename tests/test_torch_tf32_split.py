@@ -1,0 +1,215 @@
+"""The two redesigned kernels' host-side rules, on the CPU.
+
+* ``interact_bwd`` runs both of its products on the tensor cores in
+  3xTF32 (``csrc/interact_bwd.cu`` ``split_tf32``): each f32 operand is
+  split into ``hi`` (x rounded to 11 significant bits by Veltkamp's
+  split) and ``lo = x - hi``, of which the tensor cores read the leading
+  11 bits, and a product is ``hi·hi + hi·lo + lo·hi``. The tests emulate
+  that split in plain PyTorch, the tensor cores' reading of ``lo`` by
+  masking its low 13 mantissa bits, and hold the emulated backward, at
+  the train step's shapes (d = out = 32, orders 3 and 1), against the
+  float64 product and against ``jax.vjp`` of the JAX
+  ``FeatureInteractor``; plain TF32 (``hi`` alone) misses the same limit
+  on rows of magnitude 1e3.
+* K1's fixed-width form (the scatter's backward, 3 entries an edge) and
+  the rule that picks K1's vector form from the width and the alignment.
+
+Tolerances: the emulated 3xTF32 backward within 1e-6 of each output's
+largest value from the float64 product (the split keeps about 22 bits of
+each operand; f32 sums over 32 terms), and within 1e-5 from JAX's f32
+gradient (``tests/test_torch_train.py``'s limit); plain TF32 is shown to
+exceed 1e-4 (the card tests' limit) on the large rows.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ihgnn_torch.graph import build_hypergraph
+from ihgnn_torch.ops.hyperagg import SpmmFn
+from ihgnn_torch.ops.hyperagg import make_hyper_ops as torch_hyper_ops
+from ihgnn_torch.ops.interact import (CHUNK_EDGES, ORDER_PARTS,
+                                      interact_bwd, interact_parts)
+from ihgnn_torch.ops.segsum import (csr_gather_sum, csr_gather_sum_plain,
+                                    vector_form)
+from ihgnn_tpu.data.synthetic import make_synthetic_data
+from ihgnn_tpu.models.interaction import FeatureInteractor
+from ihgnn_tpu.ops.hyperagg import make_hyper_ops, strip_kernel_packing
+
+D = OUT = 32
+
+
+def _tensor_core_view(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as a TF32 operand of the tensor cores: its low 13 mantissa
+    bits ignored."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x: torch.Tensor):
+    """``split_tf32``: Veltkamp's split of f32 ``x`` at 11 significant
+    bits (f32 elementwise operations round as the kernel's _rn steps)."""
+    c = x * 8193.0
+    hi = c - (c - x)
+    assert torch.equal(_tensor_core_view(hi), hi)
+    return hi, _tensor_core_view(x - hi)
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor, terms: int) -> torch.Tensor:
+    """``a @ b`` from TF32 operands, summed in f32: 3 terms (3xTF32) or 1
+    (plain TF32). Each TF32 product is exact in f64."""
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    pairs = [(ah, bl), (al, bh), (ah, bh)] if terms == 3 else [(ah, bh)]
+    out = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
+    for x, y in pairs:
+        out = out + (x.double() @ y.double()).float()
+    return out
+
+
+def _emulated_bwd(u, q, i, w, cot, order, terms):
+    """``interact_bwd`` as the fused kernel computes it: dparts by the
+    split product, the product rule in f32, dW over each CHUNK_EDGES chunk
+    by the split product, the chunks summed in order."""
+    parts = interact_parts(u, q, i, order)
+    dparts = [_mm(cot, w[j * D:(j + 1) * D].t(), terms)
+              for j in range(len(parts))]
+    du, dq, di = dparts[0], dparts[1], dparts[2]
+    if order >= 2:
+        du = du + (dparts[3] * q + dparts[5] * i)
+        dq = dq + (dparts[3] * u + dparts[4] * i)
+        di = di + (dparts[4] * q + dparts[5] * u)
+    if order >= 3:
+        du = du + dparts[6] * (q * i)
+        dq = dq + dparts[6] * (u * i)
+        di = di + dparts[6] * (u * q)
+    stacked = torch.cat(parts, dim=1)
+    dw = torch.zeros(stacked.shape[1], OUT)
+    for c in range(0, u.shape[0], CHUNK_EDGES):
+        dw = dw + _mm(stacked[c:c + CHUNK_EDGES].t().contiguous(),
+                      cot[c:c + CHUNK_EDGES], terms)
+    return (du, dq, di, dw, cot.sum(0))
+
+
+def _f64_bwd(u, q, i, w, cot, order):
+    u, q, i, w, cot = (t.double() for t in (u, q, i, w, cot))
+    droles, dw, db = interact_bwd(u, q, i, w, cot, order)
+    return (*droles, dw, db)
+
+
+def _inputs(e, order, scale, seed):
+    rng = np.random.default_rng(seed)
+    u, q, i = (rng.standard_normal((e, D)).astype(np.float32)
+               for _ in range(3))
+    u *= scale
+    parts = ORDER_PARTS[order]
+    w = (rng.standard_normal((parts * D, OUT)) / np.sqrt(parts * D)).astype(
+        np.float32)
+    cot = rng.standard_normal((e, OUT)).astype(np.float32)
+    return u, q, i, w, cot
+
+
+def _max_rel_err(got, want):
+    return max(((g.double() - r).abs().max() / r.abs().max()).item()
+               for g, r in zip(got, want))
+
+
+@pytest.mark.parametrize("order", [3, 1])
+@pytest.mark.parametrize("scale", [1.0, 1e3])
+def test_3xtf32_backward_matches_float64(order, scale):
+    """At the step's shapes, with one role's rows at 1 or 1e3: the emulated
+    3xTF32 backward within 1e-6 of float64; plain TF32 off by more than
+    1e-4 on the large rows."""
+    e = CHUNK_EDGES + 301                     # two chunks, a ragged one
+    u, q, i, w, cot = (torch.from_numpy(a)
+                       for a in _inputs(e, order, scale, 7 + order))
+    want = _f64_bwd(u, q, i, w, cot, order)
+    assert _max_rel_err(_emulated_bwd(u, q, i, w, cot, order, 3),
+                        want) < 1e-6
+    if scale > 1:
+        assert _max_rel_err(_emulated_bwd(u, q, i, w, cot, order, 1),
+                            want) > 1e-4
+
+
+@pytest.mark.parametrize("order", [3, 1])
+def test_3xtf32_backward_matches_jax_grad(order):
+    """The emulated 3xTF32 backward against ``jax.vjp`` of the f32 XLA
+    ``FeatureInteractor`` (d = out = 32), as the port's twin is held."""
+    e = 700
+    u, q, i, _, cot = _inputs(e, order, 1.0, 20 + order)
+    roles_t = tuple(jnp.asarray(a.T) for a in (u, q, i))
+    mod = FeatureInteractor(order, D, OUT)
+    params = mod.init(jax.random.key(order), roles_t, fused_ok=False)
+    _, vjp = jax.vjp(lambda p, r: mod.apply(p, r, fused_ok=False), params,
+                     roles_t)
+    dparams, droles = vjp(jnp.asarray(cot.T))
+    dense = dparams["params"]["aggregation"]["dense"]
+    w = np.array(params["params"]["aggregation"]["dense"]["kernel"])
+    got = _emulated_bwd(*(torch.from_numpy(a) for a in (u, q, i, w, cot)),
+                        order, 3)
+    want = [np.asarray(r).T for r in droles] + [np.asarray(dense["kernel"]),
+                                                np.asarray(dense["bias"])]
+    for name, g, r in zip(("du", "dq", "di", "dw", "db"), got, want):
+        np.testing.assert_allclose(g.numpy(), r, rtol=1e-5,
+                                   atol=1e-5 * np.abs(r).max(), err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# K1: the fixed-width form and the choice of form
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def graphs():
+    data = make_synthetic_data(user_count=20, query_count=12, item_count=30,
+                               vocab_size=25, log_count=150, seed=0)
+    return strip_kernel_packing(data.hypergraph), build_hypergraph(
+        data.pos_uqif, data.node_count, data.user_count, data.query_count)
+
+
+def test_scatter_fixed_width_grad_matches_jax(graphs):
+    """The direct scatter's backward takes K1's fixed-width form (3 entries
+    an edge): its gradient equals JAX's, and ``SpmmFn`` gives the same
+    gradient with and without the width."""
+    jg, tg = graphs
+    rng = np.random.default_rng(4)
+    edge = rng.standard_normal((jg.edge_count, 8)).astype(np.float32)
+    cot = rng.standard_normal((jg.node_count, 8)).astype(np.float32)
+    _, scatter_x = make_hyper_ops(jg)
+    ref = np.asarray(jax.grad(lambda e_t: jnp.sum(
+        scatter_x(e_t) * jnp.asarray(cot.T)))(jnp.asarray(edge.T))).T
+    _, scatter = torch_hyper_ops(tg)
+    grads = []
+    for fn in (scatter,
+               lambda e: SpmmFn.apply(e, tg.inc_edge, tg.rowptr, None,
+                                      tg.i3.view(-1), tg.edge_rowptr, None)):
+        et = torch.from_numpy(edge).requires_grad_()
+        (fn(et) * torch.from_numpy(cot)).sum().backward()
+        grads.append(et.grad)
+    np.testing.assert_allclose(grads[0].numpy(), ref, rtol=1e-5, atol=1e-5)
+    assert torch.equal(grads[0], grads[1])
+
+
+def test_csr_gather_sum_width_is_checked(graphs):
+    _, tg = graphs
+    x = torch.randn(tg.node_count, 8,
+                    generator=torch.Generator().manual_seed(1))
+    col, rowptr = tg.i3.view(-1), tg.edge_rowptr
+    assert torch.equal(csr_gather_sum(x, col, rowptr, width=3),
+                       csr_gather_sum_plain(x, col, rowptr))
+    for bad in (0, 2, 4):
+        with pytest.raises(ValueError):
+            csr_gather_sum(x, col, rowptr, width=bad)
+
+
+def test_vector_form_rule():
+    """K1's vector form takes d % 4 == 0 and 16-byte aligned rows; any
+    other d or alignment takes the scalar form."""
+    x = torch.zeros(10, 32)
+    assert x.data_ptr() % 16 == 0
+    assert vector_form(32, x) and vector_form(4, x[1:])
+    assert not vector_form(6, torch.zeros(10, 6))
+    shifted = torch.zeros(321)[1:].view(10, 32)
+    assert shifted.is_contiguous() and not vector_form(32, shifted)
+    assert not vector_form(32, x, shifted)
