@@ -12,7 +12,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    shapes the serving and training paths give it, on a seeded graph of
    ``bench.py``'s shape (U/Q/I/V = 200k/100k/400k/100k, E = 2M, d = 32,
    4 words per query): K1 for the node update, the bag mean and the three
-   backward sums, K2, K3 forward and ``interact_bwd`` at orders 3 and 1;
+   backward sums, K2, K3 forward (its tensor-core form, with its f32-core
+   form timed on the same inputs) and ``interact_bwd`` at orders 3 and 1;
 4. the serving path: ``RawGnn`` at the default config (two IHGNN layers,
    orders 3 and 1, d = 32, seeded random weights) → ``make_eval_fns`` →
    one full-graph forward → ``evaluate`` over 4096 synthetic logs in
@@ -25,7 +26,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    model, batches of 1024 positives x 10 negatives built as ``bench.py``
    builds them; 2 warm steps, then 10 timed steps; every kernel of the
    path must have launched and every loss must be finite;
-8. one warm train step under ``torch.profiler``;
+8. one warm train step under ``torch.profiler``; then
+   ``repeatable_full_width``: two full-width train steps from the same
+   seeded state and batch, compared bit for bit (loss, gradients,
+   parameters);
 9. three train steps on a small graph, on the card and on the CPU, from
    the same weights and batches, must agree: the losses, every
    parameter's step-0 gradient and the parameters after the last step; a
@@ -48,9 +52,11 @@ Phase 3 also checks K4 ``csr_segment_max`` and the scalar
 GAT weighted sum's; and the routed path's kernels on the routed pack of the
 2M-edge graph (``build_hypergraph(..., pack_kernels=True)``, grid
 [2048, 1024], e_pad = 2,097,152): K2's single-index forms, the K6/K7
-permute forms (f32 and bf16), K5 forward and backward at orders 3 and 1
-with the σ-pad mask, K1's three-region form and K8 on the node-update
-stream. Between phases 9 and 10 the routed path runs as the direct one
+permute forms (f32 and bf16), K5 forward (both forms) and backward at
+orders 3 and 1 with the σ-pad mask, K1's three-region form, K8 on the
+node-update stream (and ``torch.sparse.mm`` beside it, timed in turns
+SCAN_REPEATS times each), and K1 over one CSR spanning two such
+edge-chunk streams (``csr_segment_sum3_multi``'s shape). Between phases 9 and 10 the routed path runs as the direct one
 did, with the same weights and batches: ``routed_serving`` (its features
 within 1e-4 of the direct path's, its metrics equal), ``routed_scan`` (the
 first layer's node-update stream summed by K8, equal to K1's sum),
@@ -95,6 +101,8 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 TF32_FLOPS = 495e12
 WARMUP, REPS = 3, 20
+# K8 and torch.sparse.mm, timed in turns this many times each
+SCAN_REPEATS = 7
 
 
 def emit(obj) -> None:
@@ -253,6 +261,8 @@ def check_kernels(torch, dev, graph, bag, graph2d):
     from ihgnn_torch.ops.gather import gather_roles, gather_roles_plain
     from ihgnn_torch.ops.interact import (ORDER_PARTS, interact_bwd,
                                           interact_bwd_plain, interact_fwd,
+                                          interact_fwd_cores,
+                                          interact_fwd_form,
                                           interact_fwd_plain)
     from ihgnn_torch.ops.segsum import csr_gather_sum, csr_gather_sum_plain
     from ihgnn_torch.ops.edgedot import csr_edge_dot, csr_edge_dot_plain
@@ -370,26 +380,39 @@ def check_kernels(torch, dev, graph, bag, graph2d):
            4 * (x.numel() + i3.numel() + 3 * E * D), 0)
     del x, k_out, p_out, flat
 
-    # K3 at orders 3 and 1 over [E, d] role rows; relative tolerance
+    # K3 at orders 3 and 1 over [E, d] role rows; relative tolerance. The
+    # product runs on the tensor cores in 3xTF32, the parts and the bias on
+    # the f32 cores; K3's f32-core form is held and timed on the same inputs
     u, q, i = randn(E, D), randn(E, D), randn(E, D)
     for order in (3, 1):
         parts = ORDER_PARTS[order]
         w = randn(parts * D, D) / (parts * D) ** 0.5
         b = randn(D)
+        form = interact_fwd_form(D, D, order)
+        if form != "tensor_cores":
+            fail(f"interact_fwd order {order} at d = {D} takes the {form} form")
         k_out = interact_fwd(u, q, i, w, b, order)
         p_out = interact_fwd_plain(u, q, i, w, b, order)
+        c_out = interact_fwd_cores(u, q, i, w, b, order)
         err = (k_out - p_out).abs().max().item()
+        cores_err = (c_out - p_out).abs().max().item()
         scale = p_out.abs().max().item()
         if not err <= 1e-4 * scale:
             fail(f"interact_fwd order {order}: max error {err} > 1e-4 x {scale}")
+        if not cores_err <= 1e-4 * scale:
+            fail(f"interact_fwd_cores order {order}: max error {cores_err} > "
+                 f"1e-4 x {scale}")
         hadamard = {1: 0, 2: 3, 3: 4}[order] * D
         record("interact_fwd", f"order {order}, 3 x [{E}, {D}] -> [{E}, {D}]",
                err, 1e-4 * scale,
                lambda: interact_fwd(u, q, i, w, b, order),
                lambda: interact_fwd_plain(u, q, i, w, b, order), None,
                4 * (3 * E * D + w.numel() + b.numel() + E * D),
-               E * (hadamard + 2 * parts * D * D + D))
-        del k_out, p_out
+               E * (hadamard + D), tf32_flops=E * 2 * parts * D * D,
+               form=form, cores_form_max_abs_err=cores_err,
+               cores_form_ms=time_ms(
+                   torch, lambda: interact_fwd_cores(u, q, i, w, b, order)))
+        del k_out, p_out, c_out
 
     # interact_bwd at orders 3 and 1: each of du/dq/di/dW/db within 1e-4
     # of its largest value; dW and db sum 2M edges in another order than
@@ -519,13 +542,16 @@ def check_routed_kernels(torch, dev, kp, results):
     from ihgnn_torch.ops.interact import (ORDER_PARTS, interact_bwd_absorb,
                                           interact_bwd_absorb_plain,
                                           interact_fwd_absorb,
-                                          interact_fwd_absorb_plain)
+                                          interact_fwd_absorb_cores,
+                                          interact_fwd_absorb_plain,
+                                          interact_fwd_form)
     from ihgnn_torch.ops.permute import (row_local_permute,
                                          row_local_permute_plain,
                                          transposed_local_permute,
                                          transposed_local_permute_plain)
     from ihgnn_torch.ops.segscan import csr_segment_scan, csr_segment_scan_plain
-    from ihgnn_torch.ops.segsum import (csr_gather_sum, csr_segment_sum3,
+    from ihgnn_torch.ops.segsum import (csr_gather_sum, csr_gather_sum_plain,
+                                        csr_segment_sum3,
                                         csr_segment_sum3_plain)
 
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -612,10 +638,19 @@ def check_routed_kernels(torch, dev, kp, results):
         parts = ORDER_PARTS[order]
         w = randn(parts * D, D) / (parts * D) ** 0.5
         b = randn(D)
+        form = interact_fwd_form(D, D, order)
+        if form != "tensor_cores":
+            fail(f"interact_fwd_absorb order {order} takes the {form} form")
         k_out = interact_fwd_absorb(u, q, i_t1, pi, w, b, order)
         p_out = interact_fwd_absorb_plain(u, q, i_t1, pi, w, b, order)
+        c_out = interact_fwd_absorb_cores(u, q, i_t1, pi, w, b, order)
         err = max((a - c).abs().max().item() for a, c in zip(k_out, p_out))
+        cores_err = max((a - c).abs().max().item()
+                        for a, c in zip(c_out, p_out))
         scale = p_out[0].abs().max().item()
+        if not cores_err <= 1e-4 * scale:
+            fail(f"interact_fwd_absorb_cores order {order}: max error "
+                 f"{cores_err} > 1e-4 x {scale}")
         hadamard = {1: 0, 2: 3, 3: 4}[order]
         record("interact_fwd_absorb", f"order {order}, 3 x [{e_pad}, {D}] "
                f"-> 2 x [{e_pad}, {D}]", err, 1e-4 * scale,
@@ -623,8 +658,12 @@ def check_routed_kernels(torch, dev, kp, results):
                lambda: interact_fwd_absorb_plain(u, q, i_t1, pi, w, b, order),
                None, 4 * (3 * e_pad * D + e_pad + w.numel() + D
                           + 2 * e_pad * D),
-               e_pad * (hadamard * D + 2 * parts * D * D + D))
-        del k_out, p_out
+               e_pad * (hadamard * D + D),
+               tf32_flops=e_pad * 2 * parts * D * D, form=form,
+               cores_form_max_abs_err=cores_err,
+               cores_form_ms=time_ms(torch, lambda: interact_fwd_absorb_cores(
+                   u, q, i_t1, pi, w, b, order)))
+        del k_out, p_out, c_out
         k_b = interact_bwd_absorb(u, q, i_t1, pi, w, c1, c2, mask, order)
         p_b = interact_bwd_absorb_plain(u, q, i_t1, pi, w, c1, c2, mask,
                                         order)
@@ -682,6 +721,12 @@ def check_routed_kernels(torch, dev, kp, results):
         fail("csr_segment_scan differs from K1 over the same entries")
     if not torch.equal(k8, k1):
         fail("csr_segment_scan differs from K1's three-region form")
+    # K8 against torch.sparse.mm in turns, SCAN_REPEATS times each: the
+    # median and the spread (largest less smallest) of each
+    k8_ms, lib_ms = [], []
+    for _ in range(SCAN_REPEATS):
+        k8_ms.append(time_ms(torch, lambda: csr_segment_scan(stream, kp.scan)))
+        lib_ms.append(time_ms(torch, lambda: torch.sparse.mm(csr, stream)))
     record("csr_segment_scan", f"routed node update [{3 * e_pad} entries, "
            f"{3 * e} real, block-sorted -> [{n}, {D}]]",
            (k8 - p8).abs().max().item(), 1e-4,
@@ -689,8 +734,42 @@ def check_routed_kernels(torch, dev, kp, results):
            lambda: csr_segment_scan_plain(stream, kp.scan),
            lambda: torch.sparse.mm(csr, stream),
            4 * (3 * e * D + n * D) + 9 * 3 * e_pad, 3 * e * D, lib_err,
-           equal_to_k1=True)
-    del regions, stream, k1, p1, k8, p8, csr
+           equal_to_k1=True, repeats_ms=k8_ms, library_repeats_ms=lib_ms,
+           ms_median=float(np.median(k8_ms)),
+           ms_spread=max(k8_ms) - min(k8_ms),
+           library_ms_median=float(np.median(lib_ms)),
+           library_ms_spread=max(lib_ms) - min(lib_ms))
+    del regions, k1, p1, k8, p8, csr
+
+    # csr_segment_sum3_multi's shape (segsum.py:686): K1 over one CSR that
+    # spans two edge-chunk streams, each the [u | q | i] regions of an e_pad
+    # grid (ChunkedHyperPack begins past 2048 x 1024 edges). Each chunk
+    # holds the routed node-update entries of the 2M-edge pack, so a node
+    # sums its entries of chunk 0, then those of chunk 1
+    chunks = torch.cat([stream, randn(3 * e_pad, D)])
+    del stream
+    seg = torch.repeat_interleave(torch.arange(n, device=dev),
+                                  (rowptr[1:] - rowptr[:-1]).long())
+    order = torch.sort(torch.cat([seg, seg]), stable=True).indices
+    col2 = torch.cat([col, col + 3 * e_pad])[order].int()
+    rowptr2 = 2 * rowptr
+    del seg, order
+    k_out = csr_gather_sum(chunks, col2, rowptr2)
+    p_out = csr_gather_sum_plain(chunks, col2, rowptr2)
+    csr = torch.sparse_csr_tensor(rowptr2, col2,
+                                  torch.ones(col2.numel(), device=dev),
+                                  size=(n, chunks.shape[0]))
+    lib_err = (torch.sparse.mm(csr, chunks) - p_out).abs().max().item()
+    record("csr_gather_sum", f"two-chunk node update [2 x 3 x [{e_pad}, {D}] "
+           f"chunk regions, {col2.numel()} entries -> [{n}, {D}]]",
+           (k_out - p_out).abs().max().item(), 1e-4,
+           lambda: csr_gather_sum(chunks, col2, rowptr2),
+           lambda: csr_gather_sum_plain(chunks, col2, rowptr2),
+           lambda: torch.sparse.mm(csr, chunks),
+           4 * (col2.numel() * D + col2.numel() + rowptr2.numel() + n * D),
+           col2.numel() * D, lib_err,
+           replaces="ihgnn_tpu/ops/pallas/segsum.py:686")
+    del chunks, col2, rowptr2, k_out, p_out, csr
 
 
 IHGNN_SERVING = ("csr_gather_sum", "gather_roles", "interact_fwd")
@@ -909,6 +988,9 @@ def run_train(torch, dev, cfg, graph, uqi, qw, qc, path, expected,
     t0 = time.perf_counter()
     for k in range(TIMED_STEPS):
         losses.append(step(batches[(WARM_STEPS + k) % 4]))
+    # the steps queue work without waiting for the card: the host's time
+    # to issue them, against the time until the card has run them all
+    issue_s = (time.perf_counter() - t0) / TIMED_STEPS
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / TIMED_STEPS
     launches = _read_launches(path, expected)
@@ -919,7 +1001,8 @@ def run_train(torch, dev, cfg, graph, uqi, qw, qc, path, expected,
         fail(f"{path}: non-finite train losses {losses}")
     row = {"phase": path, **_describe(cfg, graph),
            "rows": TRAIN_B * (1 + TRAIN_K), "warm_steps": WARM_STEPS,
-           "timed_steps": TIMED_STEPS, "train_step_ms": step_s * 1e3}
+           "timed_steps": TIMED_STEPS, "train_step_ms": step_s * 1e3,
+           "host_issue_ms": issue_s * 1e3}
     if cfg.gnn == V.IHGNN:
         row["hyperedge_aggregations_per_s"] = \
             graph.edge_count * cfg.gnn_layer_count / step_s
@@ -934,6 +1017,49 @@ def run_train(torch, dev, cfg, graph, uqi, qw, qc, path, expected,
                                       for k, v in launches.items()}})
     emit(row)
     return launches, lambda: step(batches[0]), losses
+
+
+def check_repeatable_full_width(torch, dev, cfg, graph_cpu, uqi, qw, qc):
+    """Phase ``repeatable_full_width``: two direct train steps at full
+    width, each from the same seeded model and optimizer on the same
+    batch, compared bit for bit: the loss, every gradient and every
+    parameter after the step. Returns whether they agree."""
+    from ihgnn_torch.config import TrainConfig
+    from ihgnn_torch.models.rawgnn import RawGnn
+    from ihgnn_torch.train.train import make_optimizer, make_train_step
+
+    tcfg = TrainConfig(batch_size=TRAIN_B,
+                       random_negative_sample_size=TRAIN_K)
+    batch = train_batch(uqi, I, TRAIN_B, TRAIN_K, seed=0)
+    runs = []
+    for _ in range(2):
+        model = RawGnn(cfg, U, Q, I, VOCAB,
+                       generator=torch.Generator().manual_seed(0)).to(dev)
+        step = make_train_step(model, graph_cpu, qw, qc,
+                               make_optimizer(model.parameters(), tcfg),
+                               device=dev)
+        loss = step(batch).item()
+        # the step leaves its gradients in .grad until the next one
+        runs.append((loss,
+                     {k: p.grad.detach().clone()
+                      for k, p in model.named_parameters()},
+                     {k: v.detach().clone()
+                      for k, v in model.state_dict().items()}))
+        del model, step
+    (loss_a, grads_a, params_a), (loss_b, grads_b, params_b) = runs
+    grads_differ = sorted(k for k in grads_a
+                          if not torch.equal(grads_a[k], grads_b[k]))
+    params_differ = sorted(k for k in params_a
+                           if not torch.equal(params_a[k], params_b[k]))
+    same = loss_a == loss_b and not grads_differ and not params_differ
+    emit({"phase": "repeatable_full_width", "repeatable_full_width": same,
+          "losses": [loss_a, loss_b], "grads_differ": grads_differ,
+          "params_differ": params_differ,
+          "grad_max_abs_diff": {k: (grads_a[k] - grads_b[k]).abs().max()
+                                .item() for k in grads_differ},
+          "param_max_abs_diff": {k: (params_a[k] - params_b[k]).abs().max()
+                                 .item() for k in params_differ}})
+    return same
 
 
 def grad_scale(name, grads):
@@ -1312,6 +1438,8 @@ def main() -> int:
         torch, dev, ihgnn, graph_cpu, uqi, qw, qc, "train", IHGNN_TRAIN)
     emit(profile_window(torch, "one warm train step", warm_step))
     del warm_step
+    repeatable = check_repeatable_full_width(torch, dev, ihgnn, graph_cpu,
+                                             uqi, qw, qc)
     check_small_train(torch, dev)
 
     # the routed path: same interactions, weights and batches

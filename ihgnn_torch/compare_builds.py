@@ -1,0 +1,182 @@
+"""Hold this checkout's interaction kernels bit for bit against another
+checkout's build of them, on the same inputs.
+
+    python3 -m ihgnn_torch.compare_builds --reference DIR
+
+``DIR`` is the root of another checkout (for example the parent commit,
+unpacked with ``git archive``). Both checkouts' ``csrc/interact_bwd.cu``
+and ``csrc/interact.cu`` are built with the package's nvcc flags (one
+nvcc process each, in parallel, into ``build/compare/``), and each pair
+of entry points below runs on the same seeded inputs:
+
+* ``ihgnn_interact_bwd`` and ``ihgnn_interact_bwd_absorb`` of both builds
+  of ``interact_bwd.cu``;
+* the reference's ``ihgnn_interact_fwd`` and ``ihgnn_interact_fwd_absorb``
+  against this checkout's ``ihgnn_interact_fwd_cores`` and
+  ``ihgnn_interact_fwd_absorb_cores`` (K3's f32-core form, the kernel K3
+  ran before its tensor-core form).
+
+Prints one JSON line a case and, last, ``{"bitwise_equal": ...}``; exits 1
+when any output differs in any bit. Needs a CUDA card and nvcc.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+from ihgnn_torch.ops import _build
+from ihgnn_torch.ops.interact import CHUNK_EDGES, ORDER_PARTS
+
+PTR, INT = ctypes.c_void_p, ctypes.c_int
+ARGTYPES = {
+    "ihgnn_interact_bwd": [PTR] * 8 + [INT] * 5 + [PTR],
+    "ihgnn_interact_bwd_absorb": [PTR] * 11 + [INT] * 6 + [PTR],
+    "ihgnn_interact_fwd": [PTR] * 6 + [INT] * 4 + [PTR],
+    "ihgnn_interact_fwd_cores": [PTR] * 6 + [INT] * 4 + [PTR],
+    "ihgnn_interact_fwd_absorb": [PTR] * 8 + [INT] * 5 + [PTR],
+    "ihgnn_interact_fwd_absorb_cores": [PTR] * 8 + [INT] * 5 + [PTR],
+}
+# (edges, d, out) of each case; the first is the train step's shape
+SHAPES = ((2_000_000, 32, 32), (4097, 16, 64), (3000, 8, 8), (389, 12, 16))
+COLS = {2_000_000: 1000, 4097: 241, 3000: 100, 389: 389}
+
+
+def build_pair(reference: Path, stems) -> dict:
+    """``{(tag, stem): loaded library}`` for tag ``"reference"`` and
+    ``"this"``, all built at once."""
+    out_dir = _build.BUILD / "compare"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _build.find_nvcc()
+    jobs = {}
+    for tag, csrc in (("reference", reference / "ihgnn_torch" / "csrc"),
+                      ("this", _build.CSRC)):
+        for stem in stems:
+            lib = out_dir / f"{tag}-{stem}.so"
+            log = open(out_dir / f"{tag}-{stem}.log", "w")
+            jobs[tag, stem] = (subprocess.Popen(
+                _build.nvcc_command(nvcc, csrc / f"{stem}.cu", lib),
+                stdout=log, stderr=subprocess.STDOUT), log, lib)
+    libs = {}
+    for key, (proc, log, lib) in jobs.items():
+        rc = proc.wait()
+        log.close()
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed for {key}: "
+                               + Path(log.name).read_text()[-4000:])
+        libs[key] = ctypes.CDLL(str(lib))
+    return libs
+
+
+def entry(lib, name):
+    fn = getattr(lib, name)
+    fn.argtypes = ARGTYPES[name]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def run_bwd(lib, absorb, u, q, i, pi, w, cot, c2, mask, order):
+    e, d = u.shape
+    out = w.shape[1]
+    droles = torch.empty(3, e, d, device=u.device)
+    chunks = -(-e // CHUNK_EDGES)
+    partial = torch.empty(chunks, w.shape[0] + 1, out, device=u.device)
+    dw_ext = torch.empty(w.shape[0] + 1, out, device=u.device)
+    stream = _build.stream_ptr(u.device)
+    if absorb:
+        err = entry(lib, "ihgnn_interact_bwd_absorb")(
+            u.data_ptr(), q.data_ptr(), i.data_ptr(), pi.data_ptr(),
+            w.data_ptr(), cot.data_ptr(), c2.data_ptr(), mask.data_ptr(),
+            droles.data_ptr(), partial.data_ptr(), dw_ext.data_ptr(), e, d,
+            out, order, pi.shape[1], CHUNK_EDGES, stream)
+    else:
+        err = entry(lib, "ihgnn_interact_bwd")(
+            u.data_ptr(), q.data_ptr(), i.data_ptr(), w.data_ptr(),
+            cot.data_ptr(), droles.data_ptr(), partial.data_ptr(),
+            dw_ext.data_ptr(), e, d, out, order, CHUNK_EDGES, stream)
+    if err:
+        raise RuntimeError(f"interact_bwd (absorb={absorb}): CUDA error {err}")
+    return droles, dw_ext
+
+
+def run_fwd(lib, name, u, q, i, pi, w, b, order):
+    e, d = u.shape
+    o1 = torch.empty(e, w.shape[1], device=u.device)
+    o2 = torch.empty_like(o1)
+    stream = _build.stream_ptr(u.device)
+    if pi is None:
+        err = entry(lib, name)(u.data_ptr(), q.data_ptr(), i.data_ptr(),
+                               w.data_ptr(), b.data_ptr(), o1.data_ptr(), e,
+                               d, w.shape[1], order, stream)
+        outs = (o1,)
+    else:
+        err = entry(lib, name)(u.data_ptr(), q.data_ptr(), i.data_ptr(),
+                               pi.data_ptr(), w.data_ptr(), b.data_ptr(),
+                               o1.data_ptr(), o2.data_ptr(), e, d,
+                               w.shape[1], order, pi.shape[1], stream)
+        outs = (o1, o2)
+    if err:
+        raise RuntimeError(f"{name}: CUDA error {err}")
+    return outs
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--reference", type=Path, required=True,
+                        help="root of the checkout to compare against")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("compare_builds: needs a CUDA card", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    libs = build_pair(args.reference, ("interact_bwd", "interact"))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    equal_all = True
+    for e, d, out in SHAPES:
+        cols = COLS[e]
+        pi = torch.stack([torch.randperm(cols, device=dev, generator=gen)
+                          for _ in range(e // cols)]).int()
+        for order in (1, 2, 3):
+            u, q, i = (torch.randn(e, d, device=dev, generator=gen)
+                       for _ in range(3))
+            parts = ORDER_PARTS[order]
+            w = torch.randn(parts * d, out, device=dev,
+                            generator=gen) / (parts * d) ** 0.5
+            b = torch.randn(out, device=dev, generator=gen)
+            cot, c2 = (torch.randn(e, out, device=dev, generator=gen)
+                       for _ in range(2))
+            mask = (torch.rand(e, device=dev, generator=gen) > 0.1).float()
+            cases = {}
+            for absorb in (False, True):
+                cases[f"interact_bwd{'_absorb' if absorb else ''}"] = [
+                    run_bwd(libs[tag, "interact_bwd"], absorb, u, q, i, pi,
+                            w, cot, c2, mask, order)
+                    for tag in ("reference", "this")]
+            for ref_name, name, p in (
+                    ("ihgnn_interact_fwd", "ihgnn_interact_fwd_cores", None),
+                    ("ihgnn_interact_fwd_absorb",
+                     "ihgnn_interact_fwd_absorb_cores", pi)):
+                cases[name] = [
+                    run_fwd(libs["reference", "interact"], ref_name, u, q, i,
+                            p, w, b, order),
+                    run_fwd(libs["this", "interact"], name, u, q, i, p, w, b,
+                            order)]
+            torch.cuda.synchronize()
+            for case, (ref, this) in cases.items():
+                equal = all(torch.equal(a, c) for a, c in zip(ref, this))
+                equal_all = equal_all and equal
+                print(json.dumps({"case": case, "edges": e, "d": d,
+                                  "out": out, "order": order,
+                                  "bitwise_equal": equal}), flush=True)
+    print(json.dumps({"bitwise_equal": equal_all}), flush=True)
+    return 0 if equal_all else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -2,10 +2,11 @@
 
 Each ``csrc/<stem>.cu`` compiles on first use into its own shared library
 with a plain C interface, ``build/<stem>-<hash>.so``, where the hash covers
-the source and the compiler flags. ``build`` starts one nvcc process per
-missing library and waits for all of them, so the sources compile in
-parallel. Nothing here includes PyTorch's headers: tensors cross the
-boundary as raw pointers (``tensor.data_ptr()``) and the stream as
+the source, the shared headers ``csrc/*.cuh`` and the compiler flags.
+``build`` starts one nvcc process per missing library and waits for all
+of them, so the sources compile in parallel. Nothing here includes
+PyTorch's headers: tensors cross the boundary as raw pointers
+(``tensor.data_ptr()``) and the stream as
 ``torch.cuda.current_stream().cuda_stream``.
 
 There is no fallback: without nvcc, or when a source does not compile,
@@ -54,9 +55,15 @@ def nvcc_command(nvcc: str, source: Path, output: Path) -> List[str]:
     return [nvcc, *NVCC_FLAGS, "-o", str(output), str(source)]
 
 
-def library_path(stem: str) -> Path:
+def library_path(stem: str, csrc: Path = CSRC) -> Path:
+    """``build/<stem>-<hash>.so``: the hash covers ``<stem>.cu``, every
+    header ``*.cuh`` of ``csrc`` (a source may include any of them) and
+    the compiler flags, so an edit to any of them names a new library."""
     digest = hashlib.sha256()
-    digest.update((CSRC / f"{stem}.cu").read_bytes())
+    digest.update((csrc / f"{stem}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD / f"{stem}-{digest.hexdigest()[:16]}.so"
 

@@ -9,11 +9,15 @@ twins, and the autograd Function that joins them.
 Counterpart of ``ihgnn_tpu/ops/pallas/interact.py`` ``interact_fwd``,
 ``interact_bwd`` and the custom VJP ``fused_interaction``; the part order
 is that of ``_parts`` there (Models/CommonLayers.py:58-85). Both kernels
-keep every part (and every dpart) in registers: none is written to device
-memory. The backward writes du/dq/di into one ``[3, E, d]`` buffer;
-``InteractFn`` takes the roles as one ``[3, E, d]`` tensor (as the gather
-gives them) and returns that buffer as their gradient, which the gather's
-backward (``ops/hyperagg.py``) reads as ``[3E, d]``.
+keep every part (and every dpart) on chip: none is written to device
+memory. The forward has two forms, chosen from the shape alone
+(``interact_fwd_form``): on the tensor cores in 3xTF32 from staged edge
+tiles (d % 8 == 0, every width the model uses), and on the f32 cores,
+one thread an edge (any other d % 4 == 0). The backward writes du/dq/di
+into one ``[3, E, d]`` buffer; ``InteractFn`` takes the roles as one
+``[3, E, d]`` tensor (as the gather gives them) and returns that buffer
+as their gradient, which the gather's backward (``ops/hyperagg.py``)
+reads as ``[3E, d]``.
 
 Layout: ``u``/``q``/``i`` row-major ``[E, d]`` f32, ``w`` ``[parts·d, out]``
 (the flax kernel layout, ``Linear.weight.T``), ``b`` ``[out]``; the result
@@ -92,12 +96,21 @@ def interact_fwd_plain(u: torch.Tensor, q: torch.Tensor, i: torch.Tensor,
     return out + b
 
 
-def interact_fwd(u: torch.Tensor, q: torch.Tensor, i: torch.Tensor,
-                 w: torch.Tensor, b: torch.Tensor, order: int) -> torch.Tensor:
-    """``[E, out]`` interaction projection of the (u, q, i) role rows. CPU
-    tensors run the plain twin; CUDA tensors launch ``csrc/interact.cu``
-    and count one in ``interact_fwd.launches``."""
-    what = "interact_fwd"
+def interact_fwd_form(d: int, out_dim: int, order: int) -> str:
+    """K3's form for the shape, as ``csrc/interact.cu`` picks it:
+    ``"tensor_cores"`` (3xTF32 on ``mma.sync``, d % 8 == 0 when W's split
+    and one warp's ring fit in shared memory) or ``"f32_cores"`` (any
+    other d % 4 == 0). Asks the built library, so it needs nvcc."""
+    fn = _build.function("interact", "ihgnn_interact_fwd_form",
+                         [ctypes.c_int] * 3)
+    return "tensor_cores" if fn(d, out_dim, order) else "f32_cores"
+
+
+def _fwd(wrapper, entry: str, u, q, i, w, b, order: int) -> torch.Tensor:
+    """The checks, the plain twin on the CPU and the launch of C entry
+    point ``entry`` for ``interact_fwd`` and ``interact_fwd_cores``; one
+    launch counts in ``wrapper.launches``."""
+    what = wrapper.__name__
     _check_weights(what, u, w, order)
     if b.shape != (w.shape[1],):
         raise ValueError(f"{what}: b {tuple(b.shape)} does not fit w "
@@ -109,16 +122,38 @@ def interact_fwd(u: torch.Tensor, q: torch.Tensor, i: torch.Tensor,
     out = torch.empty(e, out_dim, dtype=torch.float32, device=u.device)
     if e == 0:
         return out
-    fn = _build.function("interact", "ihgnn_interact_fwd", _ARGTYPES)
+    fn = _build.function("interact", entry, _ARGTYPES)
     err = fn(u.data_ptr(), q.data_ptr(), i.data_ptr(), w.data_ptr(),
              b.data_ptr(), out.data_ptr(), e, d, out_dim, order,
              _build.stream_ptr(u.device))
     _build.check("interact", what, err)
-    interact_fwd.launches += 1
+    wrapper.launches += 1
     return out
 
 
+def interact_fwd(u: torch.Tensor, q: torch.Tensor, i: torch.Tensor,
+                 w: torch.Tensor, b: torch.Tensor, order: int) -> torch.Tensor:
+    """``[E, out]`` interaction projection of the (u, q, i) role rows. CPU
+    tensors run the plain twin; CUDA tensors launch ``csrc/interact.cu``
+    in the form ``interact_fwd_form`` names and count one in
+    ``interact_fwd.launches``."""
+    return _fwd(interact_fwd, "ihgnn_interact_fwd", u, q, i, w, b, order)
+
+
 interact_fwd.launches = 0
+
+
+def interact_fwd_cores(u: torch.Tensor, q: torch.Tensor, i: torch.Tensor,
+                       w: torch.Tensor, b: torch.Tensor,
+                       order: int) -> torch.Tensor:
+    """``interact_fwd`` in K3's f32-core form whatever the shape, for its
+    card tests and its time beside the tensor-core form; counts in
+    ``interact_fwd_cores.launches``. No model path calls it."""
+    return _fwd(interact_fwd_cores, "ihgnn_interact_fwd_cores", u, q, i, w,
+                b, order)
+
+
+interact_fwd_cores.launches = 0
 
 
 def interact_bwd_plain(u: torch.Tensor, q: torch.Tensor, i: torch.Tensor,
@@ -253,15 +288,10 @@ def interact_fwd_absorb_plain(u, q, i_t1, pi, w, b, order: int):
     return o1, o2
 
 
-def interact_fwd_absorb(u: torch.Tensor, q: torch.Tensor, i_t1: torch.Tensor,
-                        pi: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                        order: int):
-    """``(o1, o2)``, each ``[E, out]``: the interaction of the σ-ordered
-    ``u``/``q`` and the t1-ordered ``i_t1`` read through ``pi``, and
-    ``o1`` permuted by ρ = π⁻¹. CPU tensors run the plain twin; CUDA
-    tensors launch ``csrc/interact.cu`` and count one in
-    ``interact_fwd_absorb.launches``."""
-    what = "interact_fwd_absorb"
+def _fwd_absorb(wrapper, entry: str, u, q, i_t1, pi, w, b, order: int):
+    """``_fwd`` for ``interact_fwd_absorb`` and
+    ``interact_fwd_absorb_cores``."""
+    what = wrapper.__name__
     _check_weights(what, u, w, order)
     _check_absorb(what, u, pi)
     if b.shape != (w.shape[1],):
@@ -277,17 +307,40 @@ def interact_fwd_absorb(u: torch.Tensor, q: torch.Tensor, i_t1: torch.Tensor,
     o2 = torch.empty_like(o1)
     if e == 0:
         return o1, o2
-    fn = _build.function("interact", "ihgnn_interact_fwd_absorb",
-                         _FWD_ABSORB_ARGTYPES)
+    fn = _build.function("interact", entry, _FWD_ABSORB_ARGTYPES)
     err = fn(u.data_ptr(), q.data_ptr(), i_t1.data_ptr(), pi.data_ptr(),
              w.data_ptr(), b.data_ptr(), o1.data_ptr(), o2.data_ptr(), e, d,
              out_dim, order, pi.shape[1], _build.stream_ptr(u.device))
     _build.check("interact", what, err)
-    interact_fwd_absorb.launches += 1
+    wrapper.launches += 1
     return o1, o2
 
 
+def interact_fwd_absorb(u: torch.Tensor, q: torch.Tensor, i_t1: torch.Tensor,
+                        pi: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                        order: int):
+    """``(o1, o2)``, each ``[E, out]``: the interaction of the σ-ordered
+    ``u``/``q`` and the t1-ordered ``i_t1`` read through ``pi``, and
+    ``o1`` permuted by ρ = π⁻¹. CPU tensors run the plain twin; CUDA
+    tensors launch ``csrc/interact.cu`` in the form ``interact_fwd_form``
+    names and count one in ``interact_fwd_absorb.launches``."""
+    return _fwd_absorb(interact_fwd_absorb, "ihgnn_interact_fwd_absorb", u,
+                       q, i_t1, pi, w, b, order)
+
+
 interact_fwd_absorb.launches = 0
+
+
+def interact_fwd_absorb_cores(u, q, i_t1, pi, w, b, order: int):
+    """``interact_fwd_absorb`` in K3's f32-core form whatever the shape,
+    as ``interact_fwd_cores``; counts in
+    ``interact_fwd_absorb_cores.launches``."""
+    return _fwd_absorb(interact_fwd_absorb_cores,
+                       "ihgnn_interact_fwd_absorb_cores", u, q, i_t1, pi, w,
+                       b, order)
+
+
+interact_fwd_absorb_cores.launches = 0
 
 
 def interact_bwd_absorb_plain(u, q, i_t1, pi, w, c1, c2, mask, order: int):

@@ -11,7 +11,10 @@ repository's conftest is left out):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 The routed path's kernels (K6/K7 permutes, K2's single-index forms, K1's
-three-region form, K5, K8) and Functions are covered at the end.
+three-region form, K5, K8) and Functions are covered at the end. K3's
+forward (and K5's) has two forms, the tensor-core form (3xTF32 on staged
+edge tiles) and the f32-core form; both are held at every order and
+output width, on ragged edge counts and on rows of magnitude 1e3.
 
 Tolerances: K2, K6/K7 are copies and K4 a max, all bitwise exact; K1, K3, the
 scalar segment sum and ``csr_edge_dot`` sum in another order than the
@@ -52,7 +55,9 @@ from ihgnn_torch.ops.interact import (CHUNK_EDGES, KERNEL_OUT_DIMS,
                                       interact_bwd_absorb_plain,
                                       interact_bwd_plain, interact_fwd,
                                       interact_fwd_absorb,
+                                      interact_fwd_absorb_cores,
                                       interact_fwd_absorb_plain,
+                                      interact_fwd_cores, interact_fwd_form,
                                       interact_fwd_plain)
 from ihgnn_torch.ops.permute import (row_local_permute,
                                      row_local_permute_plain,
@@ -224,8 +229,8 @@ def test_gather_roles(dev, d, edges):
 
 
 @pytest.mark.parametrize("order", [1, 2, 3])
-@pytest.mark.parametrize("d,out", [(32, o) for o in KERNEL_OUT_DIMS]
-                         + [(16, 16), (8, 32)])
+@pytest.mark.parametrize("d,out", [(d, o) for d in (32, 16, 8)
+                                   for o in KERNEL_OUT_DIMS])
 def test_interact_fwd(dev, order, d, out):
     edges = 3 * 128 + 5           # a ragged tail
     g = _gen(dev, 10 * order + d + out)
@@ -254,6 +259,101 @@ def test_interact_fwd_many_blocks(dev):
     want = interact_fwd_plain(u, q, i, w, b, 3)
     torch.testing.assert_close(got, want, rtol=0,
                                atol=1e-5 * want.abs().max().item())
+
+
+def _fwd_inputs(dev, edges, d, out, order, seed, scale=1.0):
+    g = _gen(dev, seed)
+    u, q, i = (torch.randn(edges, d, device=dev, generator=g)
+               for _ in range(3))
+    parts = ORDER_PARTS[order]
+    w = torch.randn(parts * d, out, device=dev, generator=g) / (parts * d) ** .5
+    b = torch.randn(out, device=dev, generator=g)
+    return u * scale, q, i, w, b
+
+
+def _assert_fwd_close(got, want):
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * want.abs().max().item())
+
+
+def test_interact_fwd_form_rule(dev):
+    """The tensor-core form takes every width the model uses (d % 8 == 0
+    with W's split in shared memory); d % 8 != 0 and a W too large to
+    split in shared memory take the f32-core form."""
+    for order in (1, 2, 3):
+        for d in (8, 16, 32):
+            for out in KERNEL_OUT_DIMS:
+                assert interact_fwd_form(d, out, order) == "tensor_cores"
+    for d in (4, 12, 20):
+        assert interact_fwd_form(d, 32, 3) == "f32_cores"
+    assert interact_fwd_form(64, 64, 3) == "f32_cores"
+
+
+@pytest.mark.parametrize("edges", [1, 15, 17, 31, 33, 100, 1023, 4099])
+def test_interact_fwd_ragged_tails(dev, edges):
+    """E not a multiple of a warp's 32-edge tile: the tail is zero-filled
+    on load and masked on store."""
+    u, q, i, w, b = _fwd_inputs(dev, edges, 32, 32, 3, edges)
+    _assert_fwd_close(interact_fwd(u, q, i, w, b, 3),
+                      interact_fwd_plain(u, q, i, w, b, 3))
+
+
+@pytest.mark.parametrize("order", [1, 2, 3])
+def test_interact_fwd_large_rows(dev, order):
+    """One role's rows at magnitude 1e3: 3xTF32 keeps f32 accuracy, where
+    plain TF32 would miss the limit (tests/test_torch_tf32_split.py)."""
+    u, q, i, w, b = _fwd_inputs(dev, 20_011, 32, 32, order, 30 + order,
+                                scale=1e3)
+    _assert_fwd_close(interact_fwd(u, q, i, w, b, order),
+                      interact_fwd_plain(u, q, i, w, b, order))
+
+
+def test_interact_fwd_is_bitwise_repeatable(dev):
+    u, q, i, w, b = _fwd_inputs(dev, 300_001, 32, 32, 3, 8)
+    a = interact_fwd(u, q, i, w, b, 3)
+    assert torch.equal(a, interact_fwd(u, q, i, w, b, 3))
+    o = interact_fwd_absorb(u[:300_000], q[:300_000], i[:300_000],
+                            _perm_table(dev, 300, 1000, 9), w, b, 3)
+    p = interact_fwd_absorb(u[:300_000], q[:300_000], i[:300_000],
+                            _perm_table(dev, 300, 1000, 9), w, b, 3)
+    assert all(torch.equal(x, y) for x, y in zip(o, p))
+
+
+@pytest.mark.parametrize("order", [1, 2, 3])
+@pytest.mark.parametrize("d,out", [(4, 8), (12, 32), (20, 64), (32, 32),
+                                   (64, 64)])
+def test_interact_fwd_f32_core_form(dev, order, d, out):
+    """K3's second form: by shape through ``interact_fwd`` (d % 8 != 0,
+    or a W too large to split), and forced by ``interact_fwd_cores`` at
+    any d; each call counts in its own wrapper."""
+    u, q, i, w, b = _fwd_inputs(dev, 2 * 128 + 3, d, out, order,
+                                7 * order + d)
+    want = interact_fwd_plain(u, q, i, w, b, order)
+    before = (interact_fwd.launches, interact_fwd_cores.launches)
+    _assert_fwd_close(interact_fwd(u, q, i, w, b, order), want)
+    _assert_fwd_close(interact_fwd_cores(u, q, i, w, b, order), want)
+    torch.cuda.synchronize()
+    assert (interact_fwd.launches - before[0],
+            interact_fwd_cores.launches - before[1]) == (1, 1)
+
+
+@pytest.mark.parametrize("order", [1, 3])
+@pytest.mark.parametrize("rows,cols,d,scale", [(3, 7, 32, 1.0),
+                                               (37, 24, 32, 1.0),
+                                               (40, 256, 8, 1.0),
+                                               (64, 128, 32, 1e3)])
+def test_interact_fwd_absorb_shapes(dev, order, rows, cols, d, scale):
+    """K5's forward on grids whose E is not a multiple of the 32-edge
+    tile, narrow rows and rows of magnitude 1e3, in both forms: o1 and
+    o2 = ρ(o1) against the twin; every o2 row is written."""
+    u, q, i_t1, w, b = _fwd_inputs(dev, rows * cols, d, 32, order,
+                                   rows + cols + order, scale)
+    pi = _perm_table(dev, rows, cols, rows * cols)
+    want = interact_fwd_absorb_plain(u, q, i_t1, pi, w, b, order)
+    for fn in (interact_fwd_absorb, interact_fwd_absorb_cores):
+        got = fn(u, q, i_t1, pi, w, b, order)
+        for a, c in zip(got, want):
+            _assert_fwd_close(a, c)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):

@@ -1,4 +1,4 @@
-"""The two redesigned kernels' host-side rules, on the CPU.
+"""The redesigned kernels' arithmetic and host-side rules, on the CPU.
 
 * ``interact_bwd`` runs both of its products on the tensor cores in
   3xTF32 (``csrc/interact_bwd.cu`` ``split_tf32``): each f32 operand is
@@ -11,14 +11,23 @@
   float64 product and against ``jax.vjp`` of the JAX
   ``FeatureInteractor``; plain TF32 (``hi`` alone) misses the same limit
   on rows of magnitude 1e3.
+* K3 ``interact_fwd`` and K5's forward ``interact_fwd_absorb`` run their
+  product, parts [E, parts·d] by W, the same way (``csrc/interact.cu``,
+  the tensor-core form): the emulated forward at orders 1–3 (d = out =
+  32) is held against the float64 product and against the JAX
+  ``FeatureInteractor`` forward (XLA), and its π-read form against
+  float64 and the Pallas ``interact_fwd_absorb`` in interpret mode.
 * K1's fixed-width form (the scatter's backward, 3 entries an edge) and
   the rule that picks K1's vector form from the width and the alignment.
+* The build hash covers the shared headers ``csrc/*.cuh``.
 
-Tolerances: the emulated 3xTF32 backward within 1e-6 of each output's
+Tolerances: the emulated 3xTF32 products within 1e-6 of each output's
 largest value from the float64 product (the split keeps about 22 bits of
-each operand; f32 sums over 32 terms), and within 1e-5 from JAX's f32
-gradient (``tests/test_torch_train.py``'s limit); plain TF32 is shown to
-exceed 1e-4 (the card tests' limit) on the large rows.
+each operand; f32 sums over 32 to 224 terms), and within 1e-5 from JAX's
+f32 XLA results (``tests/test_torch_train.py``'s limit); plain TF32 is
+shown to exceed 1e-4 (the card tests' limit) on the large rows. The π
+form against the Pallas kernel: 3e-2 of the largest value, because that
+kernel rounds its MXU operands to bf16 (``tests/test_torch_routed.py``).
 """
 
 import jax
@@ -28,15 +37,20 @@ import pytest
 import torch
 
 from ihgnn_torch.graph import build_hypergraph
+from ihgnn_torch.ops import _build
 from ihgnn_torch.ops.hyperagg import SpmmFn
 from ihgnn_torch.ops.hyperagg import make_hyper_ops as torch_hyper_ops
 from ihgnn_torch.ops.interact import (CHUNK_EDGES, ORDER_PARTS,
-                                      interact_bwd, interact_parts)
+                                      interact_bwd, interact_fwd,
+                                      interact_fwd_absorb, interact_parts)
 from ihgnn_torch.ops.segsum import (csr_gather_sum, csr_gather_sum_plain,
                                     vector_form)
+from ihgnn_tpu import graph as jgraph
 from ihgnn_tpu.data.synthetic import make_synthetic_data
 from ihgnn_tpu.models.interaction import FeatureInteractor
 from ihgnn_tpu.ops.hyperagg import make_hyper_ops, strip_kernel_packing
+from ihgnn_tpu.ops.pallas.interact import \
+    interact_fwd_absorb as pallas_fwd_absorb
 
 D = OUT = 32
 
@@ -156,6 +170,100 @@ def test_3xtf32_backward_matches_jax_grad(order):
 
 
 # ---------------------------------------------------------------------------
+# K3 and K5's forward: the product parts . W in 3xTF32
+# ---------------------------------------------------------------------------
+
+
+def _emulated_fwd(u, q, i, w, b, order, terms):
+    """``interact_fwd`` as the tensor-core form computes it: the parts
+    formed in f32, then one split product [E, parts·d] by W, plus b."""
+    stacked = torch.cat(interact_parts(u, q, i, order), dim=1)
+    return _mm(stacked, w, terms) + b
+
+
+def _fwd_inputs(e, order, scale, seed):
+    u, q, i, w, _ = _inputs(e, order, scale, seed)
+    b = np.random.default_rng(seed + 1).standard_normal(OUT).astype(
+        np.float32)
+    return u, q, i, w, b
+
+
+@pytest.mark.parametrize("order", [1, 2, 3])
+@pytest.mark.parametrize("scale", [1.0, 1e3])
+def test_3xtf32_forward_matches_float64(order, scale):
+    """The emulated 3xTF32 forward, one role's rows at 1 or 1e3, within
+    1e-6 of float64 (``interact_fwd``'s twin on float64 tensors); plain
+    TF32 off by more than 1e-4 on the large rows."""
+    u, q, i, w, b = (torch.from_numpy(a)
+                     for a in _fwd_inputs(777, order, scale, 40 + order))
+    want = interact_fwd(*(t.double() for t in (u, q, i, w, b)), order)
+    got = _emulated_fwd(u, q, i, w, b, order, 3)
+    assert _max_rel_err([got], [want]) < 1e-6
+    if scale > 1:
+        assert _max_rel_err([_emulated_fwd(u, q, i, w, b, order, 1)],
+                            [want]) > 1e-4
+
+
+@pytest.mark.parametrize("order", [1, 2, 3])
+def test_3xtf32_forward_matches_jax(order):
+    """The emulated 3xTF32 forward against the f32 XLA
+    ``FeatureInteractor`` (d = out = 32) with the module's own weights."""
+    u, q, i, _, _ = _fwd_inputs(600, order, 1.0, 50 + order)
+    roles_t = tuple(jnp.asarray(a.T) for a in (u, q, i))
+    mod = FeatureInteractor(order, D, OUT)
+    params = mod.init(jax.random.key(10 + order), roles_t, fused_ok=False)
+    want = np.asarray(mod.apply(params, roles_t, fused_ok=False)).T
+    dense = params["params"]["aggregation"]["dense"]
+    w, b = (torch.from_numpy(np.array(dense[k])) for k in ("kernel", "bias"))
+    got = _emulated_fwd(*(torch.from_numpy(a) for a in (u, q, i)), w, b,
+                        order, 3)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max())
+
+
+@pytest.fixture(scope="module")
+def packed():
+    """(JAX packed graph, the port's packed graph) of 400 random edges on
+    a 128 x 128 grid, as ``tests/test_torch_routed.py`` builds them."""
+    users, queries, items = 40, 25, 60
+    rng = np.random.default_rng(3)
+    uqi = np.stack([rng.integers(0, users, 400),
+                    rng.integers(0, queries, 400),
+                    rng.integers(0, items, 400)], axis=1)
+    n = users + queries + items
+    return (jgraph.build_hypergraph(uqi, n, users, queries),
+            build_hypergraph(uqi, n, users, queries, pack_kernels=True))
+
+
+@pytest.mark.parametrize("order", [3, 1])
+def test_3xtf32_forward_absorb(packed, order):
+    """The π-read form: i read at e_π = r·C + π[r, c], o2[e_π] = o1[e].
+    Emulated in 3xTF32 within 1e-6 of float64 (K5's twin on float64
+    tensors), and within 3e-2 of the Pallas ``interact_fwd_absorb`` in
+    interpret mode (bf16 MXU operands)."""
+    jk, kp = packed[0].kp, packed[1].kp
+    e = kp.e_pad
+    u, q, i_t1, w, b = _fwd_inputs(e, order, 1.0, 60 + order)
+    t = [torch.from_numpy(a) for a in (u, q, i_t1, w, b)]
+    rows, cols = kp.i.p2.shape
+    e_pi = (torch.arange(rows)[:, None] * cols + kp.i.p2.long()).reshape(-1)
+    o1 = _emulated_fwd(t[0], t[1], t[2][e_pi], t[3], t[4], order, 3)
+    o2 = torch.empty_like(o1)
+    o2[e_pi] = o1
+    want = interact_fwd_absorb(t[0].double(), t[1].double(), t[2].double(),
+                               kp.i.p2, t[3].double(), t[4].double(), order)
+    assert _max_rel_err([o1, o2], want) < 1e-6
+    pallas = pallas_fwd_absorb(
+        *(jnp.asarray(a.T) for a in (u, q, i_t1)), jk.i.fwd_p2.tab,
+        jk.i.inv_p2.tab, jnp.asarray(w), jnp.asarray(b)[:, None], order,
+        jk.cols, interpret=True)
+    for got, ref in zip((o1, o2), pallas):
+        ref = np.asarray(ref).T
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                                   atol=3e-2 * np.abs(ref).max())
+
+
+# ---------------------------------------------------------------------------
 # K1: the fixed-width form and the choice of form
 # ---------------------------------------------------------------------------
 
@@ -213,3 +321,32 @@ def test_vector_form_rule():
     shifted = torch.zeros(321)[1:].view(10, 32)
     assert shifted.is_contiguous() and not vector_form(32, shifted)
     assert not vector_form(32, x, shifted)
+
+
+# ---------------------------------------------------------------------------
+# the build hash
+# ---------------------------------------------------------------------------
+
+
+def test_library_path_covers_headers(tmp_path):
+    """An edit to a shared header (``tf32.cuh``) names a new library for
+    every source, so no stale build survives it; an edit elsewhere in
+    the directory does not."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for src in _build.CSRC.iterdir():
+        if src.suffix in (".cu", ".cuh"):
+            (csrc / src.name).write_bytes(src.read_bytes())
+    assert (csrc / "tf32.cuh").exists()
+    before = {stem: _build.library_path(stem, csrc)
+              for stem in _build.SOURCES}
+    assert before["interact"] == _build.library_path("interact")
+    (csrc / "notes.txt").write_text("not a source")
+    assert {s: _build.library_path(s, csrc) for s in _build.SOURCES} == before
+    header = csrc / "tf32.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {stem: _build.library_path(stem, csrc)
+             for stem in _build.SOURCES}
+    assert all(after[s] != before[s] for s in _build.SOURCES)
+    (csrc / "extra.cuh").write_text("#pragma once\n")
+    assert _build.library_path("interact", csrc) != after["interact"]
