@@ -48,23 +48,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 Phase 3 also checks K4 ``csr_segment_max`` and the scalar
 ``csr_segment_sum`` at the GAT (12M entries → 700k) and phase-2 (6M →
-700k) shapes, ``csr_edge_dot`` at the GAT backward's shape and K1 at the
-GAT weighted sum's; and the routed path's kernels on the routed pack of the
-2M-edge graph (``build_hypergraph(..., pack_kernels=True)``, grid
-[2048, 1024], e_pad = 2,097,152): K2's single-index forms, the K6/K7
-permute forms (f32 and bf16), K5 forward (both forms) and backward at
-orders 3 and 1 with the σ-pad mask, K1's three-region form, K8 on the
+700k) shapes and on a skewed CSR (a few segments of 10k-1M entries among
+empty and short ones; the sum bit for bit in its order of adds,
+``csr_segment_sum_ordered``), ``csr_edge_dot`` at the GAT backward's
+shape and K1 at the GAT weighted sum's; and the routed path's kernels on
+the routed pack of the 2M-edge graph (``build_hypergraph(...,
+pack_kernels=True)``, grid [2048, 1024], e_pad = 2,097,152): K2's
+single-index forms, the K6/K7 permute forms (f32 and bf16), K5 forward
+(both forms) and backward at orders 3 and 1 with the σ-pad mask (the
+backward also bit for bit equal to ``interact_bwd`` on the pre-permuted
+inputs, which is timed beside it), K1's three-region form, K8 on the
 node-update stream (and ``torch.sparse.mm`` beside it, timed in turns
 SCAN_REPEATS times each), and K1 over one CSR spanning two such
-edge-chunk streams (``csr_segment_sum3_multi``'s shape). Between phases 9 and 10 the routed path runs as the direct one
-did, with the same weights and batches: ``routed_serving`` (its features
-within 1e-4 of the direct path's, its metrics equal), ``routed_scan`` (the
-first layer's node-update stream summed by K8, equal to K1's sum),
-``routed_train`` (its step-0 loss within 1e-4 relative of the direct
-path's) and a profiled routed train step, then ``small_routed_reference``
-(the default model, HGCN and phase 2 on a small packed graph, card
-against CPU as in phase 9). Every launch count of a routed path is
-checked exactly.
+edge-chunk streams (``csr_segment_sum3_multi``'s shape). Between phases
+9 and 10 the routed path runs as the direct one did, with the same
+weights and batches: ``routed_serving`` (its features within 1e-4 of the
+direct path's, its metrics equal), ``routed_scan`` (the first layer's
+node-update stream summed by K8, equal to K1's sum), ``routed_train``
+(its step-0 loss within 1e-4 relative of the direct path's) and a
+profiled routed train step, then ``small_routed_reference`` (the default
+model, HGCN and phase 2 on a small packed graph, card against CPU as in
+phase 9). Every launch count of a routed path is checked exactly.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Needs a CUDA card; exits non-zero without one.
@@ -255,6 +259,20 @@ def record_row(torch, results, name, shape, err, tol, k_fn, p_fn, l_fn,
     results.setdefault(name, []).append(row)
 
 
+def skewed_rowptr(torch, dev, segments):
+    """A skewed CSR over ``segments`` segments: half empty, the rest 1-30
+    entries, and four of 1M, 250k, 50k and 10k entries among them (far
+    longer than a block's shared-memory window of csrc/segmax.cu)."""
+    rng = np.random.default_rng(2)
+    counts = rng.integers(1, 31, segments)
+    counts[rng.random(segments) < 0.5] = 0
+    counts[rng.choice(segments, 4, replace=False)] = (1_000_000, 250_000,
+                                                       50_000, 10_000)
+    rowptr = np.zeros(segments + 1, np.int64)
+    rowptr[1:] = np.cumsum(counts)
+    return torch.from_numpy(rowptr.astype(np.int32)).to(dev)
+
+
 def check_kernels(torch, dev, graph, bag, graph2d):
     """Phase 3: each kernel against its plain twin, timed beside its
     bound and one library call."""
@@ -269,6 +287,7 @@ def check_kernels(torch, dev, graph, bag, graph2d):
     from ihgnn_torch.ops.segmax import (EMPTY_MAX, csr_segment_max,
                                         csr_segment_max_plain,
                                         csr_segment_sum,
+                                        csr_segment_sum_ordered,
                                         csr_segment_sum_plain)
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -459,10 +478,14 @@ def check_kernels(torch, dev, graph, bag, graph2d):
     # K4 and the scalar sum: the GAT softmax over the 2D graph's
     # destinations (12M entries -> 700k) and the phase-2 softmax over the
     # hypergraph's nodes (6M -> 700k); scores with a share at -1e30 as
-    # masked entries give them
+    # masked entries give them. A skewed CSR times the block path of long
+    # segments. The sum is held to its twin (1e-4; on the skewed CSR, whose
+    # long sums reach 5e5, 1e-4 of the largest) and bit for bit to its
+    # order of adds (csr_segment_sum_ordered)
     att = graph2d.attention
     for label, rowptr in (("GAT", att.dst_rowptr),
-                          ("phase 2", graph.phase2.dst_rowptr)):
+                          ("phase 2", graph.phase2.dst_rowptr),
+                          ("skewed", skewed_rowptr(torch, dev, n))):
         k, s_out = int(rowptr[-1].item()), rowptr.numel() - 1
         offsets = rowptr.long()
         scores = randn(k) * 4
@@ -483,14 +506,17 @@ def check_kernels(torch, dev, graph, bag, graph2d):
         w = torch.rand(k, device=dev, generator=gen)
         k_out = csr_segment_sum(w, rowptr)
         p_out = csr_segment_sum_plain(w, rowptr)
+        if not torch.equal(k_out, csr_segment_sum_ordered(w, rowptr)):
+            fail(f"csr_segment_sum ({label}) differs from its order of adds")
         lib = torch.segment_reduce(w, "sum", offsets=offsets)
+        tol = 1e-4 * (p_out.abs().max().item() if label == "skewed" else 1)
         record("csr_segment_sum", f"{label} [{k} entries -> [{s_out}]]",
-               (k_out - p_out).abs().max().item(), 1e-4,
+               (k_out - p_out).abs().max().item(), tol,
                lambda: csr_segment_sum(w, rowptr),
                lambda: csr_segment_sum_plain(w, rowptr),
                lambda: torch.segment_reduce(w, "sum", offsets=offsets),
                4 * (k + rowptr.numel() + s_out), k,
-               (lib - p_out).abs().max().item())
+               (lib - p_out).abs().max().item(), ordered_equal=True)
         del scores, w, k_out, p_out, lib
 
     # csr_edge_dot at the GAT backward: tt = <cot[dst], x[src]> over 12M
@@ -539,8 +565,10 @@ def check_routed_kernels(torch, dev, kp, results):
     twin, timed beside its bound and one library call."""
     from ihgnn_torch.ops.gather import (gather_rows, gather_rows_plain,
                                         gather_rows_t)
-    from ihgnn_torch.ops.interact import (ORDER_PARTS, interact_bwd_absorb,
+    from ihgnn_torch.ops.interact import (ORDER_PARTS, interact_bwd,
+                                          interact_bwd_absorb,
                                           interact_bwd_absorb_plain,
+                                          interact_bwd_absorb_via_direct,
                                           interact_fwd_absorb,
                                           interact_fwd_absorb_cores,
                                           interact_fwd_absorb_plain,
@@ -667,6 +695,23 @@ def check_routed_kernels(torch, dev, kp, results):
         k_b = interact_bwd_absorb(u, q, i_t1, pi, w, c1, c2, mask, order)
         p_b = interact_bwd_absorb_plain(u, q, i_t1, pi, w, c1, c2, mask,
                                         order)
+        # the identity: interact_bwd on the pre-permuted inputs (i_t1[e_pi],
+        # the merged, masked cotangent), bit for bit; that kernel is timed
+        # on them beside K5
+        r_b = interact_bwd_absorb_via_direct(u, q, i_t1, pi, w, c1, c2,
+                                             mask, order)
+        bitwise = all(torch.equal(a, c) for a, c in zip(
+            (*k_b[0], *k_b[1:]), (*r_b[0], *r_b[1:])))
+        if not bitwise:
+            fail(f"interact_bwd_absorb order {order} differs from "
+                 "interact_bwd on the pre-permuted inputs")
+        e_pi = (torch.arange(rows, device=dev)[:, None] * cols
+                + pi.long()).view(-1)
+        i_sig = i_t1[e_pi]
+        cot = (c1 + c2[e_pi]) * mask[:, None]
+        direct_ms = time_ms(torch, lambda: interact_bwd(u, q, i_sig, w, cot,
+                                                        order))
+        del r_b, e_pi, i_sig, cot
         errors = {}
         for nm, a, c in zip(names, (*k_b[0], *k_b[1:]), (*p_b[0], *p_b[1:])):
             errors[nm] = {"max_abs_err": (a - c).abs().max().item(),
@@ -689,11 +734,14 @@ def check_routed_kernels(torch, dev, kp, results):
                                                  mask, order), None,
                4 * (3 * e_pad * D + e_pad + w.numel() + 2 * e_pad * D
                     + e_pad + 3 * e_pad * D + w.numel() + D),
-               # and the merged cotangent: an add and a mask a value
-               e_pad * (2 * 2 * parts * D * D
-                        + D * (hadamard + product_rule) + D + 2 * D),
+               # the hadamard parts, the product rule, db and the merged
+               # cotangent (an add and a mask a value) on the f32 cores; the
+               # two products on the tensor cores in 3xTF32
+               e_pad * (D * (hadamard + product_rule) + D + 2 * D),
+               tf32_flops=e_pad * 2 * 2 * parts * D * D,
                errors=errors, max_abs_err_all=max(
-                   v["max_abs_err"] for v in errors.values()))
+                   v["max_abs_err"] for v in errors.values()),
+               bitwise_equal=bitwise, direct_on_permuted_ms=direct_ms)
         del k_b, p_b
     del u, q, i_t1, c1, c2
 

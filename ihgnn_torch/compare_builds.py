@@ -1,5 +1,6 @@
 """Hold this checkout's interaction kernels bit for bit against another
-checkout's build of them, on the same inputs.
+checkout's build of them, and K5's backward against this build's direct
+backward, on the same inputs.
 
     python3 -m ihgnn_torch.compare_builds --reference DIR
 
@@ -7,14 +8,18 @@ checkout's build of them, on the same inputs.
 unpacked with ``git archive``). Both checkouts' ``csrc/interact_bwd.cu``
 and ``csrc/interact.cu`` are built with the package's nvcc flags (one
 nvcc process each, in parallel, into ``build/compare/``), and each pair
-of entry points below runs on the same seeded inputs:
+below runs on the same seeded inputs:
 
-* ``ihgnn_interact_bwd`` and ``ihgnn_interact_bwd_absorb`` of both builds
-  of ``interact_bwd.cu``;
-* the reference's ``ihgnn_interact_fwd`` and ``ihgnn_interact_fwd_absorb``
-  against this checkout's ``ihgnn_interact_fwd_cores`` and
-  ``ihgnn_interact_fwd_absorb_cores`` (K3's f32-core form, the kernel K3
-  ran before its tensor-core form).
+* ``ihgnn_interact_bwd`` of both builds of ``interact_bwd.cu``;
+* ``ihgnn_interact_fwd_cores`` and ``ihgnn_interact_fwd_absorb_cores`` (K3's
+  f32-core form) of both builds of ``interact.cu``; the reference needs
+  those entry points, so it is a checkout with K3's tensor-core form;
+* this checkout's ``ihgnn_interact_bwd_absorb`` against its own
+  ``ihgnn_interact_bwd`` on the pre-permuted inputs (i[e_pi] and the
+  merged, masked cotangent), di scattered back to t1 order: the identity
+  of ``interact_bwd_absorb_via_direct``. K5's backward runs the direct
+  kernel's fused pass, not the reference's data and param kernels, so it
+  is not held to the reference's build.
 
 Prints one JSON line a case and, last, ``{"bitwise_equal": ...}``; exits 1
 when any output differs in any bit. Needs a CUDA card and nvcc.
@@ -38,9 +43,7 @@ PTR, INT = ctypes.c_void_p, ctypes.c_int
 ARGTYPES = {
     "ihgnn_interact_bwd": [PTR] * 8 + [INT] * 5 + [PTR],
     "ihgnn_interact_bwd_absorb": [PTR] * 11 + [INT] * 6 + [PTR],
-    "ihgnn_interact_fwd": [PTR] * 6 + [INT] * 4 + [PTR],
     "ihgnn_interact_fwd_cores": [PTR] * 6 + [INT] * 4 + [PTR],
-    "ihgnn_interact_fwd_absorb": [PTR] * 8 + [INT] * 5 + [PTR],
     "ihgnn_interact_fwd_absorb_cores": [PTR] * 8 + [INT] * 5 + [PTR],
 }
 # (edges, d, out) of each case; the first is the train step's shape
@@ -152,21 +155,24 @@ def main(argv=None) -> int:
             cot, c2 = (torch.randn(e, out, device=dev, generator=gen)
                        for _ in range(2))
             mask = (torch.rand(e, device=dev, generator=gen) > 0.1).float()
-            cases = {}
-            for absorb in (False, True):
-                cases[f"interact_bwd{'_absorb' if absorb else ''}"] = [
-                    run_bwd(libs[tag, "interact_bwd"], absorb, u, q, i, pi,
-                            w, cot, c2, mask, order)
-                    for tag in ("reference", "this")]
-            for ref_name, name, p in (
-                    ("ihgnn_interact_fwd", "ihgnn_interact_fwd_cores", None),
-                    ("ihgnn_interact_fwd_absorb",
-                     "ihgnn_interact_fwd_absorb_cores", pi)):
+            cases = {"interact_bwd": [
+                run_bwd(libs[tag, "interact_bwd"], False, u, q, i, pi, w, cot,
+                        c2, mask, order) for tag in ("reference", "this")]}
+            this_bwd = libs["this", "interact_bwd"]
+            e_pi = (torch.arange(e // cols, device=dev)[:, None] * cols
+                    + pi.long()).view(-1)
+            direct = run_bwd(this_bwd, False, u, q, i[e_pi], pi, w,
+                             (cot + c2[e_pi]) * mask[:, None], c2, mask,
+                             order)
+            direct[0][2][e_pi] = direct[0][2].clone()
+            cases["interact_bwd_absorb"] = [
+                direct, run_bwd(this_bwd, True, u, q, i, pi, w, cot, c2,
+                                mask, order)]
+            for name, p in (("ihgnn_interact_fwd_cores", None),
+                            ("ihgnn_interact_fwd_absorb_cores", pi)):
                 cases[name] = [
-                    run_fwd(libs["reference", "interact"], ref_name, u, q, i,
-                            p, w, b, order),
-                    run_fwd(libs["this", "interact"], name, u, q, i, p, w, b,
-                            order)]
+                    run_fwd(libs[tag, "interact"], name, u, q, i, p, w, b,
+                            order) for tag in ("reference", "this")]
             torch.cuda.synchronize()
             for case, (ref, this) in cases.items():
                 equal = all(torch.equal(a, c) for a, c in zip(ref, this))

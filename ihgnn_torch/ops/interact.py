@@ -36,8 +36,8 @@ from ihgnn_torch.ops import _build
 ORDER_PARTS = {1: 3, 2: 6, 3: 7}
 KERNEL_OUT_DIMS = (8, 16, 32, 64)     # instantiated in csrc/interact*.cu
 SMEM_LIMIT = 232_448                  # bytes of shared memory per block
-# edges summed into one dW/db partial by csrc/interact_bwd.cu (the fused
-# kernel of interact_bwd, and K5's param kernel); a multiple of their
+# edges summed into one dW/db partial by csrc/interact_bwd.cu's fused
+# kernel (interact_bwd and K5's interact_bwd_absorb); a multiple of its
 # 32-edge tile. The partials are summed in a fixed order, so the result
 # depends on E and this constant only.
 CHUNK_EDGES = 1024
@@ -184,9 +184,11 @@ def interact_bwd(u: torch.Tensor, q: torch.Tensor, i: torch.Tensor,
     ``cot`` ``[E, out]``: droles is ``[3, E, d]`` (planes du, dq, di), dw
     ``[parts·d, out]`` and db ``[out]``. CPU tensors run the plain twin;
     CUDA tensors launch ``csrc/interact_bwd.cu`` (its fused kernel, on the
-    tensor cores in 3xTF32) and count one in ``interact_bwd.launches``. A
-    shape whose W and edge tiles do not fit in shared memory is refused by
-    the C entry point, and the wrapper raises."""
+    tensor cores in 3xTF32) and count one in ``interact_bwd.launches``. W
+    is staged in shared memory when it fits beside the edge tiles, else
+    read from device memory; a shape whose edge tiles alone do not fit
+    (d above 268 to 288, by out) is refused by the C entry point, and the
+    wrapper raises."""
     what = "interact_bwd"
     _check_weights(what, u, w, order)
     if cot.shape != (u.shape[0], w.shape[1]):
@@ -258,7 +260,8 @@ class InteractFn(torch.autograd.Function):
 #             du, dq, dW, db as ``interact_bwd`` on cot; di_t1[e_π] = di_σ[e].
 #
 # On the card π is one index load an edge inside K3's kernels
-# (``csrc/interact.cu``, ``csrc/interact_bwd.cu``, ABSORB).
+# (``csrc/interact.cu``, ``csrc/interact_bwd.cu``, ABSORB); the backward
+# is ``interact_bwd``'s fused kernel with i and c2 read through π.
 
 _FWD_ABSORB_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
     ctypes.c_void_p]
@@ -355,6 +358,25 @@ def interact_bwd_absorb_plain(u, q, i_t1, pi, w, c1, c2, mask, order: int):
     return torch.stack([droles[0], droles[1], di_t1]), dw, db
 
 
+def interact_bwd_absorb_via_direct(u, q, i_t1, pi, w, c1, c2, mask,
+                                   order: int):
+    """K5's backward through ``interact_bwd`` on the pre-permuted inputs:
+    i_t1[e_π] and the merged cotangent (c1 + c2[e_π])·mask, with di
+    scattered back to t1 order. Both kernels run the same arithmetic over
+    the same σ-ordered edges in the same chunks, so on the card this gives
+    bit for bit what ``interact_bwd_absorb`` gives: the identity that
+    ``chip_smoke.py``, ``compare_builds`` and the card tests hold K5's
+    backward to. Counts in ``interact_bwd.launches``."""
+    e_pi = _permuted_edges(pi)
+    cot = c1 + c2[e_pi]
+    if mask is not None:
+        cot = cot * mask[:, None]
+    droles, dw, db = interact_bwd(u, q, i_t1[e_pi], w, cot, order)
+    di_t1 = torch.empty_like(droles[2])
+    di_t1[e_pi] = droles[2]
+    return torch.stack([droles[0], droles[1], di_t1]), dw, db
+
+
 def interact_bwd_absorb(u: torch.Tensor, q: torch.Tensor, i_t1: torch.Tensor,
                         pi: torch.Tensor, w: torch.Tensor, c1: torch.Tensor,
                         c2: torch.Tensor, mask, order: int):
@@ -363,7 +385,8 @@ def interact_bwd_absorb(u: torch.Tensor, q: torch.Tensor, i_t1: torch.Tensor,
     cotangent zeroed where ``mask`` ``[E]`` is 0 (None: no mask): droles
     ``[3, E, d]`` holds du, dq (σ order) and di for ``i_t1`` (t1 order).
     CPU tensors run the plain twin; CUDA tensors launch
-    ``csrc/interact_bwd.cu`` and count one in
+    ``csrc/interact_bwd.cu`` (the fused kernel of ``interact_bwd``, reading
+    i and c2 through π) and count one in
     ``interact_bwd_absorb.launches``."""
     what = "interact_bwd_absorb"
     _check_weights(what, u, w, order)

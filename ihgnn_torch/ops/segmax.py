@@ -11,8 +11,16 @@ on a scalar stream: the softmax denominators and the attention backward's
 per-node sums. Both kernels live in ``csrc/segmax.cu``.
 
 Layout: ``v`` contiguous f32 ``[K]``, ``rowptr`` int32 ``[S+1]``; the
-result is f32 ``[S]``. The CUDA kernels reduce each segment in a fixed
-order, so they repeat bit for bit.
+result is f32 ``[S]``. The CUDA kernel (one for both reductions) reduces
+each segment in a fixed order, so it repeats bit for bit: a segment of at
+most ``LONG_SEGMENT`` entries from the identity in entry order (its sum is
+the sequential f32 sum), a longer one by a block of ``BLOCK_THREADS``
+threads. Thread t takes, in turn, entries t, t + BLOCK_THREADS, ... of the
+head (the entries before the first 16-byte boundary), the 16-byte vectors
+t, t + BLOCK_THREADS, ... of the body (each vector's four entries in
+order), and entries t, t + BLOCK_THREADS, ... of the ragged tail; each
+warp's 32 values then combine by xor shuffles (offsets 16, 8, 4, 2, 1),
+and the warps' values in warp order.
 """
 
 from __future__ import annotations
@@ -25,6 +33,9 @@ from ihgnn_torch.ops import _build
 from ihgnn_torch.ops.segment import segment_ids, segment_max, segment_sum
 
 EMPTY_MAX = -3.0e38   # an empty segment's max (segsum.py:791)
+# csrc/segmax.cu's kLong and kThreads: the order of a long segment's sum
+LONG_SEGMENT = 256
+BLOCK_THREADS = 256
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
 
@@ -40,6 +51,46 @@ def csr_segment_sum_plain(v: torch.Tensor, rowptr: torch.Tensor
                           ) -> torch.Tensor:
     """Plain PyTorch twin of ``csr_segment_sum`` (any device)."""
     return segment_sum(v, segment_ids(rowptr), rowptr.shape[0] - 1)
+
+
+def csr_segment_sum_ordered(v: torch.Tensor, rowptr: torch.Tensor
+                            ) -> torch.Tensor:
+    """``csr_segment_sum`` in the CUDA kernel's order of f32 adds (the
+    module docstring; ``v`` taken as starting on a 16-byte boundary), so
+    it equals the kernel bit for bit on the same inputs: sequential sums
+    for the segments of at most ``LONG_SEGMENT`` entries, the block order
+    for the longer ones. Any device; for tests."""
+    starts, ends = rowptr[:-1].long(), rowptr[1:].long()
+    lengths = ends - starts
+    out = torch.zeros(lengths.shape[0], dtype=torch.float32,
+                      device=v.device)
+    short = lengths <= LONG_SEGMENT
+    for k in range(int(lengths[short].max()) if short.any() else 0):
+        has = short & (k < lengths)
+        idx = torch.where(has, starts + k, 0)
+        out = torch.where(has, out + v[idx], out)
+    lanes = torch.arange(BLOCK_THREADS, device=v.device)
+    for s in torch.nonzero(~short).view(-1).tolist():
+        lb, le = int(starts[s]), int(ends[s])
+        ab = min((lb + 3) // 4 * 4, le)
+        nv = (le - ab) // 4
+        acc = torch.zeros(BLOCK_THREADS, dtype=torch.float32,
+                          device=v.device)
+        # head, body, tail: (first entry, items, entries an item); thread
+        # t takes items t, t + BLOCK_THREADS, ...
+        for first, items, size in ((lb, ab - lb, 1), (ab, nv, 4),
+                                   (ab + 4 * nv, le - ab - 4 * nv, 1)):
+            for r in range(0, items, BLOCK_THREADS):
+                t = lanes[:min(BLOCK_THREADS, items - r)]
+                for c in range(size):
+                    acc[t] = acc[t] + v[first + size * (r + t) + c]
+        for off in (16, 8, 4, 2, 1):
+            acc = acc + acc[lanes ^ off]
+        total = acc[0]
+        for warp in range(1, BLOCK_THREADS // 32):
+            total = total + acc[32 * warp]
+        out[s] = total
+    return out
 
 
 def _launch(entry: str, wrapper, v: torch.Tensor,

@@ -22,7 +22,11 @@ twins, 1e-5 absolute (K1, the scalar sum) and 1e-5 of the largest output
 (K3, ``csr_edge_dot``); K1 on long segments against float64, 2e-6 a term.
 ``interact_bwd``'s dW and db sum every edge in another order than the
 twin's matmuls, on the tensor cores in 3xTF32: 1e-4 of each output's
-largest value; so do K5's (f32 cores).
+largest value; so do K5's. K5's backward is ``interact_bwd``'s fused
+kernel reading i and c2 through π, so it is also held bit for bit to
+``interact_bwd`` on the pre-permuted inputs; the scalar segment sum is
+held bit for bit to ``csr_segment_sum_ordered`` (its order of adds on the
+CPU) and K4 to its twin.
 K8 sums each segment in stream order, as K1 does over the same entries:
 bitwise equal to K1, 1e-5 of the largest run length from its twin. Values and
 gradients of a small graph on the card against the CPU: 1e-5 of each
@@ -53,6 +57,7 @@ from ihgnn_torch.ops.interact import (CHUNK_EDGES, KERNEL_OUT_DIMS,
                                       InteractAbsorbFn, InteractFn,
                                       interact_bwd, interact_bwd_absorb,
                                       interact_bwd_absorb_plain,
+                                      interact_bwd_absorb_via_direct,
                                       interact_bwd_plain, interact_fwd,
                                       interact_fwd_absorb,
                                       interact_fwd_absorb_cores,
@@ -63,8 +68,9 @@ from ihgnn_torch.ops.permute import (row_local_permute,
                                      row_local_permute_plain,
                                      transposed_local_permute,
                                      transposed_local_permute_plain)
-from ihgnn_torch.ops.segmax import (EMPTY_MAX, csr_segment_max,
-                                    csr_segment_max_plain, csr_segment_sum,
+from ihgnn_torch.ops.segmax import (EMPTY_MAX, LONG_SEGMENT,
+                                    csr_segment_max, csr_segment_max_plain,
+                                    csr_segment_sum, csr_segment_sum_ordered,
                                     csr_segment_sum_plain)
 from ihgnn_torch.ops.segscan import BLOCK as SCAN_BLOCK
 from ihgnn_torch.ops.segscan import (csr_segment_scan, csr_segment_scan_plain,
@@ -237,7 +243,8 @@ def test_interact_fwd(dev, order, d, out):
     u, q, i = (torch.randn(edges, d, device=dev, generator=g)
                for _ in range(3))
     parts = ORDER_PARTS[order]
-    w = torch.randn(parts * d, out, device=dev, generator=g) / (parts * d) ** .5
+    w = (torch.randn(parts * d, out, device=dev, generator=g)
+         / (parts * d) ** .5)
     b = torch.randn(out, device=dev, generator=g)
     before = interact_fwd.launches
     got = interact_fwd(u, q, i, w, b, order)
@@ -609,6 +616,106 @@ def test_csr_segment_sum(dev):
     assert (got[empty] == 0).all()
 
 
+def _assert_sum_ordered(got, v, rowptr):
+    """The kernel's sum bit for bit against its order of adds on the CPU."""
+    want = csr_segment_sum_ordered(v.cpu(), rowptr.cpu())
+    assert torch.equal(got.cpu(), want)
+
+
+def _skewed_rowptr(dev, seed):
+    """A skewed CSR: 20k segments, about 40 % empty, the rest 1-30 entries,
+    and four segments of 257 to 100k entries (longer than a block's
+    shared-memory window) placed among them."""
+    g = np.random.default_rng(seed)
+    counts = g.integers(1, 31, 20_000)
+    counts[g.random(20_000) < 0.4] = 0
+    counts[g.choice(20_000, 4, replace=False)] = (100_000, 30_000, 1000, 257)
+    return _rowptr(dev, counts.tolist())
+
+
+def test_segment_reduce_empty(dev):
+    """No segments: no launch and an empty result. Only empty segments:
+    -3e38 and 0 everywhere."""
+    rowptr = torch.zeros(1, dtype=torch.int32, device=dev)
+    v = torch.zeros(0, device=dev)
+    before = (csr_segment_max.launches, csr_segment_sum.launches)
+    assert csr_segment_max(v, rowptr).shape == (0,)
+    assert csr_segment_sum(v, rowptr).shape == (0,)
+    assert (csr_segment_max.launches, csr_segment_sum.launches) == before
+    rowptr = torch.zeros(1001, dtype=torch.int32, device=dev)
+    assert (csr_segment_max(v, rowptr) == EMPTY_MAX).all()
+    assert (csr_segment_sum(v, rowptr) == 0).all()
+
+
+@pytest.mark.parametrize("counts", [[3, 0, 1_000_000, 5, 0],
+                                    [1_000_000]])
+def test_segment_reduce_one_long_segment(dev, counts):
+    """One segment of 1M entries (the block path), short ones around it:
+    the max equals its twin, the sum its order of adds and, within 1e-6,
+    the float64 sum."""
+    rowptr = _rowptr(dev, counts)
+    v = torch.rand(int(rowptr[-1]), device=dev, generator=_gen(dev, 11))
+    assert torch.equal(csr_segment_max(v, rowptr),
+                       csr_segment_max_plain(v, rowptr))
+    got = csr_segment_sum(v, rowptr)
+    _assert_sum_ordered(got, v, rowptr)
+    want = csr_segment_sum_plain(v.double(), rowptr)
+    torch.testing.assert_close(got.double(), want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+def test_segment_reduce_windows(dev, aligned):
+    """Segments of 150-256 entries, so each block's entries span several
+    shared-memory windows and segments straddle them; and v starting off a
+    16-byte boundary (the scalar loads)."""
+    g = np.random.default_rng(12)
+    counts = g.integers(150, LONG_SEGMENT + 1, 3000)
+    counts[::11] = 0
+    rowptr = _rowptr(dev, counts.tolist())
+    buf = torch.randn(int(rowptr[-1]) + 1, device=dev, generator=_gen(dev, 13))
+    v = buf[:-1] if aligned else buf[1:]
+    assert torch.equal(csr_segment_max(v, rowptr),
+                       csr_segment_max_plain(v, rowptr))
+    got = csr_segment_sum(v, rowptr)
+    _assert_sum_ordered(got, v, rowptr)    # all short: sequential sums
+    torch.testing.assert_close(got, csr_segment_sum_plain(v, rowptr),
+                               rtol=0, atol=1e-4)
+
+
+def test_segment_reduce_skewed_is_repeatable(dev):
+    """The skewed CSR (long segments among short and empty ones): the max
+    equals its twin, the sum its order of adds, and two calls agree bit
+    for bit."""
+    rowptr = _skewed_rowptr(dev, 14)
+    v = torch.randn(int(rowptr[-1]), device=dev, generator=_gen(dev, 15))
+    got_max = csr_segment_max(v, rowptr)
+    got_sum = csr_segment_sum(v, rowptr)
+    assert torch.equal(got_max, csr_segment_max_plain(v, rowptr))
+    _assert_sum_ordered(got_sum, v, rowptr)
+    assert torch.equal(got_max, csr_segment_max(v, rowptr))
+    assert torch.equal(got_sum, csr_segment_sum(v, rowptr))
+    torch.testing.assert_close(got_sum.double(),
+                               csr_segment_sum_plain(v.double(), rowptr),
+                               rtol=0, atol=1e-4)
+
+
+def test_segment_max_nan_and_masked_scores(dev):
+    """A NaN wins in short and long segments; segments of -1e30 scores
+    (the attention's masked entries) read -1e30."""
+    counts = [10, 300, 4, 2000, 7, 0]
+    rowptr = _rowptr(dev, counts)
+    v = torch.randn(sum(counts), device=dev, generator=_gen(dev, 16))
+    v[3] = float("nan")                  # short segment 0
+    v[10 + 123] = float("nan")           # long segment 1
+    v[310:314] = -1e30                   # short segment 2, all masked
+    v[314:2314] = -1e30                  # long segment 3, all masked
+    got = csr_segment_max(v, rowptr)
+    torch.testing.assert_close(got, csr_segment_max_plain(v, rowptr),
+                               rtol=0, atol=0, equal_nan=True)
+    assert got[:2].isnan().all() and (got[2:4] == -1e30).all()
+    assert got[5] == EMPTY_MAX
+
+
 @pytest.mark.parametrize("d", [4, 8, 12, 32, 64, 136])
 def test_csr_edge_dot(dev, d):
     """Every lane-group width: d/4 of 1 to over 32 float4s a row."""
@@ -821,15 +928,15 @@ def test_csr_segment_sum3(dev):
     assert torch.equal(got, csr_gather_sum(torch.cat([u, q, i]), col, rowptr))
 
 
-def _absorb_inputs(dev, rows, cols, d, order, seed, masked):
+def _absorb_inputs(dev, rows, cols, d, order, seed, masked, out=32):
     g = _gen(dev, seed)
     e = rows * cols
     u, q, i_t1 = (torch.randn(e, d, device=dev, generator=g)
                   for _ in range(3))
     parts = ORDER_PARTS[order]
-    w = torch.randn(parts * d, 32, device=dev, generator=g) / (parts * d) ** .5
-    b = torch.randn(32, device=dev, generator=g)
-    c1, c2 = (torch.randn(e, 32, device=dev, generator=g) for _ in range(2))
+    w = torch.randn(parts * d, out, device=dev, generator=g) / (parts * d) ** .5
+    b = torch.randn(out, device=dev, generator=g)
+    c1, c2 = (torch.randn(e, out, device=dev, generator=g) for _ in range(2))
     mask = ((torch.rand(e, device=dev, generator=g) > 0.1).float()
             if masked else None)
     return u, q, i_t1, _perm_table(dev, rows, cols, seed), w, b, c1, c2, mask
@@ -867,6 +974,94 @@ def test_interact_absorb_is_bitwise_repeatable(dev):
     c = interact_bwd_absorb(u, q, i_t1, pi, w, c1, c2, mask, 3)
     for x, y in zip(a, c):
         assert torch.equal(x, y)
+
+
+def _assert_identity(got, want):
+    for name, a, c in zip(("du", "dq", "di", "dw", "db"), _five(got),
+                          _five(want)):
+        assert torch.equal(a, c), name
+
+
+@pytest.mark.parametrize("order", [1, 2, 3])
+@pytest.mark.parametrize("out", KERNEL_OUT_DIMS)
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("rows,cols", [(300, 8), (3, 1024), (2, 2048)])
+def test_interact_bwd_absorb_equals_direct(dev, order, out, masked, rows,
+                                           cols):
+    """K5's backward bit for bit equal to ``interact_bwd`` on the
+    pre-permuted inputs (i_t1[e_π], (c1 + c2[e_π])·mask), di scattered
+    back to t1 order; cols below, at and above CHUNK_EDGES (2400 edges at
+    cols = 8: a ragged last chunk); and within 1e-4 of its twin."""
+    u, q, i_t1, pi, w, _, c1, c2, mask = _absorb_inputs(
+        dev, rows, cols, 32, order, order + out + rows + masked, masked, out)
+    before = interact_bwd_absorb.launches
+    got = interact_bwd_absorb(u, q, i_t1, pi, w, c1, c2, mask, order)
+    want = interact_bwd_absorb_via_direct(u, q, i_t1, pi, w, c1, c2, mask,
+                                          order)
+    torch.cuda.synchronize()
+    assert interact_bwd_absorb.launches == before + 1
+    _assert_identity(got, want)
+    _assert_bwd_close(got, interact_bwd_absorb_plain(u, q, i_t1, pi, w, c1,
+                                                     c2, mask, order))
+
+
+@pytest.mark.parametrize("order", [1, 3])
+@pytest.mark.parametrize("rows,cols,d", [(143, 7, 32), (31, 100, 32),
+                                         (5, 1000, 16), (40, 77, 12)])
+def test_interact_bwd_absorb_ragged(dev, order, rows, cols, d):
+    """E a multiple of neither the 32-edge tile nor CHUNK_EDGES, grid rows
+    that cross chunks, and feature widths d % 8 != 0: still bit for bit
+    the direct kernel's, and within 1e-4 of the twin."""
+    u, q, i_t1, pi, w, _, c1, c2, mask = _absorb_inputs(
+        dev, rows, cols, d, order, rows + cols + d, True)
+    got = interact_bwd_absorb(u, q, i_t1, pi, w, c1, c2, mask, order)
+    _assert_identity(got, interact_bwd_absorb_via_direct(
+        u, q, i_t1, pi, w, c1, c2, mask, order))
+    _assert_bwd_close(got, interact_bwd_absorb_plain(u, q, i_t1, pi, w, c1,
+                                                     c2, mask, order))
+
+
+@pytest.mark.parametrize("order,d,out", [(3, 160, 32), (1, 200, 64),
+                                         (2, 148, 8)])
+def test_interact_bwd_w_from_device_memory(dev, order, d, out):
+    """Widths at which W does not fit in shared memory beside the two edge
+    stages, so the data product reads W from device memory: ``interact_bwd``
+    and K5's backward within 1e-4 of their twins, and equal to each other
+    bit for bit on the pre-permuted inputs."""
+    u, q, i_t1, pi, w, _, c1, c2, mask = _absorb_inputs(
+        dev, 6, 512, d, order, d + out, True, out)
+    cot = torch.randn(u.shape[0], out, device=dev, generator=_gen(dev, d))
+    _assert_bwd_close(interact_bwd(u, q, i_t1, w, cot, order),
+                      interact_bwd_plain(u, q, i_t1, w, cot, order))
+    got = interact_bwd_absorb(u, q, i_t1, pi, w, c1, c2, mask, order)
+    _assert_identity(got, interact_bwd_absorb_via_direct(
+        u, q, i_t1, pi, w, c1, c2, mask, order))
+    _assert_bwd_close(got, interact_bwd_absorb_plain(u, q, i_t1, pi, w, c1,
+                                                     c2, mask, order))
+
+
+def test_interact_bwd_absorb_sigma_pads_reach_no_gradient(dev):
+    """Masked σ pads: du and dq are 0 on them, di_t1 is 0 at their e_π,
+    and changing the pads' u, q and i rows changes no output bit (dW and
+    db included)."""
+    rows, cols = 16, 1024
+    u, q, i_t1, pi, w, _, c1, c2, mask = _absorb_inputs(
+        dev, rows, cols, 32, 3, 21, True)
+    got = interact_bwd_absorb(u, q, i_t1, pi, w, c1, c2, mask, 3)
+    pads = mask == 0
+    e_pi = (torch.arange(rows, device=dev)[:, None] * cols
+            + pi.long()).view(-1)
+    du, dq, di_t1 = got[0]
+    assert (du[pads] == 0).all() and (dq[pads] == 0).all()
+    assert (di_t1[e_pi[pads]] == 0).all()
+    g = _gen(dev, 22)
+    u2, q2, i2 = u.clone(), q.clone(), i_t1.clone()
+    n = int(pads.sum())
+    u2[pads] = 1e3 * torch.randn(n, 32, device=dev, generator=g)
+    q2[pads] = 1e3 * torch.randn(n, 32, device=dev, generator=g)
+    i2[e_pi[pads]] = 1e3 * torch.randn(n, 32, device=dev, generator=g)
+    _assert_identity(got, interact_bwd_absorb(u2, q2, i2, pi, w, c1, c2,
+                                              mask, 3))
 
 
 def _scan_ids(seed, k, n, shuffle=True):

@@ -17,6 +17,17 @@
   32) is held against the float64 product and against the JAX
   ``FeatureInteractor`` forward (XLA), and its π-read form against
   float64 and the Pallas ``interact_fwd_absorb`` in interpret mode.
+* K5's backward ``interact_bwd_absorb`` is ``interact_bwd``'s fused
+  kernel reading i and c2 through π: the emulated form (i_t1[e_π], the
+  merged cotangent (c1 + c2[e_π])·mask, the 3xTF32 products, di stored at
+  e_π) at orders 1–3, masked and unmasked, is held against float64 and
+  the Pallas ``interact_bwd_absorb`` in interpret mode.
+* The scalar segment sum (``csrc/segmax.cu``) adds long segments in a
+  block order, not in entry order: ``csr_segment_sum_ordered`` (that
+  order on the CPU) is held against float64 and the Pallas
+  ``csr_segment_sum_t`` in interpret mode, on degree mixes with empty
+  segments, segments longer than the kernel's block threshold and its
+  shared-memory window, and runs of segments that cross its blocks.
 * K1's fixed-width form (the scatter's backward, 3 entries an edge) and
   the rule that picks K1's vector form from the width and the alignment.
 * The build hash covers the shared headers ``csrc/*.cuh``.
@@ -27,7 +38,11 @@ each operand; f32 sums over 32 to 224 terms), and within 1e-5 from JAX's
 f32 XLA results (``tests/test_torch_train.py``'s limit); plain TF32 is
 shown to exceed 1e-4 (the card tests' limit) on the large rows. The π
 form against the Pallas kernel: 3e-2 of the largest value, because that
-kernel rounds its MXU operands to bf16 (``tests/test_torch_routed.py``).
+kernel rounds its MXU operands to bf16 (``tests/test_torch_routed.py``);
+the absorbed backward within 1e-5 of each output's largest value from
+float64 (its dW sums 16k edges). The ordered segment sum within 1e-5 of
+the largest |sum| from float64, and 2e-5 from the Pallas kernel, whose
+own error from float64 reaches 1.04e-5 on a 9001-entry segment.
 """
 
 import jax
@@ -41,8 +56,12 @@ from ihgnn_torch.ops import _build
 from ihgnn_torch.ops.hyperagg import SpmmFn
 from ihgnn_torch.ops.hyperagg import make_hyper_ops as torch_hyper_ops
 from ihgnn_torch.ops.interact import (CHUNK_EDGES, ORDER_PARTS,
-                                      interact_bwd, interact_fwd,
-                                      interact_fwd_absorb, interact_parts)
+                                      interact_bwd, interact_bwd_absorb,
+                                      interact_fwd, interact_fwd_absorb,
+                                      interact_parts)
+from ihgnn_torch.ops.segmax import (BLOCK_THREADS, LONG_SEGMENT,
+                                    csr_segment_sum_ordered,
+                                    csr_segment_sum_plain)
 from ihgnn_torch.ops.segsum import (csr_gather_sum, csr_gather_sum_plain,
                                     vector_form)
 from ihgnn_tpu import graph as jgraph
@@ -50,7 +69,11 @@ from ihgnn_tpu.data.synthetic import make_synthetic_data
 from ihgnn_tpu.models.interaction import FeatureInteractor
 from ihgnn_tpu.ops.hyperagg import make_hyper_ops, strip_kernel_packing
 from ihgnn_tpu.ops.pallas.interact import \
+    interact_bwd_absorb as pallas_bwd_absorb
+from ihgnn_tpu.ops.pallas.interact import \
     interact_fwd_absorb as pallas_fwd_absorb
+from ihgnn_tpu.ops.pallas.segsum import (csr_segment_sum as pallas_segsum,
+                                         prepare_segment_inputs)
 
 D = OUT = 32
 
@@ -261,6 +284,110 @@ def test_3xtf32_forward_absorb(packed, order):
         ref = np.asarray(ref).T
         np.testing.assert_allclose(got.numpy(), ref, rtol=0,
                                    atol=3e-2 * np.abs(ref).max())
+
+
+def _emulated_bwd_absorb(u, q, i_t1, pi, w, c1, c2, mask, order):
+    """``interact_bwd_absorb`` as the fused kernel computes it under
+    ABSORB: the i row and the c2 row read at e_π = r·C + π[r, c], the
+    cotangent merged once as (c1 + c2[e_π])·mask (an f32 add, then an f32
+    multiply), the 3xTF32 backward on it, di stored at row e_π."""
+    rows, cols = pi.shape
+    e_pi = (torch.arange(rows)[:, None] * cols + pi.long()).reshape(-1)
+    cot = c1 + c2[e_pi]
+    if mask is not None:
+        cot = cot * mask[:, None]
+    du, dq, di, dw, db = _emulated_bwd(u, q, i_t1[e_pi], w, cot, order, 3)
+    di_t1 = torch.empty_like(di)
+    di_t1[e_pi] = di
+    return du, dq, di_t1, dw, db
+
+
+@pytest.mark.parametrize("order", [1, 2, 3])
+@pytest.mark.parametrize("masked", [False, True])
+def test_3xtf32_backward_absorb(packed, order, masked):
+    """K5's backward, emulated, on the 128 x 128 packed grid (16384 edges,
+    the pack's σ mask or none): within 1e-5 of float64 (K5's twin on
+    float64 tensors), within 3e-2 of the Pallas ``interact_bwd_absorb`` in
+    interpret mode (bf16 MXU operands); σ pads reach no du or dq."""
+    jk, kp = packed[0].kp, packed[1].kp
+    e = kp.e_pad
+    u, q, i_t1, w, _ = _inputs(e, order, 1.0, 70 + order)
+    rng = np.random.default_rng(80 + order)
+    c1, c2 = (rng.standard_normal((e, OUT)).astype(np.float32)
+              for _ in range(2))
+    mask = kp.sig_mask if masked else None
+    t = [torch.from_numpy(a) for a in (u, q, i_t1, w, c1, c2)]
+    got = _emulated_bwd_absorb(*t[:3], kp.i.p2, *t[3:], mask, order)
+    droles, dw, db = interact_bwd_absorb(
+        *(x.double() for x in t[:3]), kp.i.p2, *(x.double() for x in t[3:]),
+        None if mask is None else mask.double(), order)
+    want = (*droles, dw, db)
+    for name, g, r in zip(("du", "dq", "di_t1", "dw", "db"), got, want):
+        assert ((g.double() - r).abs().max() / r.abs().max()).item() < 1e-5, \
+            name
+    if masked:
+        pads = mask == 0
+        assert pads.any() and (got[0][pads] == 0).all() \
+            and (got[1][pads] == 0).all()
+    pallas = pallas_bwd_absorb(
+        *(jnp.asarray(a.T) for a in (u, q, i_t1)), jk.i.fwd_p2.tab,
+        jk.i.inv_p2.tab, jnp.asarray(w), jnp.asarray(c1.T),
+        jnp.asarray(c2.T),
+        None if mask is None else jnp.asarray(mask.numpy()[None, :]), order,
+        jk.cols, interpret=True)
+    refs = [np.asarray(r).T for r in pallas[:3]] + [
+        np.asarray(pallas[3]), np.asarray(pallas[4]).reshape(-1)]
+    for name, g, r in zip(("du", "dq", "di_t1", "dw", "db"), got, refs):
+        np.testing.assert_allclose(g.numpy(), r, rtol=0,
+                                   atol=3e-2 * np.abs(r).max(), err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# the scalar segment sum's order of adds
+# ---------------------------------------------------------------------------
+
+
+def _degree_mix(case: str, rng) -> np.ndarray:
+    """Segment lengths: short and empty ones, with long ones among them."""
+    counts = rng.integers(0, 40, 1500)
+    counts[rng.random(1500) < 0.3] = 0
+    if case == "long":             # past the block threshold, and a window
+        counts[[3, 400, 401, 1499]] = (LONG_SEGMENT + 1, 9001, 2 * LONG_SEGMENT
+                                       + 3, 777)
+    elif case == "straddle":       # runs of near-threshold segments
+        counts[BLOCK_THREADS - 40:2 * BLOCK_THREADS + 40] = rng.integers(
+            LONG_SEGMENT - 60, LONG_SEGMENT + 1, BLOCK_THREADS + 80)
+    return counts
+
+
+@pytest.mark.parametrize("case", ["short", "long", "straddle"])
+def test_segment_sum_order_matches_float64_and_pallas(case):
+    """``csr_segment_sum_ordered`` (the kernel's order) within 1e-5 of the
+    largest |sum| from the float64 sum, and within 2e-5 from the Pallas
+    ``csr_segment_sum_t`` in interpret mode, which is itself 1.04e-5 of
+    the largest sum off float64 on the 9001-entry segment; on short
+    segments it is the sequential f32 sum, which the twin's
+    ``index_add_`` also gives."""
+    rng = np.random.default_rng({"short": 1, "long": 2, "straddle": 3}[case])
+    counts = _degree_mix(case, rng)
+    rowptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    v = rng.standard_normal(int(rowptr[-1])).astype(np.float32)
+    got = csr_segment_sum_ordered(torch.from_numpy(v),
+                                  torch.from_numpy(rowptr)).numpy()
+    want = np.add.reduceat(np.append(v.astype(np.float64), 0.0),
+                           rowptr[:-1]) * (counts > 0)
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * scale)
+    ids = np.repeat(np.arange(len(counts)), counts)
+    vals, ids2d, ptr = prepare_segment_inputs(jnp.asarray(v[:, None]), ids,
+                                              len(counts))
+    ref = np.asarray(pallas_segsum(vals, ids2d, ptr, len(counts),
+                                   interpret=True))[:, 0]
+    np.testing.assert_allclose(got, ref, rtol=0, atol=2e-5 * scale)
+    short = counts <= LONG_SEGMENT
+    plain = csr_segment_sum_plain(torch.from_numpy(v),
+                                  torch.from_numpy(rowptr)).numpy()
+    np.testing.assert_array_equal(got[short], plain[short])
 
 
 # ---------------------------------------------------------------------------
