@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``ihgnn_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --features [ROOT]   # serving forward times only
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
@@ -17,7 +18,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
 4. the serving path: ``RawGnn`` at the default config (two IHGNN layers,
    orders 3 and 1, d = 32, seeded random weights) → ``make_eval_fns`` →
    one full-graph forward → ``evaluate`` over 4096 synthetic logs in
-   batches of 256; every kernel of the path must have launched;
+   batches of 256; every kernel of the path must have launched; then
+   FEATURE_REPEATS more warm forwards, timed on the host and the device
+   clock (medians and spreads);
 5. one forward and one eval batch, each under ``torch.profiler``: device
    time by kernel, the device's idle share, the costliest host operators;
 6. the same model on a small graph, on the card and on the CPU (plain
@@ -41,7 +44,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
     have launched;
 11. the GAT train path as in phase 7, on the 2D graph; K1, K4, the scalar
     sum and ``csr_edge_dot`` must have launched; then one warm GAT train
-    step under ``torch.profiler``;
+    step under ``torch.profiler``, and ``repeatable_gat_full_width``: two
+    full-width GAT train steps from the same seeded state and batch,
+    compared bit for bit as in phase 8 (reported, not held);
 12. the layer zoo on a small graph, card against CPU as in phase 9: GCN,
     GAT (concat and product heads), HGCN on the hypergraph and on the log
     hypergraph, and IHGNN with phase-2 attention.
@@ -51,15 +56,18 @@ Phase 3 also checks K4 ``csr_segment_max`` and the scalar
 700k) shapes and on a skewed CSR (a few segments of 10k-1M entries among
 empty and short ones; the sum bit for bit in its order of adds,
 ``csr_segment_sum_ordered``), ``csr_edge_dot`` at the GAT backward's
-shape and K1 at the GAT weighted sum's; and the routed path's kernels on
-the routed pack of the 2M-edge graph (``build_hypergraph(...,
-pack_kernels=True)``, grid [2048, 1024], e_pad = 2,097,152): K2's
-single-index forms, the K6/K7 permute forms (f32 and bf16), K5 forward
-(both forms) and backward at orders 3 and 1 with the σ-pad mask (the
-backward also bit for bit equal to ``interact_bwd`` on the pre-permuted
-inputs, which is timed beside it), K1's three-region form, K8 on the
-node-update stream (and ``torch.sparse.mm`` beside it, timed in turns
-SCAN_REPEATS times each), and K1 over one CSR spanning two such
+shape (repeated bit for bit; beside its bound a model of its design's
+bytes, ``b`` once a wave of blocks, and its time with the columns folded
+into an L2-resident part of ``b``) and K1 at the GAT weighted sum's; and
+the routed path's kernels on the routed pack of the 2M-edge graph
+(``build_hypergraph(..., pack_kernels=True)``, grid [2048, 1024],
+e_pad = 2,097,152): K2's single-index forms, the K6/K7 permute forms
+(f32 and bf16), K5 forward (both forms) and backward at orders 3 and 1
+with the σ-pad mask (the backward also bit for bit equal to
+``interact_bwd`` on the pre-permuted inputs, which is timed beside it),
+K1's three-region form, K8 on the node-update stream (and
+``torch.sparse.mm`` beside it, timed in turns SCAN_REPEATS times each),
+and K1 over one CSR spanning two such
 edge-chunk streams (``csr_segment_sum3_multi``'s shape). Between phases
 9 and 10 the routed path runs as the direct one did, with the same
 weights and batches: ``routed_serving`` (its features within 1e-4 of the
@@ -76,7 +84,9 @@ line. Needs a CUDA card; exits non-zero without one.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import pathlib
 import subprocess
 import sys
 import time
@@ -107,6 +117,11 @@ TF32_FLOPS = 495e12
 WARMUP, REPS = 3, 20
 # K8 and torch.sparse.mm, timed in turns this many times each
 SCAN_REPEATS = 7
+# warm serving forwards timed after a serving path's checks
+FEATURE_REPEATS = 9
+# csr_edge_dot is also timed with its columns folded into this many rows
+# of b, a table that L2 holds
+L2_RESIDENT_ROWS = 100_000
 
 
 def emit(obj) -> None:
@@ -126,6 +141,29 @@ def bound(nbytes: float, flops: float, tf32_flops: float = 0.0):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = max(flops / F32_FLOPS, 3 * tf32_flops / TF32_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_features(torch, features_fn) -> dict:
+    """FEATURE_REPEATS warm calls of ``features_fn``: each call's host
+    time until the card has run it, and its device time by CUDA events
+    (ms; medians and spreads)."""
+    host, device = [], []
+    for _ in range(FEATURE_REPEATS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        features_fn()
+        end.record()
+        end.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        device.append(start.elapsed_time(end))
+    return {"features_repeats_ms": host,
+            "features_ms_median": float(np.median(host)),
+            "features_ms_spread": max(host) - min(host),
+            "features_device_repeats_ms": device,
+            "features_device_ms_median": float(np.median(device))}
 
 
 def time_ms(torch, fn) -> float:
@@ -283,7 +321,8 @@ def check_kernels(torch, dev, graph, bag, graph2d):
                                           interact_fwd_form,
                                           interact_fwd_plain)
     from ihgnn_torch.ops.segsum import csr_gather_sum, csr_gather_sum_plain
-    from ihgnn_torch.ops.edgedot import csr_edge_dot, csr_edge_dot_plain
+    from ihgnn_torch.ops.edgedot import (csr_edge_dot, csr_edge_dot_plain,
+                                         resident_blocks)
     from ihgnn_torch.ops.segmax import (EMPTY_MAX, csr_segment_max,
                                         csr_segment_max_plain,
                                         csr_segment_sum,
@@ -521,25 +560,46 @@ def check_kernels(torch, dev, graph, bag, graph2d):
 
     # csr_edge_dot at the GAT backward: tt = <cot[dst], x[src]> over 12M
     # destination-sorted entries; the library call is cuSPARSE's SDDMM on
-    # the same destination CSR
+    # the same destination CSR. Beside the bound, a model of its design's
+    # bytes (not measured): b read once a wave of blocks, a once, the
+    # order (col and slot an entry, the chunk tables) and out
     n = graph2d.node_count
     k = att.entry_count
     cot_n, x = randn(n, D), randn(n, D)
-    src, rowptr = att.src, att.dst_rowptr
-    k_out = csr_edge_dot(cot_n, x, src, rowptr)
+    src, rowptr, order = att.src, att.dst_rowptr, att.dot_order
+    k_out = csr_edge_dot(cot_n, x, order)
+    if not torch.equal(k_out, csr_edge_dot(cot_n, x, order)):
+        fail("csr_edge_dot does not repeat itself bit for bit")
     p_out = csr_edge_dot_plain(cot_n, x, src, rowptr)
     scale = p_out.abs().max().item()
+    chunks = order.chunk_ptr.numel() - 1
+    wave = (resident_blocks(D)
+            * torch.cuda.get_device_properties(dev).multi_processor_count)
+    waves = -(-chunks // wave)
+    design_bytes = 4 * (waves * n * D + n * D + 3 * k
+                        + order.chunk_ptr.numel() + order.chunk_segs.numel())
+    # the same entries with their columns folded into b's first 100k rows
+    # (12.8 MB, which L2 holds): the kernel's time when every row hits L2
+    order_fold = dataclasses.replace(
+        order, col=order.col % L2_RESIDENT_ROWS,
+        sorted_col=order.sorted_col % L2_RESIDENT_ROWS)
+    l2_ms = time_ms(torch, lambda: csr_edge_dot(cot_n, x, order_fold))
+    del order_fold
     pattern = torch.sparse_csr_tensor(rowptr, src, torch.ones(k, device=dev),
                                       size=(n, n))
     x_t = x.t()
     lib = torch.sparse.sampled_addmm(pattern, cot_n, x_t, beta=0.0)
     record("csr_edge_dot", f"GAT backward [{k} entries of [{n}, {D}] x "
            f"[{n}, {D}] -> [{k}]]", (k_out - p_out).abs().max().item(),
-           1e-5 * scale, lambda: csr_edge_dot(cot_n, x, src, rowptr),
+           1e-5 * scale,
+           lambda: csr_edge_dot(cot_n, x, order),
            lambda: csr_edge_dot_plain(cot_n, x, src, rowptr),
            lambda: torch.sparse.sampled_addmm(pattern, cot_n, x_t, beta=0.0),
            4 * (2 * n * D + k + rowptr.numel() + k), 2 * k * D,
-           (lib.values() - p_out).abs().max().item())
+           (lib.values() - p_out).abs().max().item(), repeatable=True,
+           bound_design_ms=design_bytes / HBM_BYTES_PER_S * 1e3,
+           design_bytes=design_bytes, chunks=chunks, wave_blocks=wave,
+           waves=waves, l2_resident_ms=l2_ms)
     del k_out, p_out, lib, cot_n
 
     # K1 at the GAT weighted sum: α-weighted source rows into [N, d]
@@ -781,7 +841,9 @@ def check_routed_kernels(torch, dev, kp, results):
            lambda: csr_segment_scan(stream, kp.scan),
            lambda: csr_segment_scan_plain(stream, kp.scan),
            lambda: torch.sparse.mm(csr, stream),
-           4 * (3 * e * D + n * D) + 9 * 3 * e_pad, 3 * e * D, lib_err,
+           4 * (3 * e * D + n * D + kp.scan.pos.numel()
+                + kp.scan.rowptr.numel() + kp.scan.block_seg.numel()),
+           3 * e * D, lib_err,
            equal_to_k1=True, repeats_ms=k8_ms, library_repeats_ms=lib_ms,
            ms_median=float(np.median(k8_ms)),
            ms_spread=max(k8_ms) - min(k8_ms),
@@ -900,6 +962,7 @@ def run_serving(torch, dev, cfg, graph, qw, qc, path, expected,
         timings.append(eval_s)
     launches = _read_launches(path, expected)
     _check_counts(path, launches, per_forward, 2)
+    repeats = time_features(torch, features_fn)
 
     n = graph.node_count
     if tuple(features.shape) != (n, cfg.output_feature_size):
@@ -918,7 +981,7 @@ def run_serving(torch, dev, cfg, graph, qw, qc, path, expected,
         fail(f"{path}: bad metrics {row}")
     emit({"phase": path, **_describe(cfg, graph), "forwards": 2,
           "first_features_ms": first_ms, "features_ms": features_ms,
-          "eval_logs": logs.count, "eval_batch": EVAL_BATCH,
+          **repeats, "eval_logs": logs.count, "eval_batch": EVAL_BATCH,
           "first_eval_s": timings[0], "eval_s": timings[1],
           "eval_pairs_per_s": logs.count / timings[1],
           "metrics": dict(zip(["HR@10", "NDCG@10", "MAP@10", "MRR@10"], row)),
@@ -1067,11 +1130,12 @@ def run_train(torch, dev, cfg, graph, uqi, qw, qc, path, expected,
     return launches, lambda: step(batches[0]), losses
 
 
-def check_repeatable_full_width(torch, dev, cfg, graph_cpu, uqi, qw, qc):
-    """Phase ``repeatable_full_width``: two direct train steps at full
-    width, each from the same seeded model and optimizer on the same
-    batch, compared bit for bit: the loss, every gradient and every
-    parameter after the step. Returns whether they agree."""
+def check_repeatable_full_width(torch, dev, cfg, graph_cpu, uqi, qw, qc,
+                                phase="repeatable_full_width"):
+    """Phase ``phase``: two train steps of ``cfg`` at full width, each from
+    the same seeded model and optimizer on the same batch, compared bit for
+    bit: the loss, every gradient and every parameter after the step.
+    Returns whether they agree."""
     from ihgnn_torch.config import TrainConfig
     from ihgnn_torch.models.rawgnn import RawGnn
     from ihgnn_torch.train.train import make_optimizer, make_train_step
@@ -1100,7 +1164,7 @@ def check_repeatable_full_width(torch, dev, cfg, graph_cpu, uqi, qw, qc):
     params_differ = sorted(k for k in params_a
                            if not torch.equal(params_a[k], params_b[k]))
     same = loss_a == loss_b and not grads_differ and not params_differ
-    emit({"phase": "repeatable_full_width", "repeatable_full_width": same,
+    emit({"phase": phase, phase: same,
           "losses": [loss_a, loss_b], "grads_differ": grads_differ,
           "params_differ": params_differ,
           "grad_max_abs_diff": {k: (grads_a[k] - grads_b[k]).abs().max()
@@ -1405,12 +1469,59 @@ KERNELS = {
 }
 
 
+def features_only(torch, root: str) -> None:
+    """``--features ROOT``: the serving forward of the direct and routed
+    paths at full width with the port of the checkout at ROOT, timed as
+    ``run_serving`` times it (the second call, then FEATURE_REPEATS warm
+    calls), and the host time of each graph's build. It reads only what
+    every slice of the port has, so one call can time two checkouts on one
+    card. Prints one JSON line; checks nothing."""
+    sys.path.insert(0, root)
+    from ihgnn_torch.config import ModelConfig
+    from ihgnn_torch.graph import build_hypergraph
+    from ihgnn_torch.models.rawgnn import RawGnn
+    from ihgnn_torch.ops import _build, native
+    from ihgnn_torch.train.eval import make_eval_fns
+
+    _build.build()
+    native.load()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    t0 = time.perf_counter()
+    graph_cpu, uqi = random_graph(U, Q, I, E, seed=0)
+    build_s = {"direct": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    routed_cpu = build_hypergraph(uqi, U + Q + I, U, Q, pack_kernels=True)
+    build_s["routed"] = time.perf_counter() - t0
+    qw, qc = random_words(Q, VOCAB, seed=1)
+    out = {"phase": "features", "root": root,
+           "package": str(sys.modules["ihgnn_torch"].__file__),
+           "graph_build_s": build_s}
+    for path, graph_cpu in (("direct", graph_cpu), ("routed", routed_cpu)):
+        model = RawGnn(ModelConfig(), U, Q, I, VOCAB,
+                       generator=torch.Generator().manual_seed(0)).to(dev)
+        model.eval()
+        features_fn, _ = make_eval_fns(model, graph_cpu, qw, qc, device=dev)
+        features_fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        features_fn()
+        torch.cuda.synchronize()
+        out[path] = {"features_ms": (time.perf_counter() - t0) * 1e3,
+                     **time_features(torch, features_fn)}
+        del model, features_fn
+    emit(out)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--features"]:
+        features_only(torch, sys.argv[2] if len(sys.argv) > 2 else
+                      str(pathlib.Path(__file__).resolve().parent))
+        return 0
     from ihgnn_torch.ops import _build
 
     smi = subprocess.run(
@@ -1461,11 +1572,17 @@ def main() -> int:
                                 U + Q + I, U, Q, completeness=V.GRAPH_UQI)
     graph2d_s = time.perf_counter() - t0
     graph2d = graph2d_cpu.to(dev)
+    # the per-graph cost of csr_edge_dot's order, built at its first use
+    t0 = time.perf_counter()
+    graph2d.attention.dot_order
+    torch.cuda.synchronize()
+    edge_dot_order_s = time.perf_counter() - t0
     emit({"phase": "data", "seconds": hyper_s,
           "nodes": graph.node_count, "edges": graph.edge_count,
           "incidence": int(graph.inc_edge.numel()),
           "bag_entries": int(bag.col.numel()),
           "graph2d_build_s": graph2d_s, "graph2d_entries": graph2d.nnz,
+          "edge_dot_order_s": edge_dot_order_s,
           "graph2d_masked_entries": 0 if graph2d.attention.mask is None
           else int((graph2d.attention.mask == 0).sum().item())})
 
@@ -1486,8 +1603,7 @@ def main() -> int:
         torch, dev, ihgnn, graph_cpu, uqi, qw, qc, "train", IHGNN_TRAIN)
     emit(profile_window(torch, "one warm train step", warm_step))
     del warm_step
-    repeatable = check_repeatable_full_width(torch, dev, ihgnn, graph_cpu,
-                                             uqi, qw, qc)
+    check_repeatable_full_width(torch, dev, ihgnn, graph_cpu, uqi, qw, qc)
     check_small_train(torch, dev)
 
     # the routed path: same interactions, weights and batches
@@ -1527,6 +1643,8 @@ def main() -> int:
         GAT_STEP_LAUNCHES)
     emit(profile_window(torch, "one warm GAT train step", warm_step))
     del warm_step
+    check_repeatable_full_width(torch, dev, gat, graph2d_cpu, uqi, qw, qc,
+                                "repeatable_gat_full_width")
     check_small_zoo(torch, dev)
 
     kernels = []

@@ -34,6 +34,7 @@ vertices get degree 1e-8 (Helpers/Graph.py:68,120,175).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Sequence, Union
 
 import numpy as np
@@ -41,6 +42,7 @@ import torch
 
 from ihgnn_torch.config import V
 from ihgnn_torch.device import DeviceLike, moved
+from ihgnn_torch.ops.edgedot import EdgeDotOrder, edge_dot_order
 from ihgnn_torch.ops.packing import HyperKernelPack, build_hyper_kernel_pack
 
 DEGREE_FLOOR = 1e-8   # Helpers/Graph.py:120 — zero-degree vertices
@@ -80,6 +82,14 @@ class AttentionCSR:
     @property
     def entry_count(self) -> int:
         return self.src.shape[0]
+
+    @functools.cached_property
+    def dot_order(self) -> EdgeDotOrder:
+        """The destination order as ``csr_edge_dot`` reads it, built on
+        the host at its first use (a GAT layer's backward, the product
+        head) and kept; a graph whose attention never runs pays nothing.
+        ``to`` gives a copy without it."""
+        return edge_dot_order(self.src, self.dst_rowptr)
 
     def to(self, device: DeviceLike) -> "AttentionCSR":
         return moved(self, device)

@@ -10,7 +10,8 @@
 * ``segmax``   — K4 ``csr_segment_max`` and the scalar ``csr_segment_sum``
   over a CSR: the attention softmax's max and denominators.
 * ``edgedot``  — ``csr_edge_dot``: the dot of two gathered rows per entry
-  (the attention backward and the product head; no TPU kernel of its own).
+  (the attention backward and the product head; no TPU kernel of its own),
+  and ``edge_dot_order``, its per-graph column order.
 * ``segment``  — plain segment sum/max/softmax, SpMM and hyperedge
   gather/scatter: the reference semantics the twins are written with.
 * ``hyperagg`` — the hypergraph's gather/scatter pair (``GatherRolesFn``,
@@ -22,7 +23,7 @@
 The routed path (a ``HyperGraph`` built with ``pack_kernels=True``):
 
 * ``packing``  — the routed pack ``HyperKernelPack``: expand indices, Clos
-  stage tables, the node sums' ids with their CSR and K8's scan order;
+  stage tables, the node sums' ids with their CSR and K8's scan pack;
 * ``benes`` / ``native`` — the Clos router: the NumPy oracle and the g++
   build of ``csrc/routing.cc``;
 * ``permute``  — K6/K7 ``row_local_permute`` and

@@ -64,8 +64,8 @@ class GatConvFn(torch.autograd.Function):
             s_dst = x[:s_count] @ khead[d:]
             pre = _take(s_src, csr.src) + _take(s_dst, csr.dst) + bhead
         elif head == V.PRODUCT:
-            pre = csr_edge_dot(x[:s_count], x * khead, csr.src,
-                               csr.dst_rowptr) + bhead
+            pre = csr_edge_dot(x[:s_count], x * khead,
+                               csr.dot_order) + bhead
         else:
             raise ValueError(f"unknown GAT head {head!r}")
         # LeakyReLU as pre · slope, where the slope is also its derivative
@@ -91,7 +91,7 @@ class GatConvFn(torch.autograd.Function):
         cot = cot.contiguous()
         d, s_count = x.shape[1], csr.dst_count
         x_dst = x[:s_count]
-        tt = alpha * csr_edge_dot(cot, x, csr.src, csr.dst_rowptr)
+        tt = alpha * csr_edge_dot(cot, x, csr.dot_order)
         tsum = csr_segment_sum(tt, csr.dst_rowptr)
         g = (tt - alpha * _take(tsum, csr.dst)) * slope
         g_src = _take(g, csr.to_dst)

@@ -28,7 +28,8 @@ kernel reading i and c2 through π, so it is also held bit for bit to
 held bit for bit to ``csr_segment_sum_ordered`` (its order of adds on the
 CPU) and K4 to its twin.
 K8 sums each segment in stream order, as K1 does over the same entries:
-bitwise equal to K1, 1e-5 of the largest run length from its twin. Values and
+bitwise equal to K1, 1e-5 of the largest run length from its twin.
+``csr_edge_dot`` is also held bit for bit to a second run of itself. Values and
 gradients of a small graph on the card against the CPU: 1e-5 of each
 tensor's largest value (dW sums 400 edges of products of three normals);
 the attention score head's kernel and bias, whose gradients are sums that
@@ -45,7 +46,8 @@ from ihgnn_torch.config import V
 from ihgnn_torch.graph import (build_attention_csr, build_graph2d,
                                build_hypergraph, build_log_hypergraph)
 from ihgnn_torch.ops.bag import BagMeanFn, make_word_bag
-from ihgnn_torch.ops.edgedot import csr_edge_dot, csr_edge_dot_plain
+from ihgnn_torch.ops.edgedot import (CHUNK, csr_edge_dot, csr_edge_dot_plain,
+                                     edge_dot_order)
 from ihgnn_torch.ops.gatconv import GatConvFn
 from ihgnn_torch.ops.gather import (gather_roles, gather_roles_plain,
                                    gather_rows, gather_rows_plain,
@@ -716,21 +718,75 @@ def test_segment_max_nan_and_masked_scores(dev):
     assert got[5] == EMPTY_MAX
 
 
-@pytest.mark.parametrize("d", [4, 8, 12, 32, 64, 136])
-def test_csr_edge_dot(dev, d):
-    """Every lane-group width: d/4 of 1 to over 32 float4s a row."""
-    col, rowptr = _csr(dev, 800, 500, 12_000, seed=d)
-    g = _gen(dev, 200 + d)
-    a = torch.randn(800, d, device=dev, generator=g)
-    b = torch.randn(500, d, device=dev, generator=g)
+def _assert_edge_dot(dev, a, b, col, rowptr):
+    """csr_edge_dot against its twin (1e-5 of the largest output), one
+    launch, and bit for bit the same on a second run."""
+    order = edge_dot_order(col, rowptr)
     before = csr_edge_dot.launches
-    got = csr_edge_dot(a, b, col, rowptr)
+    got = csr_edge_dot(a, b, order)
     torch.cuda.synchronize()
     assert csr_edge_dot.launches == before + 1
     want = csr_edge_dot_plain(a, b, col, rowptr)
     torch.testing.assert_close(got, want, rtol=0,
                                atol=1e-5 * want.abs().max().item())
-    assert torch.equal(got, csr_edge_dot(a, b, col, rowptr))
+    assert torch.equal(got, csr_edge_dot(a, b, order))
+
+
+@pytest.mark.parametrize("d", [4, 8, 12, 32, 64, 136])
+def test_csr_edge_dot(dev, d):
+    """Every lane-group width: d/4 of 1 to over 8 float4s a row (slices)."""
+    col, rowptr = _csr(dev, 800, 500, 12_000, seed=d)
+    g = _gen(dev, 200 + d)
+    a = torch.randn(800, d, device=dev, generator=g)
+    b = torch.randn(500, d, device=dev, generator=g)
+    _assert_edge_dot(dev, a, b, col, rowptr)
+
+
+@pytest.mark.parametrize("d", range(4, 168, 4))
+def test_csr_edge_dot_every_width(dev, d):
+    """Every width the wrapper takes up to 164, on a CSR of several
+    chunks; a has more rows than segments."""
+    col, rowptr = _csr(dev, 600, 900, 9000, seed=1000 + d)
+    g = _gen(dev, 300 + d)
+    a = torch.randn(650, d, device=dev, generator=g)
+    b = torch.randn(900, d, device=dev, generator=g)
+    _assert_edge_dot(dev, a, b, col, rowptr)
+
+
+@pytest.mark.parametrize("spread", ["table", "band"])
+def test_csr_edge_dot_large(dev, spread):
+    """1.2M entries over 100k segments; b [2M, 32] (256 MB, larger than L2
+    and than any wave's band), its columns spread over the whole table or
+    packed in one band of 2000 rows; a has more rows than segments."""
+    segments, rows, k = 100_000, 2_000_000, 1_200_000
+    g = _gen(dev, 31)
+    ids = torch.randint(0, segments, (k,), device=dev, generator=g).sort()
+    lo = 0 if spread == "table" else 1_000_000
+    hi = rows if spread == "table" else lo + 2000
+    col = torch.randint(lo, hi, (k,), device=dev, generator=g).int()
+    counts = torch.bincount(ids.values, minlength=segments)
+    rowptr = torch.zeros(segments + 1, dtype=torch.int64, device=dev)
+    rowptr[1:] = counts.cumsum(0)
+    a = torch.randn(segments + 1000, 32, device=dev, generator=g)
+    b = torch.randn(rows, 32, device=dev, generator=g)
+    _assert_edge_dot(dev, a, b, col, rowptr.int())
+
+
+def test_csr_edge_dot_empty_and_long_segments(dev):
+    """Empty segments around one segment of 150k entries (many chunks of
+    one segment), at the start, in the middle and at the end."""
+    counts = [0, 0, 5, 150_000, 0, 3, 0, 0, 2 * CHUNK + 1, 7, 0]
+    rowptr = _rowptr(dev, counts)
+    g = _gen(dev, 32)
+    k = sum(counts)
+    col = torch.randint(0, 40_000, (k,), device=dev, generator=g).int()
+    a = torch.randn(len(counts), 32, device=dev, generator=g)
+    b = torch.randn(40_000, 32, device=dev, generator=g)
+    _assert_edge_dot(dev, a, b, col, rowptr)
+    empty = _rowptr(dev, [0, 0, 0])
+    none = torch.zeros(0, dtype=torch.int32, device=dev)
+    out = csr_edge_dot(a, b, edge_dot_order(none, empty))
+    assert out.shape == (0,)
 
 
 def test_new_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -741,15 +797,19 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):                  # [K, 1] scores
         csr_segment_sum(v[:, None], rowptr)
     col = torch.zeros(6, dtype=torch.int32, device=dev)
+    order = edge_dot_order(col, rowptr)
     a = torch.randn(2, 6, device=dev)
     with pytest.raises(ValueError):                  # d not a multiple of 4
-        csr_edge_dot(a, a, col, rowptr)
+        csr_edge_dot(a, a, order)
     a = torch.randn(2, 8, device=dev)
     with pytest.raises(ValueError):                  # widths differ
-        csr_edge_dot(a, torch.randn(2, 4, device=dev), col, rowptr)
+        csr_edge_dot(a, torch.randn(2, 4, device=dev), order)
     with pytest.raises(ValueError):                  # misaligned rows
-        csr_edge_dot(a, torch.randn(17, device=dev)[1:].view(2, 8), col,
-                     rowptr)
+        csr_edge_dot(a, torch.randn(17, device=dev)[1:].view(2, 8), order)
+    with pytest.raises(ValueError):                  # fewer a rows than S
+        csr_edge_dot(torch.randn(1, 8, device=dev), a, order)
+    with pytest.raises(ValueError):                  # the order on the CPU
+        csr_edge_dot(a, a, edge_dot_order(col.cpu(), rowptr.cpu()))
     with pytest.raises(RuntimeError):                # needs a gradient
         csr_segment_max(v.requires_grad_(), rowptr)
 
@@ -1076,6 +1136,15 @@ def _scan_ids(seed, k, n, shuffle=True):
     return np.concatenate([ids, np.full(k_pad - k, 2**31 - 1, np.int64)])
 
 
+def _k1_over(ids, vals, n):
+    """K1 over the stream's entries in stream order (a stable sort by id)."""
+    dev = vals.device
+    order = np.argsort(ids, kind="stable")[:int((ids != 2**31 - 1).sum())]
+    rowptr = np.searchsorted(ids[order], np.arange(n + 1))
+    return csr_gather_sum(vals, torch.from_numpy(order).int().to(dev),
+                          torch.from_numpy(rowptr).int().to(dev))
+
+
 @pytest.mark.parametrize("seed,k,n,shuffle", [(0, 5000, 700, False),
                                               (1, 5000, 700, True),
                                               (2, 4096, 10, True),
@@ -1094,11 +1163,76 @@ def test_csr_segment_scan(dev, seed, k, n, shuffle):
     assert csr_segment_scan.launches == before + 1
     torch.testing.assert_close(got, csr_segment_scan_plain(vals, pack),
                                rtol=0, atol=1e-5 * max(1.0, k / n))
-    order = np.argsort(ids, kind="stable")[:k]
-    rowptr = np.searchsorted(ids[order], np.arange(n + 1))
-    k1 = csr_gather_sum(vals, torch.from_numpy(order).int().to(dev),
-                        torch.from_numpy(rowptr).int().to(dev))
-    assert torch.equal(got, k1)
+    assert torch.equal(got, _k1_over(ids, vals, n))
+    assert torch.equal(got, csr_segment_scan(vals, pack))
+
+
+def _scan_shaped_ids(case):
+    """Streams whose runs cross one, two and many blocks, with blocks of
+    sentinels only and a block that is one run; shuffled within blocks."""
+    rng = np.random.default_rng(8)
+    b = SCAN_BLOCK
+    if case == "cross_one":
+        ids = np.repeat(np.arange(20), b + b // 2)
+    elif case == "cross_two":
+        ids = np.concatenate([np.arange(300), np.full(2 * b + b // 2, 300),
+                              np.arange(301, 301 + b + 212)])
+    elif case == "cross_many":
+        ids = np.concatenate([np.arange(100), np.full(20 * b, 100),
+                              np.arange(101, 101 + b - 100)])
+    elif case == "sentinel_blocks":
+        ids = np.concatenate([np.sort(rng.integers(0, 50, b)),
+                              np.full(2 * b, 2**31 - 1),
+                              np.sort(rng.integers(50, 90, b - 10)),
+                              np.full(10, 2**31 - 1)])
+    else:   # one_run
+        ids = np.concatenate([np.sort(rng.integers(0, 30, b)),
+                              np.full(b, 30),
+                              np.sort(rng.integers(31, 60, b))])
+    ids = ids.astype(np.int64)
+    for s0 in range(0, len(ids), b):
+        rng.shuffle(ids[s0:s0 + b])
+    return ids
+
+
+@pytest.mark.parametrize("d", [4, 8, 32, 64, 100, 5, 30])
+@pytest.mark.parametrize("case", ["cross_one", "cross_two", "cross_many",
+                                  "sentinel_blocks", "one_run",
+                                  "shuffled"])
+def test_csr_segment_scan_shapes(dev, d, case):
+    """K8 at every slice form (float4 groups of 1-4 lanes, several slices
+    at d = 64 and 100, the 4-byte form at d = 5 and 30) on runs crossing
+    one, two and many blocks, blocks that hold only sentinels and a block
+    that is one run: bitwise K1 over the same entries, and repeatable."""
+    if case == "shuffled":
+        ids, n = _scan_ids(6, 50_000, 3000, True), 3003
+    else:
+        ids = _scan_shaped_ids(case)
+        n = int(ids[ids != 2**31 - 1].max()) + 3   # trailing empty segments
+    pack = pack_scan_inputs(ids, n).to(dev)
+    vals = torch.randn(len(ids), d, device=dev, generator=_gen(dev, d))
+    got = csr_segment_scan(vals, pack)
+    assert torch.equal(got, _k1_over(ids, vals, n))
+    assert torch.equal(got, csr_segment_scan(vals, pack))
+    longest = int((pack.rowptr[1:] - pack.rowptr[:-1]).max())
+    torch.testing.assert_close(got, csr_segment_scan_plain(vals, pack),
+                               rtol=0, atol=1e-5 * max(1, longest))
+
+
+def test_csr_segment_scan_large_stream(dev):
+    """A stream of 2.1M entries (2,050 blocks) into 300k segments, with
+    sentinels scattered through it: bitwise K1, repeatable."""
+    rng = np.random.default_rng(9)
+    k = 2050 * SCAN_BLOCK
+    ids = np.sort(rng.integers(0, 300_000, k))
+    ids[rng.random(k) < 0.05] = 2**31 - 1
+    ids = ids.reshape(-1, SCAN_BLOCK)
+    rng.permuted(ids, axis=1, out=ids)
+    ids = ids.reshape(-1)
+    pack = pack_scan_inputs(ids, 300_000).to(dev)
+    vals = torch.randn(k, 32, device=dev, generator=_gen(dev, 9))
+    got = csr_segment_scan(vals, pack)
+    assert torch.equal(got, _k1_over(ids, vals, 300_000))
     assert torch.equal(got, csr_segment_scan(vals, pack))
 
 

@@ -121,9 +121,14 @@ def test_pack_matches_jax(edges):
     np.testing.assert_array_equal(ids[col], np.sort(real))
     np.testing.assert_array_equal(
         _np(kp.seg_rowptr), np.searchsorted(np.sort(real), np.arange(N + 1)))
-    np.testing.assert_array_equal(ids[_np(kp.scan.order)], _np(kp.scan.ids))
-    heads = (_np(kp.scan.flags) & 1) > 0
-    np.testing.assert_array_equal(_np(kp.scan.ids)[heads], np.unique(real))
+    np.testing.assert_array_equal(_np(kp.scan.pos), col)
+    rowptr, block_seg = _np(kp.scan.rowptr), _np(kp.scan.block_seg)
+    np.testing.assert_array_equal(rowptr, _np(kp.seg_rowptr))
+    # a node's sum belongs to the block of its first entry
+    live = np.flatnonzero(np.diff(rowptr) > 0)
+    owner = col[rowptr[live]] // 1024
+    assert np.all(block_seg[owner] <= live)
+    assert np.all(live < block_seg[owner + 1])
 
 
 @pytest.mark.parametrize("rows,cols", [(16, 8), (24, 32), (128, 128)])
@@ -274,8 +279,8 @@ def test_segment_scan_twin_matches_pallas(seed, k, n, shuffle):
     """K8's twin against ``csr_segment_scan_t`` in interpret mode on the
     four id patterns of ``tests/test_segscan.py`` (sorted; shuffled within
     blocks; a few segments whose runs span blocks; more segments than
-    entries), at about half their sizes; its pack's in-block order lists
-    every real entry once, sorted."""
+    entries), at about half their sizes; its pack's sorted order lists
+    every real entry once."""
     ids, vals = _scan_case(seed, k, n, shuffle)
     want = csr_segment_scan_t(jnp.asarray(vals), jpack_scan(ids, n), n,
                               interpret=True)
@@ -283,13 +288,11 @@ def test_segment_scan_twin_matches_pallas(seed, k, n, shuffle):
     got = csr_segment_scan_plain(torch.from_numpy(vals.T.copy()), pack)
     np.testing.assert_allclose(_np(got), np.asarray(want).T, rtol=1e-4,
                                atol=1e-4)
-    s = _np(pack.ids)
-    real = s != SENTINEL
-    np.testing.assert_array_equal(s[real], np.sort(ids[ids != SENTINEL]))
-    np.testing.assert_array_equal(np.sort(_np(pack.order)),
-                                  np.arange(len(ids)))
-    heads = (_np(pack.flags) & 1) > 0
-    assert heads.sum() == len(np.unique(ids[ids != SENTINEL]))
+    real = ids != SENTINEL
+    np.testing.assert_array_equal(ids[_np(pack.pos)], np.sort(ids[real]))
+    np.testing.assert_array_equal(np.sort(_np(pack.pos)),
+                                  np.flatnonzero(real))
+    assert (np.diff(_np(pack.rowptr)) > 0).sum() == len(np.unique(ids[real]))
 
 
 def test_segment_scan_pack_refuses_an_unsorted_stream():
