@@ -49,7 +49,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
     compared bit for bit as in phase 8 (reported, not held);
 12. the layer zoo on a small graph, card against CPU as in phase 9: GCN,
     GAT (concat and product heads), HGCN on the hypergraph and on the log
-    hypergraph, and IHGNN with phase-2 attention.
+    hypergraph, and IHGNN with phase-2 attention;
+13. ``cli``: the training CLI as a user runs it, ``ihgnn_torch.cli.main``
+    on the quality set of ``ihgnn_torch.quality_parity`` (written by the
+    port's ``write_synthetic_dataset``): 4 epochs of the default model,
+    tested from epoch 2 every 2, with ``--storecheckpoint --storemetrics``
+    and epoch 2 under ``torch.profiler``; a ``--checkpoint latest`` resume
+    for 2 more epochs; then ``--gnn gat`` for 1 tested epoch. It reports
+    seconds per epoch, steps/s, eval seconds and the profiled epoch's
+    device idle share and costliest host operators, and fails unless the
+    resume runs epochs 5 and 6 from exactly the saved state (parameters,
+    Adam's moments and steps, the learning rate), the log and metrics
+    files exist, the average loss falls over the first 4 epochs, the
+    metrics are in [0, 1] and every kernel's launches equal the runs'
+    steps and test forwards times the model's counts.
 
 Phase 3 also checks K4 ``csr_segment_max`` and the scalar
 ``csr_segment_sum`` at the GAT (12M entries → 700k) and phase-2 (6M →
@@ -896,6 +909,14 @@ GAT_FORWARD_LAUNCHES = {"csr_gather_sum": 3, "csr_segment_max": 2,
                         "csr_segment_sum": 2}
 GAT_STEP_LAUNCHES = {"csr_gather_sum": 6, "csr_segment_max": 2,
                      "csr_segment_sum": 8, "csr_edge_dot": 2}
+# the same for the default model on the direct path: a forward runs K1 for
+# the bag and, a layer, K2, K3 and K1's node update; a step adds the bag's
+# backward and, a layer, the node update's and the gather's backward (K1)
+# and interact_bwd
+IHGNN_FORWARD_LAUNCHES = {"csr_gather_sum": 3, "gather_roles": 2,
+                          "interact_fwd": 2}
+IHGNN_STEP_LAUNCHES = {"csr_gather_sum": 8, "gather_roles": 2,
+                       "interact_fwd": 2, "interact_bwd": 2}
 
 
 def _describe(cfg, graph):
@@ -1469,6 +1490,208 @@ KERNELS = {
 }
 
 
+# phase cli: the quality set of ihgnn_torch.quality_parity, trained for
+# CLI_EPOCHS (tested from epoch 2 every 2), resumed for CLI_RESUME_EPOCHS,
+# then --gnn gat for CLI_GAT_EPOCHS (tested)
+CLI_EPOCHS, CLI_RESUME_EPOCHS, CLI_GAT_EPOCHS = 4, 2, 1
+
+
+def _trace_summary(path):
+    """Device busy time and idle share of a ``torch.profiler`` Chrome
+    trace (the union of its kernel, copy and set spans over the span of
+    all its events), and the host operators that took the most time
+    (inclusive of the operators they call)."""
+    with open(path, encoding="utf-8") as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    host = {}
+    for e in events:
+        if e.get("cat") == "cpu_op":
+            ms, n = host.get(e["name"], (0.0, 0))
+            host[e["name"]] = (ms + e["dur"] / 1e3, n + 1)
+    top_host = [{"name": k[:60], "inclusive_ms": ms, "calls": n}
+                for k, (ms, n) in sorted(host.items(),
+                                         key=lambda kv: -kv[1][0])[:10]]
+    device = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy",
+                                        "gpu_memset"))
+    if not device:
+        return {"device_time": "not measured: the trace has no device "
+                               "events", "top_host_ops": top_host}
+    window = (max(e["ts"] + e["dur"] for e in events)
+              - min(e["ts"] for e in events))
+    busy, (cur_start, cur_end) = 0.0, device[0]
+    for start, end in device[1:]:
+        if start > cur_end:
+            busy += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    busy += cur_end - cur_start
+    return {"window_ms": window / 1e3, "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1.0 - busy / window,
+            "device_events": len(device), "top_host_ops": top_host}
+
+
+def _cli_expected(runs):
+    """The launches of the cli phase's runs: each run's train steps and
+    test-epoch forwards times the counts of its model's step and forward;
+    every other kernel 0."""
+    expected = {fn.__name__: 0 for fn in _wrappers()}
+    for stats, (per_step, per_forward) in runs:
+        steps = sum(s.steps for s in stats)
+        forwards = sum(s.eval_s is not None for s in stats)
+        for counts, units in ((per_step, steps), (per_forward, forwards)):
+            for k, v in counts.items():
+                expected[k] += v * units
+    return expected
+
+
+def run_cli(torch, dev):
+    """Phase ``cli``: the training CLI (``ihgnn_torch.cli.main``) on the
+    card, as a user runs it, on the quality set of
+    ``ihgnn_torch.quality_parity`` written by the port's
+    ``write_synthetic_dataset``: CLI_EPOCHS epochs of the default model
+    with ``--storecheckpoint --storemetrics`` (epoch 2 under
+    ``torch.profiler``), a ``--checkpoint latest`` resume for
+    CLI_RESUME_EPOCHS more, then ``--gnn gat`` for CLI_GAT_EPOCHS. Fails
+    unless the resume renumbers from CLI_EPOCHS + 1 from exactly the saved
+    state, the log and metrics files exist, the average loss falls over
+    the first run, the metrics are finite and every launch count is exact.
+    Returns the launches."""
+    import copy
+    import os
+    import tempfile
+
+    from ihgnn_torch import cli
+    from ihgnn_torch.data.artifacts import write_synthetic_dataset
+    from ihgnn_torch.quality_parity import QUALITY_SET
+
+    def snapshot(model, opt):
+        return ({k: v.detach().clone() for k, v in
+                 model.state_dict().items()}, copy.deepcopy(opt.state_dict()))
+
+    saved, restored = {}, {}
+    save, restore = cli.save_checkpoint, cli.restore_checkpoint
+
+    def spy_save(result_dir, epoch, model, opt):
+        saved[epoch] = snapshot(model, opt)
+        return save(result_dir, epoch, model, opt)
+
+    def spy_restore(result_dir, name, model, opt):
+        epoch = restore(result_dir, name, model, opt)
+        restored[epoch] = snapshot(model, opt)
+        return epoch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir = os.path.join(tmp, "quality_ds")
+        t0 = time.perf_counter()
+        write_synthetic_dataset(data_dir, **QUALITY_SET)
+        write_s = time.perf_counter() - t0
+        results, prof_dir = os.path.join(tmp, "results"), os.path.join(
+            tmp, "profile")
+        base = ["--dataset", data_dir, "--result_dir", results,
+                "--epoch_start_test", "2", "--epoch_test_frequency", "2"]
+        cli.save_checkpoint, cli.restore_checkpoint = spy_save, spy_restore
+        try:
+            torch.cuda.synchronize()
+            _zero_launches()
+            t0 = time.perf_counter()
+            first = cli.main(base + ["--epoch_count", str(CLI_EPOCHS),
+                                     "--storecheckpoint", "--storemetrics",
+                                     "--profile_dir", prof_dir])
+            first_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            resumed = cli.main(base + ["--epoch_count",
+                                       str(CLI_RESUME_EPOCHS),
+                                       "--checkpoint", "latest"])
+            resumed_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            gat = cli.main(["--dataset", data_dir, "--result_dir", results,
+                            "--gnn", "gat", "--epoch_count",
+                            str(CLI_GAT_EPOCHS), "--epoch_start_test", "1"])
+            gat_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+        finally:
+            cli.save_checkpoint, cli.restore_checkpoint = save, restore
+        launches = {fn.__name__: fn.launches for fn in _wrappers()}
+        idle = _trace_summary(os.path.join(prof_dir, "epoch2.trace.json"))
+        files = {d: sorted(os.listdir(os.path.join(results, d)))
+                 for d in sorted(os.listdir(results))}
+
+    expected = _cli_expected([
+        (first.epoch_stats, (IHGNN_STEP_LAUNCHES, IHGNN_FORWARD_LAUNCHES)),
+        (resumed.epoch_stats, (IHGNN_STEP_LAUNCHES, IHGNN_FORWARD_LAUNCHES)),
+        (gat.epoch_stats, (GAT_STEP_LAUNCHES, GAT_FORWARD_LAUNCHES))])
+    losses = [s.avg_loss for s in first.epoch_stats]
+    resumed_epochs = [s.epoch for s in resumed.epoch_stats]
+    same_state = (list(saved) == [CLI_EPOCHS] == list(restored)
+                  and _same_state(torch, saved[CLI_EPOCHS],
+                                  restored[CLI_EPOCHS]))
+    # the first run's <stamp>_train_log.txt and <stamp>_metrics.txt
+    # (--storemetrics), the resume's train_log.txt
+    ihgnn_files = [f for d, names in files.items() if "IHGNNLayer" in d
+                   for f in names]
+    logs_written = "train_log.txt" in ihgnn_files and all(
+        any(f.endswith(suffix) for f in ihgnn_files)
+        for suffix in ("_train_log.txt", "_metrics.txt"))
+    metrics = {name: [(e, m.as_row(), v.as_row())
+                      for e, m, v in mc.iter_epoch_test_valid()]
+               for name, mc in (("first", first), ("resumed", resumed),
+                                ("gat", gat))}
+    # the profiled second epoch aside, and the first one's set-up
+    warm = [s for s in first.epoch_stats + resumed.epoch_stats
+            if s.epoch not in (1, 2)]
+    epoch_s = float(np.median([s.train_s for s in warm]))
+    steps = warm[0].steps
+    evals = [s.eval_s for s in first.epoch_stats + resumed.epoch_stats
+             if s.eval_s is not None]
+    emit({"phase": "cli", "dataset": QUALITY_SET,
+          "dataset_write_s": write_s, "steps_per_epoch": steps,
+          "epochs": [dataclasses.asdict(s) for s in first.epoch_stats
+                     + resumed.epoch_stats],
+          "gat_epochs": [dataclasses.asdict(s) for s in gat.epoch_stats],
+          "epoch_s": epoch_s, "steps_per_s": steps / epoch_s,
+          "eval_s": float(np.median(evals)),
+          "run_s": {"first": first_s, "resumed": resumed_s, "gat": gat_s},
+          "profiled_epoch": {"epoch": 2, **idle},
+          "losses": losses, "resumed_epochs": resumed_epochs,
+          "restored_equals_saved": same_state, "files": files,
+          "metrics": metrics, "launches": launches,
+          "expected_launches": expected})
+    if launches != expected:
+        fail(f"cli: kernel launches {launches}, expected {expected}")
+    if resumed_epochs != list(range(CLI_EPOCHS + 1,
+                                    CLI_EPOCHS + 1 + CLI_RESUME_EPOCHS)):
+        fail(f"cli: the resume ran epochs {resumed_epochs}")
+    if not same_state:
+        fail("cli: the restored state differs from the saved one")
+    if not logs_written:
+        fail(f"cli: log or metrics file missing: {files}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail(f"cli: the average loss did not fall: {losses}")
+    for name, rows in metrics.items():
+        values = [x for _, m, v in rows for x in m + v]
+        if not rows or not all(0.0 <= x <= 1.0 for x in values):
+            fail(f"cli: bad {name} metrics {rows}")
+    return launches
+
+
+def _same_state(torch, a, b):
+    """Whether two (state_dict, optimizer state_dict) snapshots are equal
+    bit for bit, the learning rate included."""
+    (params, opt), (r_params, r_opt) = a, b
+    if params.keys() != r_params.keys() or \
+            opt["param_groups"] != r_opt["param_groups"] or \
+            opt["state"].keys() != r_opt["state"].keys():
+        return False
+    return (all(torch.equal(params[k], r_params[k]) for k in params)
+            and all(state.keys() == r_opt["state"][k].keys()
+                    and all(torch.equal(v, r_opt["state"][k][n])
+                            for n, v in state.items())
+                    for k, state in opt["state"].items()))
+
+
 def features_only(torch, root: str) -> None:
     """``--features ROOT``: the serving forward of the direct and routed
     paths at full width with the port of the checkout at ROOT, timed as
@@ -1646,6 +1869,7 @@ def main() -> int:
     check_repeatable_full_width(torch, dev, gat, graph2d_cpu, uqi, qw, qc,
                                 "repeatable_gat_full_width")
     check_small_zoo(torch, dev)
+    launches["cli"] = run_cli(torch, dev)
 
     kernels = []
     for kname, (source, replaces) in KERNELS.items():

@@ -6,9 +6,9 @@ easy to find. Tensors are row-major: node features are ``[N, d]`` and edge
 features ``[E, d]``, so one node's 32 f32 features form one 128-byte line
 on the card.
 
-Entry points (``RawGnn``, ``train.eval.make_eval_fns``/``evaluate``,
-``train.train.make_train_step``) run on CUDA unless the caller passes
-``device="cpu"``. On CPU tensors every kernel
+Entry points (``python -m ihgnn_torch.cli``, ``RawGnn``,
+``train.eval.make_eval_fns``/``evaluate``, ``train.train.make_train_step``)
+run on CUDA unless the caller passes ``device="cpu"`` (``--device cpu``). On CPU tensors every kernel
 wrapper in ``ops/`` runs its plain PyTorch twin; on CUDA tensors it
 launches its kernel or raises.
 """

@@ -3,8 +3,9 @@
 Counterpart of ``ihgnn_tpu/data/dataset.py`` (reference: Dataset.py):
 
 * ``GraphData``    — the training split as NumPy arrays: flat positive
-  interactions, per-(u, q) logged negatives, and the hypergraph, the 2D
-  graph and the log hypergraph, each built once on first use.
+  interactions, the logged negatives (flat and per (u, q)), each user's
+  time-sorted history, and the hypergraph, the 2D graph and the log
+  hypergraph, each built once on first use.
 * ``TrainSampler`` — host-side uniform negative sampling into fixed-shape
   ``Batch``es; it draws from ``np.random.default_rng(seed)`` exactly as
   the JAX sampler does, so one seed gives the same batches in both.
@@ -60,15 +61,18 @@ class Batch:
 
 
 class GraphData:
-    """Training split (replaces Dataset.py:11-293): the part of
-    ``ihgnn_tpu.data.dataset.GraphData`` that the layers read.
-    ``graph_completeness`` picks the 2D graph's mode (uqi/uq/ui/qi)."""
+    """Training split (replaces Dataset.py:11-293), as
+    ``ihgnn_tpu.data.dataset.GraphData`` without its routed word-bag pack
+    (the port's bag is ``ops.bag.BagMeanFn`` on K1).
+    ``graph_completeness`` picks the 2D graph's mode (uqi/uq/ui/qi);
+    ``user_history_limit`` truncates each user's history (-1: none)."""
 
     def __init__(self, user_count: int, query_count: int, item_count: int,
                  vocab_size: int, query_words: np.ndarray,
                  query_word_counts: np.ndarray,
                  search_logs: SearchLogCollection,
-                 graph_completeness: str = V.GRAPH_UQI):
+                 graph_completeness: str = V.GRAPH_UQI,
+                 user_history_limit: int = 500):
         self.user_count = int(user_count)
         self.query_count = int(query_count)
         self.item_count = int(item_count)
@@ -82,22 +86,30 @@ class GraphData:
         self.query_word_counts = np.asarray(query_word_counts, np.int32)
         self.search_logs = search_logs
         self.graph_completeness = graph_completeness
+        self.user_history_limit = user_history_limit
 
         # positives with flags clamped to 1 (Dataset.py:200 treat_all_1),
-        # and the logged negatives of each (u, q) (Dataset.py:201-209)
+        # and the logged negatives, flat (u, q, i) and per (u, q)
+        # (Dataset.py:201-209)
         pos = []
+        neg_interactions: List[Tuple[int, int, int]] = []
         neg_items_for_uq: Dict[Tuple[int, int], List[int]] = {}
         for log in search_logs:
             pos.extend(p.uqif() for p in
                        PosInteraction.from_search_log(log, treat_all_1=True))
             negs = neg_items_for_uq.setdefault((log.user, log.query), [])
-            negs.extend(item for item, flag in
-                        zip(log.items, log.interactions) if flag <= 0)
+            for item, flag in zip(log.items, log.interactions):
+                if flag <= 0:
+                    neg_interactions.append((log.user, log.query, item))
+                    negs.append(item)
         self.pos_uqif = np.asarray(pos, np.int32).reshape(-1, 4)   # [P, 4]
+        self.neg_interactions = neg_interactions
         self.neg_items_for_uq = neg_items_for_uq
         self._hypergraph: Optional[HyperGraph] = None
         self._graph2d: Optional[Graph2D] = None
         self._log_hypergraph: Optional[LogHyperGraph] = None
+        self._user_history: Optional[Tuple[List[List[int]],
+                                           List[List[int]]]] = None
 
     @property
     def pos_count(self) -> int:
@@ -138,9 +150,44 @@ class GraphData:
                                                         self.node_count)
         return self._log_hypergraph
 
+    def user_history(self) -> Tuple[List[List[int]], List[List[int]]]:
+        """Each user's queries and positively interacted items, sorted by
+        time and truncated to ``user_history_limit`` (Dataset.py:227-245);
+        built once."""
+        if self._user_history is None:
+            qhis: List[List[Tuple[str, int]]] = [[] for _ in
+                                                 range(self.user_count)]
+            ihis: List[List[Tuple[str, int]]] = [[] for _ in
+                                                 range(self.user_count)]
+            for log in self.search_logs:
+                qhis[log.user].append((log.search_time, log.query))
+                ihis[log.user].extend(
+                    (t, i) for t, i, f in
+                    zip(log.times, log.items, log.interactions) if f > 0)
+            limit = self.user_history_limit
+            q_out, i_out = [], []
+            for u in range(self.user_count):
+                qs = [q for _, q in sorted(qhis[u])]
+                its = [i for _, i in sorted(ihis[u])]
+                if limit != -1:
+                    qs, its = qs[:limit], its[:limit]
+                q_out.append(qs)
+                i_out.append(its)
+            self._user_history = (q_out, i_out)
+        return self._user_history
+
+    def user_history_tensors(self) -> Tuple[np.ndarray, np.ndarray]:
+        """The histories as ``[U, longest]`` int32 arrays (queries, items),
+        -1 padded (Dataset.py:246-258)."""
+        qhis, ihis = self.user_history()
+        q_arr, _ = pad_ragged(qhis, pad_value=-1)
+        i_arr, _ = pad_ragged(ihis, pad_value=-1)
+        return q_arr, i_arr
+
     @classmethod
     def from_files(cls, data_dir: str, split: str = "train",
-                   graph_completeness: str = V.GRAPH_UQI) -> "GraphData":
+                   graph_completeness: str = V.GRAPH_UQI,
+                   user_history_limit: int = 500) -> "GraphData":
         """Load graph_info.txt + queries_multihot.txt + {split}_data.csv
         (the Step-3 artifact layout,
         PreProcess/Step3-ConvertToOnehot.py:136-158)."""
@@ -161,7 +208,8 @@ class GraphData:
         logs = SearchLogCollection.read(
             os.path.join(data_dir, f"{split}_data.csv"))
         return cls(user_count, query_count, item_count, vocab_size,
-                   query_words, query_word_counts, logs, graph_completeness)
+                   query_words, query_word_counts, logs, graph_completeness,
+                   user_history_limit)
 
 
 def pad_ragged(rows: Sequence[Sequence[int]], pad_value: int = 0,

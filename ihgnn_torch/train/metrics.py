@@ -4,7 +4,10 @@ Counterpart of ``ihgnn_tpu/train/metrics.py``:
 
 * ``ranking_metrics`` — batched: ``[B, I]`` scores → per-log metric rows.
 * ``Metrics`` — the reference's accumulator API (Helpers/Metrics.py:8-109),
-  with ``calculate_on_all_items`` as the host golden implementation.
+  with ``calculate_on_all_items`` as the host golden implementation;
+* ``MetricsCollection`` — per-epoch test/valid metrics and the best epoch
+  (Helpers/Metrics.py:112-162), with each epoch's loss and times
+  (``EpochStats``, the port's addition).
 
 Reference quirks kept exactly:
 * the HR denominator is min(|truth|, 10) (Metrics.py:80);
@@ -21,8 +24,10 @@ within the top 10, else 0.
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import List, Optional, Sequence
+from typing import (Any, Callable, Iterable, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -179,3 +184,67 @@ class Metrics:
             return 0.0
         return sum(j / (i + 1)
                    for i, j in zip(indices_hit, range(1, n + 1))) / n
+
+
+@dataclasses.dataclass(frozen=True)
+class EpochStats:
+    """One epoch of a CLI run: its average loss, its train pass (steps and
+    seconds, until the losses reached the host) and, on a test epoch, the
+    seconds of the whole evaluation (the shared forward, test and valid);
+    None otherwise."""
+
+    epoch: int
+    avg_loss: float
+    steps: int
+    train_s: float
+    eval_s: Optional[float] = None
+
+
+class MetricsCollection:
+    """Per-epoch test/valid metric tracking with best-epoch selection
+    (Helpers/Metrics.py:112-162); ``epoch_stats`` holds every epoch's
+    ``EpochStats`` in the order run."""
+
+    def __init__(self, has_valid: bool = False):
+        self.has_valid = has_valid
+        self._epochs: List[int] = []
+        self._tests: List[Metrics] = []
+        self._valids: List[Metrics] = []
+        self.epoch_stats: List[EpochStats] = []
+
+    def add(self, epoch: int, m_test: Metrics,
+            m_valid: Optional[Metrics] = None) -> None:
+        if self.has_valid != (m_valid is not None):
+            raise ValueError(f"has_valid is {self.has_valid}")
+        self._epochs.append(epoch)
+        self._tests.append(m_test)
+        if m_valid is not None:
+            self._valids.append(m_valid)
+
+    def get_valid_best(self, key: Callable[[Metrics], Any],
+                       max_is_best: bool = True
+                       ) -> Tuple[int, Metrics, Metrics]:
+        """(epoch, test, valid) of the first epoch whose valid metrics
+        are best under ``key``."""
+        if not self.has_valid:
+            raise ValueError("has_valid is False")
+        pick = max if max_is_best else min
+        i = self._valids.index(pick(self._valids, key=key))
+        return self._epochs[i], self._tests[i], self._valids[i]
+
+    def get_test_best(self, key: Callable[[Metrics], Any],
+                      max_is_best: bool = True):
+        pick = max if max_is_best else min
+        i = self._tests.index(pick(self._tests, key=key))
+        if self.has_valid:
+            return self._epochs[i], self._tests[i], self._valids[i]
+        return self._epochs[i], self._tests[i]
+
+    def iter_epoch_test(self) -> Iterable[Tuple[int, Metrics]]:
+        return zip(self._epochs, self._tests)
+
+    def iter_epoch_test_valid(self) -> Iterable[Tuple[int, Metrics,
+                                                      Metrics]]:
+        if not self.has_valid:
+            raise ValueError("has_valid is False")
+        return zip(self._epochs, self._tests, self._valids)
