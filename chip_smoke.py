@@ -91,6 +91,26 @@ profiled routed train step, then ``small_routed_reference`` (the default
 model, HGCN and phase 2 on a small packed graph, card against CPU as in
 phase 9). Every launch count of a routed path is checked exactly.
 
+The bf16 streams and remat (``ModelConfig.bf16_stream``, ``remat``):
+phase 3 also holds each bf16 form against its twin at the full-width
+shapes (K2 writing bf16 roles, K1 on bf16 rows for the node update, the
+gather's and the scatter's backward, K3 and ``interact_bwd`` on bf16
+roles at orders 3 and 1: no bf16 output element off by more than 1 bf16
+ulp), timed beside bf16 bounds. After phase 5, ``bf16_serving`` runs the
+default model with ``bf16_stream`` on the same graph, weights and logs as
+``serving``; after phase 9, ``bf16_train`` trains it as ``train`` does,
+``bf16_vs_f32`` holds its features within BF16_FEATURE_RTOL of the f32
+features' largest value (the metrics and the step-0 losses reported side
+by side), ``remat_train`` and ``remat_bf16_train`` train with remat (f32
+and bf16), each followed by ``*_equals_no_remat``, a full-width step with
+remat held bit for bit to the same step without it (loss, gradients,
+parameters), and ``small_bf16_reference`` holds the bf16 + remat model's
+train steps on the card to the CPU (BF16_SMALL_TOL). Phase ``cli`` ends
+with one tested ``--bf16_stream --remat`` epoch. Every launch count of a
+bf16 or remat path is checked exactly: a wrapper counts its f32 forms in
+``launches`` and its bf16 forms in ``launches_bf16`` (``name_bf16`` in
+the JSON rows).
+
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Needs a CUDA card; exits non-zero without one.
 """
@@ -123,10 +143,11 @@ SMALL_GRAD_RTOL = 1e-5
 # features of the small graph, card against CPU (as phase 6)
 SMALL_FEATURE_ATOL = 1e-4
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
-# outside the tensor cores, dense TF32 FLOP/s on the tensor cores
+# outside the tensor cores, dense TF32 and bf16 FLOP/s on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 TF32_FLOPS = 495e12
+BF16_FLOPS = 989e12
 WARMUP, REPS = 3, 20
 # K8 and torch.sparse.mm, timed in turns this many times each
 SCAN_REPEATS = 7
@@ -145,14 +166,17 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def bound(nbytes: float, flops: float, tf32_flops: float = 0.0):
+def bound(nbytes: float, flops: float, tf32_flops: float = 0.0,
+          bf16_flops: float = 0.0):
     """(bound_ms, bound_by): the larger of bytes over HBM rate and the
-    operations' time: ``flops`` over the f32 rate, and ``tf32_flops`` (the
+    operations' time: ``flops`` over the f32 rate, ``tf32_flops`` (the
     FLOPs of products run on the tensor cores in 3xTF32, three TF32
-    products each) times 3 over the TF32 rate; the two pipes run side by
-    side, so the operations take the longer of the two."""
+    products each) times 3 over the TF32 rate, and ``bf16_flops`` (bf16
+    products on the tensor cores, one pass) over the bf16 rate; the pipes
+    run side by side, so the operations take the longest of them."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(flops / F32_FLOPS, 3 * tf32_flops / TF32_FLOPS) * 1e3
+    t_ops = max(flops / F32_FLOPS, 3 * tf32_flops / TF32_FLOPS,
+                bf16_flops / BF16_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -215,12 +239,26 @@ def _wrappers():
 def _zero_launches():
     for fn in _wrappers():
         fn.launches = 0
+        if hasattr(fn, "launches_bf16"):
+            fn.launches_bf16 = 0
+
+
+def _launch_counts():
+    """Every wrapper's counts since ``_zero_launches``: ``name`` its f32
+    forms' launches, ``name_bf16`` its bf16 forms' (the wrappers that have
+    bf16 forms)."""
+    counts = {}
+    for fn in _wrappers():
+        counts[fn.__name__] = fn.launches
+        if hasattr(fn, "launches_bf16"):
+            counts[fn.__name__ + "_bf16"] = fn.launches_bf16
+    return counts
 
 
 def _read_launches(path, expected):
-    """Every wrapper's count since ``_zero_launches``; fails when a kernel
-    of ``expected`` was not launched on ``path``."""
-    launches = {fn.__name__: fn.launches for fn in _wrappers()}
+    """Every count of ``_launch_counts``; fails when a kernel of
+    ``expected`` was not launched on ``path``."""
+    launches = _launch_counts()
     for name in expected:
         if launches[name] <= 0:
             fail(f"{name} was not launched on the {path} path")
@@ -285,19 +323,24 @@ def random_eval_logs(users, queries, items, count, seed):
 
 
 def record_row(torch, results, name, shape, err, tol, k_fn, p_fn, l_fn,
-               nbytes, flops, lib_err=None, tf32_flops=0.0, **extra):
+               nbytes, flops, lib_err=None, tf32_flops=0.0, bf16_flops=0.0,
+               **extra):
     """Fails unless ``err <= tol``; times the kernel, its plain twin and the
     library call; emits one ``kernel_check`` row and keeps it in
-    ``results[name]``. ``flops`` run on the f32 cores and ``tf32_flops`` on
-    the tensor cores in 3xTF32 (see ``bound``)."""
+    ``results[name]``. ``flops`` run on the f32 cores, ``tf32_flops`` on
+    the tensor cores in 3xTF32 and ``bf16_flops`` on them in bf16 (see
+    ``bound``)."""
     if not err <= tol:
         fail(f"{name} at {shape}: max error {err} > {tol}")
-    b_ms, b_by = bound(nbytes, flops, tf32_flops)
+    b_ms, b_by = bound(nbytes, flops, tf32_flops, bf16_flops)
     if tf32_flops:
         extra.update(bound_bytes_ms=bound(nbytes, 0)[0],
                      bound_tf32_ms=3 * tf32_flops / TF32_FLOPS * 1e3,
                      bound_f32_cores_ms=(flops + tf32_flops)
                      / F32_FLOPS * 1e3)
+    if bf16_flops:
+        extra.update(bound_bytes_ms=bound(nbytes, 0)[0],
+                     bound_bf16_ms=bf16_flops / BF16_FLOPS * 1e3)
     row = {"shape": shape, "max_abs_err": err, "tolerance": tol,
            "ms": time_ms(torch, k_fn), "plain_ms": time_ms(torch, p_fn),
            "library_ms": None if l_fn is None else time_ms(torch, l_fn),
@@ -895,6 +938,175 @@ def check_routed_kernels(torch, dev, kp, results):
     del chunks, col2, rowptr2, k_out, p_out, csr
 
 
+def bf16_ulp_check(torch, got, want):
+    """(max abs error, elements off by more than 1 bf16 ulp of the larger
+    of the two values plus 1e-5 of the largest ``want``): the rule the bf16
+    forms are held to against their twins, which round at the same points
+    but sum in another order (a value at a rounding boundary may round the
+    other way)."""
+    a, b = got.float(), want.float()
+    larger = torch.maximum(a.abs(), b.abs())
+    _, e = torch.frexp(larger)
+    ulp = torch.where(larger == 0, torch.zeros_like(a),
+                      torch.ldexp(torch.ones_like(a), e - 8))
+    diff = (a - b).abs()
+    bad = int((diff > ulp + 1e-5 * b.abs().max()).sum().item())
+    return diff.max().item(), bad
+
+
+def check_bf16_kernels(torch, dev, graph, results):
+    """Phase 3, the bf16 forms (``ModelConfig.bf16_stream``) at the shapes
+    of the bf16 serving and training paths: K2 from the f32 node rows to
+    bf16 roles, K1 on bf16 rows (the node update and the gather's backward
+    into f32, the scatter's backward in the fixed-width form into bf16), K3
+    and ``interact_bwd`` on bf16 roles at orders 3 and 1. A bf16 output
+    fails the run when an element is off its twin's by more than 1 bf16
+    ulp (``bf16_ulp_check``); its row's tolerance is 2^-6 of the largest
+    value, which that rule implies. bf16 bytes over the HBM rate, bf16
+    products over the dense bf16 rate."""
+    from ihgnn_torch.ops.gather import gather_roles, gather_roles_plain
+    from ihgnn_torch.ops.interact import (ORDER_PARTS, interact_bwd,
+                                          interact_bwd_plain, interact_fwd,
+                                          interact_fwd_plain)
+    from ihgnn_torch.ops.segsum import csr_gather_sum, csr_gather_sum_plain
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    def record(*args, **kwargs):
+        record_row(torch, results, *args, **kwargs)
+
+    def held(name, got, want):
+        err, bad = bf16_ulp_check(torch, got, want)
+        if bad:
+            fail(f"{name}: {bad} elements off the twin by more than 1 bf16 "
+                 f"ulp (max error {err})")
+        return err, 2.0 ** -6 * want.float().abs().max().item()
+
+    def library(fn, want):
+        """(fn, its max error against ``want``) when the library call runs
+        in bf16 on the card, else (None, the reason)."""
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        except (RuntimeError, NotImplementedError) as e:
+            return None, f"none: {type(e).__name__}: {str(e)[:160]}"
+        return fn, (out.float() - want.float()).abs().max().item()
+
+    n = graph.node_count
+    i3 = graph.i3
+
+    # K2: [N, d] f32 -> 3 x [E, d] bf16, each value rounded in the copy; the
+    # library call gathers the same rows from a bf16 copy of x
+    x = randn(n, D)
+    x16 = x.to(bf16)
+    flat = i3.t().reshape(-1).long()
+    k_out = gather_roles(x, i3, bf16)
+    if not torch.equal(k_out, gather_roles_plain(x, i3, bf16)):
+        fail("gather_roles bf16 is not bitwise its twin")
+    record("gather_roles_bf16", f"[{n}, {D}] f32 -> 3 x [{E}, {D}] bf16",
+           0.0, 0.0, lambda: gather_roles(x, i3, bf16),
+           lambda: gather_roles_plain(x, i3, bf16),
+           lambda: torch.index_select(x16, 0, flat),
+           4 * x.numel() + 4 * i3.numel() + 2 * 3 * E * D, 0,
+           library_note="index_select of a bf16 copy of x")
+    del x, x16, k_out, flat
+
+    # K1 on bf16 rows: the node update and the gather's backward into f32,
+    # 1e-4 of the f32 rows' sums as the f32 form; the library call is
+    # torch.sparse.mm on bf16 values where the card runs it
+    def sum_bf16(label, rows, col, rowptr, width=None):
+        s_out = rowptr.numel() - 1
+        out16 = width is not None
+        k_out = csr_gather_sum(rows, col, rowptr, width=width,
+                               out_dtype=bf16 if out16 else None)
+        p_out = csr_gather_sum_plain(rows, col, rowptr,
+                                     out_dtype=bf16 if out16 else None)
+        if out16:
+            err, tol = held(f"csr_gather_sum bf16 {label}", k_out, p_out)
+        else:
+            err, tol = (k_out - p_out).abs().max().item(), 1e-4
+        ones = torch.ones(col.numel(), device=dev, dtype=bf16)
+        csr = torch.sparse_csr_tensor(rowptr, col, ones,
+                                      size=(s_out, rows.shape[0]))
+        l_fn, lib = library(lambda: torch.sparse.mm(csr, rows), p_out)
+        record("csr_gather_sum_bf16",
+               f"{label} [{col.numel()} entries of [{rows.shape[0]}, {D}] "
+               f"bf16 -> [{s_out}, {D}] {'bf16' if out16 else 'f32'}]",
+               err, tol,
+               lambda: csr_gather_sum(rows, col, rowptr, width=width,
+                                      out_dtype=bf16 if out16 else None),
+               lambda: csr_gather_sum_plain(
+                   rows, col, rowptr, out_dtype=bf16 if out16 else None),
+               l_fn, 2 * rows.numel() + 4 * col.numel()
+               + (0 if width else 4 * rowptr.numel())
+               + (2 if out16 else 4) * s_out * D, col.numel() * D,
+               lib if l_fn is not None else None,
+               **({} if l_fn is not None else {"library_note": lib}))
+
+    edge = randn(E, D).to(bf16)
+    sum_bf16("node update", edge, graph.inc_edge, graph.rowptr)
+    del edge
+    cot3 = randn(3 * E, D).to(bf16)
+    sum_bf16("gather backward", cot3, graph.inc_slot, graph.rowptr)
+    del cot3
+    cot_n = randn(n, D).to(bf16)
+    sum_bf16("scatter backward", cot_n, i3.view(-1), graph.edge_rowptr,
+             width=3)
+    del cot_n
+
+    # K3 and interact_bwd on bf16 roles, orders 3 and 1
+    u, q, i = (randn(E, D).to(bf16) for _ in range(3))
+    cot = randn(E, D).to(bf16)
+    for order in (3, 1):
+        parts = ORDER_PARTS[order]
+        w = randn(parts * D, D) / (parts * D) ** 0.5
+        b = randn(D)
+        hadamard = {1: 0, 2: 3, 3: 4}[order]
+        k_out = interact_fwd(u, q, i, w, b, order)
+        err, tol = held(f"interact_fwd bf16 order {order}", k_out,
+                        interact_fwd_plain(u, q, i, w, b, order))
+        record("interact_fwd_bf16", f"order {order}, 3 x [{E}, {D}] bf16 -> "
+               f"[{E}, {D}] bf16", err, tol,
+               lambda: interact_fwd(u, q, i, w, b, order),
+               lambda: interact_fwd_plain(u, q, i, w, b, order), None,
+               2 * 3 * E * D + 4 * (w.numel() + D) + 2 * E * D,
+               E * (hadamard + 1) * D, bf16_flops=E * 2 * parts * D * D)
+        del k_out
+        k_droles, *k_params = interact_bwd(u, q, i, w, cot, order)
+        p_droles, *p_params = interact_bwd_plain(u, q, i, w, cot, order)
+        errors = {}
+        for nm, a, c in zip(("du", "dq", "di"), k_droles, p_droles):
+            e_, t_ = held(f"interact_bwd bf16 order {order} {nm}", a, c)
+            errors[nm] = {"max_abs_err": e_, "tolerance": t_}
+        for nm, a, c in zip(("dw", "db"), k_params, p_params):
+            e_, t_ = (a - c).abs().max().item(), 1e-4 * c.abs().max().item()
+            if not e_ <= t_:
+                fail(f"interact_bwd bf16 order {order} {nm}: max error "
+                     f"{e_} > {t_}")
+            errors[nm] = {"max_abs_err": e_, "tolerance": t_}
+        worst = max(errors.values(),
+                    key=lambda v: v["max_abs_err"] / max(v["tolerance"],
+                                                         1e-30))
+        product_rule = {1: 0, 2: 12, 3: 21}[order]
+        record("interact_bwd_bf16", f"order {order}, 3 x [{E}, {D}] + cot "
+               f"[{E}, {D}] bf16 -> [3, {E}, {D}] bf16, dW [{parts * D}, "
+               f"{D}], db f32", worst["max_abs_err"], worst["tolerance"],
+               lambda: interact_bwd(u, q, i, w, cot, order),
+               lambda: interact_bwd_plain(u, q, i, w, cot, order), None,
+               2 * (3 * E * D + E * D + 3 * E * D)
+               + 4 * (2 * w.numel() + D),
+               E * (D * (hadamard + product_rule) + D),
+               bf16_flops=E * 2 * 2 * parts * D * D, errors=errors,
+               max_abs_err_all=max(v["max_abs_err"]
+                                   for v in errors.values()))
+        del k_droles, k_params, p_droles, p_params
+    del u, q, i, cot
+
+
 IHGNN_SERVING = ("csr_gather_sum", "gather_roles", "interact_fwd")
 IHGNN_TRAIN = IHGNN_SERVING + ("interact_bwd",)
 GAT_SERVING = ("csr_gather_sum", "csr_segment_max", "csr_segment_sum")
@@ -917,6 +1129,41 @@ IHGNN_FORWARD_LAUNCHES = {"csr_gather_sum": 3, "gather_roles": 2,
                           "interact_fwd": 2}
 IHGNN_STEP_LAUNCHES = {"csr_gather_sum": 8, "gather_roles": 2,
                        "interact_fwd": 2, "interact_bwd": 2}
+# with remat a step runs each layer's forward kernels once more in the
+# backward: K2, K3 and the node update's K1 twice a layer
+IHGNN_STEP_LAUNCHES_REMAT = {"csr_gather_sum": 10, "gather_roles": 4,
+                             "interact_fwd": 4, "interact_bwd": 2}
+# the default model on bf16 streams: the same kernels in their bf16 forms
+# (name_bf16), but for the bag's K1 (f32 rows) both ways; the f32 forms of
+# K2, K3 and interact_bwd must not run
+IHGNN_SERVING_BF16 = ("csr_gather_sum", "csr_gather_sum_bf16",
+                      "gather_roles_bf16", "interact_fwd_bf16")
+IHGNN_TRAIN_BF16 = IHGNN_SERVING_BF16 + ("interact_bwd_bf16",)
+IHGNN_FORWARD_LAUNCHES_BF16 = {"csr_gather_sum": 1, "csr_gather_sum_bf16": 2,
+                               "gather_roles": 0, "gather_roles_bf16": 2,
+                               "interact_fwd": 0, "interact_fwd_bf16": 2}
+IHGNN_STEP_LAUNCHES_BF16 = {"csr_gather_sum": 2, "csr_gather_sum_bf16": 6,
+                            "gather_roles": 0, "gather_roles_bf16": 2,
+                            "interact_fwd": 0, "interact_fwd_bf16": 2,
+                            "interact_bwd": 0, "interact_bwd_bf16": 2}
+IHGNN_STEP_LAUNCHES_BF16_REMAT = {"csr_gather_sum": 2,
+                                  "csr_gather_sum_bf16": 8,
+                                  "gather_roles": 0, "gather_roles_bf16": 4,
+                                  "interact_fwd": 0, "interact_fwd_bf16": 4,
+                                  "interact_bwd": 0, "interact_bwd_bf16": 2}
+# bf16 streams against f32 at full width: the features within this share
+# of the f32 features' largest value (a node sums bf16-rounded edge rows,
+# 2^-9 relative each, through two layers); the JAX package's own test of
+# its bf16 path against f32 (tests/test_bf16_stream.py) uses 2e-2
+BF16_FEATURE_RTOL = 2e-2
+# card against CPU on the small graph with bf16 streams (and remat): twins
+# and kernels round at the same points, but an f32 sum in another order
+# can round an edge row the other way by a bf16 ulp (2^-8 relative), which
+# reaches the features, the losses and the gradients; Adam moves a
+# parameter by up to lr (1e-3) a step whatever its gradient's size, so
+# three steps move a parameter whose tiny gradient flips sign by up to 6e-3
+BF16_SMALL_TOL = dict(feature_atol=1e-2, loss_rtol=1e-3, grad_rtol=1e-2,
+                      param_atol=1e-2)
 
 
 def _describe(cfg, graph):
@@ -1152,9 +1399,10 @@ def run_train(torch, dev, cfg, graph, uqi, qw, qc, path, expected,
 
 
 def check_repeatable_full_width(torch, dev, cfg, graph_cpu, uqi, qw, qc,
-                                phase="repeatable_full_width"):
-    """Phase ``phase``: two train steps of ``cfg`` at full width, each from
-    the same seeded model and optimizer on the same batch, compared bit for
+                                phase="repeatable_full_width", cfg_b=None):
+    """Phase ``phase``: two train steps at full width, the first of
+    ``cfg``, the second of ``cfg_b`` (``cfg`` when None), each from the
+    same seeded model and optimizer on the same batch, compared bit for
     bit: the loss, every gradient and every parameter after the step.
     Returns whether they agree."""
     from ihgnn_torch.config import TrainConfig
@@ -1165,8 +1413,8 @@ def check_repeatable_full_width(torch, dev, cfg, graph_cpu, uqi, qw, qc,
                        random_negative_sample_size=TRAIN_K)
     batch = train_batch(uqi, I, TRAIN_B, TRAIN_K, seed=0)
     runs = []
-    for _ in range(2):
-        model = RawGnn(cfg, U, Q, I, VOCAB,
+    for run_cfg in (cfg, cfg_b or cfg):
+        model = RawGnn(run_cfg, U, Q, I, VOCAB,
                        generator=torch.Generator().manual_seed(0)).to(dev)
         step = make_train_step(model, graph_cpu, qw, qc,
                                make_optimizer(model.parameters(), tcfg),
@@ -1186,6 +1434,8 @@ def check_repeatable_full_width(torch, dev, cfg, graph_cpu, uqi, qw, qc,
                            if not torch.equal(params_a[k], params_b[k]))
     same = loss_a == loss_b and not grads_differ and not params_differ
     emit({"phase": phase, phase: same,
+          "configs": [{"bf16_stream": c.bf16_stream, "remat": c.remat}
+                      for c in (cfg, cfg_b or cfg)],
           "losses": [loss_a, loss_b], "grads_differ": grads_differ,
           "params_differ": params_differ,
           "grad_max_abs_diff": {k: (grads_a[k] - grads_b[k]).abs().max()
@@ -1209,11 +1459,16 @@ def grad_scale(name, grads):
     return max(grads[name].abs().max().item(), 1e-30)
 
 
-def train_card_vs_cpu(torch, dev, cfg, graph, uqi, qw, qc, seed):
+def train_card_vs_cpu(torch, dev, cfg, graph, uqi, qw, qc, seed, tol=None):
     """SMALL_STEPS train steps of ``RawGnn(cfg)`` on ``graph``, on the card
     and on the CPU (plain twins), from the same weights and batches, then
     the card once more. Returns the JSON fields of the comparison and
-    whether it holds the limits."""
+    whether it holds the limits: SMALL_FEATURE_ATOL, SMALL_LOSS_RTOL,
+    SMALL_GRAD_RTOL and SMALL_PARAM_ATOL, or those of ``tol``
+    (``feature_atol``, ``loss_rtol``, ``grad_rtol``, ``param_atol``)."""
+    tol = dict(dict(feature_atol=SMALL_FEATURE_ATOL,
+                    loss_rtol=SMALL_LOSS_RTOL, grad_rtol=SMALL_GRAD_RTOL,
+                    param_atol=SMALL_PARAM_ATOL), **(tol or {}))
     import copy
 
     from ihgnn_torch.config import TrainConfig
@@ -1265,14 +1520,15 @@ def train_card_vs_cpu(torch, dev, cfg, graph, uqi, qw, qc, seed):
     repeatable = again_losses == card_losses and all(
         torch.equal(again_params[k], card_params[k]) for k in card_params)
     bad_grads = {k: v for k, v in grad_err.items()
-                 if not v <= SMALL_GRAD_RTOL}
-    ok = (feat_err <= SMALL_FEATURE_ATOL and loss_err <= SMALL_LOSS_RTOL
-          and not bad_grads and param_err <= SMALL_PARAM_ATOL)
+                 if not v <= tol["grad_rtol"]}
+    ok = (feat_err <= tol["feature_atol"] and loss_err <= tol["loss_rtol"]
+          and not bad_grads and param_err <= tol["param_atol"])
     row = {"steps": SMALL_STEPS, "features_max_abs_err": feat_err,
+           "features_atol": tol["feature_atol"],
            "card_losses": card_losses, "cpu_losses": cpu_losses,
-           "loss_max_rel_err": loss_err, "loss_rtol": SMALL_LOSS_RTOL,
-           "grad0_rel_err": grad_err, "grad0_rtol": SMALL_GRAD_RTOL,
-           "param_max_abs_err": param_err, "param_atol": SMALL_PARAM_ATOL,
+           "loss_max_rel_err": loss_err, "loss_rtol": tol["loss_rtol"],
+           "grad0_rel_err": grad_err, "grad0_rtol": tol["grad_rtol"],
+           "param_max_abs_err": param_err, "param_atol": tol["param_atol"],
            "repeatable": repeatable}
     if head_errs:
         row["score_head_param_abs_err"] = head_errs
@@ -1292,6 +1548,25 @@ def check_small_train(torch, dev):
     emit({"phase": "small_train_reference", **row})
     if not ok:
         fail(f"card and CPU training disagree on the small graph: {row}")
+
+
+def check_small_bf16(torch, dev):
+    """Phase ``small_bf16_reference``: the default model on bf16 streams
+    with remat, train steps card against CPU on a small graph, held to
+    BF16_SMALL_TOL."""
+    from ihgnn_torch.config import ModelConfig
+
+    s = SMALL
+    graph, uqi = random_graph(s["users"], s["queries"], s["items"],
+                              s["edges"], 60)
+    qw, qc = random_words(s["queries"], s["vocab"], 61)
+    row, ok = train_card_vs_cpu(torch, dev,
+                                ModelConfig(bf16_stream=True, remat=True),
+                                graph, uqi, qw, qc, 62, tol=BF16_SMALL_TOL)
+    emit({"phase": "small_bf16_reference", **row})
+    if not ok:
+        fail(f"card and CPU disagree on the small graph with bf16 streams "
+             f"and remat: {row}")
 
 
 def small_log_graph(users, queries, items, logs, seed):
@@ -1487,13 +1762,26 @@ KERNELS = {
                             "ihgnn_tpu/ops/pallas/interact.py:422"),
     "csr_segment_scan": ("ihgnn_torch/csrc/segscan.cu",
                          "ihgnn_tpu/ops/pallas/segscan.py:294"),
+    # the bf16 forms (bf16 streams, the direct path): K1's vector forms on
+    # bf16 rows (the Pallas segment sums' bf16 values, segsum.py:403 and
+    # :458), K2 writing bf16 roles, K3 and interact_bwd on bf16 roles
+    "csr_gather_sum_bf16": ("ihgnn_torch/csrc/segsum.cu",
+                            "ihgnn_tpu/ops/pallas/segsum.py:403"),
+    "gather_roles_bf16": ("ihgnn_torch/csrc/gather.cu",
+                          "ihgnn_tpu/ops/pallas/gather.py:188"),
+    "interact_fwd_bf16": ("ihgnn_torch/csrc/interact.cu",
+                          "ihgnn_tpu/ops/pallas/interact.py:319"),
+    "interact_bwd_bf16": ("ihgnn_torch/csrc/interact_bwd.cu",
+                          "ihgnn_tpu/ops/pallas/interact.py:340"),
 }
 
 
 # phase cli: the quality set of ihgnn_torch.quality_parity, trained for
 # CLI_EPOCHS (tested from epoch 2 every 2), resumed for CLI_RESUME_EPOCHS,
-# then --gnn gat for CLI_GAT_EPOCHS (tested)
+# then --gnn gat for CLI_GAT_EPOCHS (tested), then --bf16_stream --remat
+# for CLI_BF16_EPOCHS (tested)
 CLI_EPOCHS, CLI_RESUME_EPOCHS, CLI_GAT_EPOCHS = 4, 2, 1
+CLI_BF16_EPOCHS = 1
 
 
 def _trace_summary(path):
@@ -1537,7 +1825,7 @@ def _cli_expected(runs):
     """The launches of the cli phase's runs: each run's train steps and
     test-epoch forwards times the counts of its model's step and forward;
     every other kernel 0."""
-    expected = {fn.__name__: 0 for fn in _wrappers()}
+    expected = {k: 0 for k in _launch_counts()}
     for stats, (per_step, per_forward) in runs:
         steps = sum(s.steps for s in stats)
         forwards = sum(s.eval_s is not None for s in stats)
@@ -1554,7 +1842,8 @@ def run_cli(torch, dev):
     ``write_synthetic_dataset``: CLI_EPOCHS epochs of the default model
     with ``--storecheckpoint --storemetrics`` (epoch 2 under
     ``torch.profiler``), a ``--checkpoint latest`` resume for
-    CLI_RESUME_EPOCHS more, then ``--gnn gat`` for CLI_GAT_EPOCHS. Fails
+    CLI_RESUME_EPOCHS more, then ``--gnn gat`` for CLI_GAT_EPOCHS, then
+    ``--bf16_stream --remat`` for CLI_BF16_EPOCHS. Fails
     unless the resume renumbers from CLI_EPOCHS + 1 from exactly the saved
     state, the log and metrics files exist, the average loss falls over
     the first run, the metrics are finite and every launch count is exact.
@@ -1611,10 +1900,16 @@ def run_cli(torch, dev):
                             "--gnn", "gat", "--epoch_count",
                             str(CLI_GAT_EPOCHS), "--epoch_start_test", "1"])
             gat_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            bf16 = cli.main(["--dataset", data_dir, "--result_dir", results,
+                             "--bf16_stream", "--remat", "--epoch_count",
+                             str(CLI_BF16_EPOCHS), "--epoch_start_test",
+                             "1"])
+            bf16_s = time.perf_counter() - t0
             torch.cuda.synchronize()
         finally:
             cli.save_checkpoint, cli.restore_checkpoint = save, restore
-        launches = {fn.__name__: fn.launches for fn in _wrappers()}
+        launches = _launch_counts()
         idle = _trace_summary(os.path.join(prof_dir, "epoch2.trace.json"))
         files = {d: sorted(os.listdir(os.path.join(results, d)))
                  for d in sorted(os.listdir(results))}
@@ -1622,7 +1917,9 @@ def run_cli(torch, dev):
     expected = _cli_expected([
         (first.epoch_stats, (IHGNN_STEP_LAUNCHES, IHGNN_FORWARD_LAUNCHES)),
         (resumed.epoch_stats, (IHGNN_STEP_LAUNCHES, IHGNN_FORWARD_LAUNCHES)),
-        (gat.epoch_stats, (GAT_STEP_LAUNCHES, GAT_FORWARD_LAUNCHES))])
+        (gat.epoch_stats, (GAT_STEP_LAUNCHES, GAT_FORWARD_LAUNCHES)),
+        (bf16.epoch_stats, (IHGNN_STEP_LAUNCHES_BF16_REMAT,
+                            IHGNN_FORWARD_LAUNCHES_BF16))])
     losses = [s.avg_loss for s in first.epoch_stats]
     resumed_epochs = [s.epoch for s in resumed.epoch_stats]
     same_state = (list(saved) == [CLI_EPOCHS] == list(restored)
@@ -1638,7 +1935,7 @@ def run_cli(torch, dev):
     metrics = {name: [(e, m.as_row(), v.as_row())
                       for e, m, v in mc.iter_epoch_test_valid()]
                for name, mc in (("first", first), ("resumed", resumed),
-                                ("gat", gat))}
+                                ("gat", gat), ("bf16_remat", bf16))}
     # the profiled second epoch aside, and the first one's set-up
     warm = [s for s in first.epoch_stats + resumed.epoch_stats
             if s.epoch not in (1, 2)]
@@ -1651,9 +1948,12 @@ def run_cli(torch, dev):
           "epochs": [dataclasses.asdict(s) for s in first.epoch_stats
                      + resumed.epoch_stats],
           "gat_epochs": [dataclasses.asdict(s) for s in gat.epoch_stats],
+          "bf16_remat_epochs": [dataclasses.asdict(s)
+                                for s in bf16.epoch_stats],
           "epoch_s": epoch_s, "steps_per_s": steps / epoch_s,
           "eval_s": float(np.median(evals)),
-          "run_s": {"first": first_s, "resumed": resumed_s, "gat": gat_s},
+          "run_s": {"first": first_s, "resumed": resumed_s, "gat": gat_s,
+                    "bf16_remat": bf16_s},
           "profiled_epoch": {"epoch": 2, **idle},
           "losses": losses, "resumed_epochs": resumed_epochs,
           "restored_equals_saved": same_state, "files": files,
@@ -1670,6 +1970,9 @@ def run_cli(torch, dev):
         fail(f"cli: log or metrics file missing: {files}")
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         fail(f"cli: the average loss did not fall: {losses}")
+    if not all(np.isfinite(s.avg_loss) for s in bf16.epoch_stats):
+        fail(f"cli: non-finite --bf16_stream --remat losses "
+             f"{bf16.epoch_stats}")
     for name, rows in metrics.items():
         values = [x for _, m, v in rows for x in m + v]
         if not rows or not all(0.0 <= x <= 1.0 for x in values):
@@ -1812,9 +2115,11 @@ def main() -> int:
     with torch.no_grad():
         checks = check_kernels(torch, dev, graph, bag, graph2d)
         check_routed_kernels(torch, dev, kp.to(dev), checks)
+        check_bf16_kernels(torch, dev, graph, checks)
     torch.cuda.synchronize()
     del graph, graph2d, bag
     ihgnn, gat = ModelConfig(), ModelConfig(gnn=V.GAT)
+    ihgnn16 = dataclasses.replace(ihgnn, bf16_stream=True)
     launches = {}
     launches["serving"], serving, direct_metrics = run_serving(
         torch, dev, ihgnn, graph_cpu, qw, qc, "serving", IHGNN_SERVING)
@@ -1822,12 +2127,51 @@ def main() -> int:
     direct_features = serving[2].cpu()
     check_small(torch, dev)
     del serving
+    launches["bf16_serving"], serving, bf16_metrics = run_serving(
+        torch, dev, ihgnn16, graph_cpu, qw, qc, "bf16_serving",
+        IHGNN_SERVING_BF16, IHGNN_FORWARD_LAUNCHES_BF16)
+    bf16_features = serving[2].cpu()
+    del serving
     launches["train"], warm_step, direct_losses = run_train(
         torch, dev, ihgnn, graph_cpu, uqi, qw, qc, "train", IHGNN_TRAIN)
     emit(profile_window(torch, "one warm train step", warm_step))
     del warm_step
     check_repeatable_full_width(torch, dev, ihgnn, graph_cpu, uqi, qw, qc)
     check_small_train(torch, dev)
+
+    # bf16 streams and remat at full width: the same graph, weights and
+    # batches as the f32 phases
+    launches["bf16_train"], warm_step, bf16_losses = run_train(
+        torch, dev, ihgnn16, graph_cpu, uqi, qw, qc, "bf16_train",
+        IHGNN_TRAIN_BF16, IHGNN_STEP_LAUNCHES_BF16)
+    emit(profile_window(torch, "one warm bf16 train step", warm_step))
+    del warm_step
+    scale = direct_features.abs().max().item()
+    feature_err = (bf16_features - direct_features).abs().max().item()
+    emit({"phase": "bf16_vs_f32", "features_max_abs_err": feature_err,
+          "features_scale": scale, "features_rtol": BF16_FEATURE_RTOL,
+          "metrics_bf16": bf16_metrics, "metrics_f32": direct_metrics,
+          "step0_loss_bf16": bf16_losses[0],
+          "step0_loss_f32": direct_losses[0],
+          "step0_loss_rel_diff": abs(bf16_losses[0] - direct_losses[0])
+          / abs(direct_losses[0])})
+    if not feature_err <= BF16_FEATURE_RTOL * scale:
+        fail(f"bf16 features differ from the f32 features by {feature_err} "
+             f"(scale {scale})")
+    del bf16_features
+    for path, cfg, per_step, expected in (
+            ("remat_train", ihgnn, IHGNN_STEP_LAUNCHES_REMAT, IHGNN_TRAIN),
+            ("remat_bf16_train", ihgnn16, IHGNN_STEP_LAUNCHES_BF16_REMAT,
+             IHGNN_TRAIN_BF16)):
+        remat = dataclasses.replace(cfg, remat=True)
+        launches[path], _, _ = run_train(torch, dev, remat, graph_cpu, uqi,
+                                         qw, qc, path, expected, per_step)
+        if not check_repeatable_full_width(
+                torch, dev, cfg, graph_cpu, uqi, qw, qc,
+                f"{path}_equals_no_remat", cfg_b=remat):
+            fail(f"{path}: a step with remat differs from the step without "
+                 "it")
+    check_small_bf16(torch, dev)
 
     # the routed path: same interactions, weights and batches
     launches["routed_serving"], serving, routed_metrics = run_serving(

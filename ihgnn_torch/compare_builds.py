@@ -1,19 +1,24 @@
-"""Hold this checkout's interaction kernels bit for bit against another
-checkout's build of them, and K5's backward against this build's direct
-backward, on the same inputs.
+"""Hold this checkout's interaction and segment-sum kernels bit for bit
+against another checkout's build of them, and K5's backward against this
+build's direct backward, on the same inputs.
 
     python3 -m ihgnn_torch.compare_builds --reference DIR
 
 ``DIR`` is the root of another checkout (for example the parent commit,
-unpacked with ``git archive``). Both checkouts' ``csrc/interact_bwd.cu``
-and ``csrc/interact.cu`` are built with the package's nvcc flags (one
-nvcc process each, in parallel, into ``build/compare/``), and each pair
-below runs on the same seeded inputs:
+unpacked with ``git archive``). Both checkouts' ``csrc/interact_bwd.cu``,
+``csrc/interact.cu`` and ``csrc/segsum.cu`` are built with the package's
+nvcc flags (one nvcc process each, in parallel, into
+``build/compare/``), and each pair below runs on the same seeded inputs:
 
 * ``ihgnn_interact_bwd`` of both builds of ``interact_bwd.cu``;
-* ``ihgnn_interact_fwd_cores`` and ``ihgnn_interact_fwd_absorb_cores`` (K3's
-  f32-core form) of both builds of ``interact.cu``; the reference needs
-  those entry points, so it is a checkout with K3's tensor-core form;
+* ``ihgnn_interact_fwd`` (K3's tensor-core form),
+  ``ihgnn_interact_fwd_cores`` and ``ihgnn_interact_fwd_absorb_cores``
+  (its f32-core form) of both builds of ``interact.cu``; the reference
+  needs those entry points, so it is a checkout with K3's tensor-core
+  form;
+* ``ihgnn_csr_gather_sum`` (K1's vector form with and without weights,
+  its fixed-width form and its scalar form) and ``ihgnn_csr_segment_sum3``
+  of both builds of ``segsum.cu``, on a CSR of short and hub segments;
 * this checkout's ``ihgnn_interact_bwd_absorb`` against its own
   ``ihgnn_interact_bwd`` on the pre-permuted inputs (i[e_pi] and the
   merged, masked cotangent), di scattered back to t1 order: the identity
@@ -45,6 +50,10 @@ ARGTYPES = {
     "ihgnn_interact_bwd_absorb": [PTR] * 11 + [INT] * 6 + [PTR],
     "ihgnn_interact_fwd_cores": [PTR] * 6 + [INT] * 4 + [PTR],
     "ihgnn_interact_fwd_absorb_cores": [PTR] * 8 + [INT] * 5 + [PTR],
+    "ihgnn_interact_fwd": [PTR] * 6 + [INT] * 4 + [PTR],
+    "ihgnn_csr_gather_sum": [PTR] * 5 + [INT] * 4 + [PTR],
+    "ihgnn_csr_segment_sum3": [PTR] * 3 + [INT] + [PTR] * 3 + [INT] * 3
+    + [PTR],
 }
 # (edges, d, out) of each case; the first is the train step's shape
 SHAPES = ((2_000_000, 32, 32), (4097, 16, 64), (3000, 8, 8), (389, 12, 16))
@@ -129,6 +138,67 @@ def run_fwd(lib, name, u, q, i, pi, w, b, order):
     return outs
 
 
+def run_k1(lib, x, col, rowptr, weight, vector, width):
+    s, d = rowptr.numel() - 1, x.shape[1]
+    out = torch.empty(s, d, device=x.device)
+    err = entry(lib, "ihgnn_csr_gather_sum")(
+        x.data_ptr(), col.data_ptr(), rowptr.data_ptr(),
+        None if weight is None else weight.data_ptr(), out.data_ptr(), s, d,
+        vector, width, _build.stream_ptr(x.device))
+    if err:
+        raise RuntimeError(f"csr_gather_sum: CUDA error {err}")
+    return (out,)
+
+
+def run_k1_three(lib, x, col, rowptr):
+    m, d = x.shape[0] // 3, x.shape[1]
+    s = rowptr.numel() - 1
+    out = torch.empty(s, d, device=x.device)
+    err = entry(lib, "ihgnn_csr_segment_sum3")(
+        x[:m].data_ptr(), x[m:2 * m].data_ptr(), x[2 * m:].data_ptr(), m,
+        col.data_ptr(), rowptr.data_ptr(), out.data_ptr(), s, d, 1,
+        _build.stream_ptr(x.device))
+    if err:
+        raise RuntimeError(f"csr_segment_sum3: CUDA error {err}")
+    return (out,)
+
+
+def k1_cases(libs, dev, gen) -> dict:
+    """``{case: (reference outputs, this checkout's)}`` of K1's f32 forms
+    on 300k rows of d = 32: a CSR of 100k segments, most of 0-10 entries
+    and a few hubs of 5k-50k, and a fixed-width CSR of 3 entries a
+    segment."""
+    rows, d = 300_000, 32
+    counts = torch.randint(0, 11, (100_000,), device=dev, generator=gen)
+    counts[::20_000] = torch.tensor([50_000, 20_000, 5_000, 10_000, 8_000],
+                                    device=dev)
+    rowptr = torch.zeros(counts.numel() + 1, dtype=torch.int64, device=dev)
+    rowptr[1:] = counts.cumsum(0)
+    rowptr = rowptr.int()
+    k = int(rowptr[-1].item())
+    col = torch.randint(0, rows, (k,), device=dev, generator=gen).int()
+    weight = torch.rand(k, device=dev, generator=gen)
+    x = torch.randn(rows, d, device=dev, generator=gen)
+    fixed_col = torch.randint(0, rows, (3 * 100_000,), device=dev,
+                              generator=gen).int()
+    fixed_ptr = torch.arange(0, 3 * 100_000 + 1, 3, device=dev).int()
+    cases = {}
+    for tag in ("reference", "this"):
+        lib = libs[tag, "segsum"]
+        for name, outs in (
+                ("csr_gather_sum vector", run_k1(lib, x, col, rowptr, None,
+                                                 1, 0)),
+                ("csr_gather_sum vector weighted",
+                 run_k1(lib, x, col, rowptr, weight, 1, 0)),
+                ("csr_gather_sum fixed width 3",
+                 run_k1(lib, x, fixed_col, fixed_ptr, None, 1, 3)),
+                ("csr_gather_sum scalar weighted",
+                 run_k1(lib, x, col, rowptr, weight, 0, 0)),
+                ("csr_segment_sum3", run_k1_three(lib, x, col, rowptr))):
+            cases.setdefault(name, []).append(outs)
+    return cases
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--reference", type=Path, required=True,
@@ -138,9 +208,14 @@ def main(argv=None) -> int:
         print("compare_builds: needs a CUDA card", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    libs = build_pair(args.reference, ("interact_bwd", "interact"))
+    libs = build_pair(args.reference, ("interact_bwd", "interact", "segsum"))
     gen = torch.Generator(device=dev).manual_seed(0)
     equal_all = True
+    for case, (ref, this) in k1_cases(libs, dev, gen).items():
+        torch.cuda.synchronize()
+        equal = all(torch.equal(a, c) for a, c in zip(ref, this))
+        equal_all = equal_all and equal
+        print(json.dumps({"case": case, "bitwise_equal": equal}), flush=True)
     for e, d, out in SHAPES:
         cols = COLS[e]
         pi = torch.stack([torch.randperm(cols, device=dev, generator=gen)
@@ -168,7 +243,8 @@ def main(argv=None) -> int:
             cases["interact_bwd_absorb"] = [
                 direct, run_bwd(this_bwd, True, u, q, i, pi, w, cot, c2,
                                 mask, order)]
-            for name, p in (("ihgnn_interact_fwd_cores", None),
+            for name, p in (("ihgnn_interact_fwd", None),
+                            ("ihgnn_interact_fwd_cores", None),
                             ("ihgnn_interact_fwd_absorb_cores", pi)):
                 cases[name] = [
                     run_fwd(libs[tag, "interact"], name, u, q, i, p, w, b,

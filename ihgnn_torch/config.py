@@ -10,8 +10,8 @@ mean query transform, dot-product HEM head.
 
 The one field of the port's own is ``RuntimeConfig.device`` (``--device``,
 default ``cuda``), the counterpart of the JAX package's platform choice.
-Knobs whose modules are not ported yet (Srrl, ``remat``, ``bf16_stream``,
-a mesh, multi-host) parse as in the JAX package; the CLI refuses them.
+Knobs whose modules are not ported yet (Srrl, a mesh, multi-host) parse
+as in the JAX package; the CLI refuses them.
 """
 
 from __future__ import annotations
@@ -73,9 +73,10 @@ class ModelConfig:
     # one per interaction (Helpers/Graph.py:138-189); HGCN only (ragged
     # edges have no fixed-order feature interaction)
     use_log_hypergraph: bool = False
-    # recompute each GNN layer in the backward pass (not ported yet)
+    # recompute each GNN layer in the backward pass (torch.utils.checkpoint)
     remat: bool = False
-    # bf16 edge streams with f32 accumulation (not ported yet)
+    # bf16 edge streams with f32 accumulation (models/layers.py; the direct
+    # path only, the routed pack raises)
     bf16_stream: bool = False
 
     @property
@@ -244,10 +245,9 @@ def parse_args(argv=None) -> Config:
     p.add_argument("--log_hypergraph", action="store_true", default=False,
                    help="one hyperedge per search log (HGCN only)")
     p.add_argument("--remat", action="store_true", default=False,
-                   help="recompute GNN layers in backward (not ported "
-                        "yet)")
+                   help="recompute GNN layers in backward")
     p.add_argument("--bf16_stream", action="store_true", default=False,
-                   help="bf16 hyperedge streams (not ported yet)")
+                   help="bf16 hyperedge streams")
     p.add_argument("--mesh_data", type=int, default=1)
     p.add_argument("--mesh_model", type=int, default=1)
     p.add_argument("--multihost", action="store_true", default=False,

@@ -27,8 +27,19 @@
 // q and i with their first Clos stage). The index table holds the absolute
 // source row, so the window offsets of the TPU pack are folded in. The
 // transposed form writes in order and reads idx with a stride of C.
+//
+// The bf16 form (ModelConfig.bf16_stream; the Pallas kernels' bf16 streams,
+// whose gather copies bf16 rows, gather.py:82): the roles are written as
+// bf16, from x in f32 (each value rounded to nearest even in the copy, the
+// cast of ops/hyperagg.py:1003-1007 fused into the gather) or in bf16 (an
+// exact copy). Each thread moves four features: it reads a float4 (or 8
+// bytes of bf16) and writes 8 bytes, d / 4 neighbouring threads a row, so
+// the form takes d % 4 == 0. Bound: bytes, as above, with the writes (and a
+// bf16 x's reads) at half width.
 
 #include <cuda_runtime.h>
+
+#include "bf16.cuh"
 
 namespace {
 
@@ -86,6 +97,33 @@ __global__ void gather_roles_kernel(const float4* __restrict__ x,
   out[t] = x[static_cast<size_t>(node) * vecs + v];
 }
 
+// Four features of a row of x as bf16: rounded from f32, or copied.
+__device__ __forceinline__ uint2 bf16_quad(const float* x, size_t k) {
+  return round_bf16x4(__ldg(reinterpret_cast<const float4*>(x) + k));
+}
+
+__device__ __forceinline__ uint2 bf16_quad(const __nv_bfloat16* x, size_t k) {
+  return __ldg(reinterpret_cast<const uint2*>(x) + k);
+}
+
+// The bf16 form: out_r [E, d] bf16; quads = d / 4.
+template <typename T>
+__global__ void gather_roles_bf16_kernel(const T* __restrict__ x,
+                                         const int* __restrict__ i3,
+                                         uint2* __restrict__ out_u,
+                                         uint2* __restrict__ out_q,
+                                         uint2* __restrict__ out_i,
+                                         int edges, int quads) {
+  const int role = blockIdx.y;
+  const int t = blockIdx.x * kThreads + threadIdx.x;  // < edges * quads
+  if (t >= edges * quads) return;
+  const int e = t / quads;
+  const int v = t - e * quads;
+  const int node = i3[3 * e + role];
+  uint2* out = role == 0 ? out_u : (role == 1 ? out_q : out_i);
+  out[t] = bf16_quad(x, static_cast<size_t>(node) * quads + v);
+}
+
 }  // namespace
 
 extern "C" const char* ihgnn_error_string(int err) {
@@ -103,6 +141,29 @@ extern "C" int ihgnn_gather_roles(const void* x, const void* i3, void* out_u,
       static_cast<const float4*>(x), static_cast<const int*>(i3),
       static_cast<float4*>(out_u), static_cast<float4*>(out_q),
       static_cast<float4*>(out_i), edges, vecs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 form: x f32 (x_bf16 == 0, rounded in the copy) or bf16
+// (x_bf16 == 1); out_u/out_q/out_i [E, d] bf16; d % 4 == 0.
+extern "C" int ihgnn_gather_roles_bf16(const void* x, int x_bf16,
+                                       const void* i3, void* out_u,
+                                       void* out_q, void* out_i, int edges,
+                                       int d, void* stream) {
+  if (d % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int quads = d / 4;
+  const dim3 grid((edges * quads + kThreads - 1) / kThreads, 3);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  uint2* ou = static_cast<uint2*>(out_u);
+  uint2* oq = static_cast<uint2*>(out_q);
+  uint2* oi = static_cast<uint2*>(out_i);
+  const int* idx = static_cast<const int*>(i3);
+  if (x_bf16)
+    gather_roles_bf16_kernel<<<grid, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), idx, ou, oq, oi, edges, quads);
+  else
+    gather_roles_bf16_kernel<<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(x), idx, ou, oq, oi, edges, quads);
   return static_cast<int>(cudaGetLastError());
 }
 

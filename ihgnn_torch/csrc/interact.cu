@@ -58,9 +58,29 @@
 // each position is written once. On the TPU pi and rho had to nest inside
 // the kernel's VMEM block; here each is one index load an edge, and the
 // bound is K3's plus one more [E, out] write.
+//
+// 3. The bf16 form (ModelConfig.bf16_stream), for bf16 roles: the Pallas
+//    kernel's own contract (interact.py:49-60, :334): u*q, q*i and i*u are
+//    each rounded to bf16, u*q*i = round(round(u*q) * i), W is rounded to
+//    bf16, the product accumulates in f32 and out = acc + b (f32) is
+//    rounded to a bf16 [E, out]. A bf16 x bf16 product is exact in f32, so
+//    this is one mma.sync.m16n8k16 bf16 pass (bf16.cuh), no split. The
+//    design is the tensor-core form's in bf16: a block rounds W once into
+//    B-fragment order (a uint2 {b0, b1} a lane: rows 16 kf + 2 t, + 1 and
+//    16 kf + 2 t + 8, + 9 of a part, column 8 n + g; zero past the part's
+//    d), each warp streams its own 16-edge tiles of bf16 rows through a
+//    two-stage cp.async ring, forms the parts on bf16x2 pairs (__hmul2,
+//    rounded to nearest even) straight in A-fragment order, and its output
+//    tile leaves through the stage as whole bf16 rows. It takes d % 8 == 0
+//    (16-byte row copies; when d % 16 == 8 the last k step's upper half is
+//    zero) when W's fragments and one warp's ring fit in shared memory.
+//    Bound: bytes. At E = 2M, d = out = 32 it reads 3 x 128 MB of roles
+//    and writes 128 MB (0.153 ms at 3.35 TB/s); its 14,336 FLOPs an edge
+//    at order 3 take 0.029 ms at the 989 TFLOP/s bf16 rate.
 
 #include <cuda_runtime.h>
 
+#include "bf16.cuh"
 #include "tf32.cuh"
 
 namespace {
@@ -407,6 +427,232 @@ interact_fwd_cores_kernel(const float* __restrict__ u,
   }
 }
 
+// ---------------------------------------------------------------------------
+// 3. The bf16 form
+// ---------------------------------------------------------------------------
+
+// Staged bf16 row of `width` elements (a multiple of 8): 16 bytes of pad,
+// so the 32-bit fragment loads of a quarter warp (rows g, words t) meet no
+// bank conflict at the model's widths.
+__host__ __device__ constexpr int bf16_row(int width) { return width + 8; }
+
+// bf16 elements of one stage of a warp's ring: u, q and i rows, later the
+// output tile.
+__host__ __device__ constexpr int bf16_stage(int d, int out) {
+  return 3 * bf16_row(d) > bf16_row(out) ? 3 * kTileEdges * bf16_row(d)
+                                         : kTileEdges * bf16_row(out);
+}
+
+// Bytes of W's bf16 fragments: (d + 15) / 16 k steps a part, out / 8 n8
+// tiles, a uint2 a lane.
+size_t bf16_w_bytes(int d, int out, int parts) {
+  return static_cast<size_t>(parts) * ((d + 15) / 16) * (out / 8) * 32 *
+         sizeof(uint2);
+}
+
+// Warps a block of the bf16 form runs, or 0 when it does not take the
+// shape (d % 8 != 0, or W's fragments and one warp's ring do not fit).
+int bf16_warps(int d, int out, int parts) {
+  if (d <= 0 || d % 8 != 0) return 0;
+  const size_t w_bytes = bf16_w_bytes(d, out, parts);
+  const size_t warp_bytes = static_cast<size_t>(kStages) *
+                            bf16_stage(d, out) * sizeof(__nv_bfloat16);
+  if (w_bytes + warp_bytes > kSmemLimit) return 0;
+  const size_t warps = (kSmemLimit - w_bytes) / warp_bytes;
+  return static_cast<int>(warps < kMaxWarps ? warps : kMaxWarps);
+}
+
+// Part J of bf16x2 pairs of (u, q, i), each product rounded to bf16.
+template <int J>
+__device__ __forceinline__ __nv_bfloat162 part_bf16(__nv_bfloat162 x,
+                                                    __nv_bfloat162 y,
+                                                    __nv_bfloat162 z) {
+  if constexpr (J == 0) return x;
+  if constexpr (J == 1) return y;
+  if constexpr (J == 2) return z;
+  if constexpr (J == 3) return __hmul2(x, y);
+  if constexpr (J == 4) return __hmul2(y, z);
+  if constexpr (J == 5) return __hmul2(z, x);
+  return __hmul2(__hmul2(x, y), z);
+}
+
+// acc[n] += part J [16 edges, 16 features] . W's fragments wj of the k
+// step (NT n8 tiles). x, y, z hold the A-fragment pairs of u, q, i.
+template <int J, int NT>
+__device__ __forceinline__ void part_product_bf16(
+    const __nv_bfloat162 (&x)[4], const __nv_bfloat162 (&y)[4],
+    const __nv_bfloat162 (&z)[4], const uint2* __restrict__ wj,
+    float (&acc)[NT][4]) {
+  unsigned a[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    a[r] = bf16x2_bits(part_bf16<J>(x[r], y[r], z[r]));
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const uint2 bf = wj[n * 32];
+    mma_bf16(acc[n], a, bf.x, bf.y);
+  }
+}
+
+// The bf16 form (see the top of the file). blockDim.x is 32 times the warps
+// of bf16_warps; dynamic shared memory holds W's fragments, then each
+// warp's ring.
+template <int OUT, int ORDER>
+__global__ void __launch_bounds__(32 * kMaxWarps)
+interact_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ u,
+                         const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ it,
+                         const float* __restrict__ w,
+                         const float* __restrict__ b,
+                         __nv_bfloat16* __restrict__ out, int edges, int d) {
+  constexpr int P = parts_of<ORDER>();
+  constexpr int NT = OUT / 8;             // n8 tiles of the output
+  constexpr int TE = kTileEdges;
+  constexpr int SO = bf16_row(OUT);       // staged output row
+  constexpr int C8 = OUT / 8;             // 16-byte vectors an output row
+  const int sd = bf16_row(d);             // staged role row
+  const int kb = (d + 15) >> 4;           // k16 steps a part
+  const int v8 = d >> 3;                  // 16-byte vectors a role row
+  const int stage = bf16_stage(d, OUT);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+
+  extern __shared__ float4 smem[];
+  uint2* wf = reinterpret_cast<uint2*>(smem);  // [P kb][NT][32] fragments
+  __nv_bfloat16* ring =
+      reinterpret_cast<__nv_bfloat16*>(wf + static_cast<size_t>(P) * kb *
+                                                NT * 32) +
+      static_cast<size_t>(warp) * kStages * stage;
+
+  const int tiles = (edges + TE - 1) / TE;
+  const int stride = gridDim.x * warps;
+  const int first = blockIdx.x * warps + warp;
+
+  // tile `tile` into stage `slot`: u, q and i rows; rows past the last
+  // edge are zero-filled. Commits one group, empty past the last tile.
+  auto issue = [&](int tile, int slot) {
+    if (tile < tiles) {
+      __nv_bfloat16* buf = ring + slot * stage;
+      const int e0 = tile * TE;
+      for (int c = lane; c < TE * v8; c += 32) {
+        const int r = c / v8;
+        const int v = c - r * v8;
+        const int e = e0 + r;
+        const bool valid = e < edges;
+        const size_t at = static_cast<size_t>(e) * d + 8 * v;
+        __nv_bfloat16* dst = buf + r * sd + 8 * v;
+        cp_async16(dst, valid ? u + at : u, valid);
+        cp_async16(dst + TE * sd, valid ? q + at : q, valid);
+        cp_async16(dst + 2 * TE * sd, valid ? it + at : it, valid);
+      }
+    }
+    cp_async_commit();
+  };
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) issue(first + s * stride, s);
+
+  // W's fragments: k step ks = j kb + kf, n8 tile n, lane l holds
+  // b0 = W[j d + f][8 n + g], W[j d + f + 1][8 n + g] and b1 the same at
+  // f + 8, f + 9, for f = 16 kf + 2 t; rows past the part's d are zero
+  for (int idx = threadIdx.x; idx < P * kb * NT * 32; idx += blockDim.x) {
+    const int l = idx & 31;
+    const int n = (idx >> 5) % NT;
+    const int ks = (idx >> 5) / NT;
+    const int j = ks / kb;
+    const int f = 16 * (ks - j * kb) + 2 * (l & 3);
+    const float* wc = w + static_cast<size_t>(j) * d * OUT + 8 * n + (l >> 2);
+    auto wv = [&](int ff) {
+      return ff < d ? __ldg(wc + static_cast<size_t>(ff) * OUT) : 0.f;
+    };
+    wf[idx] = make_uint2(pack_bf16(wv(f), wv(f + 1)),
+                         pack_bf16(wv(f + 8), wv(f + 9)));
+  }
+  float bias[NT][2];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    bias[n][0] = __ldg(b + 8 * n + 2 * t);
+    bias[n][1] = __ldg(b + 8 * n + 2 * t + 1);
+  }
+  __syncthreads();  // W's fragments are staged
+
+  const __nv_bfloat162 zero = __floats2bfloat162_rn(0.f, 0.f);
+  int step = 0;
+  for (int tile = first; tile < tiles; tile += stride, ++step) {
+    issue(tile + (kStages - 1) * stride, (step + kStages - 1) % kStages);
+    cp_async_wait<kStages - 1>();
+    __syncwarp();  // the tile has landed for every lane
+    __nv_bfloat16* buf = ring + (step % kStages) * stage;
+    const __nv_bfloat16* us = buf;
+    const __nv_bfloat16* qs = us + TE * sd;
+    const __nv_bfloat16* is = qs + TE * sd;
+
+    float acc[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+    for (int kf = 0; kf < kb; ++kf) {
+      // the A pairs: rows g, g + 8 at features f, f + 1 (registers 0, 1)
+      // and f + 8, f + 9 (2, 3), for f = 16 kf + 2 t
+      const bool hi = 16 * kf + 8 < d;
+      const int at = g * sd + 16 * kf + 2 * t;
+      const int off[4] = {at, at + 8 * sd, at + 8, at + 8 * sd + 8};
+      __nv_bfloat162 x[4], y[4], z[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const bool on = r < 2 || hi;
+        x[r] = on ? *reinterpret_cast<const __nv_bfloat162*>(us + off[r])
+                  : zero;
+        y[r] = on ? *reinterpret_cast<const __nv_bfloat162*>(qs + off[r])
+                  : zero;
+        z[r] = on ? *reinterpret_cast<const __nv_bfloat162*>(is + off[r])
+                  : zero;
+      }
+      const uint2* wk = wf + static_cast<size_t>(kf) * NT * 32 + lane;
+      const size_t part_step = static_cast<size_t>(kb) * NT * 32;
+      part_product_bf16<0, NT>(x, y, z, wk, acc);
+      part_product_bf16<1, NT>(x, y, z, wk + part_step, acc);
+      part_product_bf16<2, NT>(x, y, z, wk + 2 * part_step, acc);
+      if constexpr (P >= 6) {
+        part_product_bf16<3, NT>(x, y, z, wk + 3 * part_step, acc);
+        part_product_bf16<4, NT>(x, y, z, wk + 4 * part_step, acc);
+        part_product_bf16<5, NT>(x, y, z, wk + 5 * part_step, acc);
+      }
+      if constexpr (P >= 7)
+        part_product_bf16<6, NT>(x, y, z, wk + 6 * part_step, acc);
+    }
+
+    // out = acc + b rounded to bf16, through the stage as a [TE][SO] tile,
+    // then whole rows, 16 bytes a lane
+    __syncwarp();
+    __nv_bfloat16* ot = buf;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int c = 8 * n + 2 * t;
+      *reinterpret_cast<unsigned*>(ot + g * SO + c) =
+          pack_bf16(acc[n][0] + bias[n][0], acc[n][1] + bias[n][1]);
+      *reinterpret_cast<unsigned*>(ot + (g + 8) * SO + c) =
+          pack_bf16(acc[n][2] + bias[n][0], acc[n][3] + bias[n][1]);
+    }
+    __syncwarp();
+    const int e0 = tile * TE;
+#pragma unroll
+    for (int c = lane; c < TE * C8; c += 32) {
+      const int r = c / C8;
+      const int v = c % C8;
+      const int e = e0 + r;
+      if (e < edges)
+        reinterpret_cast<uint4*>(out + static_cast<size_t>(e) * OUT)[v] =
+            *reinterpret_cast<const uint4*>(ot + r * SO + 8 * v);
+    }
+    __syncwarp();  // the stage is read before the ring refills it
+  }
+}
+
 // Persistent grid: as many blocks as `needed`, at most those resident.
 cudaError_t resident_blocks(const void* kernel, int threads, size_t smem,
                             long long needed, int* blocks) {
@@ -521,6 +767,53 @@ int launch_out(const Args& a, int out_dim, int order, bool cores,
   return static_cast<int>(err);
 }
 
+template <int OUT, int ORDER>
+cudaError_t launch_bf16(const void* u, const void* q, const void* i,
+                        const void* w, const void* b, void* out, int edges,
+                        int d, cudaStream_t stream) {
+  constexpr int P = parts_of<ORDER>();
+  const int warps = bf16_warps(d, OUT, P);
+  if (warps == 0) return cudaErrorInvalidValue;
+  const void* kernel =
+      reinterpret_cast<const void*>(interact_fwd_bf16_kernel<OUT, ORDER>);
+  const size_t smem = bf16_w_bytes(d, OUT, P) +
+                      static_cast<size_t>(warps) * kStages *
+                          bf16_stage(d, OUT) * sizeof(__nv_bfloat16);
+  const long long tiles =
+      (static_cast<long long>(edges) + kTileEdges - 1) / kTileEdges;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = resident_blocks(kernel, 32 * warps, smem, (tiles + warps - 1) / warps,
+                          &blocks);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it: the caller gets it as the return value
+    return err;
+  }
+  interact_fwd_bf16_kernel<OUT, ORDER><<<blocks, 32 * warps, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(u),
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(i), static_cast<const float*>(w),
+      static_cast<const float*>(b), static_cast<__nv_bfloat16*>(out), edges,
+      d);
+  return cudaGetLastError();
+}
+
+template <int OUT>
+cudaError_t launch_bf16_order(int order, const void* u, const void* q,
+                              const void* i, const void* w, const void* b,
+                              void* out, int edges, int d,
+                              cudaStream_t stream) {
+  switch (order) {
+    case 1: return launch_bf16<OUT, 1>(u, q, i, w, b, out, edges, d, stream);
+    case 2: return launch_bf16<OUT, 2>(u, q, i, w, b, out, edges, d, stream);
+    case 3: return launch_bf16<OUT, 3>(u, q, i, w, b, out, edges, d, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" const char* ihgnn_error_string(int err) {
@@ -573,4 +866,31 @@ extern "C" int ihgnn_interact_fwd_absorb_cores(
   return launch_out<true>(Args{u, q, i_t1, w, b, out, pi, out2, edges, d,
                                cols},
                           out_dim, order, true, stream);
+}
+
+// The bf16 form: u/q/i [edges, d] bf16, W [parts * d, out_dim] f32, b
+// [out_dim] f32, out [edges, out_dim] bf16. Refused (cudaErrorInvalidValue)
+// for a shape the form does not take (bf16_warps).
+extern "C" int ihgnn_interact_fwd_bf16(const void* u, const void* q,
+                                       const void* i, const void* w,
+                                       const void* b, void* out, int edges,
+                                       int d, int out_dim, int order,
+                                       void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (out_dim) {
+    case 8: err = launch_bf16_order<8>(order, u, q, i, w, b, out, edges, d, s);
+      break;
+    case 16: err = launch_bf16_order<16>(order, u, q, i, w, b, out, edges, d,
+                                         s);
+      break;
+    case 32: err = launch_bf16_order<32>(order, u, q, i, w, b, out, edges, d,
+                                         s);
+      break;
+    case 64: err = launch_bf16_order<64>(order, u, q, i, w, b, out, edges, d,
+                                         s);
+      break;
+    default: break;
+  }
+  return static_cast<int>(err);
 }

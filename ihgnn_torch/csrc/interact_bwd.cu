@@ -74,9 +74,30 @@
 // reads and rho stores stay in its own grid row, a 128 KB window that L2
 // holds; any cols that divides E is right. On the TPU pi and rho were
 // dynamic gathers inside the VMEM block; here they are row addresses.
+//
+// The bf16 form (ModelConfig.bf16_stream; interact_bwd_bf16_kernel): bf16
+// u, q, i and cot, as the Pallas kernel takes them (interact.py:80-125):
+// dparts = W_bf16 . cot in f32; the product rule in f32 on the widened u,
+// q, i, with du, dq, di each rounded to bf16 once; dW = parts_bf16^T . cot
+// in f32 (the parts rounded as the forward rounds them); db = sum cot in
+// f32. Both products are one mma.sync.m16n8k16 bf16 pass (bf16.cuh): a
+// bf16 x bf16 product is exact in f32, so no split. The design is the
+// direct fused kernel's, in bf16: the same chunks, tiles and slabs, the
+// same fixed-order partials and reduce_partials_kernel (so a step repeats
+// bit for bit), W rounded to bf16 once a block into shared memory, and
+// tiles of bf16 rows staged by cp.async. Each k step of the dW product is
+// 16 edges, whose pairs (edges 2 t, 2 t + 1 and 2 t + 8, 2 t + 9 of the
+// step) are packed from two staged rows; each k step of the data product
+// is 16 outputs, whose pairs are neighbours in a staged cot row and a W
+// row. It takes d % 8 == 0 when W and the two stages fit in one block's
+// shared memory. Bound: bytes. At order 3, E = 2M, d = out = 32 it reads
+// u, q, i and cot (4 x 128 MB) and writes du, dq, di (3 x 128 MB): 0.27 ms
+// at 3.35 TB/s; the two products' 28,672 FLOPs an edge take 0.058 ms at
+// the 989 TFLOP/s bf16 rate.
 
 #include <cuda_runtime.h>
 
+#include "bf16.cuh"
 #include "tf32.cuh"
 
 namespace {
@@ -511,6 +532,296 @@ interact_bwd_fused_kernel(const float* __restrict__ u,
     out[static_cast<size_t>(R) * OUT + threadIdx.x] = bacc;
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 form (interact_bwd on bf16 streams)
+// ---------------------------------------------------------------------------
+//
+// grid (chunks, slabs), kFusedThreads threads, as the fused kernel above.
+// Shared memory: W rounded to bf16 [parts * d][OUT + 8] (slab 0), then two
+// stages of u, q, i rows [kFusedTile][d + 8] and cot rows [kFusedTile][OUT
+// + 8], all bf16 (16 bytes of pad a row).
+//
+// 1. dW^T [OUT, parts * d] += cot^T [OUT, T] . parts [T, parts * d]: warp w
+//    owns the features f = 32 fs + 8 w + g (the mma's n) and, for each
+//    16-output tile of slab os, an accumulator tile a part, as above. A k
+//    step is 16 edges: the lane's edges e = 16 ks + 2 t, + 1, + 8, + 9; its
+//    B pairs are the parts at (e, f) and its A pairs cot at (e, o), packed
+//    from two rows.
+// 2. Slab 0: dparts [16 edges, 8 features] = cot . W^T, k steps of 16
+//    outputs: A pairs from a staged cot row, B pairs from a staged W row;
+//    then the product rule in f32 and du, dq, di rounded to bf16, 4 bytes
+//    a store. Slab 0 also sums db in f32.
+template <int OUT, int ORDER>
+__global__ void __launch_bounds__(kFusedThreads)
+interact_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ u,
+                         const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ it,
+                         const float* __restrict__ w,
+                         const __nv_bfloat16* __restrict__ cot,
+                         __nv_bfloat16* __restrict__ droles,
+                         float* __restrict__ partial, int edges, int d,
+                         int chunk_edges) {
+  constexpr int P = parts_of<ORDER>();
+  constexpr int T = kFusedTile;
+  constexpr int SC = OUT + 8;              // staged cot row
+  constexpr int SW = OUT + 8;              // staged W row
+  constexpr int MT = OUT >= 32 ? 2 : 1;    // 16-output tiles of a slab
+  constexpr int OS = (OUT + 31) / 32;      // output slabs
+  constexpr int KO = (OUT + 15) / 16;      // k16 steps of the data product
+  constexpr int C8 = OUT / 8;              // 16-byte vectors a cot row
+  using bf16 = __nv_bfloat16;
+  const int sd = d + 8;                    // staged role row
+  const int R = P * d;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int fs = blockIdx.y / OS;
+  const int os = blockIdx.y - fs * OS;
+  const bool data = blockIdx.y == 0;
+
+  extern __shared__ float4 smem[];
+  bf16* ws = reinterpret_cast<bf16*>(smem);       // [R][SW], slab 0
+  bf16* stages = ws + (data ? static_cast<size_t>(R) * SW : 0);
+  const int stage_elems = T * (3 * sd + SC);
+
+  if (data) {
+    for (int idx = threadIdx.x; idx < R * (OUT / 4); idx += kFusedThreads) {
+      const int r = idx / (OUT / 4);
+      const int v = idx - r * (OUT / 4);
+      reinterpret_cast<uint2*>(ws + r * SW)[v] =
+          round_bf16x4(__ldg(reinterpret_cast<const float4*>(w) + idx));
+    }
+  }
+
+  const long long begin = static_cast<long long>(blockIdx.x) * chunk_edges;
+  const int e_begin = static_cast<int>(begin);
+  const int e_end = static_cast<int>(
+      begin + chunk_edges < edges ? begin + chunk_edges : edges);
+  const int tiles = (e_end - e_begin + T - 1) / T;
+  const int v8 = d >> 3;
+
+  auto issue = [&](int tile) {
+    bf16* buf = stages + (tile & 1) * stage_elems;
+    const int e0 = e_begin + tile * T;
+    const int n_e = min(T, e_end - e0);
+    for (int idx = threadIdx.x; idx < 3 * T * v8; idx += kFusedThreads) {
+      const int a = idx / (T * v8);
+      const int rem = idx - a * T * v8;
+      const int te = rem / v8;
+      const int v = rem - te * v8;
+      const bool valid = te < n_e;
+      const bf16* src = a == 0 ? u : (a == 1 ? q : it);
+      cp_async16(buf + (a * T + te) * sd + 8 * v,
+                 valid ? src + static_cast<size_t>(e0 + te) * d + 8 * v : u,
+                 valid);
+    }
+    for (int idx = threadIdx.x; idx < T * C8; idx += kFusedThreads) {
+      const int te = idx / C8;
+      const int v = idx - te * C8;
+      const bool valid = te < n_e;
+      cp_async16(buf + 3 * T * sd + te * SC + 8 * v,
+                 valid ? cot + static_cast<size_t>(e0 + te) * OUT + 8 * v
+                       : cot,
+                 valid);
+    }
+    cp_async_commit();
+  };
+
+  // product 1: this warp's features and accumulators
+  const int F2 = 32 * fs + 8 * warp;
+  const bool has2 = F2 < d;
+  float acc[MT][P][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < P; ++j)
+      acc[m][j][0] = acc[m][j][1] = acc[m][j][2] = acc[m][j][3] = 0.f;
+  float bacc = 0.f;
+  const size_t plane = static_cast<size_t>(edges) * d;
+  const bf16 zero = __float2bfloat16_rn(0.f);
+
+  if (tiles > 0) issue(0);
+  for (int tile = 0; tile < tiles; ++tile) {
+    const int e0 = e_begin + tile * T;
+    const int n_e = min(T, e_end - e0);
+    if (tile + 1 < tiles) {
+      issue(tile + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // the tile (and W) has landed for every thread
+    const bf16* us = stages + (tile & 1) * stage_elems;
+    const bf16* qs = us + T * sd;
+    const bf16* is = qs + T * sd;
+    const bf16* cs = is + T * sd;
+
+    // 1. dW^T += cot^T . parts, 16 edges a k step
+    if (has2) {
+      const int f = F2 + g;
+      const bool fv = f < d;
+#pragma unroll
+      for (int ks = 0; ks < T / 16; ++ks) {
+        // the lane's edges: k = 2 t, 2 t + 1 (pair 0), 2 t + 8, 2 t + 9
+        // (pair 1)
+        const int ea = 16 * ks + 2 * t;
+        const int ek[4] = {ea, ea + 1, ea + 8, ea + 9};
+        __nv_bfloat162 x[2], y[2], z[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int e_lo = ek[2 * h], e_hi = ek[2 * h + 1];
+          x[h] = __halves2bfloat162(fv ? us[e_lo * sd + f] : zero,
+                                    fv ? us[e_hi * sd + f] : zero);
+          y[h] = __halves2bfloat162(fv ? qs[e_lo * sd + f] : zero,
+                                    fv ? qs[e_hi * sd + f] : zero);
+          z[h] = __halves2bfloat162(fv ? is[e_lo * sd + f] : zero,
+                                    fv ? is[e_hi * sd + f] : zero);
+        }
+        unsigned bp[P][2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          bp[0][h] = bf16x2_bits(x[h]);
+          bp[1][h] = bf16x2_bits(y[h]);
+          bp[2][h] = bf16x2_bits(z[h]);
+          if constexpr (P >= 6) {
+            const __nv_bfloat162 uq = __hmul2(x[h], y[h]);
+            bp[3][h] = bf16x2_bits(uq);
+            bp[4][h] = bf16x2_bits(__hmul2(y[h], z[h]));
+            bp[5][h] = bf16x2_bits(__hmul2(z[h], x[h]));
+            if constexpr (P >= 7) bp[6][h] = bf16x2_bits(__hmul2(uq, z[h]));
+          }
+        }
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const int o = 32 * os + 16 * m + g;
+          auto c_at = [&](int e, int oo) {
+            return oo < OUT ? cs[e * SC + oo] : zero;
+          };
+          const unsigned a[4] = {
+              pack_bf16(c_at(ek[0], o), c_at(ek[1], o)),
+              pack_bf16(c_at(ek[0], o + 8), c_at(ek[1], o + 8)),
+              pack_bf16(c_at(ek[2], o), c_at(ek[3], o)),
+              pack_bf16(c_at(ek[2], o + 8), c_at(ek[3], o + 8))};
+#pragma unroll
+          for (int j = 0; j < P; ++j)
+            mma_bf16(acc[m][j], a, bp[j][0], bp[j][1]);
+        }
+      }
+    }
+
+    // 2. the data gradient and db (slab 0)
+    if (data) {
+      for (int fb = warp; 8 * fb < d; fb += kFusedWarps) {
+        const int F1 = 8 * fb;
+        const bool bv = F1 + g < d;     // this lane's W row exists
+#pragma unroll
+        for (int mt = 0; mt < T / 16; ++mt) {
+          float dp[P][4];
+#pragma unroll
+          for (int j = 0; j < P; ++j)
+            dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+          const bf16* c_lo = cs + (16 * mt + g) * SC;
+          const bf16* c_hi = c_lo + 8 * SC;
+#pragma unroll
+          for (int kk = 0; kk < KO; ++kk) {
+            const int o = 16 * kk + 2 * t;
+            const bool up = o + 8 < OUT;    // outputs o + 8, o + 9 exist
+            const unsigned a[4] = {
+                *reinterpret_cast<const unsigned*>(c_lo + o),
+                *reinterpret_cast<const unsigned*>(c_hi + o),
+                up ? *reinterpret_cast<const unsigned*>(c_lo + o + 8) : 0u,
+                up ? *reinterpret_cast<const unsigned*>(c_hi + o + 8) : 0u};
+#pragma unroll
+            for (int j = 0; j < P; ++j) {
+              const bf16* wr = ws + static_cast<size_t>(j * d + F1 + g) * SW;
+              const unsigned b0 =
+                  bv ? *reinterpret_cast<const unsigned*>(wr + o) : 0u;
+              const unsigned b1 =
+                  bv && up ? *reinterpret_cast<const unsigned*>(wr + o + 8)
+                           : 0u;
+              mma_bf16(dp[j], a, b0, b1);
+            }
+          }
+          // the product rule in f32 (interact.py:111-122), at features f,
+          // f + 1 of edges 16 mt + g and 16 mt + g + 8
+          const int f = F1 + 2 * t;
+          if (f < d) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int te = 16 * mt + g + 8 * h;
+              if (te >= n_e) continue;
+              const int at_s = te * sd + f;
+              const float2 uu = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(us + at_s));
+              const float2 qq = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(qs + at_s));
+              const float2 ii = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(is + at_s));
+              float gu[2], gq[2], gi[2];
+#pragma unroll
+              for (int c = 0; c < 2; ++c) {
+                const float x = c ? uu.y : uu.x;
+                const float y = c ? qq.y : qq.x;
+                const float z = c ? ii.y : ii.x;
+                float du = dp[0][2 * h + c], dq = dp[1][2 * h + c],
+                      di = dp[2][2 * h + c];
+                if constexpr (P >= 6) {
+                  du += dp[3][2 * h + c] * y + dp[5][2 * h + c] * z;
+                  dq += dp[3][2 * h + c] * x + dp[4][2 * h + c] * z;
+                  di += dp[4][2 * h + c] * y + dp[5][2 * h + c] * x;
+                }
+                if constexpr (P >= 7) {
+                  du += dp[6][2 * h + c] * (y * z);
+                  dq += dp[6][2 * h + c] * (x * z);
+                  di += dp[6][2 * h + c] * (x * y);
+                }
+                gu[c] = du;
+                gq[c] = dq;
+                gi[c] = di;
+              }
+              const size_t at = static_cast<size_t>(e0 + te) * d + f;
+              *reinterpret_cast<unsigned*>(droles + at) =
+                  pack_bf16(gu[0], gu[1]);
+              *reinterpret_cast<unsigned*>(droles + plane + at) =
+                  pack_bf16(gq[0], gq[1]);
+              *reinterpret_cast<unsigned*>(droles + 2 * plane + at) =
+                  pack_bf16(gi[0], gi[1]);
+            }
+          }
+        }
+      }
+      if (threadIdx.x < OUT) {
+        for (int te = 0; te < n_e; ++te)
+          bacc += __bfloat162float(cs[te * SC + threadIdx.x]);
+      }
+    }
+    __syncthreads();  // the stage is read before it is refilled
+  }
+
+  float* out = partial + static_cast<size_t>(blockIdx.x) * (R + 1) * OUT;
+  if (has2 && F2 + 2 * t < d) {
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const int r = j * d + F2 + 2 * t;
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const int o = 32 * os + 16 * m + g;
+        if (o < OUT) {
+          out[static_cast<size_t>(r) * OUT + o] = acc[m][j][0];
+          out[static_cast<size_t>(r + 1) * OUT + o] = acc[m][j][1];
+        }
+        if (o + 8 < OUT) {
+          out[static_cast<size_t>(r) * OUT + o + 8] = acc[m][j][2];
+          out[static_cast<size_t>(r + 1) * OUT + o + 8] = acc[m][j][3];
+        }
+      }
+    }
+  }
+  if (data && threadIdx.x < OUT)
+    out[static_cast<size_t>(R) * OUT + threadIdx.x] = bacc;
+}
+
 // ABSORB: cot2, pi, mask (or null) and cols as above; else all unused.
 struct Absorb {
   const void* cot2;
@@ -637,6 +948,64 @@ int launch_out(const void* u, const void* q, const void* i, const void* w,
   return static_cast<int>(err);
 }
 
+// The bf16 form's shared memory: W [parts * d][OUT + 8] and two stages,
+// all bf16; 0 when it does not fit in one block.
+size_t bf16_smem(int d, int out, int parts) {
+  const size_t bytes =
+      sizeof(__nv_bfloat16) *
+      (static_cast<size_t>(parts) * d * (out + 8) +
+       2 * static_cast<size_t>(kFusedTile) * (3 * (d + 8) + out + 8));
+  return bytes <= kSmemLimit ? bytes : 0;
+}
+
+template <int OUT, int ORDER>
+cudaError_t launch_bf16(const void* u, const void* q, const void* i,
+                        const void* w, const void* cot, void* droles,
+                        void* partial, void* dw_ext, int edges, int d,
+                        int chunk_edges, cudaStream_t stream) {
+  const int R = parts_of<ORDER>() * d;
+  const size_t smem = bf16_smem(d, OUT, parts_of<ORDER>());
+  if (smem == 0 || d % 8 != 0) return cudaErrorInvalidValue;
+  auto kernel = interact_bwd_bf16_kernel<OUT, ORDER>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it: the caller gets it as the return value
+    return err;
+  }
+  const int slabs = ((d + 31) / 32) * ((OUT + 31) / 32);
+  kernel<<<dim3(chunk_count(edges, chunk_edges), slabs), kFusedThreads, smem,
+           stream>>>(
+      static_cast<const __nv_bfloat16*>(u),
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(i), static_cast<const float*>(w),
+      static_cast<const __nv_bfloat16*>(cot),
+      static_cast<__nv_bfloat16*>(droles), static_cast<float*>(partial),
+      edges, d, chunk_edges);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return reduce_partials(partial, dw_ext, chunk_count(edges, chunk_edges),
+                         (R + 1) * OUT, stream);
+}
+
+template <int OUT>
+cudaError_t launch_bf16_order(int order, const void* u, const void* q,
+                              const void* i, const void* w, const void* cot,
+                              void* droles, void* partial, void* dw_ext,
+                              int edges, int d, int chunk_edges,
+                              cudaStream_t stream) {
+  switch (order) {
+    case 1: return launch_bf16<OUT, 1>(u, q, i, w, cot, droles, partial,
+                                       dw_ext, edges, d, chunk_edges, stream);
+    case 2: return launch_bf16<OUT, 2>(u, q, i, w, cot, droles, partial,
+                                       dw_ext, edges, d, chunk_edges, stream);
+    case 3: return launch_bf16<OUT, 3>(u, q, i, w, cot, droles, partial,
+                                       dw_ext, edges, d, chunk_edges, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" const char* ihgnn_error_string(int err) {
@@ -667,4 +1036,36 @@ extern "C" int ihgnn_interact_bwd_absorb(
   return launch_out<true>(u, q, i_t1, w, cot1, Absorb{cot2, pi, mask, cols},
                           droles, partial, dw_ext, edges, d, out_dim, order,
                           chunk_edges, stream);
+}
+
+// The bf16 form: u/q/i [edges, d] bf16, W [parts * d, out_dim] f32, cot
+// [edges, out_dim] bf16; droles [3, edges, d] bf16, partial and dw_ext f32
+// as ihgnn_interact_bwd. Refused (cudaErrorInvalidValue) for d % 8 != 0 or
+// when W and two stages do not fit in one block's shared memory.
+extern "C" int ihgnn_interact_bwd_bf16(const void* u, const void* q,
+                                       const void* i, const void* w,
+                                       const void* cot, void* droles,
+                                       void* partial, void* dw_ext, int edges,
+                                       int d, int out_dim, int order,
+                                       int chunk_edges, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (edges <= 0 || chunk_edges <= 0 || chunk_edges % kFusedTile != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (out_dim) {
+    case 8: err = launch_bf16_order<8>(order, u, q, i, w, cot, droles,
+                                       partial, dw_ext, edges, d, chunk_edges,
+                                       s); break;
+    case 16: err = launch_bf16_order<16>(order, u, q, i, w, cot, droles,
+                                         partial, dw_ext, edges, d,
+                                         chunk_edges, s); break;
+    case 32: err = launch_bf16_order<32>(order, u, q, i, w, cot, droles,
+                                         partial, dw_ext, edges, d,
+                                         chunk_edges, s); break;
+    case 64: err = launch_bf16_order<64>(order, u, q, i, w, cot, droles,
+                                         partial, dw_ext, edges, d,
+                                         chunk_edges, s); break;
+    default: break;
+  }
+  return static_cast<int>(err);
 }

@@ -49,8 +49,21 @@
 // three base pointers (region = column / e_pad), so the [3 e_pad, d]
 // concatenation is never written. Its CSR lists each node's stream
 // positions in stream order; sigma pads have no entry.
+//
+// The bf16 forms (ModelConfig.bf16_stream; the Pallas kernels' bf16 values
+// with f32 accumulation, segsum.py:211-215, :368-372): the vector form,
+// without weights and not three-region, reading bf16 rows of x (8 bytes, four
+// features, a lane; widened to f32 exactly) into the same f32 accumulators in
+// the same order, and writing the sums as f32 (the node update, the gather's
+// backward) or rounded once to bf16 (the scatter's backward in the
+// fixed-width form: one bf16 row an edge). Bound: bytes, the bf16 reads at
+// half width.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
+
+#include "bf16.cuh"
 
 namespace {
 
@@ -59,15 +72,13 @@ constexpr int kRowsInFlight = 8;   // row loads a lane issues before its FMAs
 
 // The row of column c: THREE reads row c % region_rows of region
 // c / region_rows (x0, x1, x2); otherwise row c of x0.
-template <bool THREE>
-__device__ __forceinline__ const float* entry_row(const float* x0,
-                                                  const float* x1,
-                                                  const float* x2,
-                                                  int region_rows, int c,
-                                                  int d) {
+template <bool THREE, typename T>
+__device__ __forceinline__ const T* entry_row(const T* x0, const T* x1,
+                                              const T* x2, int region_rows,
+                                              int c, int d) {
   if (THREE) {
     const int region = c / region_rows;
-    const float* xr = region == 0 ? x0 : (region == 1 ? x1 : x2);
+    const T* xr = region == 0 ? x0 : (region == 1 ? x1 : x2);
     return xr + static_cast<size_t>(c - region * region_rows) * d;
   }
   return x0 + static_cast<size_t>(c) * d;
@@ -112,6 +123,26 @@ __global__ void csr_gather_sum_kernel(const float* __restrict__ x0,
   }
 }
 
+// Features 4 f4 .. 4 f4 + 3 of a row, widened to f32 when bf16.
+__device__ __forceinline__ float4 load_quad(const float* row, int f4) {
+  return __ldg(reinterpret_cast<const float4*>(row) + f4);
+}
+
+__device__ __forceinline__ float4 load_quad(const __nv_bfloat16* row, int f4) {
+  return widen_bf16x4(__ldg(reinterpret_cast<const uint2*>(row) + f4));
+}
+
+// Four sums stored at features 4 f4 .. 4 f4 + 3 of a row, rounded once
+// when bf16.
+__device__ __forceinline__ void store_quad(float* row, int f4, float4 v) {
+  reinterpret_cast<float4*>(row)[f4] = v;
+}
+
+__device__ __forceinline__ void store_quad(__nv_bfloat16* row, int f4,
+                                           float4 v) {
+  reinterpret_cast<uint2*>(row)[f4] = round_bf16x4(v);
+}
+
 __device__ __forceinline__ void fma4(float w, const float4& v, float4& acc) {
   acc.x = fmaf(w, v.x, acc.x);
   acc.y = fmaf(w, v.y, acc.y);
@@ -119,16 +150,18 @@ __device__ __forceinline__ void fma4(float w, const float4& v, float4& acc) {
   acc.w = fmaf(w, v.w, acc.w);
 }
 
-// The vector form: groups of L lanes, 32 / L segments a warp (see above).
-template <int L, bool WEIGHTED, bool THREE, bool FIXED>
+// The vector form: groups of L lanes, 32 / L segments a warp (see above);
+// rows of Tin (f32 or bf16), sums in f32, stored as Tout (f32 or bf16).
+template <int L, bool WEIGHTED, bool THREE, bool FIXED, typename Tin = float,
+          typename Tout = float>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-csr_gather_sum_vec_kernel(const float* __restrict__ x0,
-                          const float* __restrict__ x1,
-                          const float* __restrict__ x2, int region_rows,
+csr_gather_sum_vec_kernel(const Tin* __restrict__ x0,
+                          const Tin* __restrict__ x1,
+                          const Tin* __restrict__ x2, int region_rows,
                           const int* __restrict__ col,
                           const int* __restrict__ rowptr,
                           const float* __restrict__ weight,
-                          float* __restrict__ out, int num_segments, int d,
+                          Tout* __restrict__ out, int num_segments, int d,
                           int width) {
   constexpr int G = 32 / L;                          // segments a warp
   constexpr int J = L < kRowsInFlight ? L : kRowsInFlight;
@@ -184,11 +217,9 @@ csr_gather_sum_vec_kernel(const float* __restrict__ x0,
           const int cj = __shfl_sync(mask, c, j0 + jj, L);
           wj[jj] = WEIGHTED ? __shfl_sync(mask, w, j0 + jj, L) : 1.f;
           v[jj] = make_float4(0.f, 0.f, 0.f, 0.f);
-          if (active && j0 + jj < n) {
-            const float* row =
-                entry_row<THREE>(x0, x1, x2, region_rows, cj, d);
-            v[jj] = __ldg(reinterpret_cast<const float4*>(row) + f4);
-          }
+          if (active && j0 + jj < n)
+            v[jj] = load_quad(
+                entry_row<THREE>(x0, x1, x2, region_rows, cj, d), f4);
         }
         // the FMAs in entry order
 #pragma unroll
@@ -198,7 +229,7 @@ csr_gather_sum_vec_kernel(const float* __restrict__ x0,
       }
     }
     if (active && seg < num_segments)
-      reinterpret_cast<float4*>(out + static_cast<size_t>(seg) * d)[f4] = acc;
+      store_quad(out + static_cast<size_t>(seg) * d, f4, acc);
   }
 }
 
@@ -211,10 +242,10 @@ int group_lanes(int d) {
   return lanes;
 }
 
-template <int L, bool THREE>
-cudaError_t launch_vec_l(const float* x0, const float* x1, const float* x2,
+template <int L, bool THREE, typename Tin = float, typename Tout = float>
+cudaError_t launch_vec_l(const Tin* x0, const Tin* x1, const Tin* x2,
                          int region_rows, const int* col, const int* rowptr,
-                         const float* weight, float* out, int num_segments,
+                         const float* weight, Tout* out, int num_segments,
                          int d, int width, cudaStream_t stream) {
   constexpr int G = 32 / L;
   const long long warps = (static_cast<long long>(num_segments) + G - 1) / G;
@@ -222,10 +253,20 @@ cudaError_t launch_vec_l(const float* x0, const float* x1, const float* x2,
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const dim3 grid(static_cast<unsigned>(blocks));
   const int threads = kWarpsPerBlock * 32;
-  if (THREE) {
+  if constexpr (THREE) {
     csr_gather_sum_vec_kernel<L, false, true, false>
         <<<grid, threads, 0, stream>>>(x0, x1, x2, region_rows, col, rowptr,
                                        nullptr, out, num_segments, d, 0);
+  } else if constexpr (!std::is_same<Tin, float>::value) {
+    // the bf16 forms: no weights
+    if (width > 0)
+      csr_gather_sum_vec_kernel<L, false, false, true, Tin, Tout>
+          <<<grid, threads, 0, stream>>>(x0, x0, x0, 0, col, rowptr, nullptr,
+                                         out, num_segments, d, width);
+    else
+      csr_gather_sum_vec_kernel<L, false, false, false, Tin, Tout>
+          <<<grid, threads, 0, stream>>>(x0, x0, x0, 0, col, rowptr, nullptr,
+                                         out, num_segments, d, 0);
   } else if (width > 0) {
     if (weight != nullptr)
       csr_gather_sum_vec_kernel<L, true, false, true>
@@ -248,10 +289,10 @@ cudaError_t launch_vec_l(const float* x0, const float* x1, const float* x2,
   return cudaGetLastError();
 }
 
-template <bool THREE>
-cudaError_t launch_vec(const float* x0, const float* x1, const float* x2,
+template <bool THREE, typename Tin = float, typename Tout = float>
+cudaError_t launch_vec(const Tin* x0, const Tin* x1, const Tin* x2,
                        int region_rows, const int* col, const int* rowptr,
-                       const float* weight, float* out, int num_segments,
+                       const float* weight, Tout* out, int num_segments,
                        int d, int width, cudaStream_t stream) {
   switch (group_lanes(d)) {
     case 1: return launch_vec_l<1, THREE>(x0, x1, x2, region_rows, col,
@@ -306,6 +347,27 @@ extern "C" int ihgnn_csr_gather_sum(const void* x, const void* col,
       static_cast<const float*>(weight), static_cast<float*>(out),
       num_segments, d);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 forms: x [M, d] bf16 (d % 4 == 0, rows 8-byte aligned), no
+// weight; out [S, d] f32 (out_bf16 == 0, 16-byte aligned) or bf16
+// (out_bf16 == 1, rounded once); width as above.
+extern "C" int ihgnn_csr_gather_sum_bf16(const void* x, const void* col,
+                                         const void* rowptr, void* out,
+                                         int num_segments, int d, int width,
+                                         int out_bf16, void* stream) {
+  if (d % 4 != 0 || width < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  const int* c = static_cast<const int*>(col);
+  const int* rp = static_cast<const int*>(rowptr);
+  if (out_bf16)
+    return static_cast<int>(launch_vec<false>(
+        xb, xb, xb, 0, c, rp, nullptr, static_cast<__nv_bfloat16*>(out),
+        num_segments, d, width, s));
+  return static_cast<int>(launch_vec<false>(xb, xb, xb, 0, c, rp, nullptr,
+                                            static_cast<float*>(out),
+                                            num_segments, d, width, s));
 }
 
 // The three-region form: col in [0, 3 * region_rows), no weight; vector as

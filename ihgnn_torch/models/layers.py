@@ -23,6 +23,13 @@ IHGNN without phase 2 absorbs the i role's last stage into its
 interaction (``ihgnn_tpu/models/layers.py:215-238``; the TPU's table and
 block gates of ``absorb_i_ok`` do not apply here). Phase 2 puts the edge
 rows back in edge order before the attention (``:254-262``).
+
+``IHGNNLayer(bf16_stream=True)`` (``ModelConfig.bf16_stream``) runs the
+direct path on bf16 edge streams (``ops/hyperagg.py``): bf16 role rows, a
+bf16 interaction output, f32 node sums; phase 2 widens the bf16 edge rows
+to f32 before the ``[x' | edge]`` concat (``layers.py:264``). The
+parameters, the feature transforms and the node rows stay f32. On a routed
+pack it raises ``NotImplementedError`` (ROADMAP queue 1 item 4b).
 """
 
 from __future__ import annotations
@@ -128,9 +135,11 @@ class HGCNLayer(nn.Module):
 class IHGNNLayer(nn.Module):
     def __init__(self, in_dim: int, out_dim: int, interaction_order: int = 3,
                  phase2_attention: bool = False, gat_head: str = V.CONCAT,
+                 bf16_stream: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.phase2_attention = phase2_attention
+        self.bf16_stream = bf16_stream
         self.feature_transform = TorchDenseT(in_dim, out_dim,
                                              generator=generator)
         self.interactor = FeatureInteractor(interaction_order, out_dim,
@@ -143,15 +152,17 @@ class IHGNNLayer(nn.Module):
     def forward(self, x: torch.Tensor, graph: HyperGraph) -> torch.Tensor:
         kp = graph.kp
         absorb = kp is not None and not self.phase2_attention
-        gather, scatter = make_hyper_ops(graph, absorb=absorb)
+        gather, scatter = make_hyper_ops(graph, bf16_stream=self.bf16_stream,
+                                         absorb=absorb)
         x = self.feature_transform(x)
         edge = self.interactor(gather(x), absorb=kp if absorb else None)
         if self.phase2_attention:
             if kp is not None:
                 edge = sigma_to_edge_order(edge, kp)
             # GAT from edge node N + e to its member nodes over
-            # [x' | edge], keeping the node rows; no / dv
-            both = self.phase2_transform(torch.cat([x, edge], dim=0))
+            # [x' | edge] (bf16 edge rows widened), keeping the node rows;
+            # no / dv
+            both = self.phase2_transform(torch.cat([x, edge.float()], dim=0))
             return self.phase2_gat(both, graph.phase2)
         # node update: Dv^-1 · H · E (GnnLayers.py:232-234); zero-degree
         # nodes sum to 0 and 0 / 1e-8 stays 0

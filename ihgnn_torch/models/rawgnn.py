@@ -10,7 +10,12 @@ feature-major ``[d·(1+L), N]``). ``cfg.gnn`` picks the layer and the
 graph it runs on: GCN and GAT the ``Graph2D``, HGCN the ``HyperGraph`` or
 (``use_log_hypergraph``) the ``LogHyperGraph``, IHGNN the ``HyperGraph``.
 IHGNN layers after the first run at interaction order 1
-(RawGnn.py:76-78).
+(RawGnn.py:76-78). ``cfg.bf16_stream`` runs the IHGNN layers on bf16 edge
+streams (``models/layers.py``); ``cfg.remat`` recomputes each layer in the
+backward (``torch.utils.checkpoint``), the counterpart of ``nn.checkpoint``
+(``ihgnn_tpu/models/rawgnn.py:103-107``): a layer's activations are not
+kept between the forward and the backward, and every kernel is
+deterministic, so the gradients are those without remat, bit for bit.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ihgnn_torch.config import ModelConfig, V
 from ihgnn_torch.graph import AnyGraph, Graph2D, HyperGraph, LogHyperGraph
@@ -65,7 +71,9 @@ class RawGnn(nn.Module):
         if cfg.gnn == V.IHGNN:
             return IHGNNLayer(d, d, interaction_order=cfg.layer_order(layer),
                               phase2_attention=cfg.phase2_attention,
-                              gat_head=cfg.gat_head, generator=generator)
+                              gat_head=cfg.gat_head,
+                              bf16_stream=cfg.bf16_stream,
+                              generator=generator)
         raise ValueError(f"unknown gnn layer {cfg.gnn!r}")
 
     def _check_graph(self, graph: AnyGraph) -> None:
@@ -88,12 +96,18 @@ class RawGnn(nn.Module):
         return self.user_count + self.query_count
 
     def all_features(self, graph: AnyGraph, bag: WordBag) -> torch.Tensor:
-        """Full-graph forward: ``[N, d·(1+L)]`` = [X0 | X1 | ... | XL]."""
+        """Full-graph forward: ``[N, d·(1+L)]`` = [X0 | X1 | ... | XL].
+        With ``cfg.remat`` and grad mode on, each layer runs under
+        ``checkpoint`` and runs again in the backward."""
         self._check_graph(graph)
         x = self.embeddings.all_features(bag)
         outs = [x]
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for gnn in self.gnns:
-            x = gnn(x, graph)
+            if remat:
+                x = checkpoint(gnn, x, graph, use_reentrant=False)
+            else:
+                x = gnn(x, graph)
             outs.append(x)
         return torch.cat(outs, dim=1)
 

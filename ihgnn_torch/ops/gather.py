@@ -12,6 +12,11 @@ Layout: ``x`` row-major ``[N, d]``, ``i3`` int32 ``[E, 3]``; the result is
 one ``[3, E, d]`` tensor (planes u, q, i, each in edge order) with ``x``'s
 dtype, so the gradient that comes back to it is one ``[3E, d]`` buffer.
 
+With ``dtype=torch.bfloat16`` (``ModelConfig.bf16_stream``) the roles are
+bf16: the kernel's bf16 form reads ``x`` in f32 (each value rounded to
+nearest even in the copy) or in bf16, and writes bf16 rows. It counts in
+``gather_roles.launches_bf16``; the f32 form in ``gather_roles.launches``.
+
 The routed path (``ops/hyperagg.py``) expands through the single-index
 forms, the TPU's windowed expands themselves, over a pack's absolute
 ``[R, C]`` index tables:
@@ -33,45 +38,69 @@ from ihgnn_torch.ops import _build
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
                                      ctypes.c_void_p]
+_BF16_ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4 + [
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+STREAM_DTYPES = (torch.float32, torch.bfloat16)
 _ROWS_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
     ctypes.c_void_p]
 
 
-def gather_roles_plain(x: torch.Tensor, i3: torch.Tensor) -> torch.Tensor:
+def gather_roles_plain(x: torch.Tensor, i3: torch.Tensor,
+                       dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Plain PyTorch twin of ``gather_roles`` (any device)."""
-    return x[i3.t().long()]
+    return x.to(dtype or x.dtype)[i3.t().long()]
 
 
-def gather_roles(x: torch.Tensor, i3: torch.Tensor) -> torch.Tensor:
-    """``[3, E, d]``: the (u, q, i) endpoint rows of every edge. CPU
-    tensors run the plain twin; CUDA tensors launch ``csrc/gather.cu`` and
-    count one in ``gather_roles.launches``."""
+def gather_roles(x: torch.Tensor, i3: torch.Tensor,
+                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``[3, E, d]``: the (u, q, i) endpoint rows of every edge, in
+    ``dtype`` (default ``x``'s). CPU tensors run the plain twin; CUDA
+    tensors launch ``csrc/gather.cu``: the f32 form (f32 ``x`` and roles,
+    counted in ``gather_roles.launches``) or the bf16 form (bf16 roles from
+    an f32 or bf16 ``x``, counted in ``gather_roles.launches_bf16``)."""
     what = "gather_roles"
+    dtype = dtype or x.dtype
+    if dtype not in STREAM_DTYPES:
+        raise ValueError(f"{what}: roles in {dtype}; the forms write f32 or "
+                         "bf16")
     if not _build.use_kernel(what, x, i3):
-        return gather_roles_plain(x, i3)
-    _build.require(x.dim() == 2 and x.dtype == torch.float32
-                   and x.is_contiguous(), what, "x must be contiguous [N, d] f32")
+        return gather_roles_plain(x, i3, dtype)
+    bf16 = dtype == torch.bfloat16
+    _build.require(x.dim() == 2 and x.dtype in (
+        STREAM_DTYPES if bf16 else (torch.float32,)) and x.is_contiguous(),
+        what, "x must be contiguous [N, d], f32 (or bf16 for bf16 roles)")
     _build.require(x.shape[1] % 4 == 0 and x.data_ptr() % 16 == 0, what,
-                   "the kernel copies 16-byte vectors: d must be a multiple "
-                   "of 4 and x 16-byte aligned")
+                   "the kernel copies four features a thread: d must be a "
+                   "multiple of 4 and x 16-byte aligned")
     _build.require(i3.dim() == 2 and i3.shape[1] == 3
                    and i3.dtype == torch.int32 and i3.is_contiguous(), what,
                    "i3 must be contiguous [E, 3] int32")
     e, d = i3.shape[0], x.shape[1]
     _build.require(e * d // 4 < 2 ** 31, what, "E * d / 4 must fit in int32")
-    out = torch.empty(3, e, d, dtype=x.dtype, device=x.device)
+    out = torch.empty(3, e, d, dtype=dtype, device=x.device)
     if e == 0 or d == 0:
         return out
-    fn = _build.function("gather", "ihgnn_gather_roles", _ARGTYPES)
-    err = fn(x.data_ptr(), i3.data_ptr(), out[0].data_ptr(),
-             out[1].data_ptr(), out[2].data_ptr(), e, d,
-             _build.stream_ptr(x.device))
+    if bf16:
+        fn = _build.function("gather", "ihgnn_gather_roles_bf16",
+                             _BF16_ARGTYPES)
+        err = fn(x.data_ptr(), int(x.dtype == torch.bfloat16),
+                 i3.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+                 out[2].data_ptr(), e, d, _build.stream_ptr(x.device))
+    else:
+        fn = _build.function("gather", "ihgnn_gather_roles", _ARGTYPES)
+        err = fn(x.data_ptr(), i3.data_ptr(), out[0].data_ptr(),
+                 out[1].data_ptr(), out[2].data_ptr(), e, d,
+                 _build.stream_ptr(x.device))
     _build.check("gather", what, err)
-    gather_roles.launches += 1
+    if bf16:
+        gather_roles.launches_bf16 += 1
+    else:
+        gather_roles.launches += 1
     return out
 
 
 gather_roles.launches = 0
+gather_roles.launches_bf16 = 0
 
 
 def gather_rows_plain(x: torch.Tensor, idx: torch.Tensor,

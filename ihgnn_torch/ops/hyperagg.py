@@ -28,6 +28,17 @@ CSR, both K1. Besides the scatter it carries:
 * ``make_log_ops`` — the log hypergraph's incidence
   (``models/layers.py:185-192``): edge sums are K1 over the edge-major
   CSR, node sums K1 over the node-major CSR, each the other's backward.
+
+bf16 streams (``make_hyper_ops(graph, bf16_stream=True)``, the direct path
+only; the Pallas kernels' contract, ``ihgnn_tpu/ops/hyperagg.py:950-1045``
+and ``:463-476``): the gather writes bf16 roles (K2's bf16 form rounds the
+f32 ``x`` in the copy), and its backward sums the bf16 role cotangents in
+f32 into an f32 ``[N, d]`` (K1, bf16 rows in). The scatter sums bf16 edge
+rows in f32 into f32 node rows; its backward rounds the f32 node cotangent
+to bf16, sums each edge's three rows in f32 and rounds the sum once, a bf16
+edge gradient (K1's fixed-width form, bf16 in and out). The Pallas path
+adds the three bf16 expansions in bf16 instead; ROADMAP §3 states the
+difference.
 """
 
 from __future__ import annotations
@@ -46,40 +57,49 @@ from ihgnn_torch.ops.segsum import csr_gather_sum, csr_segment_sum3
 
 
 class GatherRolesFn(torch.autograd.Function):
-    """``x [N, d]`` → ``[3, E, d]`` (u, q, i) endpoint rows; the gradient
-    of ``x`` sums, for each node, the role cotangent rows of its edges."""
+    """``x [N, d]`` → ``[3, E, d]`` (u, q, i) endpoint rows in ``dtype``
+    (``x``'s when None); the gradient of ``x`` sums, for each node, the
+    role cotangent rows of its edges in f32."""
 
     @staticmethod
-    def forward(ctx, x, i3, inc_slot, rowptr):
+    def forward(ctx, x, i3, inc_slot, rowptr, dtype=None):
         ctx.save_for_backward(inc_slot, rowptr)
-        return gather_roles(x, i3)
+        return gather_roles(x, i3, dtype)
 
     @staticmethod
     def backward(ctx, droles):
         inc_slot, rowptr = ctx.saved_tensors
         flat = droles.contiguous().view(-1, droles.shape[2])
-        return csr_gather_sum(flat, inc_slot, rowptr), None, None, None
+        return csr_gather_sum(flat, inc_slot, rowptr), None, None, None, None
 
 
 class SpmmFn(torch.autograd.Function):
-    """``out = A·x`` for the CSR ``A = (rowptr, col, weight)``; the
+    """``out = A·x`` for the CSR ``A = (rowptr, col, weight)``, in f32; the
     gradient of ``x`` is ``Aᵀ·cot`` over ``Aᵀ = (t_rowptr, t_col,
     t_weight)``. A weight of None is 1 for every entry; ``t_width``, when
     given, is the entry count of every row of Aᵀ (``csr_gather_sum``'s
-    ``width``)."""
+    ``width``). For a bf16 ``x`` (the scatter of bf16 edge rows) the
+    gradient is bf16: ``cot`` rounded to bf16, summed in f32, rounded
+    once."""
 
     @staticmethod
     def forward(ctx, x, col, rowptr, weight, t_col, t_rowptr, t_weight,
                 t_width=None):
         ctx.save_for_backward(t_col, t_rowptr, t_weight)
         ctx.t_width = t_width
+        ctx.bf16 = x.dtype == torch.bfloat16
         return csr_gather_sum(x.contiguous(), col, rowptr, weight)
 
     @staticmethod
     def backward(ctx, cot):
         t_col, t_rowptr, t_weight = ctx.saved_tensors
-        dx = csr_gather_sum(cot.contiguous(), t_col, t_rowptr, t_weight,
-                            width=ctx.t_width)
+        if ctx.bf16:
+            dx = csr_gather_sum(cot.to(torch.bfloat16).contiguous(), t_col,
+                                t_rowptr, t_weight, width=ctx.t_width,
+                                out_dtype=torch.bfloat16)
+        else:
+            dx = csr_gather_sum(cot.contiguous(), t_col, t_rowptr, t_weight,
+                                width=ctx.t_width)
         return dx, None, None, None, None, None, None, None
 
 
@@ -278,7 +298,14 @@ def strip_kernel_packing(graph: HyperGraph) -> HyperGraph:
     return dataclasses.replace(graph, kp=None)
 
 
-def make_hyper_ops(graph: HyperGraph, absorb: bool = False) -> Tuple[
+ROUTED_BF16 = ("bf16 streams on the routed pack (graph.kp) are not ported "
+               "yet: ROADMAP queue 1 item 4b (bf16 forms of K5, gather_rows"
+               "[_t], K1's three-region form and K8); strip the pack "
+               "(strip_kernel_packing) for the direct path")
+
+
+def make_hyper_ops(graph: HyperGraph, bf16_stream: bool = False,
+                   absorb: bool = False) -> Tuple[
         Callable[[torch.Tensor], torch.Tensor],
         Callable[[torch.Tensor], torch.Tensor]]:
     """Returns ``(gather_roles, scatter_incidence)`` bound to ``graph``,
@@ -291,8 +318,15 @@ def make_hyper_ops(graph: HyperGraph, absorb: bool = False) -> Tuple[
     routed pack E' = e_pad and the rows are in σ order, the σ pads holding
     copies of real rows that the scatter drops; with ``absorb`` the i rows
     are in t1 order and the scatter takes the absorbed interaction's pair
-    ``(o1, o2)`` (``InteractAbsorbFn``)."""
+    ``(o1, o2)`` (``InteractAbsorbFn``).
+
+    ``bf16_stream``: the direct path's bf16 streams (the module
+    docstring): the role rows are bf16, and the scatter takes bf16 edge
+    rows. The routed pack has no bf16 forms yet and raises
+    ``NotImplementedError``."""
     kp = graph.kp
+    if kp is not None and bf16_stream:
+        raise NotImplementedError(ROUTED_BF16)
     if kp is not None:
         if absorb:
             return (lambda x: GatherPreFn.apply(x, kp),
@@ -302,8 +336,11 @@ def make_hyper_ops(graph: HyperGraph, absorb: bool = False) -> Tuple[
     if absorb:
         raise ValueError("the absorbed interaction needs a routed pack")
 
+    dtype = torch.bfloat16 if bf16_stream else None
+
     def gather(x: torch.Tensor) -> torch.Tensor:
-        return GatherRolesFn.apply(x, graph.i3, graph.inc_slot, graph.rowptr)
+        return GatherRolesFn.apply(x, graph.i3, graph.inc_slot, graph.rowptr,
+                                   dtype)
 
     def scatter(edge: torch.Tensor) -> torch.Tensor:
         return SpmmFn.apply(edge, graph.inc_edge, graph.rowptr, None,

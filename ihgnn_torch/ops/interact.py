@@ -23,6 +23,17 @@ Layout: ``u``/``q``/``i`` row-major ``[E, d]`` f32, ``w`` ``[parts·d, out]``
 (the flax kernel layout, ``Linear.weight.T``), ``b`` ``[out]``; the result
 is ``[E, out]`` f32. The TPU pads E to a multiple of its block; here the
 ragged tail is masked, so E is any size.
+
+bf16 streams (``ModelConfig.bf16_stream``): with bf16 u, q, i (and cot),
+``interact_fwd`` and ``interact_bwd`` compute the Pallas kernels' bf16
+contract (``ihgnn_tpu/ops/pallas/interact.py:40-125``): the parts u⊙q, q⊙i
+and i⊙u each rounded to bf16, u⊙q⊙i = round(round(u⊙q)⊙i), W rounded to
+bf16, every product accumulated in f32; the forward's ``out + b`` rounded to
+a bf16 ``[E, out]``; the backward's product rule in f32 on the widened u,
+q, i, with du, dq, di rounded to bf16 once and dW, db in f32. On the card
+each is one bf16 ``mma.sync`` pass (d % 8 == 0), counted in the wrapper's
+``launches_bf16``; the plain twins emulate the rounding points in f32. W and
+b stay f32. K5 (the routed path's absorbed interaction) has no bf16 form.
 """
 
 from __future__ import annotations
@@ -56,22 +67,44 @@ def _check_weights(what: str, u: torch.Tensor, w: torch.Tensor,
                          f"{order} at d = {d}")
 
 
-def _require_kernel_inputs(what: str, tensors, u, q, i, w) -> None:
-    """What both kernels take: contiguous 16-byte aligned f32, one [E, d]
-    shape for the roles with d % 4 == 0, an instantiated output width and
-    a W that fits in one block's shared memory."""
-    for t in tensors:
+def _require_kernel_inputs(what: str, streams, params, u, q, i, w,
+                           bf16_form: bool = True) -> bool:
+    """What the kernels take: the edge streams ``streams`` (the roles, and
+    the cotangents) contiguous and 16-byte aligned, all f32 or all bf16
+    (bf16 only where ``bf16_form``), the parameters ``params`` (W, b)
+    contiguous 16-byte aligned f32, one [E, d] shape for the roles with
+    d % 4 == 0 (d % 8 == 0 in bf16), an instantiated output width and a W
+    that fits in one block's shared memory. Returns whether the streams
+    are bf16."""
+    dtype = u.dtype
+    _build.require(dtype == torch.float32
+                   or (bf16_form and dtype == torch.bfloat16), what,
+                   "the edge streams must be f32" + (
+                       " or bf16" if bf16_form else
+                       " (this kernel has no bf16 form)"))
+    for t in streams:
+        _build.require(t.dtype == dtype and t.is_contiguous()
+                       and t.data_ptr() % 16 == 0, what,
+                       f"edge streams must be contiguous, 16-byte aligned "
+                       f"{dtype}, one dtype for all")
+    for t in params:
         _build.require(t.dtype == torch.float32 and t.is_contiguous()
                        and t.data_ptr() % 16 == 0, what,
-                       "inputs must be contiguous, 16-byte aligned f32")
+                       "w and b must be contiguous, 16-byte aligned f32")
     _build.require(q.shape == u.shape and i.shape == u.shape, what,
                    "u, q and i must have one shape [E, d]")
     _build.require(u.shape[1] % 4 == 0, what, "d must be a multiple of 4")
+    bf16 = dtype == torch.bfloat16
+    if bf16:
+        _build.require(u.shape[1] % 8 == 0, what,
+                       "the bf16 forms copy 16-byte row pieces: d must be a "
+                       "multiple of 8")
     _build.require(w.shape[1] in KERNEL_OUT_DIMS, what,
                    f"out must be one of {KERNEL_OUT_DIMS}")
     _build.require(w.numel() * 4 <= SMEM_LIMIT, what,
                    "W does not fit in one block's shared memory")
     _build.require(u.numel() < 2 ** 31, what, "E * d must fit in int32")
+    return bf16
 
 
 def interact_parts(u, q, i, order: int):
@@ -83,17 +116,46 @@ def interact_parts(u, q, i, order: int):
     return parts
 
 
+def _bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bf16 (nearest even), held in f32."""
+    return x.to(torch.bfloat16).float()
+
+
+def interact_parts_bf16(u, q, i, order: int):
+    """The bf16 contract's parts of bf16 ``u``, ``q``, ``i``, in f32: the
+    roles widened, each product rounded to bf16, u⊙q⊙i =
+    round(round(u⊙q)⊙i). A product of two bf16 values is exact in f32, so
+    one rounding after the f32 product is the bf16 product."""
+    u, q, i = u.float(), q.float(), i.float()
+    parts = [u, q, i]
+    if order >= 2:
+        parts += [_bf16_round(u * q), _bf16_round(q * i),
+                  _bf16_round(i * u)]
+    if order >= 3:
+        parts.append(_bf16_round(parts[3] * i))
+    return parts
+
+
 def interact_fwd_plain(u: torch.Tensor, q: torch.Tensor, i: torch.Tensor,
                        w: torch.Tensor, b: torch.Tensor,
                        order: int) -> torch.Tensor:
     """Plain PyTorch twin of ``interact_fwd``: one matmul per part, summed
-    (any device)."""
+    (any device). bf16 roles follow the bf16 contract in f32 arithmetic
+    with its rounding points written out (parts and W rounded to bf16,
+    ``out + b`` rounded to bf16), not through a bf16 matmul, whose
+    accumulation would be the library's own choice."""
     d = u.shape[1]
+    bf16 = u.dtype == torch.bfloat16
+    if bf16:
+        parts, w = interact_parts_bf16(u, q, i, order), _bf16_round(w)
+    else:
+        parts = interact_parts(u, q, i, order)
     out = None
-    for j, p in enumerate(interact_parts(u, q, i, order)):
+    for j, p in enumerate(parts):
         y = p @ w[j * d:(j + 1) * d]
         out = y if out is None else out + y
-    return out + b
+    out = out + b
+    return out.to(torch.bfloat16) if bf16 else out
 
 
 def interact_fwd_form(d: int, out_dim: int, order: int) -> str:
@@ -106,10 +168,12 @@ def interact_fwd_form(d: int, out_dim: int, order: int) -> str:
     return "tensor_cores" if fn(d, out_dim, order) else "f32_cores"
 
 
-def _fwd(wrapper, entry: str, u, q, i, w, b, order: int) -> torch.Tensor:
+def _fwd(wrapper, entry: str, u, q, i, w, b, order: int,
+         bf16_entry=None) -> torch.Tensor:
     """The checks, the plain twin on the CPU and the launch of C entry
-    point ``entry`` for ``interact_fwd`` and ``interact_fwd_cores``; one
-    launch counts in ``wrapper.launches``."""
+    point ``entry`` (``bf16_entry`` for bf16 roles, where the wrapper has a
+    bf16 form) for ``interact_fwd`` and ``interact_fwd_cores``; one launch
+    counts in ``wrapper.launches`` (``wrapper.launches_bf16``)."""
     what = wrapper.__name__
     _check_weights(what, u, w, order)
     if b.shape != (w.shape[1],):
@@ -117,30 +181,38 @@ def _fwd(wrapper, entry: str, u, q, i, w, b, order: int) -> torch.Tensor:
                          f"{tuple(w.shape)}")
     if not _build.use_kernel(what, u, q, i, w, b):
         return interact_fwd_plain(u, q, i, w, b, order)
-    _require_kernel_inputs(what, (u, q, i, w, b), u, q, i, w)
+    bf16 = _require_kernel_inputs(what, (u, q, i), (w, b), u, q, i, w,
+                                  bf16_form=bf16_entry is not None)
     (e, d), out_dim = u.shape, w.shape[1]
-    out = torch.empty(e, out_dim, dtype=torch.float32, device=u.device)
+    out = torch.empty(e, out_dim, dtype=u.dtype, device=u.device)
     if e == 0:
         return out
-    fn = _build.function("interact", entry, _ARGTYPES)
+    fn = _build.function("interact", bf16_entry if bf16 else entry,
+                         _ARGTYPES)
     err = fn(u.data_ptr(), q.data_ptr(), i.data_ptr(), w.data_ptr(),
              b.data_ptr(), out.data_ptr(), e, d, out_dim, order,
              _build.stream_ptr(u.device))
     _build.check("interact", what, err)
-    wrapper.launches += 1
+    if bf16:
+        wrapper.launches_bf16 += 1
+    else:
+        wrapper.launches += 1
     return out
 
 
 def interact_fwd(u: torch.Tensor, q: torch.Tensor, i: torch.Tensor,
                  w: torch.Tensor, b: torch.Tensor, order: int) -> torch.Tensor:
-    """``[E, out]`` interaction projection of the (u, q, i) role rows. CPU
-    tensors run the plain twin; CUDA tensors launch ``csrc/interact.cu``
-    in the form ``interact_fwd_form`` names and count one in
-    ``interact_fwd.launches``."""
-    return _fwd(interact_fwd, "ihgnn_interact_fwd", u, q, i, w, b, order)
+    """``[E, out]`` interaction projection of the (u, q, i) role rows, in
+    the roles' dtype. CPU tensors run the plain twin; CUDA tensors launch
+    ``csrc/interact.cu``: for f32 roles in the form ``interact_fwd_form``
+    names, counted in ``interact_fwd.launches``; for bf16 roles its bf16
+    form (d % 8 == 0), counted in ``interact_fwd.launches_bf16``."""
+    return _fwd(interact_fwd, "ihgnn_interact_fwd", u, q, i, w, b, order,
+                bf16_entry="ihgnn_interact_fwd_bf16")
 
 
 interact_fwd.launches = 0
+interact_fwd.launches_bf16 = 0
 
 
 def interact_fwd_cores(u: torch.Tensor, q: torch.Tensor, i: torch.Tensor,
@@ -160,9 +232,18 @@ def interact_bwd_plain(u: torch.Tensor, q: torch.Tensor, i: torch.Tensor,
                        w: torch.Tensor, cot: torch.Tensor, order: int):
     """Plain PyTorch twin of ``interact_bwd``: one matmul per part for the
     dparts and for dW, then the product rule as ``_bwd_kernel`` writes it
-    (``ihgnn_tpu/ops/pallas/interact.py:284-294``). Any device."""
+    (``ihgnn_tpu/ops/pallas/interact.py:284-294``). Any device. bf16 roles
+    and cot follow the bf16 contract in f32 arithmetic (W and the parts
+    rounded to bf16, the product rule on the widened roles, du, dq, di
+    rounded to bf16 once)."""
     d = u.shape[1]
-    parts = interact_parts(u, q, i, order)
+    bf16 = u.dtype == torch.bfloat16
+    if bf16:
+        parts = interact_parts_bf16(u, q, i, order)
+        w, cot = _bf16_round(w), cot.float()
+        u, q, i = u.float(), q.float(), i.float()
+    else:
+        parts = interact_parts(u, q, i, order)
     dparts = [cot @ w[j * d:(j + 1) * d].t() for j in range(len(parts))]
     dw = torch.cat([p.t() @ cot for p in parts])
     db = cot.sum(0)
@@ -175,7 +256,8 @@ def interact_bwd_plain(u: torch.Tensor, q: torch.Tensor, i: torch.Tensor,
         du = du + dparts[6] * (q * i)
         dq = dq + dparts[6] * (u * i)
         di = di + dparts[6] * (u * q)
-    return torch.stack([du, dq, di]), dw, db
+    droles = torch.stack([du, dq, di])
+    return (droles.to(torch.bfloat16) if bf16 else droles), dw, db
 
 
 def interact_bwd(u: torch.Tensor, q: torch.Tensor, i: torch.Tensor,
@@ -188,7 +270,11 @@ def interact_bwd(u: torch.Tensor, q: torch.Tensor, i: torch.Tensor,
     is staged in shared memory when it fits beside the edge tiles, else
     read from device memory; a shape whose edge tiles alone do not fit
     (d above 268 to 288, by out) is refused by the C entry point, and the
-    wrapper raises."""
+    wrapper raises. bf16 u, q, i and cot (droles bf16, dW and db f32) run
+    the bf16 form, one bf16 ``mma.sync`` pass, counted in
+    ``interact_bwd.launches_bf16``; it takes d % 8 == 0 when W and its
+    two stages fit in one block's shared memory, and the C entry point
+    refuses other shapes."""
     what = "interact_bwd"
     _check_weights(what, u, w, order)
     if cot.shape != (u.shape[0], w.shape[1]):
@@ -196,10 +282,10 @@ def interact_bwd(u: torch.Tensor, q: torch.Tensor, i: torch.Tensor,
                          f"[{u.shape[0]}, {w.shape[1]}]")
     if not _build.use_kernel(what, u, q, i, w, cot):
         return interact_bwd_plain(u, q, i, w, cot, order)
-    _require_kernel_inputs(what, (u, q, i, w, cot), u, q, i, w)
+    bf16 = _require_kernel_inputs(what, (u, q, i, cot), (w,), u, q, i, w)
     (e, d), out_dim = u.shape, w.shape[1]
     rows = w.shape[0]
-    droles = torch.empty(3, e, d, dtype=torch.float32, device=u.device)
+    droles = torch.empty(3, e, d, dtype=u.dtype, device=u.device)
     # dW then db as one [parts·d + 1, out] buffer
     dw_ext = torch.empty(rows + 1, out_dim, dtype=torch.float32,
                          device=u.device)
@@ -209,18 +295,22 @@ def interact_bwd(u: torch.Tensor, q: torch.Tensor, i: torch.Tensor,
         chunks = -(-e // CHUNK_EDGES)
         partial = torch.empty(chunks, rows + 1, out_dim, dtype=torch.float32,
                               device=u.device)
-        fn = _build.function("interact_bwd", "ihgnn_interact_bwd",
-                             _BWD_ARGTYPES)
+        fn = _build.function("interact_bwd", "ihgnn_interact_bwd_bf16"
+                             if bf16 else "ihgnn_interact_bwd", _BWD_ARGTYPES)
         err = fn(u.data_ptr(), q.data_ptr(), i.data_ptr(), w.data_ptr(),
                  cot.data_ptr(), droles.data_ptr(), partial.data_ptr(),
                  dw_ext.data_ptr(), e, d, out_dim, order, CHUNK_EDGES,
                  _build.stream_ptr(u.device))
         _build.check("interact_bwd", what, err)
-        interact_bwd.launches += 1
+        if bf16:
+            interact_bwd.launches_bf16 += 1
+        else:
+            interact_bwd.launches += 1
     return droles, dw_ext[:rows], dw_ext[rows]
 
 
 interact_bwd.launches = 0
+interact_bwd.launches_bf16 = 0
 
 
 class InteractFn(torch.autograd.Function):
@@ -302,7 +392,8 @@ def _fwd_absorb(wrapper, entry: str, u, q, i_t1, pi, w, b, order: int):
                          f"{tuple(w.shape)}")
     if not _build.use_kernel(what, u, q, i_t1, pi, w, b):
         return interact_fwd_absorb_plain(u, q, i_t1, pi, w, b, order)
-    _require_kernel_inputs(what, (u, q, i_t1, w, b), u, q, i_t1, w)
+    _require_kernel_inputs(what, (u, q, i_t1), (w, b), u, q, i_t1, w,
+                           bf16_form=False)
     _build.require(pi.dtype == torch.int32 and pi.is_contiguous(), what,
                    "pi must be a contiguous int32 table")
     (e, d), out_dim = u.shape, w.shape[1]
@@ -401,7 +492,8 @@ def interact_bwd_absorb(u: torch.Tensor, q: torch.Tensor, i_t1: torch.Tensor,
     if not _build.use_kernel(what, u, q, i_t1, pi, w, c1, c2, mask):
         return interact_bwd_absorb_plain(u, q, i_t1, pi, w, c1, c2, mask,
                                          order)
-    _require_kernel_inputs(what, (u, q, i_t1, w, c1, c2), u, q, i_t1, w)
+    _require_kernel_inputs(what, (u, q, i_t1, c1, c2), (w,), u, q, i_t1, w,
+                           bf16_form=False)
     _build.require(pi.dtype == torch.int32 and pi.is_contiguous(), what,
                    "pi must be a contiguous int32 table")
     if mask is not None:

@@ -23,6 +23,14 @@ several segments a warp; the scalar form, one lane a feature, takes
 anything else. Both give the same bits. ``width`` names a CSR whose segments all have that many entries
 (the scatter's backward: 3 a hyperedge), so the vector form reads no
 ``rowptr``; the twin ignores it.
+
+bf16 rows (``ModelConfig.bf16_stream``: the node update of bf16 edge rows,
+the gather's backward of bf16 role cotangents, the scatter's backward) run
+the vector form's bf16 forms, without weights: the rows widen to f32
+exactly, the sums run in f32 in the same order, and the result is f32, or
+with ``out_dtype=torch.bfloat16`` rounded once to bf16. They count in
+``csr_gather_sum.launches_bf16``; the f32 forms in
+``csr_gather_sum.launches``.
 """
 
 from __future__ import annotations
@@ -36,6 +44,8 @@ from ihgnn_torch.ops import _build
 from ihgnn_torch.ops.segment import segment_ids, segment_sum
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_BF16_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+    ctypes.c_void_p]
 
 
 def vector_form(d: int, *tensors: torch.Tensor) -> bool:
@@ -46,34 +56,47 @@ def vector_form(d: int, *tensors: torch.Tensor) -> bool:
 
 def csr_gather_sum_plain(x: torch.Tensor, col: torch.Tensor,
                          rowptr: torch.Tensor,
-                         weight: Optional[torch.Tensor] = None
+                         weight: Optional[torch.Tensor] = None,
+                         out_dtype: Optional[torch.dtype] = None
                          ) -> torch.Tensor:
-    """Plain PyTorch twin of ``csr_gather_sum`` (any device)."""
+    """Plain PyTorch twin of ``csr_gather_sum`` (any device): the rows
+    widened to f32, summed in f32, the result in ``out_dtype`` (f32 when
+    None)."""
     vals = x.index_select(0, col.long()).float()
     if weight is not None:
         vals = vals * weight[:, None]
-    return segment_sum(vals, segment_ids(rowptr), rowptr.shape[0] - 1)
+    out = segment_sum(vals, segment_ids(rowptr), rowptr.shape[0] - 1)
+    return out if out_dtype is None else out.to(out_dtype)
 
 
 def csr_gather_sum(x: torch.Tensor, col: torch.Tensor, rowptr: torch.Tensor,
                    weight: Optional[torch.Tensor] = None,
-                   width: Optional[int] = None) -> torch.Tensor:
+                   width: Optional[int] = None,
+                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``[S, d]`` CSR weighted gather-sum of the rows of ``x`` (see the
-    module docstring). With ``width``, ``rowptr`` must be ``0, width, 2
-    width, ...``: the caller vouches for it, the wrapper checks only that
-    ``col`` has ``width`` entries a segment. CPU tensors run the plain
-    twin; CUDA tensors launch ``csrc/segsum.cu`` and count one in
-    ``csr_gather_sum.launches``."""
+    module docstring), in ``out_dtype`` (f32 when None; bf16 only for bf16
+    ``x``). With ``width``, ``rowptr`` must be ``0, width, 2 width, ...``:
+    the caller vouches for it, the wrapper checks only that ``col`` has
+    ``width`` entries a segment. CPU tensors run the plain twin; CUDA
+    tensors launch ``csrc/segsum.cu`` and count one in
+    ``csr_gather_sum.launches`` (f32 ``x``) or
+    ``csr_gather_sum.launches_bf16`` (bf16 ``x``)."""
     what = "csr_gather_sum"
     if width is not None and not (
             width > 0 and col.shape == ((rowptr.shape[0] - 1) * width,)):
         raise ValueError(f"{what}: width {width} does not fit "
                          f"{rowptr.shape[0] - 1} segments of col "
                          f"{tuple(col.shape)}")
+    if out_dtype not in (None, torch.float32, torch.bfloat16):
+        raise ValueError(f"{what}: out_dtype {out_dtype} is not f32 or bf16")
     if not _build.use_kernel(what, x, col, rowptr, weight):
-        return csr_gather_sum_plain(x, col, rowptr, weight)
+        return csr_gather_sum_plain(x, col, rowptr, weight, out_dtype)
+    if x.dtype == torch.bfloat16:
+        return _csr_gather_sum_bf16(x, col, rowptr, weight, width, out_dtype)
     _build.require(x.dim() == 2 and x.dtype == torch.float32
                    and x.is_contiguous(), what, "x must be contiguous [M, d] f32")
+    _build.require(out_dtype in (None, torch.float32), what,
+                   "f32 rows sum into f32; no form rounds them to bf16")
     for name, t in (("col", col), ("rowptr", rowptr)):
         _build.require(t.dim() == 1 and t.dtype == torch.int32
                        and t.is_contiguous(), what,
@@ -99,6 +122,35 @@ def csr_gather_sum(x: torch.Tensor, col: torch.Tensor, rowptr: torch.Tensor,
 
 
 csr_gather_sum.launches = 0
+csr_gather_sum.launches_bf16 = 0
+
+
+def _csr_gather_sum_bf16(x, col, rowptr, weight, width, out_dtype):
+    """``csr_gather_sum``'s launch of a bf16 form (CUDA tensors)."""
+    what = "csr_gather_sum"
+    _build.require(x.dim() == 2 and x.is_contiguous(), what,
+                   "x must be contiguous [M, d] bf16")
+    _build.require(weight is None, what, "the bf16 forms take no weight")
+    for name, t in (("col", col), ("rowptr", rowptr)):
+        _build.require(t.dim() == 1 and t.dtype == torch.int32
+                       and t.is_contiguous(), what,
+                       f"{name} must be contiguous 1-D int32")
+    s, d = rowptr.shape[0] - 1, x.shape[1]
+    out = torch.empty(s, d, dtype=out_dtype or torch.float32,
+                      device=x.device)
+    if s == 0 or d == 0:
+        return out
+    _build.require(vector_form(d, x, out), what,
+                   "the bf16 forms are vector forms: d must be a multiple of "
+                   "4 and x and out 16-byte aligned")
+    fn = _build.function("segsum", "ihgnn_csr_gather_sum_bf16",
+                         _BF16_ARGTYPES)
+    err = fn(x.data_ptr(), col.data_ptr(), rowptr.data_ptr(), out.data_ptr(),
+             s, d, width or 0, int(out.dtype == torch.bfloat16),
+             _build.stream_ptr(x.device))
+    _build.check("segsum", what, err)
+    csr_gather_sum.launches_bf16 += 1
+    return out
 
 _SUM3_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] + [
     ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]

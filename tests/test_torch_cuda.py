@@ -1353,3 +1353,248 @@ def test_routed_wrappers_refuse_what_the_kernels_do_not_take(dev):
         interact_fwd_absorb(u, u, u, p, w, torch.randn(32, device=dev), 1)
     with pytest.raises(RuntimeError):                # needs a gradient
         row_local_permute(x.requires_grad_(), p)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 forms (ModelConfig.bf16_stream): K2, K1, K3 and interact_bwd
+# ---------------------------------------------------------------------------
+#
+# Tolerances: K2's bf16 form is a copy of x rounded to bf16, bitwise the
+# twin's. K1's bf16 forms sum the widened rows in f32 in another order than
+# the twin: 1e-5 absolute in f32; rounded to bf16, within 1 bf16 ulp of the
+# larger of the two values. K3's and interact_bwd's bf16 outputs: within 1
+# bf16 ulp of the larger of the two values plus 1e-5 of the tensor's
+# largest value (f32 sums in another order round a value near a rounding
+# boundary the other way; a cancelling sum near 0 adds the floor); dW and
+# db in f32, 1e-4 of their largest value, as the f32 form's.
+
+BF16 = torch.bfloat16
+
+
+def _bf16_ulp(t):
+    """One bf16 ulp at |t|, elementwise (f32)."""
+    _, e = torch.frexp(t.float().abs())
+    return torch.where(t == 0, torch.zeros_like(t, dtype=torch.float32),
+                       torch.ldexp(torch.ones_like(t, dtype=torch.float32),
+                                   e - 8))
+
+
+def _assert_bf16_ulp(got, want, name=""):
+    assert got.dtype == want.dtype == BF16, name
+    a, b = got.float(), want.float()
+    tol = _bf16_ulp(torch.maximum(a.abs(), b.abs())) \
+        + 1e-5 * b.abs().max().item()
+    bad = (a - b).abs() > tol
+    assert not bad.any().item(), (name, int(bad.sum().item()),
+                                  (a - b).abs().max().item())
+
+
+@pytest.mark.parametrize("x_bf16", [False, True])
+@pytest.mark.parametrize("d,edges", [(4, 1), (8, 999), (32, 4097),
+                                     (64, 300), (32, 0)])
+def test_gather_roles_bf16(dev, d, edges, x_bf16):
+    g = _gen(dev, d + edges)
+    x = torch.randn(777, d, device=dev, generator=g)
+    if x_bf16:
+        x = x.to(BF16)
+    i3 = torch.randint(0, 777, (edges, 3), device=dev, generator=g).int()
+    before = (gather_roles.launches, gather_roles.launches_bf16)
+    got = gather_roles(x, i3, BF16)
+    torch.cuda.synchronize()
+    assert got.dtype == BF16 and got.shape == (3, edges, d)
+    assert (gather_roles.launches, gather_roles.launches_bf16) == \
+        (before[0], before[1] + (edges > 0))
+    assert torch.equal(got, gather_roles_plain(x, i3, BF16))
+
+
+@pytest.mark.parametrize("d", [4, 16, 32, 48, 96])
+def test_csr_gather_sum_bf16(dev, d):
+    col, rowptr = _csr(dev, 900, 500, 6000, d)
+    x = torch.randn(500, d, device=dev, generator=_gen(dev, d)).to(BF16)
+    before = (csr_gather_sum.launches, csr_gather_sum.launches_bf16)
+    got = csr_gather_sum(x, col, rowptr)
+    got16 = csr_gather_sum(x, col, rowptr, out_dtype=BF16)
+    torch.cuda.synchronize()
+    assert (csr_gather_sum.launches, csr_gather_sum.launches_bf16) == \
+        (before[0], before[1] + 2)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, csr_gather_sum_plain(x, col, rowptr),
+                               rtol=0, atol=1e-5)
+    assert torch.equal(got, csr_gather_sum(x, col, rowptr))
+    _assert_bf16_ulp(got16, csr_gather_sum_plain(x, col, rowptr,
+                                                 out_dtype=BF16))
+    assert torch.equal(got16, got.to(BF16))
+
+
+def test_csr_gather_sum_bf16_mixed_segment_lengths(dev):
+    col, rowptr, _ = _mixed_csr(dev, 3000, 5)
+    x = torch.randn(3000, 32, device=dev, generator=_gen(dev, 6)).to(BF16)
+    got = csr_gather_sum(x, col, rowptr)
+    torch.testing.assert_close(got, csr_gather_sum_plain(x, col, rowptr),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_csr_gather_sum_bf16_fixed_width(dev):
+    """The scatter's backward on bf16 streams: 3 bf16 rows an edge summed
+    in f32 and rounded once, bitwise the CSR form's result rounded."""
+    g = _gen(dev, 19)
+    cot = torch.randn(777, 32, device=dev, generator=g).to(BF16)
+    col = torch.randint(0, 777, (3 * 5001,), device=dev, generator=g).int()
+    rowptr = torch.arange(0, 3 * 5001 + 1, 3, device=dev).int()
+    got = csr_gather_sum(cot, col, rowptr, width=3, out_dtype=BF16)
+    assert got.dtype == BF16
+    assert torch.equal(got, csr_gather_sum(cot, col, rowptr).to(BF16))
+    _assert_bf16_ulp(got, csr_gather_sum_plain(cot, col, rowptr,
+                                               out_dtype=BF16))
+    empty = csr_gather_sum(cot, col[:0], rowptr[:1], width=3,
+                           out_dtype=BF16)
+    assert empty.shape == (0, 32)
+
+
+def _bf16_inputs(dev, edges, d, out, order, seed):
+    u, q, i, w, cot = _bwd_inputs(dev, edges, d, out, order, seed)
+    b = torch.randn(out, device=dev, generator=_gen(dev, seed + 1))
+    return u.to(BF16), q.to(BF16), i.to(BF16), w, b, cot.to(BF16)
+
+
+@pytest.mark.parametrize("order", [1, 2, 3])
+@pytest.mark.parametrize("d,out", [(d, o) for d in (32, 16, 8, 24, 64)
+                                   for o in KERNEL_OUT_DIMS])
+def test_interact_fwd_bf16(dev, order, d, out):
+    u, q, i, w, b, _ = _bf16_inputs(dev, 3 * 128 + 5, d, out, order,
+                                    10 * order + d + out)
+    before = (interact_fwd.launches, interact_fwd.launches_bf16)
+    got = interact_fwd(u, q, i, w, b, order)
+    torch.cuda.synchronize()
+    assert (interact_fwd.launches, interact_fwd.launches_bf16) == \
+        (before[0], before[1] + 1)
+    _assert_bf16_ulp(got, interact_fwd_plain(u, q, i, w, b, order))
+    assert torch.equal(got, interact_fwd(u, q, i, w, b, order))
+
+
+@pytest.mark.parametrize("edges", [0, 1, 15, 17, 100, 4099, 100_003])
+def test_interact_fwd_bf16_ragged_tails(dev, edges):
+    u, q, i, w, b, _ = _bf16_inputs(dev, edges, 32, 32, 3, edges)
+    got = interact_fwd(u, q, i, w, b, 3)
+    assert got.shape == (edges, 32) and got.dtype == BF16
+    if edges:
+        _assert_bf16_ulp(got, interact_fwd_plain(u, q, i, w, b, 3))
+
+
+def _assert_bwd_bf16_close(got, want):
+    (gr, gw, gb), (wr, ww, wb) = got, want
+    for r, name in enumerate(("du", "dq", "di")):
+        _assert_bf16_ulp(gr[r], wr[r], name)
+    for name, a, c in (("dw", gw, ww), ("db", gb, wb)):
+        assert a.dtype == torch.float32, name
+        torch.testing.assert_close(a, c, rtol=0,
+                                   atol=1e-4 * c.abs().max().item(),
+                                   msg=name)
+
+
+@pytest.mark.parametrize("order", [1, 2, 3])
+@pytest.mark.parametrize("out", KERNEL_OUT_DIMS)
+@pytest.mark.parametrize("edges", [1, 999, 4097])
+def test_interact_bwd_bf16(dev, order, out, edges):
+    u, q, i, w, _, cot = _bf16_inputs(dev, edges, 32, out, order,
+                                      order + out + edges)
+    before = (interact_bwd.launches, interact_bwd.launches_bf16)
+    got = interact_bwd(u, q, i, w, cot, order)
+    torch.cuda.synchronize()
+    assert (interact_bwd.launches, interact_bwd.launches_bf16) == \
+        (before[0], before[1] + 1)
+    _assert_bwd_bf16_close(got, interact_bwd_plain(u, q, i, w, cot, order))
+
+
+@pytest.mark.parametrize("order", [1, 3])
+@pytest.mark.parametrize("d,out", [(8, 32), (16, 16), (24, 8), (48, 64),
+                                   (96, 32)])
+def test_interact_bwd_bf16_widths(dev, order, d, out):
+    u, q, i, w, _, cot = _bf16_inputs(dev, 2 * CHUNK_EDGES + 77, d, out,
+                                      order, d + out)
+    _assert_bwd_bf16_close(interact_bwd(u, q, i, w, cot, order),
+                           interact_bwd_plain(u, q, i, w, cot, order))
+
+
+def test_interact_bf16_empty_and_repeatable(dev):
+    u, q, i, w, b, cot = _bf16_inputs(dev, 0, 32, 32, 3, 5)
+    droles, dw, db = interact_bwd(u, q, i, w, cot, 3)
+    assert droles.shape == (3, 0, 32) and droles.dtype == BF16
+    assert not dw.any() and not db.any()
+    u, q, i, w, b, cot = _bf16_inputs(dev, 50_001, 32, 32, 3, 6)
+    first = interact_bwd(u, q, i, w, cot, 3)
+    second = interact_bwd(u, q, i, w, cot, 3)
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+
+
+def test_bf16_wrappers_refuse_what_no_form_takes(dev):
+    u = torch.randn(40, 12, device=dev).to(BF16)        # d % 8 != 0
+    with pytest.raises(ValueError, match="multiple of 8"):
+        interact_fwd(u, u, u, torch.randn(36, 8, device=dev),
+                     torch.randn(8, device=dev), 1)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        interact_bwd(u, u, u, torch.randn(36, 8, device=dev),
+                     torch.randn(40, 8, device=dev).to(BF16), 1)
+    v = torch.randn(40, 16, device=dev).to(BF16)
+    w, b = torch.randn(48, 8, device=dev), torch.randn(8, device=dev)
+    with pytest.raises(ValueError, match="no bf16 form"):
+        interact_fwd_cores(v, v, v, w, b, 1)
+    with pytest.raises(ValueError, match="one dtype"):   # f32 cot
+        interact_bwd(v, v, v, w, torch.randn(40, 8, device=dev), 1)
+    with pytest.raises(ValueError, match="w and b"):     # bf16 W
+        interact_fwd(v, v, v, w.to(BF16), b, 1)
+    pi = torch.zeros(4, 10, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="no bf16 form"):
+        interact_fwd_absorb(v, v, v, pi, w, b, 1)
+    col = torch.zeros(3, dtype=torch.int32, device=dev)
+    rowptr = torch.tensor([0, 3], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="no weight"):
+        csr_gather_sum(v, col, rowptr, torch.ones(3, device=dev))
+    with pytest.raises(ValueError, match="bf16 forms are vector forms"):
+        csr_gather_sum(torch.randn(4, 6, device=dev).to(BF16), col, rowptr)
+    with pytest.raises(ValueError, match="no form rounds"):
+        csr_gather_sum(torch.randn(4, 8, device=dev), col, rowptr,
+                       out_dtype=BF16)
+    with pytest.raises(ValueError):
+        csr_segment_sum3(v, v, v, col, rowptr)
+    with pytest.raises(ValueError):                      # bf16 x, f32 roles
+        gather_roles(v, torch.zeros(4, 3, dtype=torch.int32, device=dev),
+                     torch.float32)
+
+
+def test_bf16_functions_grads_on_card_match_cpu(dev):
+    """GatherRolesFn, InteractFn and SpmmFn on bf16 streams, as the IHGNN
+    layer composes them: values and gradients on the card against the
+    plain twins on the CPU; the bf16 forms launch, the f32 forms do not."""
+    graph = _small_graph()
+    ops = {}
+
+    def layer(device, x, w, b):
+        if device not in ops:
+            ops[device] = make_hyper_ops(graph.to(device), bf16_stream=True)
+        gather, scatter = ops[device]
+        edge = InteractFn.apply(gather(x), w, b, 3)
+        assert edge.dtype == BF16
+        return scatter(edge)
+
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(graph.node_count, 32, generator=g)
+    w = torch.randn(7 * 32, 32, generator=g) / 15
+    b = torch.randn(32, generator=g)
+    counts = lambda: (csr_gather_sum.launches,  # noqa: E731
+                      csr_gather_sum.launches_bf16, gather_roles.launches,
+                      gather_roles.launches_bf16, interact_fwd.launches,
+                      interact_fwd.launches_bf16, interact_bwd.launches,
+                      interact_bwd.launches_bf16)
+    before = counts()
+    cuda = _grads(dev, layer, x, w, b)
+    assert tuple(a - c for a, c in zip(counts(), before)) == \
+        (0, 3, 0, 1, 0, 1, 0, 1)
+    cpu = _grads(torch.device("cpu"), layer, x, w, b)
+    # the node sums of bf16 edge rows: f32 sums in another order, with the
+    # bf16 edge rows themselves within an ulp (1e-2 of scale holds a few
+    # flipped roundings of rows that then sum)
+    for a, c in zip(cuda[0] + cuda[1], cpu[0] + cpu[1]):
+        torch.testing.assert_close(a, c, rtol=0,
+                                   atol=1e-2 * c.abs().max().item())
