@@ -21,8 +21,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    batches of 256; every kernel of the path must have launched; then
    FEATURE_REPEATS more warm forwards, timed on the host and the device
    clock (medians and spreads);
-5. one forward and one eval batch, each under ``torch.profiler``: device
-   time by kernel, the device's idle share, the costliest host operators;
+5. one forward and one eval batch, each under ``torch.profiler`` (after
+   a warm-up run): device time by kernel, the device's idle share, the
+   costliest host operators;
 6. the same model on a small graph, on the card and on the CPU (plain
    twins), must agree;
 7. the train path: ``make_train_step`` with Adam on the same graph and
@@ -110,6 +111,28 @@ with one tested ``--bf16_stream --remat`` epoch. Every launch count of a
 bf16 or remat path is checked exactly: a wrapper counts its f32 forms in
 ``launches`` and its bf16 forms in ``launches_bf16`` (``name_bf16`` in
 the JSON rows).
+
+The routed pack on bf16 streams (``bench.py``'s default path): phase 3
+also holds the routed pack's bf16 forms at its full-width shapes
+(``gather_rows[_t]`` writing bf16 rows, K1's three-region form on bf16
+regions into f32 and into bf16, K5 forward and backward on bf16 roles at
+orders 3 and 1, the backward bit for bit ``interact_bwd``'s bf16 form on
+the pre-permuted inputs, K8 on a bf16 stream bit for bit the bf16
+three-region K1; K6/K7's bf16 rows as ``name_bf16``). After
+``small_routed_reference``: ``routed_bf16_serving`` (the default model
+with ``bf16_stream`` on the routed pack), ``routed_bf16_scan`` (the
+first layer's bf16 node-update stream, K8 bit for bit the bf16
+three-region K1), ``routed_bf16_train`` and a profiled routed bf16 step,
+``routed_bf16_vs_direct_bf16`` (features within BF16_FEATURE_RTOL of the
+direct bf16 features' largest, step-0 losses within
+ROUTED_BF16_LOSS_RTOL), ``small_routed_bf16_reference`` (the default
+model and phase 2 on a small packed graph with bf16 streams, card against
+CPU, BF16_SMALL_TOL) and ``routed_bf16_remat_equals_no_remat`` (a
+full-width routed bf16 step with remat bit for bit the step without it).
+Every launch count of a routed bf16 path is checked exactly. A profile
+window runs its step twice, a warm-up the profiler discards, then the
+recorded one, and lists the kernels of the exported trace beside the
+profiler's events.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Needs a CUDA card; exits non-zero without one.
@@ -747,6 +770,8 @@ def check_routed_kernels(torch, dev, kp, results):
         src = plain(torch.arange(e_pad, device=dev).view(*x.shape[:2], 1))
         src = src.reshape(-1)
         flat = x.view(-1, x.shape[-1])
+        if x.dtype == torch.bfloat16:
+            kname += "_bf16"
         record(kname, label, 0.0, 0.0, k_fn, p_fn,
                lambda: torch.index_select(flat, 0, src),
                2 * x.numel() * x.element_size()
@@ -878,7 +903,8 @@ def check_routed_kernels(torch, dev, kp, results):
            lambda: csr_segment_sum3(*regions, col, rowptr),
            lambda: csr_segment_sum3_plain(*regions, col, rowptr),
            lambda: torch.sparse.mm(csr, stream), sum_bytes, 3 * e * D,
-           lib_err)
+           lib_err, single_table_ms=time_ms(
+               torch, lambda: csr_gather_sum(stream, col, rowptr)))
     k8 = csr_segment_scan(stream, kp.scan)
     p8 = csr_segment_scan_plain(stream, kp.scan)
     if not torch.equal(k8, csr_gather_sum(stream, col, rowptr)):
@@ -938,6 +964,209 @@ def check_routed_kernels(torch, dev, kp, results):
     del chunks, col2, rowptr2, k_out, p_out, csr
 
 
+def check_routed_bf16_kernels(torch, dev, kp, results):
+    """Phase 3, the routed pack's bf16 forms at the shapes of the routed
+    bf16 serving and training paths: ``gather_rows[_t]`` from the f32 node
+    rows to bf16 (the u and q expands), K1's three-region form on bf16
+    regions into f32 (the node update) and into bf16 (the gather's
+    backward), K5 forward and backward on bf16 roles at orders 3 and 1
+    with the σ mask (the backward also bit for bit ``interact_bwd``'s bf16
+    form on the pre-permuted inputs, timed beside it), and K8 on a bf16
+    node-update stream (bit for bit the bf16 three-region K1). Held and
+    bounded as ``check_bf16_kernels``; the library calls are
+    ``index_select`` of a bf16 copy and ``torch.sparse.mm`` in bf16."""
+    from ihgnn_torch.ops.gather import (gather_rows, gather_rows_plain,
+                                        gather_rows_t)
+    from ihgnn_torch.ops.interact import (ORDER_PARTS, interact_bwd,
+                                          interact_bwd_absorb,
+                                          interact_bwd_absorb_plain,
+                                          interact_bwd_absorb_via_direct,
+                                          interact_fwd_absorb,
+                                          interact_fwd_absorb_plain)
+    from ihgnn_torch.ops.segscan import (csr_segment_scan,
+                                         csr_segment_scan_plain)
+    from ihgnn_torch.ops.segsum import (csr_gather_sum, csr_segment_sum3,
+                                        csr_segment_sum3_plain)
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    def record(*args, **kwargs):
+        record_row(torch, results, *args, **kwargs)
+
+    n, e, rows, cols = kp.node_count, kp.edge_count, kp.rows, kp.cols
+    e_pad = rows * cols
+    grid = f"[{rows}, {cols}, {D}]"
+    tgrid = f"[{cols}, {rows}, {D}]"
+
+    # gather_rows[_t]: f32 [N, d] -> bf16 rows, rounded in the copy
+    x = randn(n, D)
+    x16 = x.to(bf16)
+    for kname, fn, idx, transposed, label in (
+            ("gather_rows_bf16", gather_rows, kp.u.idx, False,
+             f"u expand -> {grid} bf16"),
+            ("gather_rows_t_bf16", gather_rows_t, kp.q.idx, True,
+             f"q expand -> {tgrid} bf16")):
+        flat = (idx.t() if transposed else idx).reshape(-1).long()
+        k_out = fn(x, idx, dtype=bf16)
+        if not torch.equal(k_out, gather_rows_plain(x, idx, transposed,
+                                                    bf16)):
+            fail(f"{kname} is not bitwise its twin")
+        record(kname, f"{label}, [{n}, {D}] f32 rows", 0.0, 0.0,
+               lambda: fn(x, idx, dtype=bf16),
+               lambda: gather_rows_plain(x, idx, transposed, bf16),
+               lambda: torch.index_select(x16, 0, flat),
+               4 * x.numel() + 4 * e_pad + 2 * e_pad * D, 0,
+               library_note="index_select of a bf16 copy of x")
+        del k_out, flat
+    del x, x16
+
+    # K1's three-region form on bf16 regions: f32 out (the node update) and
+    # bf16 out (the gather's backward); K8 on the same stream. Beside each
+    # three-region row, K1's single-table bf16 form over the concatenated
+    # regions with the same CSR (single_table_ms), the same sums read
+    # through one base pointer
+    regions = [randn(e_pad, D).to(bf16) for _ in range(3)]
+    stream = torch.cat(regions)
+    col, rowptr = kp.seg_col, kp.seg_rowptr
+    csr = torch.sparse_csr_tensor(rowptr, col, torch.ones(
+        col.numel(), device=dev, dtype=bf16), size=(n, 3 * e_pad))
+    try:
+        lib_out = torch.sparse.mm(csr, stream).float()
+        torch.cuda.synchronize()
+        l_fn = lambda: torch.sparse.mm(csr, stream)     # noqa: E731
+    except (RuntimeError, NotImplementedError) as exc:
+        lib_out, l_fn = None, None
+        lib_note = f"none: {type(exc).__name__}: {str(exc)[:160]}"
+
+    def library(want):
+        if lib_out is None:
+            return {"library_note": lib_note}
+        return {"library_max_abs_err":
+                (lib_out - want.float()).abs().max().item()}
+
+    k1 = None
+    for out_dtype, use in ((None, "node update"), (bf16, "gather backward")):
+        k_out = csr_segment_sum3(*regions, col, rowptr, out_dtype)
+        p_out = csr_segment_sum3_plain(*regions, col, rowptr, out_dtype)
+        if out_dtype is None:
+            k1 = k_out
+            err, tol = (k_out - p_out).abs().max().item(), 1e-4
+        else:
+            err, tol = bf16_held(torch, "csr_segment_sum3 bf16 -> bf16",
+                                 k_out, p_out)
+            if not torch.equal(k_out, k1.to(bf16)):
+                fail("csr_segment_sum3 bf16 -> bf16 is not its f32 sums "
+                     "rounded once")
+        record("csr_segment_sum3_bf16",
+               f"routed {use} [3 x [{e_pad}, {D}] bf16 regions, {3 * e} "
+               f"entries -> [{n}, {D}] {'bf16' if out_dtype else 'f32'}]",
+               err, tol,
+               lambda: csr_segment_sum3(*regions, col, rowptr, out_dtype),
+               lambda: csr_segment_sum3_plain(*regions, col, rowptr,
+                                              out_dtype), l_fn,
+               2 * 3 * e * D + 4 * (3 * e + rowptr.numel())
+               + (2 if out_dtype else 4) * n * D, 3 * e * D,
+               single_table_ms=time_ms(torch, lambda: csr_gather_sum(
+                   stream, col, rowptr, out_dtype=out_dtype)),
+               **library(p_out))
+        del k_out, p_out
+    k8 = csr_segment_scan(stream, kp.scan)
+    if not torch.equal(k8, k1):
+        fail("csr_segment_scan bf16 differs from the bf16 three-region K1")
+    p8 = csr_segment_scan_plain(stream, kp.scan)
+    record("csr_segment_scan_bf16", f"routed node update [{3 * e_pad} bf16 "
+           f"entries, {3 * e} real, block-sorted -> [{n}, {D}] f32]",
+           (k8 - p8).abs().max().item(), 1e-4,
+           lambda: csr_segment_scan(stream, kp.scan),
+           lambda: csr_segment_scan_plain(stream, kp.scan),
+           l_fn, 2 * 3 * e * D + 4 * (n * D + kp.scan.pos.numel()
+                                      + kp.scan.rowptr.numel()
+                                      + kp.scan.block_seg.numel()),
+           3 * e * D, equal_to_k1=True, **library(p8))
+    del regions, stream, csr, k1, k8, p8, lib_out
+
+    # K5 on bf16 roles at orders 3 and 1, masked
+    u, q, i_t1 = (randn(e_pad, D).to(bf16) for _ in range(3))
+    c1, c2 = randn(e_pad, D).to(bf16), randn(e_pad, D).to(bf16)
+    pi, mask = kp.i.p2, kp.sig_mask
+    e_pi = (torch.arange(rows, device=dev)[:, None] * cols
+            + pi.long()).view(-1)
+    for order in (3, 1):
+        parts = ORDER_PARTS[order]
+        w = randn(parts * D, D) / (parts * D) ** 0.5
+        b = randn(D)
+        hadamard = {1: 0, 2: 3, 3: 4}[order]
+        o1, o2 = interact_fwd_absorb(u, q, i_t1, pi, w, b, order)
+        p1, p2 = interact_fwd_absorb_plain(u, q, i_t1, pi, w, b, order)
+        name = f"interact_fwd_absorb bf16 order {order}"
+        err, tol = bf16_held(torch, name, o1, p1)
+        bf16_held(torch, f"{name} o2", o2, p2)
+        if not torch.equal(o2[e_pi], o1):
+            fail("interact_fwd_absorb bf16: o2 is not rho(o1)")
+        record("interact_fwd_absorb_bf16", f"order {order}, 3 x [{e_pad}, "
+               f"{D}] bf16 -> 2 x [{e_pad}, {D}] bf16", err, tol,
+               lambda: interact_fwd_absorb(u, q, i_t1, pi, w, b, order),
+               lambda: interact_fwd_absorb_plain(u, q, i_t1, pi, w, b,
+                                                 order), None,
+               2 * 3 * e_pad * D + 4 * (e_pad + w.numel() + D)
+               + 2 * 2 * e_pad * D, e_pad * (hadamard + 1) * D,
+               bf16_flops=e_pad * 2 * parts * D * D)
+        del o1, o2, p1, p2
+        k_b = interact_bwd_absorb(u, q, i_t1, pi, w, c1, c2, mask, order)
+        p_b = interact_bwd_absorb_plain(u, q, i_t1, pi, w, c1, c2, mask,
+                                        order)
+        r_b = interact_bwd_absorb_via_direct(u, q, i_t1, pi, w, c1, c2,
+                                             mask, order)
+        bitwise = all(torch.equal(a, c) for a, c in zip(
+            (*k_b[0], *k_b[1:]), (*r_b[0], *r_b[1:])))
+        if not bitwise:
+            fail(f"interact_bwd_absorb bf16 order {order} differs from "
+                 "interact_bwd's bf16 form on the pre-permuted inputs")
+        i_sig = i_t1[e_pi]
+        cot = ((c1 + c2[e_pi]) * mask[:, None].to(bf16)).contiguous()
+        direct_ms = time_ms(torch, lambda: interact_bwd(u, q, i_sig, w, cot,
+                                                        order))
+        del r_b, i_sig, cot
+        errors = {}
+        for nm, a, c in zip(("du", "dq", "di_t1"), k_b[0], p_b[0]):
+            e_, t_ = bf16_held(
+                torch, f"interact_bwd_absorb bf16 order {order} {nm}", a, c)
+            errors[nm] = {"max_abs_err": e_, "tolerance": t_}
+        for nm, a, c in zip(("dw", "db"), k_b[1:], p_b[1:]):
+            e_, t_ = (a - c).abs().max().item(), 1e-4 * c.abs().max().item()
+            if not e_ <= t_:
+                fail(f"interact_bwd_absorb bf16 order {order} {nm}: max "
+                     f"error {e_} > {t_}")
+            errors[nm] = {"max_abs_err": e_, "tolerance": t_}
+        if not (k_b[0][0][mask == 0] == 0).all():
+            fail("interact_bwd_absorb bf16: a sigma pad reached du")
+        worst = max(errors.values(),
+                    key=lambda v: v["max_abs_err"] / max(v["tolerance"],
+                                                         1e-30))
+        product_rule = {1: 0, 2: 12, 3: 21}[order]
+        record("interact_bwd_absorb_bf16", f"order {order}, 3 x [{e_pad}, "
+               f"{D}] + 2 cot [{e_pad}, {D}] bf16 + mask -> [3, {e_pad}, "
+               f"{D}] bf16, dW, db f32", worst["max_abs_err"],
+               worst["tolerance"],
+               lambda: interact_bwd_absorb(u, q, i_t1, pi, w, c1, c2, mask,
+                                           order),
+               lambda: interact_bwd_absorb_plain(u, q, i_t1, pi, w, c1, c2,
+                                                 mask, order), None,
+               2 * (3 * e_pad * D + 2 * e_pad * D + 3 * e_pad * D)
+               + 4 * (2 * e_pad + 2 * w.numel() + D),
+               e_pad * (D * (hadamard + product_rule) + D + 2 * D),
+               bf16_flops=e_pad * 2 * 2 * parts * D * D, errors=errors,
+               max_abs_err_all=max(v["max_abs_err"]
+                                   for v in errors.values()),
+               bitwise_equal=bitwise, direct_on_permuted_ms=direct_ms)
+        del k_b, p_b
+    del u, q, i_t1, c1, c2, e_pi
+
+
 def bf16_ulp_check(torch, got, want):
     """(max abs error, elements off by more than 1 bf16 ulp of the larger
     of the two values plus 1e-5 of the largest ``want``): the rule the bf16
@@ -952,6 +1181,18 @@ def bf16_ulp_check(torch, got, want):
     diff = (a - b).abs()
     bad = int((diff > ulp + 1e-5 * b.abs().max()).sum().item())
     return diff.max().item(), bad
+
+
+def bf16_held(torch, name, got, want):
+    """(max error, the row's tolerance) of a bf16 output held to its twin
+    by ``bf16_ulp_check``; fails the run when an element is off by more
+    than 1 bf16 ulp. The tolerance, 2^-6 of the largest value, is what
+    that rule implies."""
+    err, bad = bf16_ulp_check(torch, got, want)
+    if bad:
+        fail(f"{name}: {bad} elements off the twin by more than 1 bf16 "
+             f"ulp (max error {err})")
+    return err, 2.0 ** -6 * want.float().abs().max().item()
 
 
 def check_bf16_kernels(torch, dev, graph, results):
@@ -978,13 +1219,6 @@ def check_bf16_kernels(torch, dev, graph, results):
 
     def record(*args, **kwargs):
         record_row(torch, results, *args, **kwargs)
-
-    def held(name, got, want):
-        err, bad = bf16_ulp_check(torch, got, want)
-        if bad:
-            fail(f"{name}: {bad} elements off the twin by more than 1 bf16 "
-                 f"ulp (max error {err})")
-        return err, 2.0 ** -6 * want.float().abs().max().item()
 
     def library(fn, want):
         """(fn, its max error against ``want``) when the library call runs
@@ -1026,7 +1260,8 @@ def check_bf16_kernels(torch, dev, graph, results):
         p_out = csr_gather_sum_plain(rows, col, rowptr,
                                      out_dtype=bf16 if out16 else None)
         if out16:
-            err, tol = held(f"csr_gather_sum bf16 {label}", k_out, p_out)
+            err, tol = bf16_held(torch, f"csr_gather_sum bf16 {label}",
+                                 k_out, p_out)
         else:
             err, tol = (k_out - p_out).abs().max().item(), 1e-4
         ones = torch.ones(col.numel(), device=dev, dtype=bf16)
@@ -1067,8 +1302,8 @@ def check_bf16_kernels(torch, dev, graph, results):
         b = randn(D)
         hadamard = {1: 0, 2: 3, 3: 4}[order]
         k_out = interact_fwd(u, q, i, w, b, order)
-        err, tol = held(f"interact_fwd bf16 order {order}", k_out,
-                        interact_fwd_plain(u, q, i, w, b, order))
+        err, tol = bf16_held(torch, f"interact_fwd bf16 order {order}",
+                             k_out, interact_fwd_plain(u, q, i, w, b, order))
         record("interact_fwd_bf16", f"order {order}, 3 x [{E}, {D}] bf16 -> "
                f"[{E}, {D}] bf16", err, tol,
                lambda: interact_fwd(u, q, i, w, b, order),
@@ -1080,7 +1315,8 @@ def check_bf16_kernels(torch, dev, graph, results):
         p_droles, *p_params = interact_bwd_plain(u, q, i, w, cot, order)
         errors = {}
         for nm, a, c in zip(("du", "dq", "di"), k_droles, p_droles):
-            e_, t_ = held(f"interact_bwd bf16 order {order} {nm}", a, c)
+            e_, t_ = bf16_held(
+                torch, f"interact_bwd bf16 order {order} {nm}", a, c)
             errors[nm] = {"max_abs_err": e_, "tolerance": t_}
         for nm, a, c in zip(("dw", "db"), k_params, p_params):
             e_, t_ = (a - c).abs().max().item(), 1e-4 * c.abs().max().item()
@@ -1261,17 +1497,49 @@ def run_serving(torch, dev, cfg, graph, qw, qc, path, expected,
 def profile_window(torch, label, fn):
     """One JSON row for ``fn()`` run under ``torch.profiler``: device time
     by kernel, the device's busy time and idle share of the window, and
-    the host operators that took the most CPU time."""
-    from torch.profiler import ProfilerActivity, profile
+    the host operators that took the most CPU time. ``fn`` runs twice, a
+    warm-up step the profiler discards and the recorded one: without the
+    warm-up the first kernels of the window went missing from the record
+    (a bf16 step listed one of its two K2 launches). Beside the
+    profiler's events, the kernels of the exported Chrome trace, by name
+    with their calls (``trace_top_kernels``), which the launch counts of
+    the window can be held against."""
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile, schedule
+    recorded = {}
+
+    def ready(prof):
+        prof.export_chrome_trace(recorded["path"])
+        recorded["events"] = list(prof.events())
+        recorded["host"] = list(prof.key_averages())
+
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = list(prof.events())
+    with tempfile.TemporaryDirectory() as tmp:
+        recorded["path"] = os.path.join(tmp, "window.trace.json")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=ready) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        with open(recorded["path"], encoding="utf-8") as f:
+            traced = [e for e in json.load(f)["traceEvents"]
+                      if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    by_trace = {}
+    for e in traced:
+        ms, n = by_trace.get(e["name"], (0.0, 0))
+        by_trace[e["name"]] = (ms + e["dur"] / 1e3, n + 1)
+    trace_top = [{"name": k[:90], "ms": ms, "calls": n} for k, (ms, n) in
+                 sorted(by_trace.items(), key=lambda kv: -kv[1][0])[:14]]
+    events = recorded["events"]
     kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA]
-    row = {"phase": "profile", "window": label, "device_events": len(kernels)}
+    row = {"phase": "profile", "window": label, "device_events": len(kernels),
+           "trace_kernel_events": len(traced), "trace_top_kernels": trace_top}
     if not kernels:
         row["device_time"] = "not measured: the profiler saw no device events"
         return row
@@ -1291,7 +1559,7 @@ def profile_window(torch, label, fn):
         ms, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
+    host = sorted(recorded["host"], key=lambda a: -a.self_cpu_time_total)
     row.update({
         "window_ms": window / 1e3, "device_busy_ms": busy / 1e3,
         "device_idle_share": 1.0 - busy / window,
@@ -1649,13 +1917,48 @@ ROUTED_SCAN_LAUNCHES = {"csr_gather_sum": 1, "gather_rows": 1,
 # the routed path against the direct one at full width: features (a
 # node's rows summed in another order) and the step-0 loss
 ROUTED_FEATURE_ATOL, ROUTED_LOSS_RTOL = 1e-4, 1e-4
+# the routed path on bf16 streams: the same launches in the bf16 forms
+# (name_bf16), but for the bag's K1 (f32 rows) both ways; no f32 form of a
+# routed kernel, and no kernel of the direct or phase-2 paths, may run
+_ROUTED_BF16_ZERO = {k: 0 for k in (
+    "gather_rows", "gather_rows_t", "transposed_local_permute",
+    "row_local_permute", "row_local_permute_bf16", "csr_segment_sum3",
+    "interact_fwd_absorb", "interact_bwd_absorb", "gather_roles",
+    "gather_roles_bf16", "interact_fwd", "interact_fwd_bf16",
+    "interact_bwd", "interact_bwd_bf16", "csr_segment_scan",
+    "csr_segment_scan_bf16", "csr_gather_sum_bf16")}
+ROUTED_SERVING_BF16 = ("csr_gather_sum", "gather_rows_bf16",
+                       "gather_rows_t_bf16", "transposed_local_permute_bf16",
+                       "csr_segment_sum3_bf16", "interact_fwd_absorb_bf16")
+ROUTED_TRAIN_BF16 = ROUTED_SERVING_BF16 + ("interact_bwd_absorb_bf16",)
+ROUTED_FORWARD_LAUNCHES_BF16 = dict(
+    _ROUTED_BF16_ZERO, csr_gather_sum=1, gather_rows_bf16=2,
+    gather_rows_t_bf16=4, transposed_local_permute_bf16=8,
+    csr_segment_sum3_bf16=2, interact_fwd_absorb_bf16=2,
+    interact_bwd_absorb_bf16=0)
+ROUTED_STEP_LAUNCHES_BF16 = dict(
+    _ROUTED_BF16_ZERO, csr_gather_sum=2, gather_rows_bf16=4,
+    gather_rows_t_bf16=8, transposed_local_permute_bf16=16,
+    csr_segment_sum3_bf16=4, interact_fwd_absorb_bf16=2,
+    interact_bwd_absorb_bf16=2)
+ROUTED_SCAN_LAUNCHES_BF16 = dict(
+    _ROUTED_BF16_ZERO, csr_gather_sum=1, gather_rows_bf16=1,
+    gather_rows_t_bf16=2, transposed_local_permute_bf16=4,
+    interact_fwd_absorb_bf16=1, csr_segment_scan_bf16=1,
+    csr_segment_sum3_bf16=0)
+# the routed bf16 path against the direct bf16 path at full width: the
+# features within BF16_FEATURE_RTOL of the largest (the bf16 bound above),
+# the step-0 losses within this
+ROUTED_BF16_LOSS_RTOL = 1e-3
 
 
-def run_routed_scan(torch, dev, cfg, graph_cpu, qw, qc):
-    """Phase ``routed_scan``: the first layer's routed node-update stream
-    (the interaction's σ-ordered output and the q and i inverse chains'
-    first steps, 3 e_pad rows) summed by K8, which must equal the layer's
-    own K1 three-region sum bit for bit."""
+def run_routed_scan(torch, dev, cfg, graph_cpu, qw, qc,
+                    path="routed_scan", expected=ROUTED_SCAN_LAUNCHES):
+    """Phase ``routed_scan`` (``routed_bf16_scan`` for a ``cfg`` with bf16
+    streams): the first layer's routed node-update stream (the
+    interaction's σ-ordered output and the q and i inverse chains' first
+    steps, 3 e_pad rows, f32 or bf16) summed by K8, which must equal the
+    layer's own K1 three-region sum bit for bit."""
     from ihgnn_torch.models.embedding import make_word_bag
     from ihgnn_torch.models.rawgnn import RawGnn
     from ihgnn_torch.ops.hyperagg import make_hyper_ops
@@ -1668,7 +1971,8 @@ def run_routed_scan(torch, dev, cfg, graph_cpu, qw, qc):
     graph = graph_cpu.to(dev)
     kp = graph.kp
     bag = make_word_bag(qw, qc, VOCAB + 1).to(dev)
-    gather, _ = make_hyper_ops(graph, absorb=True)
+    gather, _ = make_hyper_ops(graph, bf16_stream=cfg.bf16_stream,
+                               absorb=True)
     layer = model.gnns[0]
     torch.cuda.synchronize()
     _zero_launches()
@@ -1682,18 +1986,20 @@ def run_routed_scan(torch, dev, cfg, graph_cpu, qw, qc):
         stream = torch.cat([o1, rq.view(kp.e_pad, -1), ri.view(kp.e_pad, -1)])
         scan = csr_segment_scan(stream, kp.scan)
         torch.cuda.synchronize()
-        launches = _read_launches("routed_scan", ("csr_segment_scan",))
-        _check_counts("routed_scan", launches, ROUTED_SCAN_LAUNCHES, 1)
+        launches = _read_launches(path, [k for k, v in expected.items()
+                                         if v > 0])
+        _check_counts(path, launches, expected, 1)
         k1 = csr_segment_sum3(*stream.view(3, kp.e_pad, -1), kp.seg_col,
                               kp.seg_rowptr)
     equal = torch.equal(scan, k1)
-    emit({"phase": "routed_scan", "stream_rows": stream.shape[0],
+    emit({"phase": path, "stream_rows": stream.shape[0],
+          "stream_dtype": str(stream.dtype).replace("torch.", ""),
           "nodes": kp.node_count, "equal_to_k1": equal,
           "max_abs_diff": (scan - k1).abs().max().item(),
           "finite": bool(torch.isfinite(scan).all().item()),
           "launches": launches})
     if not equal:
-        fail("routed_scan: K8 and K1 disagree on the node-update stream")
+        fail(f"{path}: K8 and K1 disagree on the node-update stream")
     return launches
 
 
@@ -1725,6 +2031,36 @@ def check_small_routed(torch, dev):
     return _read_launches("small_routed_reference",
                           ROUTED_TRAIN + ("row_local_permute", "interact_fwd",
                                           "interact_bwd"))
+
+
+def check_small_routed_bf16(torch, dev):
+    """Phase ``small_routed_bf16_reference``: the routed path on bf16
+    streams on a small packed graph, card against CPU, for the default
+    model (``GatherPreFn`` → K5 → ``Scatter2Fn``) and IHGNN with phase 2
+    (``RoutedGatherFn`` → K3 → ``SigmaToEdgeFn``), held to BF16_SMALL_TOL;
+    returns the card's launches (two card runs a case)."""
+    from ihgnn_torch.config import ModelConfig
+
+    s = SMALL
+    graph, uqi = random_graph(s["users"], s["queries"], s["items"],
+                              s["edges"], 70, pack_kernels=True)
+    qw, qc = random_words(s["queries"], s["vocab"], 71)
+    cases = {"ihgnn": ModelConfig(bf16_stream=True),
+             "phase2": ModelConfig(bf16_stream=True, phase2_attention=True)}
+    failed = []
+    _zero_launches()
+    for j, (case, cfg) in enumerate(cases.items()):
+        row, ok = train_card_vs_cpu(torch, dev, cfg, graph, uqi, qw, qc,
+                                    72 + 10 * j, tol=BF16_SMALL_TOL)
+        emit({"phase": "small_routed_bf16_reference", "case": case, **row})
+        if not ok:
+            failed.append(case)
+    if failed:
+        fail(f"card and CPU disagree on the small routed bf16 cases {failed}")
+    return _read_launches("small_routed_bf16_reference",
+                          ROUTED_TRAIN_BF16 + ("row_local_permute_bf16",
+                                               "interact_fwd_bf16",
+                                               "interact_bwd_bf16"))
 
 
 KERNELS = {
@@ -1773,6 +2109,26 @@ KERNELS = {
                           "ihgnn_tpu/ops/pallas/interact.py:319"),
     "interact_bwd_bf16": ("ihgnn_torch/csrc/interact_bwd.cu",
                           "ihgnn_tpu/ops/pallas/interact.py:340"),
+    # the routed pack's bf16 forms (bf16 streams on the routed path):
+    # the windowed expands' bf16 bodies (gather.py:162, :263; their int8
+    # byte-plane bodies :82, :308 copy bf16 rows exactly), the three-region
+    # sum, K5 and K8 on bf16 values, and K6/K7 on bf16 rows
+    "gather_rows_bf16": ("ihgnn_torch/csrc/gather.cu",
+                         "ihgnn_tpu/ops/pallas/gather.py:188"),
+    "gather_rows_t_bf16": ("ihgnn_torch/csrc/gather.cu",
+                           "ihgnn_tpu/ops/pallas/gather.py:374"),
+    "csr_segment_sum3_bf16": ("ihgnn_torch/csrc/segsum.cu",
+                              "ihgnn_tpu/ops/pallas/segsum.py:403"),
+    "interact_fwd_absorb_bf16": ("ihgnn_torch/csrc/interact.cu",
+                                 "ihgnn_tpu/ops/pallas/interact.py:397"),
+    "interact_bwd_absorb_bf16": ("ihgnn_torch/csrc/interact_bwd.cu",
+                                 "ihgnn_tpu/ops/pallas/interact.py:422"),
+    "csr_segment_scan_bf16": ("ihgnn_torch/csrc/segscan.cu",
+                              "ihgnn_tpu/ops/pallas/segscan.py:294"),
+    "row_local_permute_bf16": ("ihgnn_torch/csrc/permute.cu",
+                               "ihgnn_tpu/ops/pallas/permute.py:114"),
+    "transposed_local_permute_bf16": ("ihgnn_torch/csrc/permute.cu",
+                                      "ihgnn_tpu/ops/pallas/permute.py:289"),
 }
 
 
@@ -2114,8 +2470,11 @@ def main() -> int:
 
     with torch.no_grad():
         checks = check_kernels(torch, dev, graph, bag, graph2d)
-        check_routed_kernels(torch, dev, kp.to(dev), checks)
+        kp_dev = kp.to(dev)
+        check_routed_kernels(torch, dev, kp_dev, checks)
         check_bf16_kernels(torch, dev, graph, checks)
+        check_routed_bf16_kernels(torch, dev, kp_dev, checks)
+        del kp_dev
     torch.cuda.synchronize()
     del graph, graph2d, bag
     ihgnn, gat = ModelConfig(), ModelConfig(gnn=V.GAT)
@@ -2158,7 +2517,6 @@ def main() -> int:
     if not feature_err <= BF16_FEATURE_RTOL * scale:
         fail(f"bf16 features differ from the f32 features by {feature_err} "
              f"(scale {scale})")
-    del bf16_features
     for path, cfg, per_step, expected in (
             ("remat_train", ihgnn, IHGNN_STEP_LAUNCHES_REMAT, IHGNN_TRAIN),
             ("remat_bf16_train", ihgnn16, IHGNN_STEP_LAUNCHES_BF16_REMAT,
@@ -2200,6 +2558,50 @@ def main() -> int:
     if not loss_err <= ROUTED_LOSS_RTOL:
         fail(f"routed step-0 loss differs from the direct one by {loss_err}")
     launches["small_routed_reference"] = check_small_routed(torch, dev)
+
+    # the routed path on bf16 streams (bench.py's default): the same
+    # interactions, weights and batches as the bf16 phases
+    launches["routed_bf16_serving"], serving, routed16_metrics = run_serving(
+        torch, dev, ihgnn16, routed_cpu, qw, qc, "routed_bf16_serving",
+        ROUTED_SERVING_BF16, ROUTED_FORWARD_LAUNCHES_BF16)
+    routed16_features = serving[2].cpu()
+    del serving
+    launches["routed_bf16_scan"] = run_routed_scan(
+        torch, dev, ihgnn16, routed_cpu, qw, qc, "routed_bf16_scan",
+        ROUTED_SCAN_LAUNCHES_BF16)
+    launches["routed_bf16_train"], warm_step, routed16_losses = run_train(
+        torch, dev, ihgnn16, routed_cpu, uqi, qw, qc, "routed_bf16_train",
+        ROUTED_TRAIN_BF16, ROUTED_STEP_LAUNCHES_BF16)
+    emit(profile_window(torch, "one warm routed bf16 train step", warm_step))
+    del warm_step
+    scale = bf16_features.abs().max().item()
+    feature_err = (routed16_features - bf16_features).abs().max().item()
+    loss_err = (abs(routed16_losses[0] - bf16_losses[0])
+                / abs(bf16_losses[0]))
+    emit({"phase": "routed_bf16_vs_direct_bf16",
+          "features_max_abs_err": feature_err, "features_scale": scale,
+          "features_rtol": BF16_FEATURE_RTOL,
+          "metrics_routed_bf16": routed16_metrics,
+          "metrics_direct_bf16": bf16_metrics,
+          "step0_loss_routed_bf16": routed16_losses[0],
+          "step0_loss_direct_bf16": bf16_losses[0],
+          "step0_loss_rel_err": loss_err,
+          "loss_rtol": ROUTED_BF16_LOSS_RTOL})
+    if not feature_err <= BF16_FEATURE_RTOL * scale:
+        fail(f"routed bf16 features differ from the direct bf16 features by "
+             f"{feature_err} (scale {scale})")
+    if not loss_err <= ROUTED_BF16_LOSS_RTOL:
+        fail(f"routed bf16 step-0 loss differs from the direct bf16 one by "
+             f"{loss_err}")
+    del routed16_features, bf16_features
+    launches["small_routed_bf16_reference"] = check_small_routed_bf16(torch,
+                                                                      dev)
+    if not check_repeatable_full_width(
+            torch, dev, ihgnn16, routed_cpu, uqi, qw, qc,
+            "routed_bf16_remat_equals_no_remat",
+            cfg_b=dataclasses.replace(ihgnn16, remat=True)):
+        fail("routed_bf16_remat_equals_no_remat: a routed bf16 step with "
+             "remat differs from the step without it")
 
     launches["gat_serving"], serving, _ = run_serving(
         torch, dev, gat, graph2d_cpu, qw, qc, "gat_serving", GAT_SERVING,

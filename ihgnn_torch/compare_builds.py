@@ -1,30 +1,35 @@
-"""Hold this checkout's interaction and segment-sum kernels bit for bit
-against another checkout's build of them, and K5's backward against this
-build's direct backward, on the same inputs.
+"""Hold this checkout's f32 interaction, segment-sum, gather and scan
+kernels bit for bit against another checkout's build of them, and K5's
+backward against this build's direct backward, on the same inputs.
 
     python3 -m ihgnn_torch.compare_builds --reference DIR
 
 ``DIR`` is the root of another checkout (for example the parent commit,
 unpacked with ``git archive``). Both checkouts' ``csrc/interact_bwd.cu``,
-``csrc/interact.cu`` and ``csrc/segsum.cu`` are built with the package's
-nvcc flags (one nvcc process each, in parallel, into
-``build/compare/``), and each pair below runs on the same seeded inputs:
+``csrc/interact.cu``, ``csrc/segsum.cu``, ``csrc/gather.cu`` and
+``csrc/segscan.cu`` are built with the package's nvcc flags (one nvcc
+process each, in parallel, into ``build/compare/``), and each pair below
+runs on the same seeded inputs:
 
-* ``ihgnn_interact_bwd`` of both builds of ``interact_bwd.cu``;
-* ``ihgnn_interact_fwd`` (K3's tensor-core form),
-  ``ihgnn_interact_fwd_cores`` and ``ihgnn_interact_fwd_absorb_cores``
-  (its f32-core form) of both builds of ``interact.cu``; the reference
-  needs those entry points, so it is a checkout with K3's tensor-core
-  form;
+* ``ihgnn_interact_bwd`` and ``ihgnn_interact_bwd_absorb`` (K5's
+  backward) of both builds of ``interact_bwd.cu``;
+* ``ihgnn_interact_fwd`` and ``ihgnn_interact_fwd_absorb`` (K3's and K5's
+  tensor-core forms), ``ihgnn_interact_fwd_cores`` and
+  ``ihgnn_interact_fwd_absorb_cores`` (their f32-core form) of both
+  builds of ``interact.cu``; the reference needs those entry points, so
+  it is a checkout with K3's tensor-core form and K5's fused backward;
 * ``ihgnn_csr_gather_sum`` (K1's vector form with and without weights,
   its fixed-width form and its scalar form) and ``ihgnn_csr_segment_sum3``
   of both builds of ``segsum.cu``, on a CSR of short and hub segments;
+* ``ihgnn_gather_rows`` and ``ihgnn_gather_rows_t`` of both builds of
+  ``gather.cu``;
+* ``ihgnn_csr_segment_scan`` (K8, its float4 and 4-byte forms) of both
+  builds of ``segscan.cu``, on a block-sorted stream whose runs cross
+  blocks;
 * this checkout's ``ihgnn_interact_bwd_absorb`` against its own
   ``ihgnn_interact_bwd`` on the pre-permuted inputs (i[e_pi] and the
   merged, masked cotangent), di scattered back to t1 order: the identity
-  of ``interact_bwd_absorb_via_direct``. K5's backward runs the direct
-  kernel's fused pass, not the reference's data and param kernels, so it
-  is not held to the reference's build.
+  of ``interact_bwd_absorb_via_direct``.
 
 Prints one JSON line a case and, last, ``{"bitwise_equal": ...}``; exits 1
 when any output differs in any bit. Needs a CUDA card and nvcc.
@@ -39,10 +44,12 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from ihgnn_torch.ops import _build
 from ihgnn_torch.ops.interact import CHUNK_EDGES, ORDER_PARTS
+from ihgnn_torch.ops.segscan import BLOCK, pack_scan_inputs
 
 PTR, INT = ctypes.c_void_p, ctypes.c_int
 ARGTYPES = {
@@ -51,6 +58,10 @@ ARGTYPES = {
     "ihgnn_interact_fwd_cores": [PTR] * 6 + [INT] * 4 + [PTR],
     "ihgnn_interact_fwd_absorb_cores": [PTR] * 8 + [INT] * 5 + [PTR],
     "ihgnn_interact_fwd": [PTR] * 6 + [INT] * 4 + [PTR],
+    "ihgnn_interact_fwd_absorb": [PTR] * 8 + [INT] * 5 + [PTR],
+    "ihgnn_gather_rows": [PTR] * 3 + [INT] * 3 + [PTR],
+    "ihgnn_gather_rows_t": [PTR] * 3 + [INT] * 3 + [PTR],
+    "ihgnn_csr_segment_scan": [PTR] * 5 + [INT] * 3 + [PTR],
     "ihgnn_csr_gather_sum": [PTR] * 5 + [INT] * 4 + [PTR],
     "ihgnn_csr_segment_sum3": [PTR] * 3 + [INT] + [PTR] * 3 + [INT] * 3
     + [PTR],
@@ -199,6 +210,60 @@ def k1_cases(libs, dev, gen) -> dict:
     return cases
 
 
+def run_gather(lib, name, x, idx):
+    rows, cols = idx.shape
+    out = torch.empty(rows * cols, x.shape[1], device=x.device)
+    err = entry(lib, name)(x.data_ptr(), idx.data_ptr(), out.data_ptr(), rows,
+                           cols, x.shape[1], _build.stream_ptr(x.device))
+    if err:
+        raise RuntimeError(f"{name}: CUDA error {err}")
+    return (out,)
+
+
+def run_scan(lib, values, pack):
+    k, d = values.shape
+    out = torch.empty(pack.num_segments, d, device=values.device)
+    err = entry(lib, "ihgnn_csr_segment_scan")(
+        values.data_ptr(), pack.pos.data_ptr(), pack.rowptr.data_ptr(),
+        pack.block_seg.data_ptr(), out.data_ptr(), k, d, BLOCK,
+        _build.stream_ptr(values.device))
+    if err:
+        raise RuntimeError(f"csr_segment_scan: CUDA error {err}")
+    return (out,)
+
+
+def gather_scan_cases(libs, dev, gen) -> dict:
+    """``{case: (reference outputs, this checkout's)}`` of K2's
+    single-index forms (700k rows of d = 32 into a [1024, 1024] grid) and
+    K8 (a stream of 1,048,576 entries, block-sorted, runs of 1-200 entries
+    crossing blocks, 5 % sentinels; d = 32 and the 4-byte form's d = 5)."""
+    x = torch.randn(700_000, 32, device=dev, generator=gen)
+    idx = torch.randint(0, 700_000, (1024, 1024), device=dev,
+                        generator=gen).int()
+    rng = np.random.default_rng(0)
+    k = 1024 * BLOCK
+    ids = np.repeat(np.arange(k // 50), rng.integers(1, 200, k // 50))[:k]
+    ids[rng.random(k) < 0.05] = 2 ** 31 - 1
+    ids = ids.reshape(-1, BLOCK)
+    rng.permuted(ids, axis=1, out=ids)
+    ids = ids.reshape(-1)
+    n = int(ids[ids != 2 ** 31 - 1].max()) + 1
+    pack = pack_scan_inputs(ids, n).to(dev)
+    v32 = torch.randn(k, 32, device=dev, generator=gen)
+    v5 = torch.randn(k, 5, device=dev, generator=gen)
+    cases = {}
+    for tag in ("reference", "this"):
+        g, sc = libs[tag, "gather"], libs[tag, "segscan"]
+        for name, outs in (
+                ("gather_rows", run_gather(g, "ihgnn_gather_rows", x, idx)),
+                ("gather_rows_t", run_gather(g, "ihgnn_gather_rows_t", x,
+                                             idx)),
+                ("csr_segment_scan d 32", run_scan(sc, v32, pack)),
+                ("csr_segment_scan d 5", run_scan(sc, v5, pack))):
+            cases.setdefault(name, []).append(outs)
+    return cases
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--reference", type=Path, required=True,
@@ -208,10 +273,13 @@ def main(argv=None) -> int:
         print("compare_builds: needs a CUDA card", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    libs = build_pair(args.reference, ("interact_bwd", "interact", "segsum"))
+    libs = build_pair(args.reference, ("interact_bwd", "interact", "segsum",
+                                       "gather", "segscan"))
     gen = torch.Generator(device=dev).manual_seed(0)
     equal_all = True
-    for case, (ref, this) in k1_cases(libs, dev, gen).items():
+    cases = k1_cases(libs, dev, gen)
+    cases.update(gather_scan_cases(libs, dev, gen))
+    for case, (ref, this) in cases.items():
         torch.cuda.synchronize()
         equal = all(torch.equal(a, c) for a, c in zip(ref, this))
         equal_all = equal_all and equal
@@ -240,10 +308,14 @@ def main(argv=None) -> int:
                              (cot + c2[e_pi]) * mask[:, None], c2, mask,
                              order)
             direct[0][2][e_pi] = direct[0][2].clone()
-            cases["interact_bwd_absorb"] = [
+            cases["interact_bwd_absorb_via_direct"] = [
                 direct, run_bwd(this_bwd, True, u, q, i, pi, w, cot, c2,
                                 mask, order)]
+            cases["interact_bwd_absorb"] = [
+                run_bwd(libs[tag, "interact_bwd"], True, u, q, i, pi, w, cot,
+                        c2, mask, order) for tag in ("reference", "this")]
             for name, p in (("ihgnn_interact_fwd", None),
+                            ("ihgnn_interact_fwd_absorb", pi),
                             ("ihgnn_interact_fwd_cores", None),
                             ("ihgnn_interact_fwd_absorb_cores", pi)):
                 cases[name] = [

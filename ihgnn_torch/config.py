@@ -76,7 +76,7 @@ class ModelConfig:
     # recompute each GNN layer in the backward pass (torch.utils.checkpoint)
     remat: bool = False
     # bf16 edge streams with f32 accumulation (models/layers.py; the direct
-    # path only, the routed pack raises)
+    # path and the routed pack)
     bf16_stream: bool = False
 
     @property

@@ -36,6 +36,14 @@
 // bytes of bf16) and writes 8 bytes, d / 4 neighbouring threads a row, so
 // the form takes d % 4 == 0. Bound: bytes, as above, with the writes (and a
 // bf16 x's reads) at half width.
+//
+// gather_rows and gather_rows_t have the same bf16 forms (the routed pack's
+// bf16 streams: windowed_gather's and windowed_gather_t's bf16 bodies,
+// gather.py:162, :263, and their int8 byte-plane bodies, :82, :308, which
+// copy bf16 rows exactly): the index arithmetic of the f32 form, each
+// output quad rounded from an f32 x (the cast of the node rows at the
+// gather's entry, ops/hyperagg.py:969-971, or of the node cotangent in a
+// scatter's backward, :468, :628) or copied from a bf16 x.
 
 #include <cuda_runtime.h>
 
@@ -45,10 +53,33 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <bool TRANSPOSED>
-__global__ void gather_rows_kernel(const float4* __restrict__ x,
+// Four features of a row of x as bf16: rounded from f32, or copied.
+__device__ __forceinline__ uint2 bf16_quad(const float* x, size_t k) {
+  return round_bf16x4(__ldg(reinterpret_cast<const float4*>(x) + k));
+}
+
+__device__ __forceinline__ uint2 bf16_quad(const __nv_bfloat16* x, size_t k) {
+  return __ldg(reinterpret_cast<const uint2*>(x) + k);
+}
+
+// Output quad k of the single-index forms: an f32 copy, or bf16 (above).
+__device__ __forceinline__ void put_quad(float4* out, long long t,
+                                         const float4* x, long long k) {
+  out[t] = x[k];
+}
+
+template <typename T>
+__device__ __forceinline__ void put_quad(uint2* out, long long t, const T* x,
+                                         long long k) {
+  out[t] = bf16_quad(x, static_cast<size_t>(k));
+}
+
+// Tin/Tout: float4/float4 (f32), or float/uint2 and __nv_bfloat16/uint2
+// (bf16 out); vecs = d / 4.
+template <bool TRANSPOSED, typename Tin, typename Tout>
+__global__ void gather_rows_kernel(const Tin* __restrict__ x,
                                    const int* __restrict__ idx,
-                                   float4* __restrict__ out, int rows,
+                                   Tout* __restrict__ out, int rows,
                                    int cols, int vecs) {
   const long long total = static_cast<long long>(rows) * cols * vecs;
   const long long t = static_cast<long long>(blockIdx.x) * kThreads +
@@ -61,10 +92,10 @@ __global__ void gather_rows_kernel(const float4* __restrict__ x,
     const int c = o / rows;
     k = (o - c * rows) * cols + c;
   }
-  out[t] = x[static_cast<long long>(idx[k]) * vecs + v];
+  put_quad(out, t, x, static_cast<long long>(idx[k]) * vecs + v);
 }
 
-template <bool TRANSPOSED>
+template <bool TRANSPOSED, typename Tin = float4, typename Tout = float4>
 int launch_gather_rows(const void* x, const void* idx, void* out, int rows,
                        int cols, int d, void* stream) {
   const int vecs = d / 4;
@@ -74,10 +105,10 @@ int launch_gather_rows(const void* x, const void* idx, void* out, int rows,
     return static_cast<int>(cudaErrorInvalidValue);
   const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) /
                                                 kThreads);
-  gather_rows_kernel<TRANSPOSED><<<blocks, kThreads, 0,
-                                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(x), static_cast<const int*>(idx),
-      static_cast<float4*>(out), rows, cols, vecs);
+  gather_rows_kernel<TRANSPOSED, Tin, Tout>
+      <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const Tin*>(x), static_cast<const int*>(idx),
+          static_cast<Tout*>(out), rows, cols, vecs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -95,15 +126,6 @@ __global__ void gather_roles_kernel(const float4* __restrict__ x,
   const int node = i3[3 * e + role];
   float4* out = role == 0 ? out_u : (role == 1 ? out_q : out_i);
   out[t] = x[static_cast<size_t>(node) * vecs + v];
-}
-
-// Four features of a row of x as bf16: rounded from f32, or copied.
-__device__ __forceinline__ uint2 bf16_quad(const float* x, size_t k) {
-  return round_bf16x4(__ldg(reinterpret_cast<const float4*>(x) + k));
-}
-
-__device__ __forceinline__ uint2 bf16_quad(const __nv_bfloat16* x, size_t k) {
-  return __ldg(reinterpret_cast<const uint2*>(x) + k);
 }
 
 // The bf16 form: out_r [E, d] bf16; quads = d / 4.
@@ -177,4 +199,26 @@ extern "C" int ihgnn_gather_rows(const void* x, const void* idx, void* out,
 extern "C" int ihgnn_gather_rows_t(const void* x, const void* idx, void* out,
                                    int rows, int cols, int d, void* stream) {
   return launch_gather_rows<true>(x, idx, out, rows, cols, d, stream);
+}
+
+// The bf16 forms of the two: x f32 (x_bf16 == 0, rounded in the copy) or
+// bf16 (x_bf16 == 1); out bf16, as above; d % 4 == 0.
+extern "C" int ihgnn_gather_rows_bf16(const void* x, int x_bf16,
+                                      const void* idx, void* out, int rows,
+                                      int cols, int d, void* stream) {
+  if (d % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return x_bf16 ? launch_gather_rows<false, __nv_bfloat16, uint2>(
+                      x, idx, out, rows, cols, d, stream)
+                : launch_gather_rows<false, float, uint2>(x, idx, out, rows,
+                                                          cols, d, stream);
+}
+
+extern "C" int ihgnn_gather_rows_t_bf16(const void* x, int x_bf16,
+                                        const void* idx, void* out, int rows,
+                                        int cols, int d, void* stream) {
+  if (d % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return x_bf16 ? launch_gather_rows<true, __nv_bfloat16, uint2>(
+                      x, idx, out, rows, cols, d, stream)
+                : launch_gather_rows<true, float, uint2>(x, idx, out, rows,
+                                                         cols, d, stream);
 }

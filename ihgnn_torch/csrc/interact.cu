@@ -77,6 +77,14 @@
 //    Bound: bytes. At E = 2M, d = out = 32 it reads 3 x 128 MB of roles
 //    and writes 128 MB (0.153 ms at 3.35 TB/s); its 14,336 FLOPs an edge
 //    at order 3 take 0.029 ms at the 989 TFLOP/s bf16 rate.
+//    With ABSORB (K5 on the routed pack's bf16 streams, the Pallas
+//    _fwd_kernel_absorb on bf16 operands) the bf16 form reads i through pi
+//    and writes o2 = rho(o1) as the tensor-core form does: a copy of the
+//    bf16 o1 rows, so o2 holds o1's values bit for bit. Each copy of an i
+//    row and each o2 store loads its row's pi entry (an L1 hit for the
+//    tile's other vectors of the row), so no shuffle depends on how many
+//    lanes a row takes. Bound: bytes, K3's bf16 form plus one more
+//    [E, out] bf16 write and E int32 reads of pi.
 
 #include <cuda_runtime.h>
 
@@ -497,14 +505,17 @@ __device__ __forceinline__ void part_product_bf16(
 // The bf16 form (see the top of the file). blockDim.x is 32 times the warps
 // of bf16_warps; dynamic shared memory holds W's fragments, then each
 // warp's ring.
-template <int OUT, int ORDER>
+template <int OUT, int ORDER, bool ABSORB>
 __global__ void __launch_bounds__(32 * kMaxWarps)
 interact_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ u,
                          const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ it,
                          const float* __restrict__ w,
                          const float* __restrict__ b,
-                         __nv_bfloat16* __restrict__ out, int edges, int d) {
+                         __nv_bfloat16* __restrict__ out,
+                         const int* __restrict__ pi,
+                         __nv_bfloat16* __restrict__ out2, int edges, int d,
+                         int cols) {
   constexpr int P = parts_of<ORDER>();
   constexpr int NT = OUT / 8;             // n8 tiles of the output
   constexpr int TE = kTileEdges;
@@ -531,8 +542,9 @@ interact_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ u,
   const int stride = gridDim.x * warps;
   const int first = blockIdx.x * warps + warp;
 
-  // tile `tile` into stage `slot`: u, q and i rows; rows past the last
-  // edge are zero-filled. Commits one group, empty past the last tile.
+  // tile `tile` into stage `slot`: u, q and i rows (ABSORB: i at row
+  // e_pi); rows past the last edge are zero-filled. Commits one group,
+  // empty past the last tile.
   auto issue = [&](int tile, int slot) {
     if (tile < tiles) {
       __nv_bfloat16* buf = ring + slot * stage;
@@ -543,10 +555,13 @@ interact_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ u,
         const int e = e0 + r;
         const bool valid = e < edges;
         const size_t at = static_cast<size_t>(e) * d + 8 * v;
+        const int ei = ABSORB && valid ? e - e % cols + __ldg(pi + e) : e;
         __nv_bfloat16* dst = buf + r * sd + 8 * v;
         cp_async16(dst, valid ? u + at : u, valid);
         cp_async16(dst + TE * sd, valid ? q + at : q, valid);
-        cp_async16(dst + 2 * TE * sd, valid ? it + at : it, valid);
+        cp_async16(dst + 2 * TE * sd,
+                   valid ? it + static_cast<size_t>(ei) * d + 8 * v : it,
+                   valid);
       }
     }
     cp_async_commit();
@@ -645,9 +660,15 @@ interact_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ u,
       const int r = c / C8;
       const int v = c % C8;
       const int e = e0 + r;
-      if (e < edges)
-        reinterpret_cast<uint4*>(out + static_cast<size_t>(e) * OUT)[v] =
-            *reinterpret_cast<const uint4*>(ot + r * SO + 8 * v);
+      if (e < edges) {
+        const uint4 val = *reinterpret_cast<const uint4*>(ot + r * SO + 8 * v);
+        reinterpret_cast<uint4*>(out + static_cast<size_t>(e) * OUT)[v] = val;
+        if (ABSORB) {
+          const int e2 = e - e % cols + __ldg(pi + e);
+          reinterpret_cast<uint4*>(out2 + static_cast<size_t>(e2) * OUT)[v] =
+              val;
+        }
+      }
     }
     __syncwarp();  // the stage is read before the ring refills it
   }
@@ -767,20 +788,19 @@ int launch_out(const Args& a, int out_dim, int order, bool cores,
   return static_cast<int>(err);
 }
 
-template <int OUT, int ORDER>
-cudaError_t launch_bf16(const void* u, const void* q, const void* i,
-                        const void* w, const void* b, void* out, int edges,
-                        int d, cudaStream_t stream) {
+template <int OUT, int ORDER, bool ABSORB>
+cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
   constexpr int P = parts_of<ORDER>();
+  const int d = a.d;
   const int warps = bf16_warps(d, OUT, P);
   if (warps == 0) return cudaErrorInvalidValue;
-  const void* kernel =
-      reinterpret_cast<const void*>(interact_fwd_bf16_kernel<OUT, ORDER>);
+  const void* kernel = reinterpret_cast<const void*>(
+      interact_fwd_bf16_kernel<OUT, ORDER, ABSORB>);
   const size_t smem = bf16_w_bytes(d, OUT, P) +
                       static_cast<size_t>(warps) * kStages *
                           bf16_stage(d, OUT) * sizeof(__nv_bfloat16);
   const long long tiles =
-      (static_cast<long long>(edges) + kTileEdges - 1) / kTileEdges;
+      (static_cast<long long>(a.edges) + kTileEdges - 1) / kTileEdges;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -792,26 +812,42 @@ cudaError_t launch_bf16(const void* u, const void* q, const void* i,
     cudaGetLastError();  // clear it: the caller gets it as the return value
     return err;
   }
-  interact_fwd_bf16_kernel<OUT, ORDER><<<blocks, 32 * warps, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(u),
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(i), static_cast<const float*>(w),
-      static_cast<const float*>(b), static_cast<__nv_bfloat16*>(out), edges,
-      d);
+  interact_fwd_bf16_kernel<OUT, ORDER, ABSORB>
+      <<<blocks, 32 * warps, smem, stream>>>(
+          static_cast<const __nv_bfloat16*>(a.u),
+          static_cast<const __nv_bfloat16*>(a.q),
+          static_cast<const __nv_bfloat16*>(a.i),
+          static_cast<const float*>(a.w), static_cast<const float*>(a.b),
+          static_cast<__nv_bfloat16*>(a.out), static_cast<const int*>(a.pi),
+          static_cast<__nv_bfloat16*>(a.out2), a.edges, d, a.cols);
   return cudaGetLastError();
 }
 
-template <int OUT>
-cudaError_t launch_bf16_order(int order, const void* u, const void* q,
-                              const void* i, const void* w, const void* b,
-                              void* out, int edges, int d,
-                              cudaStream_t stream) {
+template <int OUT, bool ABSORB>
+cudaError_t launch_bf16_order(int order, const Args& a, cudaStream_t stream) {
   switch (order) {
-    case 1: return launch_bf16<OUT, 1>(u, q, i, w, b, out, edges, d, stream);
-    case 2: return launch_bf16<OUT, 2>(u, q, i, w, b, out, edges, d, stream);
-    case 3: return launch_bf16<OUT, 3>(u, q, i, w, b, out, edges, d, stream);
+    case 1: return launch_bf16<OUT, 1, ABSORB>(a, stream);
+    case 2: return launch_bf16<OUT, 2, ABSORB>(a, stream);
+    case 3: return launch_bf16<OUT, 3, ABSORB>(a, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// The bf16 form for out_dim (ABSORB: K5, as launch_out checks its grid).
+template <bool ABSORB>
+int launch_bf16_out(const Args& a, int out_dim, int order, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ABSORB && (a.cols <= 0 || a.edges % a.cols != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (out_dim) {
+    case 8: err = launch_bf16_order<8, ABSORB>(order, a, s); break;
+    case 16: err = launch_bf16_order<16, ABSORB>(order, a, s); break;
+    case 32: err = launch_bf16_order<32, ABSORB>(order, a, s); break;
+    case 64: err = launch_bf16_order<64, ABSORB>(order, a, s); break;
+    default: break;
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -876,21 +912,18 @@ extern "C" int ihgnn_interact_fwd_bf16(const void* u, const void* q,
                                        const void* b, void* out, int edges,
                                        int d, int out_dim, int order,
                                        void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  switch (out_dim) {
-    case 8: err = launch_bf16_order<8>(order, u, q, i, w, b, out, edges, d, s);
-      break;
-    case 16: err = launch_bf16_order<16>(order, u, q, i, w, b, out, edges, d,
-                                         s);
-      break;
-    case 32: err = launch_bf16_order<32>(order, u, q, i, w, b, out, edges, d,
-                                         s);
-      break;
-    case 64: err = launch_bf16_order<64>(order, u, q, i, w, b, out, edges, d,
-                                         s);
-      break;
-    default: break;
-  }
-  return static_cast<int>(err);
+  return launch_bf16_out<false>(Args{u, q, i, w, b, out, nullptr, nullptr,
+                                     edges, d, 1},
+                                out_dim, order, stream);
+}
+
+// K5 forward's bf16 form: u/q/i_t1 [edges, d] bf16, pi as
+// ihgnn_interact_fwd_absorb; out and out2 [edges, out_dim] bf16.
+extern "C" int ihgnn_interact_fwd_absorb_bf16(
+    const void* u, const void* q, const void* i_t1, const void* pi,
+    const void* w, const void* b, void* out, void* out2, int edges, int d,
+    int out_dim, int order, int cols, void* stream) {
+  return launch_bf16_out<true>(Args{u, q, i_t1, w, b, out, pi, out2, edges,
+                                    d, cols},
+                               out_dim, order, stream);
 }

@@ -94,6 +94,20 @@
 // u, q, i and cot (4 x 128 MB) and writes du, dq, di (3 x 128 MB): 0.27 ms
 // at 3.35 TB/s; the two products' 28,672 FLOPs an edge take 0.058 ms at
 // the 989 TFLOP/s bf16 rate.
+//
+// The bf16 form with ABSORB (K5's backward on the routed pack's bf16
+// streams, _bwd_kernel_absorb on bf16 operands, interact.py:203-227): the
+// i row of edge e staged from i_t1[e_pi], c2[e_pi] staged beside c1[e] in
+// a plane of its own, and the merged cotangent formed as Pallas forms it,
+// in bf16: cot = round_bf16(c1 + c2) (one rounding of the exact f32 sum of
+// two bf16 values), then times the mask (0 or 1, exact). The merge runs in
+// shared memory, each thread on the vectors it copied, before the barrier
+// that shows the tile to all, so the dW product, the data product and db
+// all read the one rounded bf16 cotangent; di is stored at e_pi. Two
+// stages, as the direct bf16 form, each with its c2 plane and its rows'
+// e_pi. On the edges of one [R, C] grid it is bit for bit the direct bf16
+// form on the pre-permuted inputs. Bound: bytes, the direct bf16 form's
+// plus c2 (128 MB at the routed pack's 2,097,152 edges), pi and the mask.
 
 #include <cuda_runtime.h>
 
@@ -551,16 +565,23 @@ interact_bwd_fused_kernel(const float* __restrict__ u,
 //    outputs: A pairs from a staged cot row, B pairs from a staged W row;
 //    then the product rule in f32 and du, dq, di rounded to bf16, 4 bytes
 //    a store. Slab 0 also sums db in f32.
-template <int OUT, int ORDER>
+//
+// ABSORB: i and c2 through pi, the merged cotangent and the rho store of
+// di (the top of the file); cot2, pi, mask (or null) and cols are unused
+// without it.
+template <int OUT, int ORDER, bool ABSORB>
 __global__ void __launch_bounds__(kFusedThreads)
 interact_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ u,
                          const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ it,
                          const float* __restrict__ w,
                          const __nv_bfloat16* __restrict__ cot,
+                         const __nv_bfloat16* __restrict__ cot2,
+                         const int* __restrict__ pi,
+                         const float* __restrict__ mask,
                          __nv_bfloat16* __restrict__ droles,
                          float* __restrict__ partial, int edges, int d,
-                         int chunk_edges) {
+                         int chunk_edges, int cols) {
   constexpr int P = parts_of<ORDER>();
   constexpr int T = kFusedTile;
   constexpr int SC = OUT + 8;              // staged cot row
@@ -583,7 +604,9 @@ interact_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ u,
   extern __shared__ float4 smem[];
   bf16* ws = reinterpret_cast<bf16*>(smem);       // [R][SW], slab 0
   bf16* stages = ws + (data ? static_cast<size_t>(R) * SW : 0);
-  const int stage_elems = T * (3 * sd + SC);
+  // a stage: u, q, i rows [T][sd] and cot rows [T][SC]; ABSORB adds the
+  // gathered c2 rows [T][SC] and each row's e_pi (T int32)
+  const int stage_elems = T * (3 * sd + SC) + (ABSORB ? T * (SC + 2) : 0);
 
   if (data) {
     for (int idx = threadIdx.x; idx < R * (OUT / 4); idx += kFusedThreads) {
@@ -612,8 +635,10 @@ interact_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ u,
       const int v = rem - te * v8;
       const bool valid = te < n_e;
       const bf16* src = a == 0 ? u : (a == 1 ? q : it);
+      int e = e0 + te;
+      if (ABSORB && a == 2 && valid) e = permuted_edge(pi, e, cols);
       cp_async16(buf + (a * T + te) * sd + 8 * v,
-                 valid ? src + static_cast<size_t>(e0 + te) * d + 8 * v : u,
+                 valid ? src + static_cast<size_t>(e) * d + 8 * v : u,
                  valid);
     }
     for (int idx = threadIdx.x; idx < T * C8; idx += kFusedThreads) {
@@ -624,8 +649,46 @@ interact_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ u,
                  valid ? cot + static_cast<size_t>(e0 + te) * OUT + 8 * v
                        : cot,
                  valid);
+      if constexpr (ABSORB) {
+        // c2 at e_pi, copied by the thread that copies the same c1 vector
+        // (it merges them)
+        cp_async16(buf + 3 * T * sd + (T + te) * SC + 8 * v,
+                   valid ? cot2 + static_cast<size_t>(permuted_edge(
+                                      pi, e0 + te, cols)) * OUT + 8 * v
+                         : cot2,
+                   valid);
+      }
     }
+    if (ABSORB && threadIdx.x < n_e)
+      reinterpret_cast<int*>(buf + T * (3 * sd + 2 * SC))[threadIdx.x] =
+          permuted_edge(pi, e0 + threadIdx.x, cols);
     cp_async_commit();
+  };
+
+  // ABSORB: this thread's c1 vectors of the tile, merged with the c2
+  // vectors it copied: round_bf16(c1 + c2), then times the mask
+  auto merge = [&](bf16* buf, int e0, int n_e) {
+    bf16* cs = buf + 3 * T * sd;
+    const bf16* c2s = cs + T * SC;
+    for (int idx = threadIdx.x; idx < T * C8; idx += kFusedThreads) {
+      const int te = idx / C8;
+      if (te >= n_e) continue;
+      const int at = te * SC + 8 * (idx - te * C8);
+      const float m = mask != nullptr ? __ldg(mask + e0 + te) : 1.f;
+      uint4 x = *reinterpret_cast<const uint4*>(cs + at);
+      const uint4 y = *reinterpret_cast<const uint4*>(c2s + at);
+      unsigned* xs = reinterpret_cast<unsigned*>(&x);
+      const unsigned* ys = reinterpret_cast<const unsigned*>(&y);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float2 a = __bfloat1622float2(bits_bf16x2(xs[k]));
+        const float2 c = __bfloat1622float2(bits_bf16x2(ys[k]));
+        const float2 r = __bfloat1622float2(
+            __floats2bfloat162_rn(a.x + c.x, a.y + c.y));
+        xs[k] = pack_bf16(r.x * m, r.y * m);
+      }
+      *reinterpret_cast<uint4*>(cs + at) = x;
+    }
   };
 
   // product 1: this warp's features and accumulators
@@ -651,11 +714,16 @@ interact_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ u,
     } else {
       cp_async_wait<0>();
     }
+    // ABSORB: the tile has landed for this thread, which merges what it
+    // copied
+    if (ABSORB) merge(stages + (tile & 1) * stage_elems, e0, n_e);
     __syncthreads();  // the tile (and W) has landed for every thread
     const bf16* us = stages + (tile & 1) * stage_elems;
     const bf16* qs = us + T * sd;
     const bf16* is = qs + T * sd;
     const bf16* cs = is + T * sd;
+    // ABSORB: e_pi of each row of the tile
+    const int* pis = reinterpret_cast<const int*>(cs + 2 * T * SC);
 
     // 1. dW^T += cot^T . parts, 16 edges a k step
     if (has2) {
@@ -781,11 +849,14 @@ interact_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ u,
                 gi[c] = di;
               }
               const size_t at = static_cast<size_t>(e0 + te) * d + f;
+              // ABSORB: di for i_t1, at row e_pi
+              const size_t at_i =
+                  ABSORB ? static_cast<size_t>(pis[te]) * d + f : at;
               *reinterpret_cast<unsigned*>(droles + at) =
                   pack_bf16(gu[0], gu[1]);
               *reinterpret_cast<unsigned*>(droles + plane + at) =
                   pack_bf16(gq[0], gq[1]);
-              *reinterpret_cast<unsigned*>(droles + 2 * plane + at) =
+              *reinterpret_cast<unsigned*>(droles + 2 * plane + at_i) =
                   pack_bf16(gi[0], gi[1]);
             }
           }
@@ -949,24 +1020,26 @@ int launch_out(const void* u, const void* q, const void* i, const void* w,
 }
 
 // The bf16 form's shared memory: W [parts * d][OUT + 8] and two stages,
-// all bf16; 0 when it does not fit in one block.
-size_t bf16_smem(int d, int out, int parts) {
+// all bf16 (ABSORB: each stage with its c2 plane and its rows' e_pi); 0
+// when it does not fit in one block.
+size_t bf16_smem(int d, int out, int parts, bool absorb) {
   const size_t bytes =
       sizeof(__nv_bfloat16) *
       (static_cast<size_t>(parts) * d * (out + 8) +
-       2 * static_cast<size_t>(kFusedTile) * (3 * (d + 8) + out + 8));
+       2 * static_cast<size_t>(kFusedTile) *
+           (3 * (d + 8) + out + 8 + (absorb ? out + 8 + 2 : 0)));
   return bytes <= kSmemLimit ? bytes : 0;
 }
 
-template <int OUT, int ORDER>
+template <int OUT, int ORDER, bool ABSORB>
 cudaError_t launch_bf16(const void* u, const void* q, const void* i,
-                        const void* w, const void* cot, void* droles,
-                        void* partial, void* dw_ext, int edges, int d,
-                        int chunk_edges, cudaStream_t stream) {
+                        const void* w, const void* cot, Absorb ab,
+                        void* droles, void* partial, void* dw_ext, int edges,
+                        int d, int chunk_edges, cudaStream_t stream) {
   const int R = parts_of<ORDER>() * d;
-  const size_t smem = bf16_smem(d, OUT, parts_of<ORDER>());
+  const size_t smem = bf16_smem(d, OUT, parts_of<ORDER>(), ABSORB);
   if (smem == 0 || d % 8 != 0) return cudaErrorInvalidValue;
-  auto kernel = interact_bwd_bf16_kernel<OUT, ORDER>;
+  auto kernel = interact_bwd_bf16_kernel<OUT, ORDER, ABSORB>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -981,29 +1054,64 @@ cudaError_t launch_bf16(const void* u, const void* q, const void* i,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(i), static_cast<const float*>(w),
       static_cast<const __nv_bfloat16*>(cot),
+      static_cast<const __nv_bfloat16*>(ab.cot2),
+      static_cast<const int*>(ab.pi), static_cast<const float*>(ab.mask),
       static_cast<__nv_bfloat16*>(droles), static_cast<float*>(partial),
-      edges, d, chunk_edges);
+      edges, d, chunk_edges, ab.cols);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return reduce_partials(partial, dw_ext, chunk_count(edges, chunk_edges),
                          (R + 1) * OUT, stream);
 }
 
-template <int OUT>
+template <int OUT, bool ABSORB>
 cudaError_t launch_bf16_order(int order, const void* u, const void* q,
                               const void* i, const void* w, const void* cot,
-                              void* droles, void* partial, void* dw_ext,
-                              int edges, int d, int chunk_edges,
-                              cudaStream_t stream) {
+                              Absorb ab, void* droles, void* partial,
+                              void* dw_ext, int edges, int d,
+                              int chunk_edges, cudaStream_t stream) {
   switch (order) {
-    case 1: return launch_bf16<OUT, 1>(u, q, i, w, cot, droles, partial,
-                                       dw_ext, edges, d, chunk_edges, stream);
-    case 2: return launch_bf16<OUT, 2>(u, q, i, w, cot, droles, partial,
-                                       dw_ext, edges, d, chunk_edges, stream);
-    case 3: return launch_bf16<OUT, 3>(u, q, i, w, cot, droles, partial,
-                                       dw_ext, edges, d, chunk_edges, stream);
+    case 1: return launch_bf16<OUT, 1, ABSORB>(u, q, i, w, cot, ab, droles,
+                                               partial, dw_ext, edges, d,
+                                               chunk_edges, stream);
+    case 2: return launch_bf16<OUT, 2, ABSORB>(u, q, i, w, cot, ab, droles,
+                                               partial, dw_ext, edges, d,
+                                               chunk_edges, stream);
+    case 3: return launch_bf16<OUT, 3, ABSORB>(u, q, i, w, cot, ab, droles,
+                                               partial, dw_ext, edges, d,
+                                               chunk_edges, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <bool ABSORB>
+int launch_bf16_out(const void* u, const void* q, const void* i,
+                    const void* w, const void* cot, Absorb ab, void* droles,
+                    void* partial, void* dw_ext, int edges, int d,
+                    int out_dim, int order, int chunk_edges, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (edges <= 0 || chunk_edges <= 0 || chunk_edges % kFusedTile != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (out_dim) {
+    case 8: err = launch_bf16_order<8, ABSORB>(order, u, q, i, w, cot, ab,
+                                               droles, partial, dw_ext, edges,
+                                               d, chunk_edges, s); break;
+    case 16: err = launch_bf16_order<16, ABSORB>(order, u, q, i, w, cot, ab,
+                                                 droles, partial, dw_ext,
+                                                 edges, d, chunk_edges, s);
+      break;
+    case 32: err = launch_bf16_order<32, ABSORB>(order, u, q, i, w, cot, ab,
+                                                 droles, partial, dw_ext,
+                                                 edges, d, chunk_edges, s);
+      break;
+    case 64: err = launch_bf16_order<64, ABSORB>(order, u, q, i, w, cot, ab,
+                                                 droles, partial, dw_ext,
+                                                 edges, d, chunk_edges, s);
+      break;
+    default: break;
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -1048,24 +1156,24 @@ extern "C" int ihgnn_interact_bwd_bf16(const void* u, const void* q,
                                        void* partial, void* dw_ext, int edges,
                                        int d, int out_dim, int order,
                                        int chunk_edges, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (edges <= 0 || chunk_edges <= 0 || chunk_edges % kFusedTile != 0)
+  return launch_bf16_out<false>(u, q, i, w, cot,
+                                Absorb{nullptr, nullptr, nullptr, 1}, droles,
+                                partial, dw_ext, edges, d, out_dim, order,
+                                chunk_edges, stream);
+}
+
+// K5 backward's bf16 form: u/q/i_t1, cot1 and cot2 bf16, pi, mask (f32 or
+// null) and cols as ihgnn_interact_bwd_absorb; droles bf16, partial and
+// dw_ext f32. Refused as ihgnn_interact_bwd_bf16 is.
+extern "C" int ihgnn_interact_bwd_absorb_bf16(
+    const void* u, const void* q, const void* i_t1, const void* pi,
+    const void* w, const void* cot1, const void* cot2, const void* mask,
+    void* droles, void* partial, void* dw_ext, int edges, int d, int out_dim,
+    int order, int cols, int chunk_edges, void* stream) {
+  if (cols <= 0 || edges % cols != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaErrorInvalidValue;
-  switch (out_dim) {
-    case 8: err = launch_bf16_order<8>(order, u, q, i, w, cot, droles,
-                                       partial, dw_ext, edges, d, chunk_edges,
-                                       s); break;
-    case 16: err = launch_bf16_order<16>(order, u, q, i, w, cot, droles,
-                                         partial, dw_ext, edges, d,
-                                         chunk_edges, s); break;
-    case 32: err = launch_bf16_order<32>(order, u, q, i, w, cot, droles,
-                                         partial, dw_ext, edges, d,
-                                         chunk_edges, s); break;
-    case 64: err = launch_bf16_order<64>(order, u, q, i, w, cot, droles,
-                                         partial, dw_ext, edges, d,
-                                         chunk_edges, s); break;
-    default: break;
-  }
-  return static_cast<int>(err);
+  return launch_bf16_out<true>(u, q, i_t1, w, cot1,
+                               Absorb{cot2, pi, mask, cols}, droles, partial,
+                               dw_ext, edges, d, out_dim, order, chunk_edges,
+                               stream);
 }

@@ -40,7 +40,17 @@
 // Layout: values [K, d] f32 row-major (K % block == 0, 16-byte aligned
 // rows when d % 4 == 0); pos [K_real], rowptr [N+1], block_seg [B+1]
 // int32 (B = K / block); out [N, d] f32.
+//
+// The bf16 form (the routed pack's bf16 streams; csr_segment_scan_t stages
+// values_t.dtype and widens each sub-block to f32, segscan.py:260, :318):
+// values [K, d] bf16 with d % 4 == 0, staged as 8-byte quads by cp.async
+// (the window's slice is 32 features, 64 KB at 1024 rows, so a d = 32 row
+// is one slice), each quad widened to f32 exactly where it is added: the
+// same accumulators in the same order, so the bf16 form is bit for bit K1's
+// bf16 three-region form over the same entries. out [N, d] f32. Bound:
+// bytes, the stream at half width.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -51,11 +61,15 @@ constexpr int kUnroll = 4;
 
 template <typename T>
 __device__ __forceinline__ void cp_async(T* dst, const T* src) {
-  static_assert(sizeof(T) == 16 || sizeof(T) == 4, "4 or 16 bytes");
+  static_assert(sizeof(T) == 16 || sizeof(T) == 8 || sizeof(T) == 4,
+                "4, 8 or 16 bytes");
   const unsigned saddr =
       static_cast<unsigned>(__cvta_generic_to_shared(dst));
   if constexpr (sizeof(T) == 16)
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(saddr),
+                 "l"(src));
+  else if constexpr (sizeof(T) == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(saddr),
                  "l"(src));
   else
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(saddr),
@@ -75,18 +89,30 @@ template <> __device__ __forceinline__ float4 zero<float4>() {
 }
 template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
 
-// T: float4 (d % 4 == 0) or float; G: lanes a segment, the vectors of a
-// slice (16 features: 4 float4s or 16 floats, fewer when the row is
-// narrower)
-template <typename T, int G>
+// A staged value as its accumulator type: f32 as it is, a bf16 quad widened.
+__device__ __forceinline__ const float4& widen(const float4& v) { return v; }
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float4 widen(uint2 v) {
+  const float2 lo = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&v.x));
+  const float2 hi = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&v.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// T: float4 (d % 4 == 0) or float, the accumulator and output vector; S:
+// the value vector, T itself (f32) or uint2 (four bf16 values, T float4);
+// G: lanes a segment, the vectors of a slice (16 features: 4 float4s or 16
+// floats, fewer when the row is narrower; 32 features in bf16)
+template <typename T, int G, typename S = T>
 __global__ void __launch_bounds__(kThreads)
-    csr_segment_scan_kernel(const T* __restrict__ values,
+    csr_segment_scan_kernel(const S* __restrict__ values,
                             const int* __restrict__ pos,
                             const int* __restrict__ rowptr,
                             const int* __restrict__ block_seg,
                             T* __restrict__ out, int dv) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* win = reinterpret_cast<T*>(smem_raw);   // [kBlock][G]
+  S* win = reinterpret_cast<S*>(smem_raw);   // [kBlock][G]
   constexpr int kGroups = kThreads / G;
   const int seg_lo = block_seg[blockIdx.x];
   const int seg_hi = block_seg[blockIdx.x + 1];
@@ -111,7 +137,7 @@ __global__ void __launch_bounds__(kThreads)
         const int j0 = rowptr[n], j1 = rowptr[n + 1];
         T acc = zero<T>();
         for (int j = j0; j < j1; j += kUnroll) {
-          T v[kUnroll];
+          S v[kUnroll];
 #pragma unroll
           for (int u = 0; u < kUnroll; ++u) {
             if (j + u < j1) {
@@ -122,7 +148,7 @@ __global__ void __launch_bounds__(kThreads)
           }
 #pragma unroll
           for (int u = 0; u < kUnroll; ++u)
-            if (j + u < j1) add(acc, v[u]);
+            if (j + u < j1) add(acc, widen(v[u]));
         }
         out[static_cast<size_t>(n) * dv + v0 + lane] = acc;
       }
@@ -131,21 +157,21 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int G>
+template <typename T, int G, typename S = T>
 int launch(const void* values, const void* pos, const void* rowptr,
            const void* block_seg, void* out, int blocks, int dv,
            cudaStream_t stream) {
-  const int smem = kBlock * G * static_cast<int>(sizeof(T));
+  const int smem = kBlock * G * static_cast<int>(sizeof(S));
   static bool opted_in = false;   // above 48 KB a kernel must opt in once
   if (!opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
-        csr_segment_scan_kernel<T, G>,
+        csr_segment_scan_kernel<T, G, S>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     opted_in = true;
   }
-  csr_segment_scan_kernel<T, G><<<blocks, kThreads, smem, stream>>>(
-      static_cast<const T*>(values), static_cast<const int*>(pos),
+  csr_segment_scan_kernel<T, G, S><<<blocks, kThreads, smem, stream>>>(
+      static_cast<const S*>(values), static_cast<const int*>(pos),
       static_cast<const int*>(rowptr), static_cast<const int*>(block_seg),
       static_cast<T*>(out), dv);
   return static_cast<int>(cudaGetLastError());
@@ -185,4 +211,32 @@ extern "C" int ihgnn_csr_segment_scan(const void* values, const void* pos,
     return launch<float, 8>(values, pos, rowptr, block_seg, out, blocks, d,
                             s);
   return launch<float, 16>(values, pos, rowptr, block_seg, out, blocks, d, s);
+}
+
+// The bf16 form: values [k_total, d] bf16 (d % 4 == 0, 8-byte aligned
+// rows); out [N, d] f32; the rest as above.
+extern "C" int ihgnn_csr_segment_scan_bf16(const void* values,
+                                           const void* pos,
+                                           const void* rowptr,
+                                           const void* block_seg, void* out,
+                                           int k_total, int d, int block,
+                                           void* stream) {
+  if (block != kBlock || k_total % kBlock != 0 || d <= 0 || d % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = k_total / kBlock;
+  if (blocks == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int dv = d / 4;
+  switch (dv < 4 ? dv : (dv < 8 ? 4 : 8)) {
+    case 1: return launch<float4, 1, uint2>(values, pos, rowptr, block_seg,
+                                            out, blocks, dv, s);
+    case 2: return launch<float4, 2, uint2>(values, pos, rowptr, block_seg,
+                                            out, blocks, dv, s);
+    case 3: return launch<float4, 3, uint2>(values, pos, rowptr, block_seg,
+                                            out, blocks, dv, s);
+    case 4: return launch<float4, 4, uint2>(values, pos, rowptr, block_seg,
+                                            out, blocks, dv, s);
+    default: return launch<float4, 8, uint2>(values, pos, rowptr, block_seg,
+                                             out, blocks, dv, s);
+  }
 }

@@ -58,6 +58,13 @@
 // backward) or rounded once to bf16 (the scatter's backward in the
 // fixed-width form: one bf16 row an edge). Bound: bytes, the bf16 reads at
 // half width.
+//
+// csr_segment_sum3 has a bf16 form too (the routed pack's bf16 streams,
+// csr_segment_sum3_t on bf16 regions): the vector form over three bf16
+// regions, the same f32 accumulators in the same order, written as f32 (the
+// node update) or rounded once to bf16 (the gather's backward, whose node
+// gradient the Pallas path rounds to the stream's dtype,
+// ihgnn_tpu/ops/hyperagg.py:430, :597).
 
 #include <cuda_runtime.h>
 
@@ -254,7 +261,7 @@ cudaError_t launch_vec_l(const Tin* x0, const Tin* x1, const Tin* x2,
   const dim3 grid(static_cast<unsigned>(blocks));
   const int threads = kWarpsPerBlock * 32;
   if constexpr (THREE) {
-    csr_gather_sum_vec_kernel<L, false, true, false>
+    csr_gather_sum_vec_kernel<L, false, true, false, Tin, Tout>
         <<<grid, threads, 0, stream>>>(x0, x1, x2, region_rows, col, rowptr,
                                        nullptr, out, num_segments, d, 0);
   } else if constexpr (!std::is_same<Tin, float>::value) {
@@ -393,4 +400,29 @@ extern "C" int ihgnn_csr_segment_sum3(const void* x0, const void* x1,
       static_cast<const int*>(col), static_cast<const int*>(rowptr), nullptr,
       static_cast<float*>(out), num_segments, d);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The three-region bf16 form: x0, x1, x2 [region_rows, d] bf16 (d % 4 == 0,
+// rows 8-byte aligned); out f32 (out_bf16 == 0, 16-byte aligned) or bf16
+// (out_bf16 == 1, rounded once).
+extern "C" int ihgnn_csr_segment_sum3_bf16(const void* x0, const void* x1,
+                                           const void* x2, int region_rows,
+                                           const void* col,
+                                           const void* rowptr, void* out,
+                                           int num_segments, int d,
+                                           int out_bf16, void* stream) {
+  if (d % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const __nv_bfloat16* a = static_cast<const __nv_bfloat16*>(x0);
+  const __nv_bfloat16* b = static_cast<const __nv_bfloat16*>(x1);
+  const __nv_bfloat16* c = static_cast<const __nv_bfloat16*>(x2);
+  const int* cl = static_cast<const int*>(col);
+  const int* rp = static_cast<const int*>(rowptr);
+  if (out_bf16)
+    return static_cast<int>(launch_vec<true>(
+        a, b, c, region_rows, cl, rp, nullptr,
+        static_cast<__nv_bfloat16*>(out), num_segments, d, 0, s));
+  return static_cast<int>(launch_vec<true>(a, b, c, region_rows, cl, rp,
+                                           nullptr, static_cast<float*>(out),
+                                           num_segments, d, 0, s));
 }

@@ -24,12 +24,13 @@ interaction (``ihgnn_tpu/models/layers.py:215-238``; the TPU's table and
 block gates of ``absorb_i_ok`` do not apply here). Phase 2 puts the edge
 rows back in edge order before the attention (``:254-262``).
 
-``IHGNNLayer(bf16_stream=True)`` (``ModelConfig.bf16_stream``) runs the
-direct path on bf16 edge streams (``ops/hyperagg.py``): bf16 role rows, a
-bf16 interaction output, f32 node sums; phase 2 widens the bf16 edge rows
-to f32 before the ``[x' | edge]`` concat (``layers.py:264``). The
-parameters, the feature transforms and the node rows stay f32. On a routed
-pack it raises ``NotImplementedError`` (ROADMAP queue 1 item 4b).
+``IHGNNLayer(bf16_stream=True)`` (``ModelConfig.bf16_stream``) runs either
+path on bf16 edge streams (``ops/hyperagg.py``): bf16 role rows, a bf16
+interaction output (on a routed pack K5's bf16 form, both outputs), f32
+node sums; phase 2 widens the bf16 edge rows to f32 before the
+``[x' | edge]`` concat (``layers.py:264``), on a routed pack after putting
+them back in edge order. The parameters, the feature transforms and the
+node rows stay f32.
 """
 
 from __future__ import annotations

@@ -165,6 +165,15 @@ def use_kernel(what: str, *tensors) -> bool:
     return True
 
 
+def count(wrapper, bf16: bool) -> None:
+    """One launch of ``wrapper``'s kernel: its bf16 form counts in
+    ``wrapper.launches_bf16``, its f32 form in ``wrapper.launches``."""
+    if bf16:
+        wrapper.launches_bf16 += 1
+    else:
+        wrapper.launches += 1
+
+
 def require(cond: bool, what: str, msg: str) -> None:
     if not cond:
         raise ValueError(f"{what}: {msg}")

@@ -25,6 +25,10 @@ forms, the TPU's windowed expands themselves, over a pack's absolute
   (``windowed_gather``, ``gather.py:188``);
 * ``gather_rows_t(x, idx)`` — ``[C, R, d]``, ``out[c, r] = x[idx[r, c]]``
   (``windowed_gather_t``, ``:374``: the expand and a block transpose).
+
+Both take ``dtype=torch.bfloat16`` (the routed pack's bf16 streams) as
+``gather_roles`` does: bf16 rows from an f32 x (rounded in the copy) or a
+bf16 x, counted in ``launches_bf16``.
 """
 
 from __future__ import annotations
@@ -43,6 +47,8 @@ _BF16_ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4 + [
 STREAM_DTYPES = (torch.float32, torch.bfloat16)
 _ROWS_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
     ctypes.c_void_p]
+_ROWS_BF16_ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [
+    ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def gather_roles_plain(x: torch.Tensor, i3: torch.Tensor,
@@ -92,10 +98,7 @@ def gather_roles(x: torch.Tensor, i3: torch.Tensor,
                  out[1].data_ptr(), out[2].data_ptr(), e, d,
                  _build.stream_ptr(x.device))
     _build.check("gather", what, err)
-    if bf16:
-        gather_roles.launches_bf16 += 1
-    else:
-        gather_roles.launches += 1
+    _build.count(gather_roles, bf16)
     return out
 
 
@@ -104,68 +107,86 @@ gather_roles.launches_bf16 = 0
 
 
 def gather_rows_plain(x: torch.Tensor, idx: torch.Tensor,
-                      transposed: bool = False) -> torch.Tensor:
+                      transposed: bool = False,
+                      dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Plain twin of ``gather_rows`` / ``gather_rows_t`` (any device)."""
-    out = x[idx.long()]
+    out = x.to(dtype or x.dtype)[idx.long()]
     return out.transpose(0, 1).contiguous() if transposed else out
 
 
-def _gather_rows(what: str, name: str, x: torch.Tensor, idx: torch.Tensor,
-                 out: Optional[torch.Tensor], transposed: bool):
-    """Checks, then the CPU twin or one launch of ``name``; returns the
-    result and whether the kernel ran."""
+def _gather_rows(wrapper, name: str, x: torch.Tensor, idx: torch.Tensor,
+                 out: Optional[torch.Tensor], transposed: bool,
+                 dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """Checks, then the CPU twin or one launch of ``name`` (its bf16 form,
+    ``name + "_bf16"``, for bf16 rows out), counted on ``wrapper``. The
+    rows come out in ``out``'s dtype, else ``dtype``, else ``x``'s."""
+    what = wrapper.__name__
     if idx.dim() != 2:
         raise ValueError(f"{what}: idx must be an [R, C] table")
+    dtype = out.dtype if out is not None else (dtype or x.dtype)
+    if dtype not in STREAM_DTYPES:
+        raise ValueError(f"{what}: rows in {dtype}; the forms write f32 or "
+                         "bf16")
     rows, cols = idx.shape
     shape = ((cols, rows) if transposed else (rows, cols)) + (x.shape[1],)
     if not _build.use_kernel(what, x, idx, out):
-        y = gather_rows_plain(x, idx, transposed)
-        return (y if out is None else out.copy_(y)), False
-    _build.require(x.dim() == 2 and x.dtype == torch.float32
-                   and x.is_contiguous() and x.shape[1] % 4 == 0
-                   and x.data_ptr() % 16 == 0, what,
-                   "x must be contiguous, 16-byte aligned [N, d] f32 with "
-                   "d a multiple of 4")
+        y = gather_rows_plain(x, idx, transposed, dtype)
+        return y if out is None else out.copy_(y)
+    bf16 = dtype == torch.bfloat16
+    _build.require(x.dim() == 2 and x.dtype in (
+        STREAM_DTYPES if bf16 else (torch.float32,)) and x.is_contiguous()
+        and x.shape[1] % 4 == 0 and x.data_ptr() % 16 == 0, what,
+        "x must be contiguous, 16-byte aligned [N, d] f32 (or bf16 for bf16 "
+        "rows) with d a multiple of 4")
     _build.require(idx.dtype == torch.int32 and idx.is_contiguous(), what,
                    "idx must be a contiguous int32 table")
     if out is None:
-        out = torch.empty(shape, dtype=x.dtype, device=x.device)
+        out = torch.empty(shape, dtype=dtype, device=x.device)
     else:
-        _build.require(tuple(out.shape) == shape and out.dtype == x.dtype
-                       and out.is_contiguous() and out.data_ptr() % 16 == 0,
-                       what, f"out must be a contiguous, aligned {shape} f32 "
-                       "tensor")
-    fn = _build.function("gather", name, _ROWS_ARGTYPES)
-    err = fn(x.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, cols,
-             x.shape[1], _build.stream_ptr(x.device))
+        _build.require(tuple(out.shape) == shape and out.is_contiguous()
+                       and out.data_ptr() % 16 == 0, what,
+                       f"out must be a contiguous, aligned {shape} tensor")
+    if bf16:
+        fn = _build.function("gather", name + "_bf16", _ROWS_BF16_ARGTYPES)
+        err = fn(x.data_ptr(), int(x.dtype == torch.bfloat16),
+                 idx.data_ptr(), out.data_ptr(), rows, cols, x.shape[1],
+                 _build.stream_ptr(x.device))
+    else:
+        fn = _build.function("gather", name, _ROWS_ARGTYPES)
+        err = fn(x.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, cols,
+                 x.shape[1], _build.stream_ptr(x.device))
     _build.check("gather", what, err)
-    return out, True
+    _build.count(wrapper, bf16)
+    return out
 
 
 def gather_rows(x: torch.Tensor, idx: torch.Tensor,
-                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                out: Optional[torch.Tensor] = None,
+                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``[R, C, d]``: ``out[r, c] = x[idx[r, c]]`` for an int32 ``idx``
-    ``[R, C]`` of row ids of ``x`` ``[N, d]``. CPU tensors run the plain
-    twin; CUDA tensors launch ``csrc/gather.cu`` (written into ``out`` when
-    given) and count one in ``gather_rows.launches``."""
-    y, launched = _gather_rows("gather_rows", "ihgnn_gather_rows", x, idx,
-                               out, False)
-    gather_rows.launches += launched
-    return y
+    ``[R, C]`` of row ids of ``x`` ``[N, d]``, in ``out``'s dtype, else
+    ``dtype``, else ``x``'s. CPU tensors run the plain twin; CUDA tensors
+    launch ``csrc/gather.cu`` (written into ``out`` when given) and count
+    one in ``gather_rows.launches`` (f32 rows) or
+    ``gather_rows.launches_bf16`` (bf16 rows)."""
+    return _gather_rows(gather_rows, "ihgnn_gather_rows", x, idx, out, False,
+                        dtype)
 
 
 gather_rows.launches = 0
+gather_rows.launches_bf16 = 0
 
 
 def gather_rows_t(x: torch.Tensor, idx: torch.Tensor,
-                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  out: Optional[torch.Tensor] = None,
+                  dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``[C, R, d]``: ``out[c, r] = x[idx[r, c]]``, ``gather_rows`` written
     transposed. CPU tensors run the plain twin; CUDA tensors launch
-    ``csrc/gather.cu`` and count one in ``gather_rows_t.launches``."""
-    y, launched = _gather_rows("gather_rows_t", "ihgnn_gather_rows_t", x, idx,
-                               out, True)
-    gather_rows_t.launches += launched
-    return y
+    ``csrc/gather.cu`` and count one in ``gather_rows_t.launches`` or
+    ``gather_rows_t.launches_bf16``."""
+    return _gather_rows(gather_rows_t, "ihgnn_gather_rows_t", x, idx, out,
+                        True, dtype)
 
 
 gather_rows_t.launches = 0
+gather_rows_t.launches_bf16 = 0

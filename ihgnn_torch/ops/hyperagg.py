@@ -29,16 +29,17 @@ CSR, both K1. Besides the scatter it carries:
   (``models/layers.py:185-192``): edge sums are K1 over the edge-major
   CSR, node sums K1 over the node-major CSR, each the other's backward.
 
-bf16 streams (``make_hyper_ops(graph, bf16_stream=True)``, the direct path
-only; the Pallas kernels' contract, ``ihgnn_tpu/ops/hyperagg.py:950-1045``
-and ``:463-476``): the gather writes bf16 roles (K2's bf16 form rounds the
-f32 ``x`` in the copy), and its backward sums the bf16 role cotangents in
-f32 into an f32 ``[N, d]`` (K1, bf16 rows in). The scatter sums bf16 edge
-rows in f32 into f32 node rows; its backward rounds the f32 node cotangent
-to bf16, sums each edge's three rows in f32 and rounds the sum once, a bf16
+bf16 streams (``make_hyper_ops(graph, bf16_stream=True)``; the Pallas
+kernels' contract, ``ihgnn_tpu/ops/hyperagg.py:950-1045`` and
+``:463-476``): the gather writes bf16 roles (K2's bf16 form rounds the f32
+``x`` in the copy), and its backward sums the bf16 role cotangents in f32
+into an f32 ``[N, d]`` (K1, bf16 rows in). The scatter sums bf16 edge rows
+in f32 into f32 node rows; its backward rounds the f32 node cotangent to
+bf16, sums each edge's three rows in f32 and rounds the sum once, a bf16
 edge gradient (K1's fixed-width form, bf16 in and out). The Pallas path
 adds the three bf16 expansions in bf16 instead; ROADMAP §3 states the
-difference.
+difference. The routed path's bf16 streams are described with its chains
+below.
 """
 
 from __future__ import annotations
@@ -127,14 +128,27 @@ class SpmmFn(torch.autograd.Function):
 # Node sums are K1's three-region form over the pack's CSR. A gather's
 # backward is the inverse chains and a node sum; a scatter's backward the
 # forward chains, summed over the roles.
+#
+# bf16 streams (the Pallas path's own, ``hyperagg.py:403-649``,
+# ``:969-971``): the expands of the f32 node rows write bf16 rows (x
+# rounded at the gather's entry, in the copy), the permutes copy them, and
+# the node sums run in f32 into f32 rows. A gather's backward sums the bf16
+# role cotangents in f32 and rounds the sum once to bf16, which the f32 x
+# then takes widened: the Pallas path's ``grad.astype(cu.dtype)``
+# (``:430``, ``:597``), followed here where the direct path keeps the f32
+# sum. A scatter's backward expands the node cotangent rounded to bf16
+# (``:468``, ``:628``); ``Scatter2Fn`` adds its u and q expansions in bf16,
+# one rounding, as Pallas does, and ``RoutedScatterFn`` sums its three in
+# f32 and rounds once (the direct path's departure, ROADMAP §3).
 
 
 def _role_forward(x: torch.Tensor, rt: RoleTables, stop_pre_p2: bool = False,
-                  out=None) -> torch.Tensor:
+                  out=None, dtype=None) -> torch.Tensor:
     """Role rows in σ order ``[R, C, d]`` (t1 order for the i role with
-    ``stop_pre_p2``), written into ``out`` when given."""
+    ``stop_pre_p2``), in ``dtype`` (``x``'s when None), written into
+    ``out`` when given."""
     last = rt.p2 is None or stop_pre_p2
-    t0 = gather_rows_t(x, rt.idx)                            # [C, R, d]
+    t0 = gather_rows_t(x, rt.idx, dtype=dtype)               # [C, R, d]
     t1 = transposed_local_permute(t0, rt.p1, out=out if last else None)
     if last:
         return t1
@@ -154,62 +168,79 @@ def _grid(t: torch.Tensor, kp: HyperKernelPack) -> torch.Tensor:
     return t.contiguous().view(kp.rows, kp.cols, t.shape[-1])
 
 
-def _segsum_regions(u, q, i, kp: HyperKernelPack) -> torch.Tensor:
-    """``[N, d]`` f32 node sums of the ``[u | q | i]`` regions; σ pads are
-    dropped."""
+def _segsum_regions(u, q, i, kp: HyperKernelPack,
+                    out_dtype=None) -> torch.Tensor:
+    """``[N, d]`` node sums of the ``[u | q | i]`` regions, in f32 (rounded
+    once to ``out_dtype`` when given); σ pads are dropped."""
     d = u.shape[-1]
     return csr_segment_sum3(u.reshape(-1, d), q.reshape(-1, d),
-                            i.reshape(-1, d), kp.seg_col, kp.seg_rowptr)
+                            i.reshape(-1, d), kp.seg_col, kp.seg_rowptr,
+                            out_dtype)
 
 
 def _gather_roles(x: torch.Tensor, kp: HyperKernelPack,
-                  stop_pre_p2: bool) -> torch.Tensor:
-    """``[3, e_pad, d]``: u and q in σ order, i in σ (or t1) order."""
+                  stop_pre_p2: bool, dtype=None) -> torch.Tensor:
+    """``[3, e_pad, d]`` in ``dtype`` (``x``'s when None): u and q in σ
+    order, i in σ (or t1) order."""
     x = x.contiguous()
-    roles = torch.empty(3, kp.rows, kp.cols, x.shape[1], dtype=x.dtype,
-                        device=x.device)
+    roles = torch.empty(3, kp.rows, kp.cols, x.shape[1],
+                        dtype=dtype or x.dtype, device=x.device)
     gather_rows(x, kp.u.idx, out=roles[0])
-    _role_forward(x, kp.q, out=roles[1])
-    _role_forward(x, kp.i, stop_pre_p2, out=roles[2])
+    _role_forward(x, kp.q, out=roles[1], dtype=roles.dtype)
+    _role_forward(x, kp.i, stop_pre_p2, out=roles[2], dtype=roles.dtype)
     return roles.view(3, kp.e_pad, x.shape[1])
 
 
+def _gather_gradient(cot: torch.Tensor, kp: HyperKernelPack, from_pre: bool,
+                     x_dtype) -> torch.Tensor:
+    """The gradient of a gather's ``x`` (``x_dtype``) for the role
+    cotangents ``cot`` ``[3, e_pad, d]``: the inverse chains' node sum,
+    rounded once to bf16 for bf16 cotangents (then widened)."""
+    cu, cq, ci = (_grid(c, kp) for c in cot)
+    bf16 = cot.dtype == torch.bfloat16
+    grad = _segsum_regions(cu, _sig_inverse(cq, kp.q),
+                           _sig_inverse(ci, kp.i, from_pre=from_pre), kp,
+                           torch.bfloat16 if bf16 else None)
+    return grad.to(x_dtype)
+
+
 def _scatter_gradient(cot: torch.Tensor, kp: HyperKernelPack,
-                      stop_pre_p2: bool):
-    """The three role expansions of a node cotangent, each ``[R, C, d]``."""
+                      stop_pre_p2: bool, dtype):
+    """The three role expansions of a node cotangent in ``dtype`` (the
+    edge stream's), each ``[R, C, d]``."""
     cot = cot.contiguous()
-    return (gather_rows(cot, kp.u.idx), _role_forward(cot, kp.q),
-            _role_forward(cot, kp.i, stop_pre_p2))
+    return (gather_rows(cot, kp.u.idx, dtype=dtype),
+            _role_forward(cot, kp.q, dtype=dtype),
+            _role_forward(cot, kp.i, stop_pre_p2, dtype=dtype))
 
 
 class RoutedGatherFn(torch.autograd.Function):
-    """``x [N, d]`` → ``[3, e_pad, d]`` role rows in σ order
-    (``_gather_roles_pallas``, ``hyperagg.py:403-432``); the gradient of
-    ``x`` is the inverse chains' node sum."""
+    """``x [N, d]`` → ``[3, e_pad, d]`` role rows in σ order, in ``dtype``
+    (``x``'s when None) (``_gather_roles_pallas``,
+    ``hyperagg.py:403-432``); the gradient of ``x`` is the inverse chains'
+    node sum."""
 
     @staticmethod
-    def forward(ctx, x, kp):
-        ctx.kp = kp
-        return _gather_roles(x, kp, stop_pre_p2=False)
+    def forward(ctx, x, kp, dtype=None):
+        ctx.kp, ctx.x_dtype = kp, x.dtype
+        return _gather_roles(x, kp, stop_pre_p2=False, dtype=dtype)
 
     @staticmethod
     def backward(ctx, cot):
-        kp = ctx.kp
-        cu, cq, ci = (_grid(c, kp) for c in cot)
-        return _segsum_regions(cu, _sig_inverse(cq, kp.q),
-                               _sig_inverse(ci, kp.i), kp), None
+        return (_gather_gradient(cot, ctx.kp, False, ctx.x_dtype), None,
+                None)
 
 
 class RoutedScatterFn(torch.autograd.Function):
-    """``edge [e_pad, d]`` (σ order) → ``[N, d]`` f32 node sums
-    (``_scatter_pallas``, ``hyperagg.py:435-493``); the gradient of
+    """``edge [e_pad, d]`` (σ order, f32 or bf16) → ``[N, d]`` f32 node
+    sums (``_scatter_pallas``, ``hyperagg.py:435-493``); the gradient of
     ``edge`` is the sum of the three role expansions of the node
-    cotangent, zero at the σ pads (copies of real rows: they would reach
-    the interaction's dW)."""
+    cotangent (for bf16 rows summed in f32, rounded once), zero at the σ
+    pads (copies of real rows: they would reach the interaction's dW)."""
 
     @staticmethod
     def forward(ctx, edge, kp):
-        ctx.kp = kp
+        ctx.kp, ctx.dtype = kp, edge.dtype
         g = _grid(edge, kp)
         return _segsum_regions(g, _sig_inverse(g, kp.q),
                                _sig_inverse(g, kp.i), kp)
@@ -217,10 +248,14 @@ class RoutedScatterFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, cot):
         kp = ctx.kp
-        gu, gq, gi = _scatter_gradient(cot, kp, stop_pre_p2=False)
-        grad = (gu + gq + gi).view(kp.e_pad, -1)
+        gu, gq, gi = _scatter_gradient(cot, kp, False, ctx.dtype)
+        if ctx.dtype == torch.bfloat16:
+            grad = (gu.float() + gq + gi).to(torch.bfloat16)
+        else:
+            grad = gu + gq + gi
+        grad = grad.view(kp.e_pad, -1)
         if kp.sig_mask is not None:
-            grad = grad * kp.sig_mask[:, None]
+            grad = grad * kp.sig_mask[:, None].to(grad.dtype)
         return grad, None
 
 
@@ -230,29 +265,27 @@ class GatherPreFn(torch.autograd.Function):
     backward takes the i cotangent in t1 order."""
 
     @staticmethod
-    def forward(ctx, x, kp):
-        ctx.kp = kp
-        return _gather_roles(x, kp, stop_pre_p2=True)
+    def forward(ctx, x, kp, dtype=None):
+        ctx.kp, ctx.x_dtype = kp, x.dtype
+        return _gather_roles(x, kp, stop_pre_p2=True, dtype=dtype)
 
     @staticmethod
     def backward(ctx, cot):
-        kp = ctx.kp
-        cu, cq, ci = (_grid(c, kp) for c in cot)
-        return _segsum_regions(cu, _sig_inverse(cq, kp.q),
-                               _sig_inverse(ci, kp.i, from_pre=True),
-                               kp), None
+        return (_gather_gradient(cot, ctx.kp, True, ctx.x_dtype), None,
+                None)
 
 
 class Scatter2Fn(torch.autograd.Function):
-    """``(edge, pre_i)`` → ``[N, d]``: the node sums of the absorbed
-    interaction's two outputs, ``edge`` in σ order for the u and q regions
-    and ``pre_i`` = ρ(edge) for the i region (``_scatter2_pallas``,
-    ``hyperagg.py:602-649``). Its backward leaves the σ pads unmasked: the
-    absorbed interaction's backward masks the merged cotangent."""
+    """``(edge, pre_i)`` → ``[N, d]`` f32: the node sums of the absorbed
+    interaction's two outputs (f32 or bf16), ``edge`` in σ order for the u
+    and q regions and ``pre_i`` = ρ(edge) for the i region
+    (``_scatter2_pallas``, ``hyperagg.py:602-649``). Its backward leaves
+    the σ pads unmasked: the absorbed interaction's backward masks the
+    merged cotangent."""
 
     @staticmethod
     def forward(ctx, edge, pre_i, kp):
-        ctx.kp = kp
+        ctx.kp, ctx.dtype = kp, edge.dtype
         g = _grid(edge, kp)
         return _segsum_regions(g, _sig_inverse(g, kp.q),
                                _sig_inverse(_grid(pre_i, kp), kp.i,
@@ -261,7 +294,7 @@ class Scatter2Fn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, cot):
         kp = ctx.kp
-        gu, gq, gi = _scatter_gradient(cot, kp, stop_pre_p2=True)
+        gu, gq, gi = _scatter_gradient(cot, kp, True, ctx.dtype)
         return ((gu + gq).view(kp.e_pad, -1), gi.view(kp.e_pad, -1), None)
 
 
@@ -298,12 +331,6 @@ def strip_kernel_packing(graph: HyperGraph) -> HyperGraph:
     return dataclasses.replace(graph, kp=None)
 
 
-ROUTED_BF16 = ("bf16 streams on the routed pack (graph.kp) are not ported "
-               "yet: ROADMAP queue 1 item 4b (bf16 forms of K5, gather_rows"
-               "[_t], K1's three-region form and K8); strip the pack "
-               "(strip_kernel_packing) for the direct path")
-
-
 def make_hyper_ops(graph: HyperGraph, bf16_stream: bool = False,
                    absorb: bool = False) -> Tuple[
         Callable[[torch.Tensor], torch.Tensor],
@@ -320,23 +347,19 @@ def make_hyper_ops(graph: HyperGraph, bf16_stream: bool = False,
     are in t1 order and the scatter takes the absorbed interaction's pair
     ``(o1, o2)`` (``InteractAbsorbFn``).
 
-    ``bf16_stream``: the direct path's bf16 streams (the module
-    docstring): the role rows are bf16, and the scatter takes bf16 edge
-    rows. The routed pack has no bf16 forms yet and raises
-    ``NotImplementedError``."""
+    ``bf16_stream``: bf16 streams (the module docstring, and the routed
+    chains' note): the role rows are bf16, and the scatter takes bf16 edge
+    rows."""
     kp = graph.kp
-    if kp is not None and bf16_stream:
-        raise NotImplementedError(ROUTED_BF16)
+    dtype = torch.bfloat16 if bf16_stream else None
     if kp is not None:
         if absorb:
-            return (lambda x: GatherPreFn.apply(x, kp),
+            return (lambda x: GatherPreFn.apply(x, kp, dtype),
                     lambda pair: Scatter2Fn.apply(pair[0], pair[1], kp))
-        return (lambda x: RoutedGatherFn.apply(x, kp),
+        return (lambda x: RoutedGatherFn.apply(x, kp, dtype),
                 lambda edge: RoutedScatterFn.apply(edge, kp))
     if absorb:
         raise ValueError("the absorbed interaction needs a routed pack")
-
-    dtype = torch.bfloat16 if bf16_stream else None
 
     def gather(x: torch.Tensor) -> torch.Tensor:
         return GatherRolesFn.apply(x, graph.i3, graph.inc_slot, graph.rowptr,

@@ -33,7 +33,9 @@ a bf16 ``[E, out]``; the backward's product rule in f32 on the widened u,
 q, i, with du, dq, di rounded to bf16 once and dW, db in f32. On the card
 each is one bf16 ``mma.sync`` pass (d % 8 == 0), counted in the wrapper's
 ``launches_bf16``; the plain twins emulate the rounding points in f32. W and
-b stay f32. K5 (the routed path's absorbed interaction) has no bf16 form.
+b stay f32. K5 (the routed path's absorbed interaction) has the same bf16
+forms, with the Pallas absorb kernels' merge: c1 + π(c2) rounded to bf16
+once, then masked (``ihgnn_tpu/ops/pallas/interact.py:203-227``).
 """
 
 from __future__ import annotations
@@ -193,10 +195,7 @@ def _fwd(wrapper, entry: str, u, q, i, w, b, order: int,
              b.data_ptr(), out.data_ptr(), e, d, out_dim, order,
              _build.stream_ptr(u.device))
     _build.check("interact", what, err)
-    if bf16:
-        wrapper.launches_bf16 += 1
-    else:
-        wrapper.launches += 1
+    _build.count(wrapper, bf16)
     return out
 
 
@@ -302,10 +301,7 @@ def interact_bwd(u: torch.Tensor, q: torch.Tensor, i: torch.Tensor,
                  dw_ext.data_ptr(), e, d, out_dim, order, CHUNK_EDGES,
                  _build.stream_ptr(u.device))
         _build.check("interact_bwd", what, err)
-        if bf16:
-            interact_bwd.launches_bf16 += 1
-        else:
-            interact_bwd.launches += 1
+        _build.count(interact_bwd, bf16)
     return droles, dw_ext[:rows], dw_ext[rows]
 
 
@@ -373,7 +369,9 @@ def _check_absorb(what: str, u: torch.Tensor, pi: torch.Tensor) -> None:
 
 
 def interact_fwd_absorb_plain(u, q, i_t1, pi, w, b, order: int):
-    """Plain twin of ``interact_fwd_absorb`` (any device)."""
+    """Plain twin of ``interact_fwd_absorb`` (any device); bf16 roles follow
+    ``interact_fwd_plain``'s bf16 contract, and o2 is a copy of the bf16
+    o1."""
     e_pi = _permuted_edges(pi)
     o1 = interact_fwd_plain(u, q, i_t1[e_pi], w, b, order)
     o2 = torch.empty_like(o1)
@@ -381,7 +379,8 @@ def interact_fwd_absorb_plain(u, q, i_t1, pi, w, b, order: int):
     return o1, o2
 
 
-def _fwd_absorb(wrapper, entry: str, u, q, i_t1, pi, w, b, order: int):
+def _fwd_absorb(wrapper, entry: str, u, q, i_t1, pi, w, b, order: int,
+                bf16_entry=None):
     """``_fwd`` for ``interact_fwd_absorb`` and
     ``interact_fwd_absorb_cores``."""
     what = wrapper.__name__
@@ -392,21 +391,22 @@ def _fwd_absorb(wrapper, entry: str, u, q, i_t1, pi, w, b, order: int):
                          f"{tuple(w.shape)}")
     if not _build.use_kernel(what, u, q, i_t1, pi, w, b):
         return interact_fwd_absorb_plain(u, q, i_t1, pi, w, b, order)
-    _require_kernel_inputs(what, (u, q, i_t1), (w, b), u, q, i_t1, w,
-                           bf16_form=False)
+    bf16 = _require_kernel_inputs(what, (u, q, i_t1), (w, b), u, q, i_t1,
+                                  w, bf16_form=bf16_entry is not None)
     _build.require(pi.dtype == torch.int32 and pi.is_contiguous(), what,
                    "pi must be a contiguous int32 table")
     (e, d), out_dim = u.shape, w.shape[1]
-    o1 = torch.empty(e, out_dim, dtype=torch.float32, device=u.device)
+    o1 = torch.empty(e, out_dim, dtype=u.dtype, device=u.device)
     o2 = torch.empty_like(o1)
     if e == 0:
         return o1, o2
-    fn = _build.function("interact", entry, _FWD_ABSORB_ARGTYPES)
+    fn = _build.function("interact", bf16_entry if bf16 else entry,
+                         _FWD_ABSORB_ARGTYPES)
     err = fn(u.data_ptr(), q.data_ptr(), i_t1.data_ptr(), pi.data_ptr(),
              w.data_ptr(), b.data_ptr(), o1.data_ptr(), o2.data_ptr(), e, d,
              out_dim, order, pi.shape[1], _build.stream_ptr(u.device))
     _build.check("interact", what, err)
-    wrapper.launches += 1
+    _build.count(wrapper, bf16)
     return o1, o2
 
 
@@ -415,14 +415,18 @@ def interact_fwd_absorb(u: torch.Tensor, q: torch.Tensor, i_t1: torch.Tensor,
                         order: int):
     """``(o1, o2)``, each ``[E, out]``: the interaction of the σ-ordered
     ``u``/``q`` and the t1-ordered ``i_t1`` read through ``pi``, and
-    ``o1`` permuted by ρ = π⁻¹. CPU tensors run the plain twin; CUDA
-    tensors launch ``csrc/interact.cu`` in the form ``interact_fwd_form``
-    names and count one in ``interact_fwd_absorb.launches``."""
+    ``o1`` permuted by ρ = π⁻¹, in the roles' dtype. CPU tensors run the
+    plain twin; CUDA tensors launch ``csrc/interact.cu``: for f32 roles in
+    the form ``interact_fwd_form`` names, counted in
+    ``interact_fwd_absorb.launches``; for bf16 roles its bf16 form (d % 8
+    == 0), counted in ``interact_fwd_absorb.launches_bf16``."""
     return _fwd_absorb(interact_fwd_absorb, "ihgnn_interact_fwd_absorb", u,
-                       q, i_t1, pi, w, b, order)
+                       q, i_t1, pi, w, b, order,
+                       bf16_entry="ihgnn_interact_fwd_absorb_bf16")
 
 
 interact_fwd_absorb.launches = 0
+interact_fwd_absorb.launches_bf16 = 0
 
 
 def interact_fwd_absorb_cores(u, q, i_t1, pi, w, b, order: int):
@@ -437,12 +441,22 @@ def interact_fwd_absorb_cores(u, q, i_t1, pi, w, b, order: int):
 interact_fwd_absorb_cores.launches = 0
 
 
-def interact_bwd_absorb_plain(u, q, i_t1, pi, w, c1, c2, mask, order: int):
-    """Plain twin of ``interact_bwd_absorb`` (any device)."""
-    e_pi = _permuted_edges(pi)
+def _merged_cotangent(c1, c2, e_pi, mask):
+    """(c1 + c2[e_π])·mask in the cotangents' dtype: in bf16 the sum is
+    rounded once, then masked (0 or 1, exact), as the Pallas kernel merges
+    it."""
     cot = c1 + c2[e_pi]
     if mask is not None:
-        cot = cot * mask[:, None]
+        cot = cot * mask[:, None].to(cot.dtype)
+    return cot
+
+
+def interact_bwd_absorb_plain(u, q, i_t1, pi, w, c1, c2, mask, order: int):
+    """Plain twin of ``interact_bwd_absorb`` (any device); bf16 roles and
+    cotangents follow ``interact_bwd_plain``'s bf16 contract on the merged
+    bf16 cotangent."""
+    e_pi = _permuted_edges(pi)
+    cot = _merged_cotangent(c1, c2, e_pi, mask)
     droles, dw, db = interact_bwd_plain(u, q, i_t1[e_pi], w, cot, order)
     di_t1 = torch.empty_like(droles[2])
     di_t1[e_pi] = droles[2]
@@ -457,11 +471,10 @@ def interact_bwd_absorb_via_direct(u, q, i_t1, pi, w, c1, c2, mask,
     the same σ-ordered edges in the same chunks, so on the card this gives
     bit for bit what ``interact_bwd_absorb`` gives: the identity that
     ``chip_smoke.py``, ``compare_builds`` and the card tests hold K5's
-    backward to. Counts in ``interact_bwd.launches``."""
+    backward to; bf16 inputs run both bf16 forms. Counts in
+    ``interact_bwd.launches`` (``launches_bf16``)."""
     e_pi = _permuted_edges(pi)
-    cot = c1 + c2[e_pi]
-    if mask is not None:
-        cot = cot * mask[:, None]
+    cot = _merged_cotangent(c1, c2, e_pi, mask)
     droles, dw, db = interact_bwd(u, q, i_t1[e_pi], w, cot, order)
     di_t1 = torch.empty_like(droles[2])
     di_t1[e_pi] = droles[2]
@@ -478,7 +491,9 @@ def interact_bwd_absorb(u: torch.Tensor, q: torch.Tensor, i_t1: torch.Tensor,
     CPU tensors run the plain twin; CUDA tensors launch
     ``csrc/interact_bwd.cu`` (the fused kernel of ``interact_bwd``, reading
     i and c2 through π) and count one in
-    ``interact_bwd_absorb.launches``."""
+    ``interact_bwd_absorb.launches``; bf16 roles and cotangents (droles
+    bf16, dW and db f32) run its bf16 form, counted in
+    ``interact_bwd_absorb.launches_bf16``."""
     what = "interact_bwd_absorb"
     _check_weights(what, u, w, order)
     _check_absorb(what, u, pi)
@@ -492,8 +507,8 @@ def interact_bwd_absorb(u: torch.Tensor, q: torch.Tensor, i_t1: torch.Tensor,
     if not _build.use_kernel(what, u, q, i_t1, pi, w, c1, c2, mask):
         return interact_bwd_absorb_plain(u, q, i_t1, pi, w, c1, c2, mask,
                                          order)
-    _require_kernel_inputs(what, (u, q, i_t1, c1, c2), (w,), u, q, i_t1, w,
-                           bf16_form=False)
+    bf16 = _require_kernel_inputs(what, (u, q, i_t1, c1, c2), (w,), u, q,
+                                  i_t1, w)
     _build.require(pi.dtype == torch.int32 and pi.is_contiguous(), what,
                    "pi must be a contiguous int32 table")
     if mask is not None:
@@ -501,7 +516,7 @@ def interact_bwd_absorb(u: torch.Tensor, q: torch.Tensor, i_t1: torch.Tensor,
                        what, "mask must be contiguous f32")
     (e, d), out_dim = u.shape, w.shape[1]
     rows = w.shape[0]
-    droles = torch.empty(3, e, d, dtype=torch.float32, device=u.device)
+    droles = torch.empty(3, e, d, dtype=u.dtype, device=u.device)
     dw_ext = torch.empty(rows + 1, out_dim, dtype=torch.float32,
                          device=u.device)
     if e == 0:
@@ -510,7 +525,8 @@ def interact_bwd_absorb(u: torch.Tensor, q: torch.Tensor, i_t1: torch.Tensor,
         chunks = -(-e // CHUNK_EDGES)
         partial = torch.empty(chunks, rows + 1, out_dim, dtype=torch.float32,
                               device=u.device)
-        fn = _build.function("interact_bwd", "ihgnn_interact_bwd_absorb",
+        fn = _build.function("interact_bwd", "ihgnn_interact_bwd_absorb_bf16"
+                             if bf16 else "ihgnn_interact_bwd_absorb",
                              _BWD_ABSORB_ARGTYPES)
         err = fn(u.data_ptr(), q.data_ptr(), i_t1.data_ptr(), pi.data_ptr(),
                  w.data_ptr(), c1.data_ptr(), c2.data_ptr(),
@@ -518,18 +534,20 @@ def interact_bwd_absorb(u: torch.Tensor, q: torch.Tensor, i_t1: torch.Tensor,
                  partial.data_ptr(), dw_ext.data_ptr(), e, d, out_dim, order,
                  pi.shape[1], CHUNK_EDGES, _build.stream_ptr(u.device))
         _build.check("interact_bwd", what, err)
-        interact_bwd_absorb.launches += 1
+        _build.count(interact_bwd_absorb, bf16)
     return droles, dw_ext[:rows], dw_ext[rows]
 
 
 interact_bwd_absorb.launches = 0
+interact_bwd_absorb.launches_bf16 = 0
 
 
 class InteractAbsorbFn(torch.autograd.Function):
     """``interact_fwd_absorb`` with ``interact_bwd_absorb`` as its
     backward: the counterpart of ``fused_interaction_absorb``
     (``ihgnn_tpu/ops/pallas/interact.py:591-616``). ``pi`` and ``mask``
-    are graph structure and get no gradient."""
+    are graph structure and get no gradient. bf16 roles give bf16 outputs
+    and bf16 role gradients, as ``InteractFn``."""
 
     @staticmethod
     def forward(ctx, roles, w, b, pi, mask, order: int):

@@ -122,18 +122,20 @@ def row_local_permute(x: torch.Tensor, p: torch.Tensor,
     ``p`` ``[R, C]`` whose rows are permutations of ``range(C)``. CPU
     tensors run the plain twin; CUDA tensors launch ``csrc/permute.cu``
     (written into ``out`` when given) and count one in
-    ``row_local_permute.launches``."""
+    ``row_local_permute.launches`` (f32 rows) or
+    ``row_local_permute.launches_bf16`` (bf16 rows)."""
     what = "row_local_permute"
     _check_table(what, p, x.shape[:2])
     if not _build.use_kernel(what, x, p, out):
         y = row_local_permute_plain(x, p)
         return y if out is None else out.copy_(y)
     y = _launch(what, x, p, out, x.shape, MODE_RLP)
-    row_local_permute.launches += 1
+    _build.count(row_local_permute, x.dtype == torch.bfloat16)
     return y
 
 
 row_local_permute.launches = 0
+row_local_permute.launches_bf16 = 0
 
 
 def transposed_local_permute(x: torch.Tensor,
@@ -150,7 +152,8 @@ def transposed_local_permute(x: torch.Tensor,
 
     CPU tensors run the plain twin; CUDA tensors launch ``csrc/permute.cu``
     (written into ``out`` when given) and count one in
-    ``transposed_local_permute.launches``."""
+    ``transposed_local_permute.launches`` (f32 rows) or
+    ``transposed_local_permute.launches_bf16`` (bf16 rows)."""
     what = "transposed_local_permute"
     rows, cols = x.shape[0], x.shape[1]
     if pre:
@@ -167,8 +170,9 @@ def transposed_local_permute(x: torch.Tensor,
         y = transposed_local_permute_plain(x, p, pre)
         return y if out is None else out.copy_(y)
     y = _launch(what, x, p, out, out_shape, mode)
-    transposed_local_permute.launches += 1
+    _build.count(transposed_local_permute, x.dtype == torch.bfloat16)
     return y
 
 
 transposed_local_permute.launches = 0
+transposed_local_permute.launches_bf16 = 0

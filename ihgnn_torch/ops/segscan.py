@@ -24,6 +24,11 @@ bit for bit what K1 gives over the same entries.
 
 Layout: ``values`` ``[K, d]`` f32 row-major (K a multiple of ``BLOCK``);
 the result ``[num_segments, d]`` f32, 0 for a segment with no entry.
+bf16 ``values`` (the routed pack's bf16 streams; ``csr_segment_scan_t``
+stages the stream's dtype and widens it to f32, ``segscan.py:260``,
+``:318``) run the kernel's bf16 form (d % 4 == 0): the same f32 sums, bit
+for bit K1's bf16 three-region form over the same entries, counted in
+``csr_segment_scan.launches_bf16``.
 """
 
 from __future__ import annotations
@@ -106,9 +111,10 @@ def csr_segment_scan_plain(values: torch.Tensor, pack: ScanPack
 
 def csr_segment_scan(values: torch.Tensor, pack: ScanPack) -> torch.Tensor:
     """``[num_segments, d]`` f32 segment-sum of the ``[K, d]`` stream
-    ``values`` whose ids ``pack`` holds. CPU tensors run the plain twin;
-    CUDA tensors launch ``csrc/segscan.cu`` and count one in
-    ``csr_segment_scan.launches``."""
+    ``values`` (f32 or bf16) whose ids ``pack`` holds. CPU tensors run the
+    plain twin; CUDA tensors launch ``csrc/segscan.cu`` and count one in
+    ``csr_segment_scan.launches`` (f32 values) or
+    ``csr_segment_scan.launches_bf16`` (bf16 values)."""
     what = "csr_segment_scan"
     if values.dim() != 2 or values.shape[0] != pack.stream_len:
         raise ValueError(f"{what}: values {tuple(values.shape)} do not fit "
@@ -116,23 +122,34 @@ def csr_segment_scan(values: torch.Tensor, pack: ScanPack) -> torch.Tensor:
     if not _build.use_kernel(what, values, pack.pos, pack.rowptr,
                              pack.block_seg):
         return csr_segment_scan_plain(values, pack)
-    _build.require(values.dtype == torch.float32 and values.is_contiguous()
-                   and (values.shape[1] % 4 or values.data_ptr() % 16 == 0),
-                   what, "values must be contiguous f32, 16-byte aligned "
-                   "when d is a multiple of 4")
+    bf16 = values.dtype == torch.bfloat16
+    if bf16:
+        _build.require(values.is_contiguous() and values.shape[1] % 4 == 0
+                       and values.data_ptr() % 16 == 0, what,
+                       "bf16 values must be contiguous and 16-byte aligned, "
+                       "d a multiple of 4")
+    else:
+        _build.require(values.dtype == torch.float32
+                       and values.is_contiguous()
+                       and (values.shape[1] % 4
+                            or values.data_ptr() % 16 == 0), what,
+                       "values must be contiguous f32, 16-byte aligned when "
+                       "d is a multiple of 4")
     k, d = values.shape
     if k == 0 or d == 0:
         return torch.zeros(pack.num_segments, d, dtype=torch.float32,
                            device=values.device)
     out = torch.empty(pack.num_segments, d, dtype=torch.float32,
                       device=values.device)
-    fn = _build.function("segscan", "ihgnn_csr_segment_scan", _ARGTYPES)
+    fn = _build.function("segscan", "ihgnn_csr_segment_scan_bf16" if bf16
+                         else "ihgnn_csr_segment_scan", _ARGTYPES)
     err = fn(values.data_ptr(), pack.pos.data_ptr(), pack.rowptr.data_ptr(),
              pack.block_seg.data_ptr(), out.data_ptr(), k, d, BLOCK,
              _build.stream_ptr(values.device))
     _build.check("segscan", what, err)
-    csr_segment_scan.launches += 1
+    _build.count(csr_segment_scan, bf16)
     return out
 
 
 csr_segment_scan.launches = 0
+csr_segment_scan.launches_bf16 = 0

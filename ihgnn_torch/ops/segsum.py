@@ -157,28 +157,40 @@ _SUM3_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] + [
 
 
 def csr_segment_sum3_plain(u: torch.Tensor, q: torch.Tensor, i: torch.Tensor,
-                           col: torch.Tensor, rowptr: torch.Tensor
+                           col: torch.Tensor, rowptr: torch.Tensor,
+                           out_dtype: Optional[torch.dtype] = None
                            ) -> torch.Tensor:
     """Plain twin of ``csr_segment_sum3`` (any device)."""
-    return csr_gather_sum_plain(torch.cat([u, q, i]), col, rowptr)
+    return csr_gather_sum_plain(torch.cat([u, q, i]), col, rowptr,
+                                out_dtype=out_dtype)
 
 
 def csr_segment_sum3(u: torch.Tensor, q: torch.Tensor, i: torch.Tensor,
-                     col: torch.Tensor, rowptr: torch.Tensor) -> torch.Tensor:
+                     col: torch.Tensor, rowptr: torch.Tensor,
+                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``[S, d]`` CSR sum over the rows of three regions ``u``, ``q``,
     ``i`` (each ``[M, d]``): column ``c`` reads row ``c % M`` of region
     ``c // M``, as if from ``cat([u, q, i])``, which is never built.
-    Counterpart of ``csr_segment_sum3_t`` (``segsum.py:403``). CPU tensors
-    run the plain twin; CUDA tensors launch ``csrc/segsum.cu`` and count
-    one in ``csr_segment_sum3.launches``."""
+    Counterpart of ``csr_segment_sum3_t`` (``segsum.py:403``). The sums run
+    in f32; the result is f32, or with ``out_dtype=torch.bfloat16`` (bf16
+    regions only) rounded once to bf16. CPU tensors run the plain twin;
+    CUDA tensors launch ``csrc/segsum.cu`` and count one in
+    ``csr_segment_sum3.launches`` (f32 regions) or
+    ``csr_segment_sum3.launches_bf16`` (bf16 regions, the vector form)."""
     what = "csr_segment_sum3"
     if not (u.shape == q.shape == i.shape and u.dim() == 2):
         raise ValueError(f"{what}: u, q and i must have one [M, d] shape")
+    if out_dtype not in (None, torch.float32, torch.bfloat16):
+        raise ValueError(f"{what}: out_dtype {out_dtype} is not f32 or bf16")
     if not _build.use_kernel(what, u, q, i, col, rowptr):
-        return csr_segment_sum3_plain(u, q, i, col, rowptr)
+        return csr_segment_sum3_plain(u, q, i, col, rowptr, out_dtype)
+    bf16 = u.dtype == torch.bfloat16
     for t in (u, q, i):
-        _build.require(t.dtype == torch.float32 and t.is_contiguous(), what,
-                       "u, q and i must be contiguous f32")
+        _build.require(t.dtype == u.dtype and t.dtype in (
+            torch.float32, torch.bfloat16) and t.is_contiguous(), what,
+            "u, q and i must be contiguous, all f32 or all bf16")
+    _build.require(bf16 or out_dtype in (None, torch.float32), what,
+                   "f32 regions sum into f32; no form rounds them to bf16")
     for name, t in (("col", col), ("rowptr", rowptr)):
         _build.require(t.dim() == 1 and t.dtype == torch.int32
                        and t.is_contiguous(), what,
@@ -186,16 +198,31 @@ def csr_segment_sum3(u: torch.Tensor, q: torch.Tensor, i: torch.Tensor,
     _build.require(3 * u.shape[0] < 2 ** 31, what,
                    "3 M must fit in int32")
     s, d = rowptr.shape[0] - 1, u.shape[1]
-    out = torch.empty(s, d, dtype=torch.float32, device=u.device)
+    out = torch.empty(s, d, dtype=out_dtype or torch.float32,
+                      device=u.device)
     if s == 0 or d == 0:
         return out
-    fn = _build.function("segsum", "ihgnn_csr_segment_sum3", _SUM3_ARGTYPES)
-    err = fn(u.data_ptr(), q.data_ptr(), i.data_ptr(), u.shape[0],
-             col.data_ptr(), rowptr.data_ptr(), out.data_ptr(), s, d,
-             int(vector_form(d, u, q, i, out)), _build.stream_ptr(u.device))
+    vector = vector_form(d, u, q, i, out)
+    if bf16:
+        _build.require(vector, what, "the bf16 form is a vector form: d must "
+                       "be a multiple of 4 and the regions and out 16-byte "
+                       "aligned")
+        fn = _build.function("segsum", "ihgnn_csr_segment_sum3_bf16",
+                             _SUM3_ARGTYPES)
+        err = fn(u.data_ptr(), q.data_ptr(), i.data_ptr(), u.shape[0],
+                 col.data_ptr(), rowptr.data_ptr(), out.data_ptr(), s, d,
+                 int(out.dtype == torch.bfloat16),
+                 _build.stream_ptr(u.device))
+    else:
+        fn = _build.function("segsum", "ihgnn_csr_segment_sum3",
+                             _SUM3_ARGTYPES)
+        err = fn(u.data_ptr(), q.data_ptr(), i.data_ptr(), u.shape[0],
+                 col.data_ptr(), rowptr.data_ptr(), out.data_ptr(), s, d,
+                 int(vector), _build.stream_ptr(u.device))
     _build.check("segsum", what, err)
-    csr_segment_sum3.launches += 1
+    _build.count(csr_segment_sum3, bf16)
     return out
 
 
 csr_segment_sum3.launches = 0
+csr_segment_sum3.launches_bf16 = 0

@@ -418,22 +418,6 @@ def test_hyper_ops_bf16_match_f64(graphs):
     assert_f32_close(out, want)
 
 
-def test_routed_pack_with_bf16_raises(graphs):
-    """The routed pack has no bf16 forms (ROADMAP queue 1 item 4b): the
-    layer raises rather than run f32."""
-    data = make_synthetic_data(user_count=6, query_count=5, item_count=9,
-                               vocab_size=12, log_count=60, seed=3)
-    routed = tgraph.build_hypergraph(data.pos_uqif, data.node_count,
-                                     data.user_count, data.query_count,
-                                     pack_kernels=True)
-    assert routed.kp is not None
-    layer = tlayers.IHGNNLayer(8, 8, bf16_stream=True)
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        layer(torch.zeros(routed.node_count, 8), routed)
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        torch_hyper_ops(routed, bf16_stream=True)
-
-
 # ---------------------------------------------------------------------------
 # the layer and the model against the JAX XLA bf16 path
 # ---------------------------------------------------------------------------

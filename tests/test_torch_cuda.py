@@ -11,7 +11,10 @@ repository's conftest is left out):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 The routed path's kernels (K6/K7 permutes, K2's single-index forms, K1's
-three-region form, K5, K8) and Functions are covered at the end. K3's
+three-region form, K5, K8) and Functions are covered at the end, then the
+bf16 forms: K2, K1, K3 and ``interact_bwd`` (the direct path's), and the
+routed pack's (``gather_rows[_t]``, the three-region K1, K5 and K8) with
+the routed Functions on bf16 streams. K3's
 forward (and K5's) has two forms, the tensor-core form (3xTF32 on staged
 edge tiles) and the f32-core form; both are held at every order and
 output width, on ragged edge counts and on rows of magnitude 1e3.
@@ -939,13 +942,15 @@ def test_permute_forms(dev, dtype, d, rows, cols):
                     generator=_gen(dev, rows + d)).to(dtype)
     p = _perm_table(dev, rows, cols, 1)
     pt = _perm_table(dev, cols, rows, 2)
-    before = (row_local_permute.launches, transposed_local_permute.launches)
+    count = "launches_bf16" if dtype == torch.bfloat16 else "launches"
+    before = (getattr(row_local_permute, count),
+              getattr(transposed_local_permute, count))
     got = [row_local_permute(x, p), transposed_local_permute(x),
            transposed_local_permute(x, p),
            transposed_local_permute(x, pt, pre=True)]
     torch.cuda.synchronize()
-    assert (row_local_permute.launches - before[0],
-            transposed_local_permute.launches - before[1]) == (1, 3)
+    assert (getattr(row_local_permute, count) - before[0],
+            getattr(transposed_local_permute, count) - before[1]) == (1, 3)
     want = [row_local_permute_plain(x, p),
             transposed_local_permute_plain(x),
             transposed_local_permute_plain(x, p),
@@ -1546,7 +1551,7 @@ def test_bf16_wrappers_refuse_what_no_form_takes(dev):
         interact_fwd(v, v, v, w.to(BF16), b, 1)
     pi = torch.zeros(4, 10, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="no bf16 form"):
-        interact_fwd_absorb(v, v, v, pi, w, b, 1)
+        interact_fwd_absorb_cores(v, v, v, pi, w, b, 1)
     col = torch.zeros(3, dtype=torch.int32, device=dev)
     rowptr = torch.tensor([0, 3], dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="no weight"):
@@ -1556,8 +1561,9 @@ def test_bf16_wrappers_refuse_what_no_form_takes(dev):
     with pytest.raises(ValueError, match="no form rounds"):
         csr_gather_sum(torch.randn(4, 8, device=dev), col, rowptr,
                        out_dtype=BF16)
-    with pytest.raises(ValueError):
-        csr_segment_sum3(v, v, v, col, rowptr)
+    x6 = torch.randn(4, 6, device=dev).to(BF16)         # d % 4 != 0
+    with pytest.raises(ValueError, match="vector form"):
+        csr_segment_sum3(x6, x6, x6, col, rowptr)
     with pytest.raises(ValueError):                      # bf16 x, f32 roles
         gather_roles(v, torch.zeros(4, 3, dtype=torch.int32, device=dev),
                      torch.float32)
@@ -1598,3 +1604,217 @@ def test_bf16_functions_grads_on_card_match_cpu(dev):
     for a, c in zip(cuda[0] + cuda[1], cpu[0] + cpu[1]):
         torch.testing.assert_close(a, c, rtol=0,
                                    atol=1e-2 * c.abs().max().item())
+
+
+# ---------------------------------------------------------------------------
+# the routed pack's bf16 forms: gather_rows[_t], the three-region K1, K5, K8
+# ---------------------------------------------------------------------------
+#
+# Tolerances as for the direct path's bf16 forms above. K5's bf16 backward
+# runs interact_bwd's bf16 arithmetic on the merged cotangent, so it is also
+# held bit for bit to interact_bwd's bf16 form on the pre-permuted inputs;
+# K8's bf16 form sums in K1's order, bit for bit K1's bf16 forms over the
+# same entries; o2 is a copy of o1.
+
+
+@pytest.mark.parametrize("x_bf16", [False, True])
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("d", [4, 8, 32])
+def test_gather_rows_bf16(dev, transposed, x_bf16, d):
+    g = _gen(dev, 11 + d)
+    x = torch.randn(999, d, device=dev, generator=g)
+    if x_bf16:
+        x = x.to(BF16)
+    idx = torch.randint(0, 999, (128, 256), device=dev, generator=g).int()
+    fn = gather_rows_t if transposed else gather_rows
+    before = (fn.launches, fn.launches_bf16)
+    got = fn(x, idx, dtype=BF16)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.launches_bf16) == (before[0], before[1] + 1)
+    assert got.dtype == BF16
+    assert torch.equal(got, gather_rows_plain(x, idx, transposed, BF16))
+    out = torch.empty_like(got)
+    assert fn(x, idx, out=out) is out and torch.equal(out, got)
+
+
+@pytest.mark.parametrize("out_dtype", [None, BF16])
+@pytest.mark.parametrize("d", [4, 8, 32, 64])
+def test_csr_segment_sum3_bf16(dev, out_dtype, d):
+    """Three bf16 regions: the f32 sums bit for bit K1's bf16 form on the
+    concatenation, within 1e-5 of the twin; rounded once with
+    ``out_dtype``."""
+    col, rowptr = _csr(dev, 1000, 3 * 700, 9000, seed=12 + d)
+    g = _gen(dev, 13 + d)
+    u, q, i = (torch.randn(700, d, device=dev, generator=g).to(BF16)
+               for _ in range(3))
+    before = (csr_segment_sum3.launches, csr_segment_sum3.launches_bf16)
+    got = csr_segment_sum3(u, q, i, col, rowptr, out_dtype)
+    torch.cuda.synchronize()
+    assert (csr_segment_sum3.launches, csr_segment_sum3.launches_bf16) == \
+        (before[0], before[1] + 1)
+    want = csr_gather_sum(torch.cat([u, q, i]), col, rowptr,
+                          out_dtype=out_dtype)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    plain = csr_segment_sum3_plain(u, q, i, col, rowptr, out_dtype)
+    if out_dtype is None:
+        torch.testing.assert_close(got, plain, rtol=0, atol=1e-5)
+    else:
+        _assert_bf16_ulp(got, plain)
+
+
+def _absorb_bf16(dev, rows, cols, d, order, seed, masked, out=32):
+    u, q, i_t1, pi, w, b, c1, c2, mask = _absorb_inputs(
+        dev, rows, cols, d, order, seed, masked, out)
+    return (u.to(BF16), q.to(BF16), i_t1.to(BF16), pi, w, b, c1.to(BF16),
+            c2.to(BF16), mask)
+
+
+@pytest.mark.parametrize("order", [1, 2, 3])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("rows,cols,d,out", [(16, 128, 32, 32),
+                                             (40, 256, 16, 8),
+                                             (300, 8, 8, 64),
+                                             (3, 1024, 24, 16)])
+def test_interact_absorb_bf16(dev, order, masked, rows, cols, d, out):
+    """K5's bf16 forms against their twins (1 bf16 ulp; dW, db 1e-4), o2 a
+    copy of o1 through ρ, the backward bit for bit ``interact_bwd``'s bf16
+    form on the pre-permuted inputs; masked σ pads reach no gradient."""
+    u, q, i_t1, pi, w, b, c1, c2, mask = _absorb_bf16(
+        dev, rows, cols, d, order, 7 * order + rows + masked, masked, out)
+    before = (interact_fwd_absorb.launches_bf16,
+              interact_bwd_absorb.launches_bf16,
+              interact_fwd_absorb.launches, interact_bwd_absorb.launches)
+    o1, o2 = interact_fwd_absorb(u, q, i_t1, pi, w, b, order)
+    got = interact_bwd_absorb(u, q, i_t1, pi, w, c1, c2, mask, order)
+    torch.cuda.synchronize()
+    assert (interact_fwd_absorb.launches_bf16 - before[0],
+            interact_bwd_absorb.launches_bf16 - before[1],
+            interact_fwd_absorb.launches - before[2],
+            interact_bwd_absorb.launches - before[3]) == (1, 1, 0, 0)
+    p1, p2 = interact_fwd_absorb_plain(u, q, i_t1, pi, w, b, order)
+    _assert_bf16_ulp(o1, p1, "o1")
+    _assert_bf16_ulp(o2, p2, "o2")
+    e_pi = (torch.arange(rows, device=dev)[:, None] * cols
+            + pi.long()).view(-1)
+    assert torch.equal(o2[e_pi], o1)
+    _assert_identity(got, interact_bwd_absorb_via_direct(
+        u, q, i_t1, pi, w, c1, c2, mask, order))
+    _assert_bwd_bf16_close(got, interact_bwd_absorb_plain(
+        u, q, i_t1, pi, w, c1, c2, mask, order))
+    if masked:
+        pads = mask == 0
+        assert (got[0][0][pads] == 0).all() and (got[0][1][pads] == 0).all()
+    again = interact_bwd_absorb(u, q, i_t1, pi, w, c1, c2, mask, order)
+    _assert_identity(got, again)
+
+
+@pytest.mark.parametrize("d", [4, 8, 32, 64, 96])
+@pytest.mark.parametrize("case", ["cross_one", "cross_many",
+                                  "sentinel_blocks", "shuffled"])
+def test_csr_segment_scan_bf16(dev, d, case):
+    """K8's bf16 form: bit for bit K1's bf16 form over the same entries,
+    within 1e-5 a term of its twin, repeatable."""
+    if case == "shuffled":
+        ids, n = _scan_ids(6, 50_000, 3000, True), 3003
+    else:
+        ids = _scan_shaped_ids(case)
+        n = int(ids[ids != 2**31 - 1].max()) + 3
+    pack = pack_scan_inputs(ids, n).to(dev)
+    vals = torch.randn(len(ids), d, device=dev,
+                       generator=_gen(dev, d)).to(BF16)
+    before = (csr_segment_scan.launches, csr_segment_scan.launches_bf16)
+    got = csr_segment_scan(vals, pack)
+    torch.cuda.synchronize()
+    assert (csr_segment_scan.launches, csr_segment_scan.launches_bf16) == \
+        (before[0], before[1] + 1)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, _k1_over(ids, vals, n))
+    assert torch.equal(got, csr_segment_scan(vals, pack))
+    longest = int((pack.rowptr[1:] - pack.rowptr[:-1]).max())
+    torch.testing.assert_close(got, csr_segment_scan_plain(vals, pack),
+                               rtol=0, atol=1e-5 * max(1, longest))
+
+
+def test_routed_bf16_node_sums_agree(dev):
+    """On a routed pack: K8's bf16 form and the bf16 three-region K1 on the
+    same node-update stream, bit for bit."""
+    kp = _routed_graph().kp.to(dev)
+    stream = torch.randn(3 * kp.e_pad, 32, device=dev,
+                         generator=_gen(dev, 30)).to(BF16)
+    assert torch.equal(csr_segment_scan(stream, kp.scan),
+                       csr_segment_sum3(*stream.view(3, kp.e_pad, 32),
+                                        kp.seg_col, kp.seg_rowptr))
+
+
+def _bf16_routed_launches():
+    return {name: (globals()[name].launches,
+                   globals()[name].launches_bf16)
+            for name in _ROUTED_WRAPPERS}
+
+
+@pytest.mark.parametrize("absorb", [False, True])
+def test_routed_functions_bf16_on_card_match_cpu(dev, absorb):
+    """One routed IHGNN layer on bf16 streams (absorbed or not) on the
+    card against the CPU: the node sums and the gradients of x, W and b
+    within 1e-2 of their largest values (twins and kernels round at the
+    same points, but an f32 sum in another order may round an edge row the
+    other way); the exact launches of one forward and backward, all in the
+    bf16 forms."""
+    graph = _routed_graph()
+    ops = {}
+
+    def layer(device, x, w, b):
+        if device not in ops:
+            g = graph.to(device)
+            ops[device] = (make_hyper_ops(g, bf16_stream=True,
+                                          absorb=absorb), g.kp)
+        (gather, scatter), kp = ops[device]
+        if absorb:
+            return scatter(InteractAbsorbFn.apply(gather(x), w, b, kp.i.p2,
+                                                  kp.sig_mask, 3))
+        return scatter(InteractFn.apply(gather(x), w, b, 3))
+
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(graph.node_count, 32, generator=g)
+    w = torch.randn(7 * 32, 32, generator=g) / 15
+    b = torch.randn(32, generator=g)
+    before = _bf16_routed_launches()
+    cuda = _grads(dev, layer, x, w, b)
+    launched = {k: (v[0] - before[k][0], v[1] - before[k][1])
+                for k, v in _bf16_routed_launches().items()}
+    if absorb:
+        want = dict(gather_rows=2, gather_rows_t=4, row_local_permute=0,
+                    transposed_local_permute=8, csr_segment_sum3=2,
+                    interact_fwd=0, interact_bwd=0, interact_fwd_absorb=1,
+                    interact_bwd_absorb=1)
+    else:
+        want = dict(gather_rows=2, gather_rows_t=4, row_local_permute=2,
+                    transposed_local_permute=10, csr_segment_sum3=2,
+                    interact_fwd=1, interact_bwd=1, interact_fwd_absorb=0,
+                    interact_bwd_absorb=0)
+    assert launched == {k: (0, v) for k, v in want.items()}
+    cpu = _grads(torch.device("cpu"), layer, x, w, b)
+    for a, c in zip(cuda[0] + cuda[1], cpu[0] + cpu[1]):
+        assert a.dtype == c.dtype == torch.float32
+        torch.testing.assert_close(a, c, rtol=0,
+                                   atol=1e-2 * c.abs().max().item())
+
+
+def test_routed_bf16_wrappers_refuse_what_no_form_takes(dev):
+    x = torch.randn(100, 6, device=dev)                  # d % 4 != 0
+    idx = torch.zeros(4, 8, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        gather_rows(x, idx, dtype=BF16)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        gather_rows_t(x, idx, dtype=torch.float16)
+    r = torch.randn(8, 8, device=dev)
+    col = torch.zeros(3, dtype=torch.int32, device=dev)
+    rowptr = torch.tensor([0, 3], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="no form rounds"):
+        csr_segment_sum3(r, r, r, col, rowptr, BF16)
+    with pytest.raises(ValueError, match="all f32 or all bf16"):
+        csr_segment_sum3(r.to(BF16), r, r, col, rowptr)
+    pack = pack_scan_inputs(np.zeros(SCAN_BLOCK, np.int64), 1).to(dev)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        csr_segment_scan(torch.randn(SCAN_BLOCK, 6, device=dev).to(BF16),
+                         pack)
