@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``ihgnn_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --reference ROOT    # also time ROOT's build
     python3 chip_smoke.py --features [ROOT]   # serving forward times only
 
 Phases, each printing one JSON line; any failure exits non-zero:
@@ -134,6 +135,19 @@ window runs its step twice, a warm-up the profiler discards, then the
 recorded one, and lists the kernels of the exported trace beside the
 profiler's events.
 
+K1's bf16 forms have two lane widths (``bf16_form``): each row of the
+16-byte lanes also times the same call on rows 8 bytes off a 16-byte
+boundary, which take the 8-byte lanes (``eight_byte_ms``), and holds the
+two bit for bit; the direct bf16 rows also time the same call with the
+ids sorted (``sorted_ids_ms``: the same segment lengths, the rows read in
+order). Phase 3 also holds K1's bf16 form over the two-chunk
+spanning CSR (``csr_segment_sum3_multi``'s bf16 shape). With
+``--reference ROOT`` (another checkout, e.g. the parent unpacked with
+``git archive``) ROOT's ``csrc/segsum.cu`` and ``csrc/interact_bwd.cu``
+are built beside this checkout's, and each row of their bf16 forms also
+carries ``parent_ms``: the same call on the same inputs through ROOT's
+build.
+
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Needs a CUDA card; exits non-zero without one.
 """
@@ -239,6 +253,33 @@ def time_ms(torch, fn) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / REPS
+
+
+# --reference ROOT: {stem: ROOT's build of csrc/<stem>.cu}
+REFERENCE = {}
+REFERENCE_STEMS = ("segsum", "interact_bwd")
+
+
+def parent_ms(torch, stem, run) -> dict:
+    """``{"parent_ms": t}``, the device time of ``run(builds, lib)`` with the
+    reference checkout's build ``lib`` of ``csrc/<stem>.cu`` (``--reference``)
+    and ``builds`` the module ``ihgnn_torch.compare_builds``, whose ``run_*``
+    call a build's C entry points; ``{}`` without one."""
+    lib = REFERENCE.get(stem)
+    if lib is None:
+        return {}
+    from ihgnn_torch import compare_builds
+    return {"parent_ms": time_ms(torch, lambda: run(compare_builds, lib))}
+
+
+def rows_at(torch, x, offset_bytes):
+    """A contiguous copy of ``x`` whose data begins ``offset_bytes`` past a
+    16-byte boundary (a row view aligned to 8 bytes only, for 8)."""
+    n = offset_bytes // x.element_size()
+    buf = torch.empty(x.numel() + n, dtype=x.dtype, device=x.device)
+    view = buf[n:].view(x.shape)
+    view.copy_(x)
+    return view
 
 
 def _wrappers():
@@ -971,10 +1012,12 @@ def check_routed_bf16_kernels(torch, dev, kp, results):
     regions into f32 (the node update) and into bf16 (the gather's
     backward), K5 forward and backward on bf16 roles at orders 3 and 1
     with the σ mask (the backward also bit for bit ``interact_bwd``'s bf16
-    form on the pre-permuted inputs, timed beside it), and K8 on a bf16
-    node-update stream (bit for bit the bf16 three-region K1). Held and
-    bounded as ``check_bf16_kernels``; the library calls are
-    ``index_select`` of a bf16 copy and ``torch.sparse.mm`` in bf16."""
+    form on the pre-permuted inputs, timed beside it), K8 on a bf16
+    node-update stream (bit for bit the bf16 three-region K1), and K1's
+    bf16 form over the two-chunk spanning CSR of ``check_routed_kernels``
+    (``csr_segment_sum3_multi`` on bf16 chunk streams). Held and bounded
+    as ``check_bf16_kernels``; the library calls are ``index_select`` of
+    a bf16 copy and ``torch.sparse.mm`` in bf16."""
     from ihgnn_torch.ops.gather import (gather_rows, gather_rows_plain,
                                         gather_rows_t)
     from ihgnn_torch.ops.interact import (ORDER_PARTS, interact_bwd,
@@ -985,7 +1028,8 @@ def check_routed_bf16_kernels(torch, dev, kp, results):
                                           interact_fwd_absorb_plain)
     from ihgnn_torch.ops.segscan import (csr_segment_scan,
                                          csr_segment_scan_plain)
-    from ihgnn_torch.ops.segsum import (csr_gather_sum, csr_segment_sum3,
+    from ihgnn_torch.ops.segsum import (csr_gather_sum, csr_gather_sum_plain,
+                                        csr_segment_sum3,
                                         csr_segment_sum3_plain)
 
     bf16 = torch.bfloat16
@@ -1048,10 +1092,15 @@ def check_routed_bf16_kernels(torch, dev, kp, results):
         return {"library_max_abs_err":
                 (lib_out - want.float()).abs().max().item()}
 
+    regions8 = [rows_at(torch, r, 8) for r in regions]
     k1 = None
     for out_dtype, use in ((None, "node update"), (bf16, "gather backward")):
         k_out = csr_segment_sum3(*regions, col, rowptr, out_dtype)
         p_out = csr_segment_sum3_plain(*regions, col, rowptr, out_dtype)
+        if not torch.equal(k_out, csr_segment_sum3(*regions8, col, rowptr,
+                                                   out_dtype)):
+            fail(f"csr_segment_sum3 bf16 {use}: the 16-byte lanes differ "
+                 "from the 8-byte lanes")
         if out_dtype is None:
             k1 = k_out
             err, tol = (k_out - p_out).abs().max().item(), 1e-4
@@ -1072,8 +1121,16 @@ def check_routed_bf16_kernels(torch, dev, kp, results):
                + (2 if out_dtype else 4) * n * D, 3 * e * D,
                single_table_ms=time_ms(torch, lambda: csr_gather_sum(
                    stream, col, rowptr, out_dtype=out_dtype)),
+               eight_byte_ms=time_ms(torch, lambda: csr_segment_sum3(
+                   *regions8, col, rowptr, out_dtype)),
+               **parent_ms(
+                   torch, "segsum",
+                   lambda cb, ref: cb.run_k1_three_bf16(
+                       ref, *regions, col, rowptr,
+                       out_dtype or torch.float32)),
                **library(p_out))
         del k_out, p_out
+    del regions8
     k8 = csr_segment_scan(stream, kp.scan)
     if not torch.equal(k8, k1):
         fail("csr_segment_scan bf16 differs from the bf16 three-region K1")
@@ -1087,7 +1144,41 @@ def check_routed_bf16_kernels(torch, dev, kp, results):
                                       + kp.scan.rowptr.numel()
                                       + kp.scan.block_seg.numel()),
            3 * e * D, equal_to_k1=True, **library(p8))
-    del regions, stream, csr, k1, k8, p8, lib_out
+    del regions, csr, k1, k8, p8, lib_out
+
+    # csr_segment_sum3_multi's bf16 form (segsum.py:686 on bf16 chunk
+    # streams): K1's bf16 form over the two-chunk spanning CSR of the f32
+    # row (check_routed_kernels), with the same seeded layout
+    chunks = torch.cat([stream, randn(3 * e_pad, D).to(bf16)])
+    del stream
+    seg = torch.repeat_interleave(torch.arange(n, device=dev),
+                                  (rowptr[1:] - rowptr[:-1]).long())
+    order = torch.sort(torch.cat([seg, seg]), stable=True).indices
+    col2 = torch.cat([col, col + 3 * e_pad])[order].int()
+    rowptr2 = 2 * rowptr
+    del seg, order
+    k_out = csr_gather_sum(chunks, col2, rowptr2)
+    p_out = csr_gather_sum_plain(chunks, col2, rowptr2)
+    csr2 = torch.sparse_csr_tensor(rowptr2, col2, torch.ones(
+        col2.numel(), device=dev, dtype=bf16), size=(n, chunks.shape[0]))
+    try:
+        lib2 = {"library_max_abs_err": (torch.sparse.mm(csr2, chunks).float()
+                                        - p_out).abs().max().item()}
+        torch.cuda.synchronize()
+        l2_fn = lambda: torch.sparse.mm(csr2, chunks)   # noqa: E731
+    except (RuntimeError, NotImplementedError) as exc:
+        lib2, l2_fn = {"library_note": f"none: {type(exc).__name__}: "
+                       f"{str(exc)[:160]}"}, None
+    record("csr_gather_sum_bf16", f"two-chunk node update [2 x 3 x [{e_pad}, "
+           f"{D}] bf16 chunk regions, {col2.numel()} entries -> [{n}, {D}] "
+           f"f32]", (k_out - p_out).abs().max().item(), 1e-4,
+           lambda: csr_gather_sum(chunks, col2, rowptr2),
+           lambda: csr_gather_sum_plain(chunks, col2, rowptr2), l2_fn,
+           2 * col2.numel() * D + 4 * (col2.numel() + rowptr2.numel()
+                                       + n * D),
+           col2.numel() * D, replaces="ihgnn_tpu/ops/pallas/segsum.py:686",
+           **lib2)
+    del chunks, col2, rowptr2, k_out, p_out, csr2
 
     # K5 on bf16 roles at orders 3 and 1, masked
     u, q, i_t1 = (randn(e_pad, D).to(bf16) for _ in range(3))
@@ -1162,7 +1253,11 @@ def check_routed_bf16_kernels(torch, dev, kp, results):
                bf16_flops=e_pad * 2 * 2 * parts * D * D, errors=errors,
                max_abs_err_all=max(v["max_abs_err"]
                                    for v in errors.values()),
-               bitwise_equal=bitwise, direct_on_permuted_ms=direct_ms)
+               bitwise_equal=bitwise, direct_on_permuted_ms=direct_ms,
+               **parent_ms(
+                   torch, "interact_bwd",
+                   lambda cb, ref: cb.run_bwd_bf16(
+                       ref, True, u, q, i_t1, pi, w, c1, c2, mask, order)))
         del k_b, p_b
     del u, q, i_t1, c1, c2, e_pi
 
@@ -1255,10 +1350,24 @@ def check_bf16_kernels(torch, dev, graph, results):
     def sum_bf16(label, rows, col, rowptr, width=None):
         s_out = rowptr.numel() - 1
         out16 = width is not None
+        out_dtype = bf16 if out16 else None
         k_out = csr_gather_sum(rows, col, rowptr, width=width,
-                               out_dtype=bf16 if out16 else None)
-        p_out = csr_gather_sum_plain(rows, col, rowptr,
-                                     out_dtype=bf16 if out16 else None)
+                               out_dtype=out_dtype)
+        p_out = csr_gather_sum_plain(rows, col, rowptr, out_dtype=out_dtype)
+        rows8 = rows_at(torch, rows, 8)
+        # the same segment lengths with the ids in ascending order: the
+        # rows are read in order, so its time is what the random rows cost;
+        # with every id 0 one row is read from L1, which leaves the ids, the
+        # warps' own work and the stores; the output's memset is the
+        # stores' floor
+        sorted_col = torch.sort(col).values
+        zero_col = torch.zeros_like(col)
+        out_like = torch.empty_like(k_out)
+        if not torch.equal(k_out, csr_gather_sum(rows8, col, rowptr,
+                                                 width=width,
+                                                 out_dtype=out_dtype)):
+            fail(f"csr_gather_sum bf16 {label}: the 16-byte lanes differ "
+                 "from the 8-byte lanes")
         if out16:
             err, tol = bf16_held(torch, f"csr_gather_sum bf16 {label}",
                                  k_out, p_out)
@@ -1280,7 +1389,22 @@ def check_bf16_kernels(torch, dev, graph, results):
                + (0 if width else 4 * rowptr.numel())
                + (2 if out16 else 4) * s_out * D, col.numel() * D,
                lib if l_fn is not None else None,
+               eight_byte_ms=time_ms(torch, lambda: csr_gather_sum(
+                   rows8, col, rowptr, width=width, out_dtype=out_dtype)),
+               sorted_ids_ms=time_ms(torch, lambda: csr_gather_sum(
+                   rows, sorted_col, rowptr, width=width,
+                   out_dtype=out_dtype)),
+               same_row_ms=time_ms(torch, lambda: csr_gather_sum(
+                   rows, zero_col, rowptr, width=width,
+                   out_dtype=out_dtype)),
+               output_memset_ms=time_ms(torch, out_like.zero_),
+               **parent_ms(
+                   torch, "segsum",
+                   lambda cb, ref: cb.run_k1_bf16(
+                       ref, rows, col, rowptr, width or 0,
+                       out_dtype or torch.float32)),
                **({} if l_fn is not None else {"library_note": lib}))
+        del rows8, sorted_col, zero_col, out_like
 
     edge = randn(E, D).to(bf16)
     sum_bf16("node update", edge, graph.inc_edge, graph.rowptr)
@@ -1338,7 +1462,11 @@ def check_bf16_kernels(torch, dev, graph, results):
                E * (D * (hadamard + product_rule) + D),
                bf16_flops=E * 2 * 2 * parts * D * D, errors=errors,
                max_abs_err_all=max(v["max_abs_err"]
-                                   for v in errors.values()))
+                                   for v in errors.values()),
+               **parent_ms(
+                   torch, "interact_bwd",
+                   lambda cb, ref: cb.run_bwd_bf16(
+                       ref, False, u, q, i, None, w, cot, None, None, order)))
         del k_droles, k_params, p_droles, p_params
     del u, q, i, cot
 
@@ -2353,7 +2481,8 @@ def _same_state(torch, a, b):
 
 def features_only(torch, root: str) -> None:
     """``--features ROOT``: the serving forward of the direct and routed
-    paths at full width with the port of the checkout at ROOT, timed as
+    paths, f32 and on bf16 streams, at full width with the port of the
+    checkout at ROOT, timed as
     ``run_serving`` times it (the second call, then FEATURE_REPEATS warm
     calls), and the host time of each graph's build. It reads only what
     every slice of the port has, so one call can time two checkouts on one
@@ -2378,8 +2507,11 @@ def features_only(torch, root: str) -> None:
     out = {"phase": "features", "root": root,
            "package": str(sys.modules["ihgnn_torch"].__file__),
            "graph_build_s": build_s}
-    for path, graph_cpu in (("direct", graph_cpu), ("routed", routed_cpu)):
-        model = RawGnn(ModelConfig(), U, Q, I, VOCAB,
+    for path, graph_cpu, bf16 in (
+            ("direct", graph_cpu, False), ("routed", routed_cpu, False),
+            ("direct_bf16", graph_cpu, True),
+            ("routed_bf16", routed_cpu, True)):
+        model = RawGnn(ModelConfig(bf16_stream=bf16), U, Q, I, VOCAB,
                        generator=torch.Generator().manual_seed(0)).to(dev)
         model.eval()
         features_fn, _ = make_eval_fns(model, graph_cpu, qw, qc, device=dev)
@@ -2421,11 +2553,27 @@ def main() -> int:
 
     from ihgnn_torch.ops import native
     t0 = time.perf_counter()
+    reference = None
+    if sys.argv[1:2] == ["--reference"]:
+        # ROOT's builds, their nvcc processes beside this checkout's
+        import threading
+        from ihgnn_torch.compare_builds import build_pair
+        reference = {}
+        ref_build = threading.Thread(target=lambda: reference.update(
+            build_pair(pathlib.Path(sys.argv[2]), REFERENCE_STEMS,
+                       tags=("reference",))))
+        ref_build.start()
     libs = _build.build()
     native.load()        # g++: the routed pack's router
+    if reference is not None:
+        ref_build.join()
+        if len(reference) != len(REFERENCE_STEMS):
+            fail(f"the reference build of {sys.argv[2]} failed")
+        REFERENCE.update({stem: lib for (_, stem), lib in reference.items()})
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": [str(p.relative_to(_build.PACKAGE.parent))
-                        for p in (*libs.values(), native.library_path())]})
+                        for p in (*libs.values(), native.library_path())],
+          "reference": sys.argv[2] if reference is not None else None})
 
     t0 = time.perf_counter()
     graph_cpu, uqi = random_graph(U, Q, I, E, seed=0)

@@ -1,6 +1,7 @@
-"""Hold this checkout's f32 interaction, segment-sum, gather and scan
-kernels bit for bit against another checkout's build of them, and K5's
-backward against this build's direct backward, on the same inputs.
+"""Hold this checkout's interaction, segment-sum, gather and scan kernels,
+f32 and bf16 forms, bit for bit against another checkout's build of them,
+and K5's backward against this build's direct backward, on the same
+inputs.
 
     python3 -m ihgnn_torch.compare_builds --reference DIR
 
@@ -29,7 +30,15 @@ runs on the same seeded inputs:
 * this checkout's ``ihgnn_interact_bwd_absorb`` against its own
   ``ihgnn_interact_bwd`` on the pre-permuted inputs (i[e_pi] and the
   merged, masked cotangent), di scattered back to t1 order: the identity
-  of ``interact_bwd_absorb_via_direct``.
+  of ``interact_bwd_absorb_via_direct``;
+* the bf16 forms: ``ihgnn_csr_gather_sum_bf16`` (into f32, and the
+  fixed-width form into bf16) and ``ihgnn_csr_segment_sum3_bf16`` (into
+  f32 and into bf16) at d = 8, 12, 32, 64 and on 8-byte aligned rows at
+  d = 32 (both lane widths); ``ihgnn_csr_segment_scan_bf16`` (K8);
+  ``ihgnn_interact_bwd_bf16`` and ``ihgnn_interact_bwd_absorb_bf16`` at
+  orders 1-3, masked and with no mask, with ``cols`` equal to the chunk
+  (1024 edges) and not, and this checkout's bf16 K5 backward against its
+  own bf16 ``interact_bwd`` on the pre-permuted inputs.
 
 Prints one JSON line a case and, last, ``{"bitwise_equal": ...}``; exits 1
 when any output differs in any bit. Needs a CUDA card and nvcc.
@@ -65,21 +74,39 @@ ARGTYPES = {
     "ihgnn_csr_gather_sum": [PTR] * 5 + [INT] * 4 + [PTR],
     "ihgnn_csr_segment_sum3": [PTR] * 3 + [INT] + [PTR] * 3 + [INT] * 3
     + [PTR],
+    "ihgnn_csr_gather_sum_bf16": [PTR] * 4 + [INT] * 4 + [PTR],
+    "ihgnn_csr_segment_sum3_bf16": [PTR] * 3 + [INT] + [PTR] * 3
+    + [INT] * 3 + [PTR],
+    "ihgnn_csr_segment_scan_bf16": [PTR] * 5 + [INT] * 3 + [PTR],
+    "ihgnn_interact_bwd_bf16": [PTR] * 8 + [INT] * 5 + [PTR],
+    "ihgnn_interact_bwd_absorb_bf16": [PTR] * 11 + [INT] * 6 + [PTR],
 }
+BF16 = torch.bfloat16
 # (edges, d, out) of each case; the first is the train step's shape
 SHAPES = ((2_000_000, 32, 32), (4097, 16, 64), (3000, 8, 8), (389, 12, 16))
 COLS = {2_000_000: 1000, 4097: 241, 3000: 100, 389: 389}
+# (edges, d, out, cols) of the bf16 backward's cases; the first is the
+# routed pack's (cols the chunk, 1024 edges), the second the direct train
+# step's
+BF16_SHAPES = ((2_097_152, 32, 32, 1024), (2_000_000, 32, 32, 1000),
+               (4097, 16, 64, 241), (3072, 8, 16, 1024), (3000, 24, 8, 100))
+# widths of K1's bf16 cases: 12 takes the 8-byte lanes, the others the
+# 16-byte lanes (and the 8-byte lanes on rows aligned to 8 bytes only)
+BF16_WIDTHS = (8, 12, 32, 64)
 
 
-def build_pair(reference: Path, stems) -> dict:
-    """``{(tag, stem): loaded library}`` for tag ``"reference"`` and
-    ``"this"``, all built at once."""
+def build_pair(reference: Path, stems,
+               tags=("reference", "this")) -> dict:
+    """``{(tag, stem): loaded library}`` for each tag of ``tags``
+    (``"reference"``: the checkout at ``reference``; ``"this"``: this one),
+    all built at once."""
     out_dir = _build.BUILD / "compare"
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _build.find_nvcc()
     jobs = {}
-    for tag, csrc in (("reference", reference / "ihgnn_torch" / "csrc"),
-                      ("this", _build.CSRC)):
+    roots = {"reference": reference / "ihgnn_torch" / "csrc",
+             "this": _build.CSRC}
+    for tag, csrc in ((tag, roots[tag]) for tag in tags):
         for stem in stems:
             lib = out_dir / f"{tag}-{stem}.so"
             log = open(out_dir / f"{tag}-{stem}.log", "w")
@@ -149,6 +176,69 @@ def run_fwd(lib, name, u, q, i, pi, w, b, order):
     return outs
 
 
+def run_bwd_bf16(lib, absorb, u, q, i, pi, w, cot, c2, mask, order):
+    """``ihgnn_interact_bwd_bf16`` or, with ``absorb``,
+    ``ihgnn_interact_bwd_absorb_bf16`` of ``lib`` (mask None: no mask)."""
+    e, d = u.shape
+    out = w.shape[1]
+    droles = torch.empty(3, e, d, dtype=BF16, device=u.device)
+    chunks = -(-e // CHUNK_EDGES)
+    partial = torch.empty(chunks, w.shape[0] + 1, out, device=u.device)
+    dw_ext = torch.empty(w.shape[0] + 1, out, device=u.device)
+    stream = _build.stream_ptr(u.device)
+    if absorb:
+        err = entry(lib, "ihgnn_interact_bwd_absorb_bf16")(
+            u.data_ptr(), q.data_ptr(), i.data_ptr(), pi.data_ptr(),
+            w.data_ptr(), cot.data_ptr(), c2.data_ptr(),
+            None if mask is None else mask.data_ptr(), droles.data_ptr(),
+            partial.data_ptr(), dw_ext.data_ptr(), e, d, out, order,
+            pi.shape[1], CHUNK_EDGES, stream)
+    else:
+        err = entry(lib, "ihgnn_interact_bwd_bf16")(
+            u.data_ptr(), q.data_ptr(), i.data_ptr(), w.data_ptr(),
+            cot.data_ptr(), droles.data_ptr(), partial.data_ptr(),
+            dw_ext.data_ptr(), e, d, out, order, CHUNK_EDGES, stream)
+    if err:
+        raise RuntimeError(f"interact_bwd bf16 (absorb={absorb}): CUDA "
+                           f"error {err}")
+    return droles, dw_ext
+
+
+def run_k1_bf16(lib, x, col, rowptr, width=0, out_dtype=torch.float32):
+    """``ihgnn_csr_gather_sum_bf16`` of ``lib`` on bf16 rows ``x``."""
+    s, d = rowptr.numel() - 1, x.shape[1]
+    out = torch.empty(s, d, dtype=out_dtype, device=x.device)
+    err = entry(lib, "ihgnn_csr_gather_sum_bf16")(
+        x.data_ptr(), col.data_ptr(), rowptr.data_ptr(), out.data_ptr(), s,
+        d, width, int(out_dtype == BF16), _build.stream_ptr(x.device))
+    if err:
+        raise RuntimeError(f"csr_gather_sum bf16: CUDA error {err}")
+    return (out,)
+
+
+def run_k1_three_bf16(lib, u, q, i, col, rowptr, out_dtype=torch.float32):
+    """``ihgnn_csr_segment_sum3_bf16`` of ``lib`` on bf16 regions."""
+    s, d = rowptr.numel() - 1, u.shape[1]
+    out = torch.empty(s, d, dtype=out_dtype, device=u.device)
+    err = entry(lib, "ihgnn_csr_segment_sum3_bf16")(
+        u.data_ptr(), q.data_ptr(), i.data_ptr(), u.shape[0], col.data_ptr(),
+        rowptr.data_ptr(), out.data_ptr(), s, d, int(out_dtype == BF16),
+        _build.stream_ptr(u.device))
+    if err:
+        raise RuntimeError(f"csr_segment_sum3 bf16: CUDA error {err}")
+    return (out,)
+
+
+def rows_at(x, offset_bytes):
+    """A contiguous copy of ``x`` whose data begins ``offset_bytes`` past a
+    16-byte boundary (a row view aligned to 8 bytes only, for 8)."""
+    n = offset_bytes // x.element_size()
+    buf = torch.empty(x.numel() + n, dtype=x.dtype, device=x.device)
+    view = buf[n:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
 def run_k1(lib, x, col, rowptr, weight, vector, width):
     s, d = rowptr.numel() - 1, x.shape[1]
     out = torch.empty(s, d, device=x.device)
@@ -178,7 +268,9 @@ def k1_cases(libs, dev, gen) -> dict:
     """``{case: (reference outputs, this checkout's)}`` of K1's f32 forms
     on 300k rows of d = 32: a CSR of 100k segments, most of 0-10 entries
     and a few hubs of 5k-50k, and a fixed-width CSR of 3 entries a
-    segment."""
+    segment; and of its bf16 forms on 300k bf16 rows of each width of
+    ``BF16_WIDTHS`` with the same CSRs (the three-region form on three
+    100k-row regions, the columns taken modulo 300k)."""
     rows, d = 300_000, 32
     counts = torch.randint(0, 11, (100_000,), device=dev, generator=gen)
     counts[::20_000] = torch.tensor([50_000, 20_000, 5_000, 10_000, 8_000],
@@ -207,6 +299,30 @@ def k1_cases(libs, dev, gen) -> dict:
                  run_k1(lib, x, col, rowptr, weight, 0, 0)),
                 ("csr_segment_sum3", run_k1_three(lib, x, col, rowptr))):
             cases.setdefault(name, []).append(outs)
+    for d in BF16_WIDTHS:
+        x16 = torch.randn(rows, d, device=dev, generator=gen).to(BF16)
+        views = [("", x16)]
+        if d == 32:
+            views.append((" 8-byte rows", rows_at(x16, 8)))
+        m = rows // 3
+        for tag in ("reference", "this"):
+            lib = libs[tag, "segsum"]
+            for label, x in views:
+                regions = (x[:m], x[m:2 * m], x[2 * m:3 * m])
+                three_col = col % (3 * m)
+                for name, outs in (
+                        (f"csr_gather_sum bf16{label} d {d}",
+                         run_k1_bf16(lib, x, col, rowptr)),
+                        (f"csr_gather_sum bf16{label} fixed width 3 -> bf16 "
+                         f"d {d}", run_k1_bf16(lib, x, fixed_col, fixed_ptr,
+                                               3, BF16)),
+                        (f"csr_segment_sum3 bf16{label} d {d}",
+                         run_k1_three_bf16(lib, *regions, three_col,
+                                           rowptr)),
+                        (f"csr_segment_sum3 bf16{label} -> bf16 d {d}",
+                         run_k1_three_bf16(lib, *regions, three_col, rowptr,
+                                           BF16))):
+                    cases.setdefault(name, []).append(outs)
     return cases
 
 
@@ -223,7 +339,9 @@ def run_gather(lib, name, x, idx):
 def run_scan(lib, values, pack):
     k, d = values.shape
     out = torch.empty(pack.num_segments, d, device=values.device)
-    err = entry(lib, "ihgnn_csr_segment_scan")(
+    name = ("ihgnn_csr_segment_scan_bf16" if values.dtype == BF16
+            else "ihgnn_csr_segment_scan")
+    err = entry(lib, name)(
         values.data_ptr(), pack.pos.data_ptr(), pack.rowptr.data_ptr(),
         pack.block_seg.data_ptr(), out.data_ptr(), k, d, BLOCK,
         _build.stream_ptr(values.device))
@@ -236,7 +354,8 @@ def gather_scan_cases(libs, dev, gen) -> dict:
     """``{case: (reference outputs, this checkout's)}`` of K2's
     single-index forms (700k rows of d = 32 into a [1024, 1024] grid) and
     K8 (a stream of 1,048,576 entries, block-sorted, runs of 1-200 entries
-    crossing blocks, 5 % sentinels; d = 32 and the 4-byte form's d = 5)."""
+    crossing blocks, 5 % sentinels; d = 32 and the 4-byte form's d = 5;
+    its bf16 form at d = 32 and 12)."""
     x = torch.randn(700_000, 32, device=dev, generator=gen)
     idx = torch.randint(0, 700_000, (1024, 1024), device=dev,
                         generator=gen).int()
@@ -251,6 +370,8 @@ def gather_scan_cases(libs, dev, gen) -> dict:
     pack = pack_scan_inputs(ids, n).to(dev)
     v32 = torch.randn(k, 32, device=dev, generator=gen)
     v5 = torch.randn(k, 5, device=dev, generator=gen)
+    v32_16, v12_16 = v32.to(BF16), torch.randn(k, 12, device=dev,
+                                               generator=gen).to(BF16)
     cases = {}
     for tag in ("reference", "this"):
         g, sc = libs[tag, "gather"], libs[tag, "segscan"]
@@ -259,7 +380,9 @@ def gather_scan_cases(libs, dev, gen) -> dict:
                 ("gather_rows_t", run_gather(g, "ihgnn_gather_rows_t", x,
                                              idx)),
                 ("csr_segment_scan d 32", run_scan(sc, v32, pack)),
-                ("csr_segment_scan d 5", run_scan(sc, v5, pack))):
+                ("csr_segment_scan d 5", run_scan(sc, v5, pack)),
+                ("csr_segment_scan bf16 d 32", run_scan(sc, v32_16, pack)),
+                ("csr_segment_scan bf16 d 12", run_scan(sc, v12_16, pack))):
             cases.setdefault(name, []).append(outs)
     return cases
 
@@ -328,8 +451,60 @@ def main(argv=None) -> int:
                 print(json.dumps({"case": case, "edges": e, "d": d,
                                   "out": out, "order": order,
                                   "bitwise_equal": equal}), flush=True)
+    equal_all = bf16_bwd_cases(libs, dev, gen) and equal_all
     print(json.dumps({"bitwise_equal": equal_all}), flush=True)
     return 0 if equal_all else 1
+
+
+def bf16_bwd_cases(libs, dev, gen) -> bool:
+    """The bf16 backward of both builds (``interact_bwd`` and K5's) at
+    ``BF16_SHAPES``, orders 1-3, masked and with no mask, and this build's
+    bf16 K5 backward against its own ``interact_bwd`` on the pre-permuted
+    inputs; prints a line a case and returns whether all were equal."""
+    equal_all = True
+    for e, d, out, cols in BF16_SHAPES:
+        pi = torch.stack([torch.randperm(cols, device=dev, generator=gen)
+                          for _ in range(e // cols)]).int()
+        e_pi = (torch.arange(e // cols, device=dev)[:, None] * cols
+                + pi.long()).view(-1)
+        for order in (1, 2, 3):
+            u, q, i = (torch.randn(e, d, device=dev, generator=gen).to(BF16)
+                       for _ in range(3))
+            parts = ORDER_PARTS[order]
+            w = torch.randn(parts * d, out, device=dev,
+                            generator=gen) / (parts * d) ** 0.5
+            cot, c2 = (torch.randn(e, out, device=dev, generator=gen).to(BF16)
+                       for _ in range(2))
+            cases = {"interact_bwd bf16": [
+                run_bwd_bf16(libs[tag, "interact_bwd"], False, u, q, i, pi, w,
+                             cot, c2, None, order)
+                for tag in ("reference", "this")]}
+            this_bwd = libs["this", "interact_bwd"]
+            for masked in (True, False):
+                mask = ((torch.rand(e, device=dev, generator=gen) > 0.1)
+                        .float() if masked else None)
+                label = "masked" if masked else "no mask"
+                merged = cot + c2[e_pi]
+                if masked:
+                    merged = merged * mask[:, None].to(BF16)
+                direct = run_bwd_bf16(this_bwd, False, u, q, i[e_pi], pi, w,
+                                      merged.contiguous(), c2, None, order)
+                direct[0][2][e_pi] = direct[0][2].clone()
+                cases[f"interact_bwd_absorb_via_direct bf16 {label}"] = [
+                    direct, run_bwd_bf16(this_bwd, True, u, q, i, pi, w, cot,
+                                         c2, mask, order)]
+                cases[f"interact_bwd_absorb bf16 {label}"] = [
+                    run_bwd_bf16(libs[tag, "interact_bwd"], True, u, q, i, pi,
+                                 w, cot, c2, mask, order)
+                    for tag in ("reference", "this")]
+            torch.cuda.synchronize()
+            for case, (ref, this) in cases.items():
+                equal = all(torch.equal(a, c) for a, c in zip(ref, this))
+                equal_all = equal_all and equal
+                print(json.dumps({"case": case, "edges": e, "d": d,
+                                  "out": out, "cols": cols, "order": order,
+                                  "bitwise_equal": equal}), flush=True)
+    return equal_all
 
 
 if __name__ == "__main__":

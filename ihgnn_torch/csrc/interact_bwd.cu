@@ -104,9 +104,10 @@
 // shared memory, each thread on the vectors it copied, before the barrier
 // that shows the tile to all, so the dW product, the data product and db
 // all read the one rounded bf16 cotangent; di is stored at e_pi. Two
-// stages, as the direct bf16 form, each with its c2 plane and its rows'
-// e_pi. On the edges of one [R, C] grid it is bit for bit the direct bf16
-// form on the pre-permuted inputs. Bound: bytes, the direct bf16 form's
+// stages, as the direct bf16 form, each with its c2 plane; the chunk's
+// e_pi and mask are read once into shared memory. On the edges of one
+// [R, C] grid it is bit for bit the direct bf16 form on the pre-permuted
+// inputs. Bound: bytes, the direct bf16 form's
 // plus c2 (128 MB at the routed pack's 2,097,152 edges), pi and the mask.
 
 #include <cuda_runtime.h>
@@ -553,7 +554,9 @@ interact_bwd_fused_kernel(const float* __restrict__ u,
 // grid (chunks, slabs), kFusedThreads threads, as the fused kernel above.
 // Shared memory: W rounded to bf16 [parts * d][OUT + 8] (slab 0), then two
 // stages of u, q, i rows [kFusedTile][d + 8] and cot rows [kFusedTile][OUT
-// + 8], all bf16 (16 bytes of pad a row).
+// + 8], all bf16 (16 bytes of pad a row); ABSORB adds to each stage the
+// gathered c2 rows [kFusedTile][OUT + 8], and after the two stages the
+// chunk's e_pi (int32) and mask (f32), chunk_edges each.
 //
 // 1. dW^T [OUT, parts * d] += cot^T [OUT, T] . parts [T, parts * d]: warp w
 //    owns the features f = 32 fs + 8 w + g (the mma's n) and, for each
@@ -564,11 +567,24 @@ interact_bwd_fused_kernel(const float* __restrict__ u,
 // 2. Slab 0: dparts [16 edges, 8 features] = cot . W^T, k steps of 16
 //    outputs: A pairs from a staged cot row, B pairs from a staged W row;
 //    then the product rule in f32 and du, dq, di rounded to bf16, 4 bytes
-//    a store. Slab 0 also sums db in f32.
+//    a store (ABSORB: di at row e_pi). Slab 0 also sums db in f32.
 //
 // ABSORB: i and c2 through pi, the merged cotangent and the rho store of
 // di (the top of the file); cot2, pi, mask (or null) and cols are unused
-// without it.
+// without it. Before its first tile a block reads its chunk's slice of pi
+// and of the mask once, turns each pi into e_pi (the grid row's first edge
+// plus pi, the row found once for a chunk inside one grid row, else an
+// edge at a time) and keeps both in shared memory, so every tile's i and
+// c2 copies, the merge's mask and the di rows take their addresses from
+// shared memory and no copy waits on a load of pi.
+//
+// Shared memory and registers a block at order 3, d = out = 32 (ptxas,
+// sm_90a): the direct form 38,400 bytes and 160 registers a thread;
+// ABSORB 51,712 bytes and 164 registers, where the design that read pi
+// for each copy took 43,776 bytes and 158 registers (the chunk's 8,192
+// bytes of e_pi and mask replace each stage's 128 bytes of e_pi). Both
+// forms run 3 blocks an SM (12 warps), bound by registers, before and
+// after.
 template <int OUT, int ORDER, bool ABSORB>
 __global__ void __launch_bounds__(kFusedThreads)
 interact_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ u,
@@ -605,8 +621,11 @@ interact_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ u,
   bf16* ws = reinterpret_cast<bf16*>(smem);       // [R][SW], slab 0
   bf16* stages = ws + (data ? static_cast<size_t>(R) * SW : 0);
   // a stage: u, q, i rows [T][sd] and cot rows [T][SC]; ABSORB adds the
-  // gathered c2 rows [T][SC] and each row's e_pi (T int32)
-  const int stage_elems = T * (3 * sd + SC) + (ABSORB ? T * (SC + 2) : 0);
+  // gathered c2 rows [T][SC]
+  const int stage_elems = T * (3 * sd + SC) + (ABSORB ? T * SC : 0);
+  // ABSORB: the chunk's e_pi and mask, after the two stages
+  int* epis = reinterpret_cast<int*>(stages + 2 * stage_elems);
+  float* masks = reinterpret_cast<float*>(epis + chunk_edges);
 
   if (data) {
     for (int idx = threadIdx.x; idx < R * (OUT / 4); idx += kFusedThreads) {
@@ -624,9 +643,23 @@ interact_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ u,
   const int tiles = (e_end - e_begin + T - 1) / T;
   const int v8 = d >> 3;
 
+  if constexpr (ABSORB) {
+    // the chunk's e_pi and mask, read once; a chunk inside one grid row
+    // finds the row's first edge once
+    const bool one_row = e_begin / cols == (e_end - 1) / cols;
+    const int row_base = e_begin - e_begin % cols;
+    for (int te = threadIdx.x; te < e_end - e_begin; te += kFusedThreads) {
+      const int e = e_begin + te;
+      epis[te] = (one_row ? row_base : e - e % cols) + __ldg(pi + e);
+      masks[te] = mask != nullptr ? __ldg(mask + e) : 1.f;
+    }
+    __syncthreads();
+  }
+
   auto issue = [&](int tile) {
     bf16* buf = stages + (tile & 1) * stage_elems;
-    const int e0 = e_begin + tile * T;
+    const int t0 = tile * T;                // the tile's first chunk edge
+    const int e0 = e_begin + t0;
     const int n_e = min(T, e_end - e0);
     for (int idx = threadIdx.x; idx < 3 * T * v8; idx += kFusedThreads) {
       const int a = idx / (T * v8);
@@ -636,7 +669,7 @@ interact_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ u,
       const bool valid = te < n_e;
       const bf16* src = a == 0 ? u : (a == 1 ? q : it);
       int e = e0 + te;
-      if (ABSORB && a == 2 && valid) e = permuted_edge(pi, e, cols);
+      if (ABSORB && a == 2 && valid) e = epis[t0 + te];
       cp_async16(buf + (a * T + te) * sd + 8 * v,
                  valid ? src + static_cast<size_t>(e) * d + 8 * v : u,
                  valid);
@@ -653,28 +686,25 @@ interact_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ u,
         // c2 at e_pi, copied by the thread that copies the same c1 vector
         // (it merges them)
         cp_async16(buf + 3 * T * sd + (T + te) * SC + 8 * v,
-                   valid ? cot2 + static_cast<size_t>(permuted_edge(
-                                      pi, e0 + te, cols)) * OUT + 8 * v
+                   valid ? cot2 + static_cast<size_t>(epis[t0 + te]) * OUT +
+                               8 * v
                          : cot2,
                    valid);
       }
     }
-    if (ABSORB && threadIdx.x < n_e)
-      reinterpret_cast<int*>(buf + T * (3 * sd + 2 * SC))[threadIdx.x] =
-          permuted_edge(pi, e0 + threadIdx.x, cols);
     cp_async_commit();
   };
 
   // ABSORB: this thread's c1 vectors of the tile, merged with the c2
   // vectors it copied: round_bf16(c1 + c2), then times the mask
-  auto merge = [&](bf16* buf, int e0, int n_e) {
+  auto merge = [&](bf16* buf, int t0, int n_e) {
     bf16* cs = buf + 3 * T * sd;
     const bf16* c2s = cs + T * SC;
     for (int idx = threadIdx.x; idx < T * C8; idx += kFusedThreads) {
       const int te = idx / C8;
       if (te >= n_e) continue;
       const int at = te * SC + 8 * (idx - te * C8);
-      const float m = mask != nullptr ? __ldg(mask + e0 + te) : 1.f;
+      const float m = masks[t0 + te];
       uint4 x = *reinterpret_cast<const uint4*>(cs + at);
       const uint4 y = *reinterpret_cast<const uint4*>(c2s + at);
       unsigned* xs = reinterpret_cast<unsigned*>(&x);
@@ -706,7 +736,8 @@ interact_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ u,
 
   if (tiles > 0) issue(0);
   for (int tile = 0; tile < tiles; ++tile) {
-    const int e0 = e_begin + tile * T;
+    const int t0 = tile * T;
+    const int e0 = e_begin + t0;
     const int n_e = min(T, e_end - e0);
     if (tile + 1 < tiles) {
       issue(tile + 1);
@@ -716,14 +747,12 @@ interact_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ u,
     }
     // ABSORB: the tile has landed for this thread, which merges what it
     // copied
-    if (ABSORB) merge(stages + (tile & 1) * stage_elems, e0, n_e);
+    if (ABSORB) merge(stages + (tile & 1) * stage_elems, t0, n_e);
     __syncthreads();  // the tile (and W) has landed for every thread
     const bf16* us = stages + (tile & 1) * stage_elems;
     const bf16* qs = us + T * sd;
     const bf16* is = qs + T * sd;
     const bf16* cs = is + T * sd;
-    // ABSORB: e_pi of each row of the tile
-    const int* pis = reinterpret_cast<const int*>(cs + 2 * T * SC);
 
     // 1. dW^T += cot^T . parts, 16 edges a k step
     if (has2) {
@@ -851,7 +880,7 @@ interact_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ u,
               const size_t at = static_cast<size_t>(e0 + te) * d + f;
               // ABSORB: di for i_t1, at row e_pi
               const size_t at_i =
-                  ABSORB ? static_cast<size_t>(pis[te]) * d + f : at;
+                  ABSORB ? static_cast<size_t>(epis[t0 + te]) * d + f : at;
               *reinterpret_cast<unsigned*>(droles + at) =
                   pack_bf16(gu[0], gu[1]);
               *reinterpret_cast<unsigned*>(droles + plane + at) =
@@ -1020,14 +1049,15 @@ int launch_out(const void* u, const void* q, const void* i, const void* w,
 }
 
 // The bf16 form's shared memory: W [parts * d][OUT + 8] and two stages,
-// all bf16 (ABSORB: each stage with its c2 plane and its rows' e_pi); 0
-// when it does not fit in one block.
-size_t bf16_smem(int d, int out, int parts, bool absorb) {
+// all bf16 (ABSORB: each stage with its c2 plane, then the chunk's e_pi and
+// mask, 8 bytes an edge); 0 when it does not fit in one block.
+size_t bf16_smem(int d, int out, int parts, bool absorb, int chunk_edges) {
   const size_t bytes =
       sizeof(__nv_bfloat16) *
-      (static_cast<size_t>(parts) * d * (out + 8) +
-       2 * static_cast<size_t>(kFusedTile) *
-           (3 * (d + 8) + out + 8 + (absorb ? out + 8 + 2 : 0)));
+          (static_cast<size_t>(parts) * d * (out + 8) +
+           2 * static_cast<size_t>(kFusedTile) *
+               (3 * (d + 8) + out + 8 + (absorb ? out + 8 : 0))) +
+      (absorb ? 8 * static_cast<size_t>(chunk_edges) : 0);
   return bytes <= kSmemLimit ? bytes : 0;
 }
 
@@ -1037,7 +1067,8 @@ cudaError_t launch_bf16(const void* u, const void* q, const void* i,
                         void* droles, void* partial, void* dw_ext, int edges,
                         int d, int chunk_edges, cudaStream_t stream) {
   const int R = parts_of<ORDER>() * d;
-  const size_t smem = bf16_smem(d, OUT, parts_of<ORDER>(), ABSORB);
+  const size_t smem =
+      bf16_smem(d, OUT, parts_of<ORDER>(), ABSORB, chunk_edges);
   if (smem == 0 || d % 8 != 0) return cudaErrorInvalidValue;
   auto kernel = interact_bwd_bf16_kernel<OUT, ORDER, ABSORB>;
   cudaError_t err = cudaFuncSetAttribute(

@@ -51,23 +51,43 @@
 // positions in stream order; sigma pads have no entry.
 //
 // The bf16 forms (ModelConfig.bf16_stream; the Pallas kernels' bf16 values
-// with f32 accumulation, segsum.py:211-215, :368-372): the vector form,
-// without weights and not three-region, reading bf16 rows of x (8 bytes, four
-// features, a lane; widened to f32 exactly) into the same f32 accumulators in
-// the same order, and writing the sums as f32 (the node update, the gather's
-// backward) or rounded once to bf16 (the scatter's backward in the
-// fixed-width form: one bf16 row an edge). Bound: bytes, the bf16 reads at
-// half width.
+// with f32 accumulation, segsum.py:211-215, :368-372): without weights,
+// reading bf16 rows of x (widened to f32 exactly) into the same f32
+// accumulators in the same order, and writing the sums as f32 (the node
+// update, the gather's backward) or rounded once to bf16 (the scatter's
+// backward in the fixed-width form: one bf16 row an edge). csr_segment_sum3
+// has them too (the routed pack's bf16 streams, csr_segment_sum3_t on bf16
+// regions), written as f32 (the node update) or rounded once to bf16 (the
+// gather's backward, whose node gradient the Pallas path rounds to the
+// stream's dtype, ihgnn_tpu/ops/hyperagg.py:430, :597). Bound: bytes, the
+// bf16 reads at half width.
 //
-// csr_segment_sum3 has a bf16 form too (the routed pack's bf16 streams,
-// csr_segment_sum3_t on bf16 regions): the vector form over three bf16
-// regions, the same f32 accumulators in the same order, written as f32 (the
-// node update) or rounded once to bf16 (the gather's backward, whose node
-// gradient the Pallas path rounds to the stream's dtype,
-// ihgnn_tpu/ops/hyperagg.py:430, :597).
+// Two lane widths, chosen from d and the rows' alignment alone
+// (bf16_lane_bytes below; the wrapper's bf16_form applies the same rule):
+// - the 16-byte form (d % 8 == 0, 16-byte aligned rows; every width the
+//   model uses): csr_sum_bf16x8_kernel. A lane holds eight features, one
+//   uint4 of bf16 widened into two float4 accumulators; L is the least
+//   power of two >= d / 8, so at d = 32 a warp sums 8 segments, 4 lanes
+//   each. A group loads the ids of up to max(L, 8) entries at once, up to
+//   8 / L a lane, and the lane that loads an id resolves it to its row's
+//   address (the three-region form: its region and the row within it, by
+//   compare and subtract) before the shuffles hand it round; the loop
+//   that issues a lane's 8 row loads ahead of their adds then holds only
+//   shuffles, loads and adds.
+// - the 8-byte form (d % 4 == 0 with 8-byte aligned rows otherwise): the
+//   vector kernel above on bf16 rows, a lane four features (8 bytes),
+//   groups of L >= d / 4 lanes. It resolves a three-region id per lane and
+//   per entry (entry_row: a division by the region's rows).
+// Both add in entry order into one f32 accumulator a (segment, feature),
+// so the two forms, and K8's bf16 form (csrc/segscan.cu), give the same
+// bits. At d = 32 on an NVIDIA H100 80GB HBM3 (700 W) the three-region
+// sum takes 0.186 ms in the 16-byte form, where the 8-byte form's
+// divisions, one between each id's shuffle and its row's load, made it
+// 0.484 (PERF.md sections 6-7).
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <type_traits>
 
 #include "bf16.cuh"
@@ -249,6 +269,230 @@ int group_lanes(int d) {
   return lanes;
 }
 
+// Eight bf16 features (16 bytes) added to their f32 sums, features 0-3
+// into lo and 4-7 into hi: acc + x, as the f32 forms' fmaf(1, x, acc).
+__device__ __forceinline__ void add_bf16x8(const uint4& v, float4& lo,
+                                           float4& hi) {
+  const float4 a = widen_bf16x4(make_uint2(v.x, v.y));
+  const float4 b = widen_bf16x4(make_uint2(v.z, v.w));
+  lo.x += a.x;
+  lo.y += a.y;
+  lo.z += a.z;
+  lo.w += a.w;
+  hi.x += b.x;
+  hi.y += b.y;
+  hi.z += b.z;
+  hi.w += b.w;
+}
+
+// Eight sums stored at features 8 f8 .. 8 f8 + 7 of a row, rounded once
+// when bf16.
+__device__ __forceinline__ void store_oct(float* row, int f8, float4 lo,
+                                          float4 hi) {
+  reinterpret_cast<float4*>(row)[2 * f8] = lo;
+  reinterpret_cast<float4*>(row)[2 * f8 + 1] = hi;
+}
+
+__device__ __forceinline__ void store_oct(__nv_bfloat16* row, int f8,
+                                          float4 lo, float4 hi) {
+  const uint2 a = round_bf16x4(lo);
+  const uint2 b = round_bf16x4(hi);
+  reinterpret_cast<uint4*>(row)[f8] = make_uint4(a.x, a.y, b.x, b.y);
+}
+
+// The address of column c's row: THREE resolves region c / region_rows by
+// compare and subtract (no division), once, in the lane that loaded c.
+template <bool THREE>
+__device__ __forceinline__ unsigned long long row_address(
+    const __nv_bfloat16* x0, const __nv_bfloat16* x1,
+    const __nv_bfloat16* x2, int region_rows, int c, int d) {
+  const __nv_bfloat16* xr = x0;
+  if (THREE) {
+    if (c >= region_rows) {
+      c -= region_rows;
+      xr = x1;
+    }
+    if (c >= region_rows) {
+      c -= region_rows;
+      xr = x2;
+    }
+  }
+  return reinterpret_cast<unsigned long long>(xr + static_cast<size_t>(c) *
+                                                       d);
+}
+
+// Lane src's row address, handed round the group (two 32-bit shuffles).
+__device__ __forceinline__ const uint4* shfl_row(unsigned mask,
+                                                 unsigned long long a,
+                                                 int src, int width) {
+  const unsigned lo = __shfl_sync(mask, static_cast<unsigned>(a), src, width);
+  const unsigned hi =
+      __shfl_sync(mask, static_cast<unsigned>(a >> 32), src, width);
+  return reinterpret_cast<const uint4*>(
+      (static_cast<unsigned long long>(hi) << 32) | lo);
+}
+
+// The bf16 16-byte form (see the top of the file): groups of L lanes, 32 / L
+// segments a warp, a lane eight features; sums in f32, stored as Tout.
+template <int L, bool THREE, bool FIXED, typename Tout>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+csr_sum_bf16x8_kernel(const __nv_bfloat16* __restrict__ x0,
+                      const __nv_bfloat16* __restrict__ x1,
+                      const __nv_bfloat16* __restrict__ x2, int region_rows,
+                      const int* __restrict__ col,
+                      const int* __restrict__ rowptr,
+                      Tout* __restrict__ out, int num_segments, int d,
+                      int width) {
+  constexpr int G = 32 / L;                          // segments a warp
+  constexpr int J = kRowsInFlight;                   // row loads ahead
+  constexpr int B = L < J ? J : L;                   // entries a batch
+  constexpr int C = B / L;                           // ids a lane a batch
+  const int lane = threadIdx.x & 31;
+  const int grp = lane / L;
+  const int gl = lane - grp * L;
+  const long long warp = static_cast<long long>(blockIdx.x) *
+                             kWarpsPerBlock + (threadIdx.x >> 5);
+  const long long seg0 = warp * G;
+  if (seg0 >= num_segments) return;                  // uniform across the warp
+  const long long seg = seg0 + grp;
+  int begin, end;
+  if (FIXED) {
+    begin = static_cast<int>(seg * width);
+    end = seg < num_segments ? begin + width : begin;
+  } else {
+    // rowptr[seg0 .. seg0 + G] in one load, lane l holding entry l (at
+    // G = 32 the last group reads its end itself)
+    int rp = 0;
+    if (lane <= G && seg0 + lane <= num_segments)
+      rp = rowptr[seg0 + lane];
+    begin = __shfl_sync(0xffffffffu, rp, grp);
+    end = __shfl_sync(0xffffffffu, rp, (grp + 1) & 31);
+    if (seg >= num_segments)
+      end = begin;
+    else if (G == 32 && grp == 31)
+      end = rowptr[seg + 1];
+  }
+  // the group's lanes, for shuffles that stay inside it
+  const unsigned mask = L == 32 ? 0xffffffffu
+                                : ((1u << L) - 1u) << (grp * L);
+  const int v8 = d >> 3;                             // uint4s a row
+  for (int c0 = 0; c0 < v8; c0 += L) {
+    const int f8 = c0 + gl;
+    const bool active = f8 < v8;
+    float4 lo = make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 hi = lo;
+    for (int base = begin; base < end; base += B) {
+      // the rows of up to B entries: lane gl resolves entries base + gl +
+      // L m, m < C
+      unsigned long long addr[C];
+#pragma unroll
+      for (int m = 0; m < C; ++m) {
+        const int k = base + gl + L * m;
+        addr[m] = 0;
+        if (k < end)
+          addr[m] = row_address<THREE>(x0, x1, x2, region_rows,
+                                       __ldg(col + k), d);
+      }
+      const int n = min(B, end - base);
+#pragma unroll 1
+      for (int j0 = 0; j0 < n; j0 += J) {
+        uint4 v[J];
+#pragma unroll
+        for (int jj = 0; jj < J; ++jj) {
+          // C > 1 only where B == J: then j0 == 0 and entry jj lies in
+          // register jj / L of lane jj % L; else in register 0 of lane
+          // j0 + jj
+          const uint4* row =
+              C > 1 ? shfl_row(mask, addr[jj / L], jj % L, L)
+                    : shfl_row(mask, addr[0], j0 + jj, L);
+          v[jj] = make_uint4(0u, 0u, 0u, 0u);
+          if (active && j0 + jj < n) v[jj] = __ldg(row + f8);
+        }
+        // the adds in entry order
+#pragma unroll
+        for (int jj = 0; jj < J; ++jj) {
+          if (j0 + jj < n) add_bf16x8(v[jj], lo, hi);
+        }
+      }
+    }
+    if (active && seg < num_segments)
+      store_oct(out + static_cast<size_t>(seg) * d, f8, lo, hi);
+  }
+}
+
+template <int L, bool THREE, typename Tout>
+cudaError_t launch_x8_l(const __nv_bfloat16* x0, const __nv_bfloat16* x1,
+                        const __nv_bfloat16* x2, int region_rows,
+                        const int* col, const int* rowptr, Tout* out,
+                        int num_segments, int d, int width,
+                        cudaStream_t stream) {
+  constexpr int G = 32 / L;
+  const long long warps = (static_cast<long long>(num_segments) + G - 1) / G;
+  const long long blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const dim3 grid(static_cast<unsigned>(blocks));
+  const int threads = kWarpsPerBlock * 32;
+  if (!THREE && width > 0)
+    csr_sum_bf16x8_kernel<L, false, true, Tout>
+        <<<grid, threads, 0, stream>>>(x0, x0, x0, 0, col, rowptr, out,
+                                       num_segments, d, width);
+  else
+    csr_sum_bf16x8_kernel<L, THREE, false, Tout>
+        <<<grid, threads, 0, stream>>>(x0, x1, x2, region_rows, col, rowptr,
+                                       out, num_segments, d, 0);
+  return cudaGetLastError();
+}
+
+// The 16-byte form: L the least power of two >= d / 8, at most 32.
+template <bool THREE, typename Tout>
+cudaError_t launch_x8(const __nv_bfloat16* x0, const __nv_bfloat16* x1,
+                      const __nv_bfloat16* x2, int region_rows,
+                      const int* col, const int* rowptr, Tout* out,
+                      int num_segments, int d, int width,
+                      cudaStream_t stream) {
+  int lanes = 1;
+  while (lanes < d / 8 && lanes < 32) lanes *= 2;
+  switch (lanes) {
+    case 1: return launch_x8_l<1, THREE>(x0, x1, x2, region_rows, col,
+                                         rowptr, out, num_segments, d, width,
+                                         stream);
+    case 2: return launch_x8_l<2, THREE>(x0, x1, x2, region_rows, col,
+                                         rowptr, out, num_segments, d, width,
+                                         stream);
+    case 4: return launch_x8_l<4, THREE>(x0, x1, x2, region_rows, col,
+                                         rowptr, out, num_segments, d, width,
+                                         stream);
+    case 8: return launch_x8_l<8, THREE>(x0, x1, x2, region_rows, col,
+                                         rowptr, out, num_segments, d, width,
+                                         stream);
+    case 16: return launch_x8_l<16, THREE>(x0, x1, x2, region_rows, col,
+                                           rowptr, out, num_segments, d,
+                                           width, stream);
+    default: return launch_x8_l<32, THREE>(x0, x1, x2, region_rows, col,
+                                           rowptr, out, num_segments, d,
+                                           width, stream);
+  }
+}
+
+bool aligned(const void* p, unsigned bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// The bf16 forms' lane width in bytes, from d and the alignment of the rows
+// (x0, x1, x2) and of out alone: 16 for d % 8 == 0 and 16-byte aligned
+// rows, else 8 for d % 4 == 0 and 8-byte aligned rows, else 0 (refused).
+// out must be 16-byte aligned in either form. The wrapper's bf16_form
+// (ops/segsum.py) applies the same rule to the tensors.
+int bf16_lane_bytes(int d, const void* x0, const void* x1, const void* x2,
+                    const void* out) {
+  if (!aligned(out, 16)) return 0;
+  if (d % 8 == 0 && aligned(x0, 16) && aligned(x1, 16) && aligned(x2, 16))
+    return 16;
+  if (d % 4 == 0 && aligned(x0, 8) && aligned(x1, 8) && aligned(x2, 8))
+    return 8;
+  return 0;
+}
+
 template <int L, bool THREE, typename Tin = float, typename Tout = float>
 cudaError_t launch_vec_l(const Tin* x0, const Tin* x1, const Tin* x2,
                          int region_rows, const int* col, const int* rowptr,
@@ -356,18 +600,29 @@ extern "C" int ihgnn_csr_gather_sum(const void* x, const void* col,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The bf16 forms: x [M, d] bf16 (d % 4 == 0, rows 8-byte aligned), no
-// weight; out [S, d] f32 (out_bf16 == 0, 16-byte aligned) or bf16
-// (out_bf16 == 1, rounded once); width as above.
+// The bf16 forms: x [M, d] bf16, no weight; out [S, d] f32 (out_bf16 ==
+// 0) or bf16 (out_bf16 == 1, rounded once); width as above. The lane width
+// follows bf16_lane_bytes (refused: cudaErrorInvalidValue).
 extern "C" int ihgnn_csr_gather_sum_bf16(const void* x, const void* col,
                                          const void* rowptr, void* out,
                                          int num_segments, int d, int width,
                                          int out_bf16, void* stream) {
-  if (d % 4 != 0 || width < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int lane_bytes = bf16_lane_bytes(d, x, x, x, out);
+  if (lane_bytes == 0 || width < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
   const int* c = static_cast<const int*>(col);
   const int* rp = static_cast<const int*>(rowptr);
+  if (lane_bytes == 16) {
+    if (out_bf16)
+      return static_cast<int>(launch_x8<false>(
+          xb, xb, xb, 0, c, rp, static_cast<__nv_bfloat16*>(out),
+          num_segments, d, width, s));
+    return static_cast<int>(launch_x8<false>(xb, xb, xb, 0, c, rp,
+                                             static_cast<float*>(out),
+                                             num_segments, d, width, s));
+  }
   if (out_bf16)
     return static_cast<int>(launch_vec<false>(
         xb, xb, xb, 0, c, rp, nullptr, static_cast<__nv_bfloat16*>(out),
@@ -402,22 +657,32 @@ extern "C" int ihgnn_csr_segment_sum3(const void* x0, const void* x1,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The three-region bf16 form: x0, x1, x2 [region_rows, d] bf16 (d % 4 == 0,
-// rows 8-byte aligned); out f32 (out_bf16 == 0, 16-byte aligned) or bf16
-// (out_bf16 == 1, rounded once).
+// The three-region bf16 form: x0, x1, x2 [region_rows, d] bf16; out f32
+// (out_bf16 == 0) or bf16 (out_bf16 == 1, rounded once). The lane width
+// follows bf16_lane_bytes (refused: cudaErrorInvalidValue).
 extern "C" int ihgnn_csr_segment_sum3_bf16(const void* x0, const void* x1,
                                            const void* x2, int region_rows,
                                            const void* col,
                                            const void* rowptr, void* out,
                                            int num_segments, int d,
                                            int out_bf16, void* stream) {
-  if (d % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int lane_bytes = bf16_lane_bytes(d, x0, x1, x2, out);
+  if (lane_bytes == 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const __nv_bfloat16* a = static_cast<const __nv_bfloat16*>(x0);
   const __nv_bfloat16* b = static_cast<const __nv_bfloat16*>(x1);
   const __nv_bfloat16* c = static_cast<const __nv_bfloat16*>(x2);
   const int* cl = static_cast<const int*>(col);
   const int* rp = static_cast<const int*>(rowptr);
+  if (lane_bytes == 16) {
+    if (out_bf16)
+      return static_cast<int>(launch_x8<true>(
+          a, b, c, region_rows, cl, rp, static_cast<__nv_bfloat16*>(out),
+          num_segments, d, 0, s));
+    return static_cast<int>(launch_x8<true>(a, b, c, region_rows, cl, rp,
+                                            static_cast<float*>(out),
+                                            num_segments, d, 0, s));
+  }
   if (out_bf16)
     return static_cast<int>(launch_vec<true>(
         a, b, c, region_rows, cl, rp, nullptr,

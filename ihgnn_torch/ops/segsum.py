@@ -26,9 +26,13 @@ anything else. Both give the same bits. ``width`` names a CSR whose segments all
 
 bf16 rows (``ModelConfig.bf16_stream``: the node update of bf16 edge rows,
 the gather's backward of bf16 role cotangents, the scatter's backward) run
-the vector form's bf16 forms, without weights: the rows widen to f32
-exactly, the sums run in f32 in the same order, and the result is f32, or
-with ``out_dtype=torch.bfloat16`` rounded once to bf16. They count in
+the bf16 forms, without weights: the rows widen to f32 exactly, the sums
+run in f32 in the same order, and the result is f32, or with
+``out_dtype=torch.bfloat16`` rounded once to bf16. ``bf16_form`` picks
+their lane width from d and the rows' alignment alone: 16 bytes (eight
+features a lane) for d % 8 == 0 and 16-byte aligned rows, else 8 bytes
+(four) for d % 4 == 0 and 8-byte aligned rows; the C entry points apply
+the same rule, and both widths give the same bits. They count in
 ``csr_gather_sum.launches_bf16``; the f32 forms in
 ``csr_gather_sum.launches``.
 """
@@ -52,6 +56,18 @@ def vector_form(d: int, *tensors: torch.Tensor) -> bool:
     """True when K1's vector form takes rows of width ``d`` from
     ``tensors``: d a multiple of 4 and every tensor 16-byte aligned."""
     return d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def bf16_form(d: int, *tensors: torch.Tensor) -> int:
+    """The lane width in bytes of the bf16 form that takes bf16 rows of
+    width ``d`` from ``tensors``: 16 for d a multiple of 8 and every tensor
+    16-byte aligned, else 8 for d a multiple of 4 and every tensor 8-byte
+    aligned, else 0 (no bf16 form takes them)."""
+    if d % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors):
+        return 16
+    if d % 4 == 0 and all(t.data_ptr() % 8 == 0 for t in tensors):
+        return 8
+    return 0
 
 
 def csr_gather_sum_plain(x: torch.Tensor, col: torch.Tensor,
@@ -140,9 +156,9 @@ def _csr_gather_sum_bf16(x, col, rowptr, weight, width, out_dtype):
                       device=x.device)
     if s == 0 or d == 0:
         return out
-    _build.require(vector_form(d, x, out), what,
+    _build.require(bf16_form(d, x) > 0, what,
                    "the bf16 forms are vector forms: d must be a multiple of "
-                   "4 and x and out 16-byte aligned")
+                   "4 and x 8-byte aligned")
     fn = _build.function("segsum", "ihgnn_csr_gather_sum_bf16",
                          _BF16_ARGTYPES)
     err = fn(x.data_ptr(), col.data_ptr(), rowptr.data_ptr(), out.data_ptr(),
@@ -176,7 +192,8 @@ def csr_segment_sum3(u: torch.Tensor, q: torch.Tensor, i: torch.Tensor,
     regions only) rounded once to bf16. CPU tensors run the plain twin;
     CUDA tensors launch ``csrc/segsum.cu`` and count one in
     ``csr_segment_sum3.launches`` (f32 regions) or
-    ``csr_segment_sum3.launches_bf16`` (bf16 regions, the vector form)."""
+    ``csr_segment_sum3.launches_bf16`` (bf16 regions, the lane width of
+    ``bf16_form``)."""
     what = "csr_segment_sum3"
     if not (u.shape == q.shape == i.shape and u.dim() == 2):
         raise ValueError(f"{what}: u, q and i must have one [M, d] shape")
@@ -202,11 +219,10 @@ def csr_segment_sum3(u: torch.Tensor, q: torch.Tensor, i: torch.Tensor,
                       device=u.device)
     if s == 0 or d == 0:
         return out
-    vector = vector_form(d, u, q, i, out)
     if bf16:
-        _build.require(vector, what, "the bf16 form is a vector form: d must "
-                       "be a multiple of 4 and the regions and out 16-byte "
-                       "aligned")
+        _build.require(bf16_form(d, u, q, i) > 0, what, "the bf16 form is a "
+                       "vector form: d must be a multiple of 4 and the "
+                       "regions 8-byte aligned")
         fn = _build.function("segsum", "ihgnn_csr_segment_sum3_bf16",
                              _SUM3_ARGTYPES)
         err = fn(u.data_ptr(), q.data_ptr(), i.data_ptr(), u.shape[0],
@@ -218,7 +234,8 @@ def csr_segment_sum3(u: torch.Tensor, q: torch.Tensor, i: torch.Tensor,
                              _SUM3_ARGTYPES)
         err = fn(u.data_ptr(), q.data_ptr(), i.data_ptr(), u.shape[0],
                  col.data_ptr(), rowptr.data_ptr(), out.data_ptr(), s, d,
-                 int(vector), _build.stream_ptr(u.device))
+                 int(vector_form(d, u, q, i, out)),
+                 _build.stream_ptr(u.device))
     _build.check("segsum", what, err)
     _build.count(csr_segment_sum3, bf16)
     return out

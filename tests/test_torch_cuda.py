@@ -80,9 +80,9 @@ from ihgnn_torch.ops.segmax import (EMPTY_MAX, LONG_SEGMENT,
 from ihgnn_torch.ops.segscan import BLOCK as SCAN_BLOCK
 from ihgnn_torch.ops.segscan import (csr_segment_scan, csr_segment_scan_plain,
                                      pack_scan_inputs)
-from ihgnn_torch.ops.segsum import (csr_gather_sum, csr_gather_sum_plain,
-                                    csr_segment_sum3, csr_segment_sum3_plain,
-                                    vector_form)
+from ihgnn_torch.ops.segsum import (bf16_form, csr_gather_sum,
+                                    csr_gather_sum_plain, csr_segment_sum3,
+                                    csr_segment_sum3_plain, vector_form)
 
 pytestmark = pytest.mark.cuda
 
@@ -97,6 +97,16 @@ def dev():
 
 def _gen(dev, seed):
     return torch.Generator(device=dev).manual_seed(seed)
+
+
+def rows_at(x, offset_bytes):
+    """A contiguous copy of ``x`` whose data begins ``offset_bytes`` past a
+    16-byte boundary (a row view aligned to 8 bytes only, for 8)."""
+    n = offset_bytes // x.element_size()
+    buf = torch.empty(x.numel() + n, dtype=x.dtype, device=x.device)
+    view = buf[n:].view(x.shape)
+    view.copy_(x)
+    return view
 
 
 def _csr(dev, segments, rows, entries, seed):
@@ -1456,6 +1466,119 @@ def test_csr_gather_sum_bf16_fixed_width(dev):
     assert empty.shape == (0, 32)
 
 
+def _hub_csr(dev, segments, rows, seed):
+    """_csr with one segment of 6000 entries among empty and short ones."""
+    col, rowptr = _csr(dev, segments, rows, 8 * segments, seed)
+    counts = (rowptr[1:] - rowptr[:-1]).long()
+    counts[segments // 2] = 6000
+    ptr = torch.zeros(segments + 1, dtype=torch.int64, device=dev)
+    ptr[1:] = counts.cumsum(0)
+    col = torch.randint(0, rows, (int(ptr[-1].item()),), device=dev,
+                        generator=_gen(dev, seed + 1))
+    return col.int(), ptr.int()
+
+
+def _assert_sums_f64(got, x, col, rowptr):
+    """Each f32 segment sum within 2e-6 a term of its length (plus 1e-6)
+    of the float64 sum of the same rows."""
+    counts = (rowptr[1:] - rowptr[:-1]).long()
+    seg = torch.repeat_interleave(
+        torch.arange(counts.numel(), device=got.device), counts)
+    exact = torch.zeros(counts.numel(), x.shape[1], dtype=torch.float64,
+                        device=got.device).index_add_(
+        0, seg, x.double()[col.long()])
+    tol = (2e-6 * counts + 1e-6).double()[:, None]
+    assert ((got.double() - exact).abs() <= tol).all()
+
+
+BF16_LANE_WIDTHS = [8, 16, 24, 32, 40, 64, 128, 136]
+
+
+@pytest.mark.parametrize("d", BF16_LANE_WIDTHS + [12])
+def test_csr_gather_sum_bf16_lane_forms(dev, d):
+    """K1's bf16 forms in both lane widths, on empty segments and a hub of
+    6000 entries: each f32 sum within 2e-6 a term of the float64 sum,
+    rounded once into bf16, and the 16-byte lanes (d % 8 == 0, 16-byte
+    aligned rows) bit for bit the 8-byte lanes (the same rows 8 bytes off
+    a 16-byte boundary)."""
+    col, rowptr = _hub_csr(dev, 700, 900, seed=d)
+    x = torch.randn(900, d, device=dev, generator=_gen(dev, d)).to(BF16)
+    x8 = rows_at(x, 8)
+    assert bf16_form(d, x) == (16 if d % 8 == 0 else 8)
+    assert bf16_form(d, x8) == 8
+    before = csr_gather_sum.launches_bf16
+    got = csr_gather_sum(x, col, rowptr)
+    got16 = csr_gather_sum(x, col, rowptr, out_dtype=BF16)
+    torch.cuda.synchronize()
+    assert csr_gather_sum.launches_bf16 == before + 2
+    _assert_sums_f64(got, x, col, rowptr)
+    assert torch.equal(got16, got.to(BF16))
+    assert torch.equal(got, csr_gather_sum(x8, col, rowptr))
+    assert torch.equal(got16, csr_gather_sum(x8, col, rowptr,
+                                             out_dtype=BF16))
+    assert (got[(rowptr[1:] == rowptr[:-1])] == 0).all()
+
+
+@pytest.mark.parametrize("d", BF16_LANE_WIDTHS + [12])
+def test_csr_gather_sum_bf16_fixed_width_lane_forms(dev, d):
+    """The scatter's backward (3 entries a segment, into bf16) in both lane
+    widths: bit for bit the CSR form rounded, and each other."""
+    g = _gen(dev, 40 + d)
+    cot = torch.randn(777, d, device=dev, generator=g).to(BF16)
+    col = torch.randint(0, 777, (3 * 4001,), device=dev, generator=g).int()
+    rowptr = torch.arange(0, 3 * 4001 + 1, 3, device=dev).int()
+    got = csr_gather_sum(cot, col, rowptr, width=3, out_dtype=BF16)
+    assert torch.equal(got, csr_gather_sum(cot, col, rowptr).to(BF16))
+    assert torch.equal(got, csr_gather_sum(rows_at(cot, 8), col, rowptr,
+                                           width=3, out_dtype=BF16))
+    _assert_bf16_ulp(got, csr_gather_sum_plain(cot, col, rowptr,
+                                               out_dtype=BF16))
+
+
+@pytest.mark.parametrize("out_dtype", [None, BF16])
+@pytest.mark.parametrize("d", BF16_LANE_WIDTHS + [12])
+def test_csr_segment_sum3_bf16_lane_forms(dev, out_dtype, d):
+    """The three-region bf16 form over regions of 1021 rows (not a power
+    of two), entries in all three regions, empty segments and a hub: bit
+    for bit K1's single-table bf16 form on the concatenation, in both lane
+    widths; f32 sums within 2e-6 a term of float64, bf16 sums 1 ulp from
+    the twin."""
+    m = 1021
+    col, rowptr = _hub_csr(dev, 600, 3 * m, seed=60 + d)
+    for r in range(3):
+        assert ((col >= r * m) & (col < (r + 1) * m)).any()
+    g = _gen(dev, 61 + d)
+    u, q, i = (torch.randn(m, d, device=dev, generator=g).to(BF16)
+               for _ in range(3))
+    before = csr_segment_sum3.launches_bf16
+    got = csr_segment_sum3(u, q, i, col, rowptr, out_dtype)
+    torch.cuda.synchronize()
+    assert csr_segment_sum3.launches_bf16 == before + 1
+    assert torch.equal(got, csr_gather_sum(torch.cat([u, q, i]), col, rowptr,
+                                           out_dtype=out_dtype))
+    shifted = [rows_at(t, 8) for t in (u, q, i)]
+    assert bf16_form(d, *shifted) == 8
+    assert torch.equal(got, csr_segment_sum3(*shifted, col, rowptr,
+                                             out_dtype))
+    if out_dtype is None:
+        _assert_sums_f64(got, torch.cat([u, q, i]), col, rowptr)
+    else:
+        _assert_bf16_ulp(got, csr_segment_sum3_plain(u, q, i, col, rowptr,
+                                                     out_dtype))
+
+
+def test_bf16_lane_forms_refuse_misaligned_rows(dev):
+    """Rows aligned to less than 8 bytes take no bf16 form."""
+    col = torch.zeros(3, dtype=torch.int32, device=dev)
+    rowptr = torch.tensor([0, 3], dtype=torch.int32, device=dev)
+    x = rows_at(torch.randn(4, 32, device=dev).to(BF16), 2)
+    assert bf16_form(32, x) == 0
+    with pytest.raises(ValueError, match="bf16 forms are vector forms"):
+        csr_gather_sum(x, col, rowptr)
+    with pytest.raises(ValueError, match="vector form"):
+        csr_segment_sum3(x, x, x, col, rowptr)
+
+
 def _bf16_inputs(dev, edges, d, out, order, seed):
     u, q, i, w, cot = _bwd_inputs(dev, edges, d, out, order, seed)
     b = torch.randn(out, device=dev, generator=_gen(dev, seed + 1))
@@ -1706,6 +1829,26 @@ def test_interact_absorb_bf16(dev, order, masked, rows, cols, d, out):
         assert (got[0][0][pads] == 0).all() and (got[0][1][pads] == 0).all()
     again = interact_bwd_absorb(u, q, i_t1, pi, w, c1, c2, mask, order)
     _assert_identity(got, again)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("out", KERNEL_OUT_DIMS)
+@pytest.mark.parametrize("rows,cols", [(7, 256), (3, 1024), (2, 4096),
+                                       (37, 9), (5, 100)])
+def test_interact_bwd_absorb_bf16_chunks(dev, masked, out, rows, cols):
+    """K5's bf16 backward where the chunk's e_pi and mask are staged: a
+    chunk across grid rows (cols 256, 9, 100), inside one (1024, 4096),
+    E not a multiple of the 32-edge tile (333, 500), no mask: bit for bit
+    ``interact_bwd``'s bf16 form on the pre-permuted inputs, 1 bf16 ulp
+    (dW, db 1e-4) from the twin, at orders 3 and 1."""
+    for order in (3, 1):
+        u, q, i_t1, pi, w, _, c1, c2, mask = _absorb_bf16(
+            dev, rows, cols, 16, order, rows + cols + out, masked, out)
+        got = interact_bwd_absorb(u, q, i_t1, pi, w, c1, c2, mask, order)
+        _assert_identity(got, interact_bwd_absorb_via_direct(
+            u, q, i_t1, pi, w, c1, c2, mask, order))
+        _assert_bwd_bf16_close(got, interact_bwd_absorb_plain(
+            u, q, i_t1, pi, w, c1, c2, mask, order))
 
 
 @pytest.mark.parametrize("d", [4, 8, 32, 64, 96])
