@@ -143,10 +143,14 @@ ids sorted (``sorted_ids_ms``: the same segment lengths, the rows read in
 order). Phase 3 also holds K1's bf16 form over the two-chunk
 spanning CSR (``csr_segment_sum3_multi``'s bf16 shape). With
 ``--reference ROOT`` (another checkout, e.g. the parent unpacked with
-``git archive``) ROOT's ``csrc/segsum.cu`` and ``csrc/interact_bwd.cu``
-are built beside this checkout's, and each row of their bf16 forms also
-carries ``parent_ms``: the same call on the same inputs through ROOT's
-build.
+``git archive``) ROOT's ``csrc/segsum.cu``, ``csrc/interact_bwd.cu`` and
+``csrc/gather.cu`` are built beside this checkout's, and each row of
+their bf16 forms (K1's, the backward's and K2's) also carries
+``parent_ms``: the same call on the same inputs through ROOT's build. The
+bf16 backward rows (``interact_bwd`` and K5's) time the fixed-order sum
+over the chunks' partials alone (``reduce_ms``; the fused kernel takes
+the rest); K2's bf16 row times the copy from a ready bf16 x
+(``x_bf16_ms``) and the rounding of the f32 x alone (``round_ms``).
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Needs a CUDA card; exits non-zero without one.
@@ -257,7 +261,7 @@ def time_ms(torch, fn) -> float:
 
 # --reference ROOT: {stem: ROOT's build of csrc/<stem>.cu}
 REFERENCE = {}
-REFERENCE_STEMS = ("segsum", "interact_bwd")
+REFERENCE_STEMS = ("segsum", "interact_bwd", "gather")
 
 
 def parent_ms(torch, stem, run) -> dict:
@@ -270,6 +274,28 @@ def parent_ms(torch, stem, run) -> dict:
         return {}
     from ihgnn_torch import compare_builds
     return {"parent_ms": time_ms(torch, lambda: run(compare_builds, lib))}
+
+
+def reduce_ms(torch, w, edges):
+    """The device time (ms) of ``reduce_partials_kernel`` alone over the
+    partials of a backward of ``edges`` edges with weights ``w``: the
+    backward's time less this is its fused kernel's."""
+    import ctypes
+    from ihgnn_torch.ops import _build
+    from ihgnn_torch.ops.interact import CHUNK_EDGES
+    chunks = -(-edges // CHUNK_EDGES)
+    n = (w.shape[0] + 1) * w.shape[1]
+    partial = torch.randn(chunks, n, device=w.device)
+    out = torch.empty(n, device=w.device)
+    fn = _build.function("interact_bwd", "ihgnn_reduce_partials",
+                         [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                         + [ctypes.c_void_p])
+
+    def run():
+        _build.check("interact_bwd", "reduce_partials", fn(
+            partial.data_ptr(), out.data_ptr(), chunks, n,
+            _build.stream_ptr(w.device)))
+    return time_ms(torch, run)
 
 
 def rows_at(torch, x, offset_bytes):
@@ -1254,6 +1280,7 @@ def check_routed_bf16_kernels(torch, dev, kp, results):
                max_abs_err_all=max(v["max_abs_err"]
                                    for v in errors.values()),
                bitwise_equal=bitwise, direct_on_permuted_ms=direct_ms,
+               reduce_ms=reduce_ms(torch, w, e_pad),
                **parent_ms(
                    torch, "interact_bwd",
                    lambda cb, ref: cb.run_bwd_bf16(
@@ -1300,7 +1327,8 @@ def check_bf16_kernels(torch, dev, graph, results):
     ulp (``bf16_ulp_check``); its row's tolerance is 2^-6 of the largest
     value, which that rule implies. bf16 bytes over the HBM rate, bf16
     products over the dense bf16 rate."""
-    from ihgnn_torch.ops.gather import gather_roles, gather_roles_plain
+    from ihgnn_torch.ops.gather import (gather_roles, gather_roles_plain,
+                                        round_bf16)
     from ihgnn_torch.ops.interact import (ORDER_PARTS, interact_bwd,
                                           interact_bwd_plain, interact_fwd,
                                           interact_fwd_plain)
@@ -1336,12 +1364,18 @@ def check_bf16_kernels(torch, dev, graph, results):
     k_out = gather_roles(x, i3, bf16)
     if not torch.equal(k_out, gather_roles_plain(x, i3, bf16)):
         fail("gather_roles bf16 is not bitwise its twin")
+    if not torch.equal(gather_roles(x16, i3, bf16), k_out):
+        fail("gather_roles bf16 from a bf16 x differs from rounding x")
     record("gather_roles_bf16", f"[{n}, {D}] f32 -> 3 x [{E}, {D}] bf16",
            0.0, 0.0, lambda: gather_roles(x, i3, bf16),
            lambda: gather_roles_plain(x, i3, bf16),
            lambda: torch.index_select(x16, 0, flat),
            4 * x.numel() + 4 * i3.numel() + 2 * 3 * E * D, 0,
-           library_note="index_select of a bf16 copy of x")
+           library_note="index_select of a bf16 copy of x",
+           x_bf16_ms=time_ms(torch, lambda: gather_roles(x16, i3, bf16)),
+           round_ms=time_ms(torch, lambda: round_bf16(x)),
+           **parent_ms(torch, "gather",
+                       lambda cb, ref: cb.run_roles(ref, x, i3, bf16)))
     del x, x16, k_out, flat
 
     # K1 on bf16 rows: the node update and the gather's backward into f32,
@@ -1463,6 +1497,7 @@ def check_bf16_kernels(torch, dev, graph, results):
                bf16_flops=E * 2 * 2 * parts * D * D, errors=errors,
                max_abs_err_all=max(v["max_abs_err"]
                                    for v in errors.values()),
+               reduce_ms=reduce_ms(torch, w, E),
                **parent_ms(
                    torch, "interact_bwd",
                    lambda cb, ref: cb.run_bwd_bf16(

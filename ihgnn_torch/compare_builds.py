@@ -24,6 +24,11 @@ runs on the same seeded inputs:
   of both builds of ``segsum.cu``, on a CSR of short and hub segments;
 * ``ihgnn_gather_rows`` and ``ihgnn_gather_rows_t`` of both builds of
   ``gather.cu``;
+* K2, ``ihgnn_gather_roles`` (f32) and its bf16 form, at d = 8, 12, 32
+  and 64 on a ragged E whose ids reach the last row: from a bf16 x (also
+  on rows aligned to 8 bytes only, at d = 32), and from an f32 x, where a
+  build with ``ihgnn_round_bf16`` runs as its wrapper does (rounded into
+  a bf16 table, then copied) and one without it rounds in the copy;
 * ``ihgnn_csr_segment_scan`` (K8, its float4 and 4-byte forms) of both
   builds of ``segscan.cu``, on a block-sorted stream whose runs cross
   blocks;
@@ -69,6 +74,9 @@ ARGTYPES = {
     "ihgnn_interact_fwd": [PTR] * 6 + [INT] * 4 + [PTR],
     "ihgnn_interact_fwd_absorb": [PTR] * 8 + [INT] * 5 + [PTR],
     "ihgnn_gather_rows": [PTR] * 3 + [INT] * 3 + [PTR],
+    "ihgnn_gather_roles": [PTR] * 5 + [INT] * 2 + [PTR],
+    "ihgnn_gather_roles_bf16": [PTR, INT] + [PTR] * 4 + [INT] * 2 + [PTR],
+    "ihgnn_round_bf16": [PTR] * 2 + [ctypes.c_longlong, PTR],
     "ihgnn_gather_rows_t": [PTR] * 3 + [INT] * 3 + [PTR],
     "ihgnn_csr_segment_scan": [PTR] * 5 + [INT] * 3 + [PTR],
     "ihgnn_csr_gather_sum": [PTR] * 5 + [INT] * 4 + [PTR],
@@ -336,6 +344,61 @@ def run_gather(lib, name, x, idx):
     return (out,)
 
 
+def run_roles(lib, x, i3, dtype):
+    """K2 of ``lib``: ``ihgnn_gather_roles`` (f32 roles) or its bf16 form
+    (bf16 roles). An f32 x goes to the bf16 form as the build's wrapper
+    hands it: rounded into a bf16 table by ``ihgnn_round_bf16`` where the
+    build has it, else as it is (the form that rounds in the copy)."""
+    e, d = i3.shape[0], x.shape[1]
+    out = torch.empty(3, e, d, dtype=dtype, device=x.device)
+    stream = _build.stream_ptr(x.device)
+    planes = (out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr())
+    if dtype == torch.float32:
+        err = entry(lib, "ihgnn_gather_roles")(x.data_ptr(), i3.data_ptr(),
+                                               *planes, e, d, stream)
+    else:
+        if x.dtype == torch.float32 and hasattr(lib, "ihgnn_round_bf16"):
+            table = torch.empty(x.shape, dtype=BF16, device=x.device)
+            err = entry(lib, "ihgnn_round_bf16")(
+                x.data_ptr(), table.data_ptr(), x.numel(), stream)
+            if err:
+                raise RuntimeError(f"round_bf16: CUDA error {err}")
+            x = table
+        err = entry(lib, "ihgnn_gather_roles_bf16")(
+            x.data_ptr(), int(x.dtype == BF16), i3.data_ptr(), *planes, e, d,
+            stream)
+    if err:
+        raise RuntimeError(f"gather_roles ({dtype}): CUDA error {err}")
+    return (out,)
+
+
+def roles_cases(libs, dev, gen) -> dict:
+    """``{case: (reference outputs, this checkout's)}`` of K2 at each
+    width of ``BF16_WIDTHS``: 100,003 rows, 300,001 edges (a ragged last
+    block) whose ids are random but for the first and last edges', which
+    read rows 0 and N - 1; f32 roles from an f32 x, bf16 roles from that x
+    (rounded) and from a bf16 x, and at d = 32 from bf16 rows aligned to 8
+    bytes only."""
+    n, e = 100_003, 300_001
+    i3 = torch.randint(0, n, (e, 3), device=dev, generator=gen).int()
+    i3[0], i3[-1] = 0, n - 1
+    cases = {}
+    for d in BF16_WIDTHS:
+        x = torch.randn(n, d, device=dev, generator=gen)
+        x16 = torch.randn(n, d, device=dev, generator=gen).to(BF16)
+        runs = [(f"gather_roles d {d}", x, torch.float32),
+                (f"gather_roles bf16 from f32 d {d}", x, BF16),
+                (f"gather_roles bf16 from bf16 d {d}", x16, BF16)]
+        if d == 32:
+            runs.append((f"gather_roles bf16 from bf16 8-byte rows d {d}",
+                         rows_at(x16, 8), BF16))
+        for tag in ("reference", "this"):
+            for name, rows, dtype in runs:
+                cases.setdefault(name, []).append(
+                    run_roles(libs[tag, "gather"], rows, i3, dtype))
+    return cases
+
+
 def run_scan(lib, values, pack):
     k, d = values.shape
     out = torch.empty(pack.num_segments, d, device=values.device)
@@ -402,6 +465,7 @@ def main(argv=None) -> int:
     equal_all = True
     cases = k1_cases(libs, dev, gen)
     cases.update(gather_scan_cases(libs, dev, gen))
+    cases.update(roles_cases(libs, dev, gen))
     for case, (ref, this) in cases.items():
         torch.cuda.synchronize()
         equal = all(torch.equal(a, c) for a, c in zip(ref, this))

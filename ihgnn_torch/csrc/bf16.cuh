@@ -56,6 +56,45 @@ __device__ __forceinline__ uint2 round_bf16x4(float4 v) {
   return make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
 }
 
+// Shared-memory address of p, for ldmatrix.
+__device__ __forceinline__ unsigned shared_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// ldmatrix: 8x8 matrices of 16-bit values from shared memory, one 16-byte
+// row an address (lane l gives row l % 8 of matrix l / 8; .x2 reads lanes
+// 0-15). Register r holds matrix r: lane 4 g + t gets row g, columns 2t,
+// 2t + 1 (the low half first), or with .trans row 2t, 2t + 1 of column g,
+// which is the A and B fragment layout above read from rows whose index
+// is k (.trans) or m / n (plain).
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(shared_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2(unsigned (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(shared_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(shared_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2_t(unsigned (&r)[2], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(shared_addr(p)));
+}
+
 // c += a b for one m16n8k16 tile: a [16, 16] row-major, b [16, 8]
 // column-major, bf16 operands, f32 accumulators
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],

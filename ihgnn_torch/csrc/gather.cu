@@ -29,13 +29,23 @@
 // transposed form writes in order and reads idx with a stride of C.
 //
 // The bf16 form (ModelConfig.bf16_stream; the Pallas kernels' bf16 streams,
-// whose gather copies bf16 rows, gather.py:82): the roles are written as
-// bf16, from x in f32 (each value rounded to nearest even in the copy, the
-// cast of ops/hyperagg.py:1003-1007 fused into the gather) or in bf16 (an
-// exact copy). Each thread moves four features: it reads a float4 (or 8
-// bytes of bf16) and writes 8 bytes, d / 4 neighbouring threads a row, so
-// the form takes d % 4 == 0. Bound: bytes, as above, with the writes (and a
-// bf16 x's reads) at half width.
+// whose gather copies bf16 rows, gather.py:82): the roles are bf16 copies
+// of bf16 rows of x. An f32 x is first rounded to nearest even into a bf16
+// table [N, d] (round_bf16_kernel, ihgnn_round_bf16: the cast of
+// ops/hyperagg.py:1003-1007, which the JAX package makes before its
+// gather; the wrapper allocates the table), so the copy reads 2 d-byte
+// rows from a table of 2 N d bytes (44.8 MB at N = 700k, d = 32), which
+// the 50 MB L2 mostly holds, where the f32 x (89.6 MB) does not fit. The
+// copy (gather_roles_bf16_kernel) moves 16-byte vectors, eight features a
+// thread, for d % 8 == 0 on 16-byte aligned rows, else 8-byte vectors for
+// d % 4 == 0 on 8-byte aligned rows (bf16_vec_bytes, the rule of K1's
+// bf16 lanes). A block reads its edges' ids once into shared memory,
+// each thread copies its vector of the three roles (three loads in
+// flight), and the roles are stored with the streaming hint (st.global.cs)
+// so the 6E output rows do not push the table out of L2. Rounding is
+// elementwise, so the roles are bit for bit those of rounding in the copy.
+// Bound: bytes (x read once, in f32 or bf16, i3 read once, the roles
+// written once in bf16).
 //
 // gather_rows and gather_rows_t have the same bf16 forms (the routed pack's
 // bf16 streams: windowed_gather's and windowed_gather_t's bf16 bodies,
@@ -46,6 +56,8 @@
 // scatter's backward, :468, :628) or copied from a bf16 x.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "bf16.cuh"
 
@@ -128,22 +140,77 @@ __global__ void gather_roles_kernel(const float4* __restrict__ x,
   out[t] = x[static_cast<size_t>(node) * vecs + v];
 }
 
-// The bf16 form: out_r [E, d] bf16; quads = d / 4.
-template <typename T>
-__global__ void gather_roles_bf16_kernel(const T* __restrict__ x,
-                                         const int* __restrict__ i3,
-                                         uint2* __restrict__ out_u,
-                                         uint2* __restrict__ out_q,
-                                         uint2* __restrict__ out_i,
-                                         int edges, int quads) {
-  const int role = blockIdx.y;
-  const int t = blockIdx.x * kThreads + threadIdx.x;  // < edges * quads
-  if (t >= edges * quads) return;
-  const int e = t / quads;
-  const int v = t - e * quads;
-  const int node = i3[3 * e + role];
-  uint2* out = role == 0 ? out_u : (role == 1 ? out_q : out_i);
-  out[t] = bf16_quad(x, static_cast<size_t>(node) * quads + v);
+// x [n] f32 rounded to bf16 (nearest even), four values a thread.
+__global__ void round_bf16_kernel(const float4* __restrict__ x,
+                                  uint2* __restrict__ out, long long quads) {
+  const long long t = static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  if (t < quads) out[t] = round_bf16x4(__ldg(x + t));
+}
+
+// The bf16 form's copy: out_r [E, d] bf16 from bf16 x, V = uint4 (eight
+// features) or uint2 (four); vecs = vectors a row. A block copies kThreads
+// consecutive vectors of the [E, vecs] grid, the ids of their edges staged
+// once in shared memory.
+template <typename V>
+__global__ void __launch_bounds__(kThreads)
+gather_roles_bf16_kernel(const V* __restrict__ x, const int* __restrict__ i3,
+                         V* __restrict__ out_u, V* __restrict__ out_q,
+                         V* __restrict__ out_i, int edges, int vecs) {
+  __shared__ int ids[3 * kThreads];
+  const long long total = static_cast<long long>(edges) * vecs;
+  const long long t0 = static_cast<long long>(blockIdx.x) * kThreads;
+  const int e_first = static_cast<int>(t0 / vecs);
+  const int e_last = static_cast<int>(
+      (min(t0 + kThreads, total) - 1) / vecs);
+  const int n_ids = 3 * (e_last - e_first + 1);
+  for (int k = threadIdx.x; k < n_ids; k += kThreads)
+    ids[k] = __ldg(i3 + 3LL * e_first + k);
+  __syncthreads();
+  const long long t = t0 + threadIdx.x;
+  if (t >= total) return;
+  const int* id = ids + 3 * (static_cast<int>(t / vecs) - e_first);
+  const int v = static_cast<int>(t % vecs);
+  const V a = __ldg(x + static_cast<size_t>(id[0]) * vecs + v);
+  const V b = __ldg(x + static_cast<size_t>(id[1]) * vecs + v);
+  const V c = __ldg(x + static_cast<size_t>(id[2]) * vecs + v);
+  __stcs(out_u + t, a);
+  __stcs(out_q + t, b);
+  __stcs(out_i + t, c);
+}
+
+bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// The copy's vector width: 16 bytes for d % 8 == 0 with x and the three
+// outputs 16-byte aligned, else 8 for d % 4 == 0 with all 8-byte aligned,
+// else 0 (refused); the wrapper applies the same rule (ops/segsum.py
+// bf16_form, K1's lane rule).
+int bf16_vec_bytes(int d, const void* x, const void* ou, const void* oq,
+                   const void* oi) {
+  auto all = [&](int bytes) {
+    return aligned(x, bytes) && aligned(ou, bytes) && aligned(oq, bytes) &&
+           aligned(oi, bytes);
+  };
+  if (d % 8 == 0 && all(16)) return 16;
+  if (d % 4 == 0 && all(8)) return 8;
+  return 0;
+}
+
+template <typename V>
+int launch_roles_bf16(const void* x, const void* i3, void* ou, void* oq,
+                      void* oi, int edges, int vecs, cudaStream_t stream) {
+  const long long total = static_cast<long long>(edges) * vecs;
+  if (total == 0) return 0;
+  if (total / kThreads >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  gather_roles_bf16_kernel<V>
+      <<<static_cast<unsigned>((total + kThreads - 1) / kThreads), kThreads,
+         0, stream>>>(static_cast<const V*>(x), static_cast<const int*>(i3),
+                      static_cast<V*>(ou), static_cast<V*>(oq),
+                      static_cast<V*>(oi), edges, vecs);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -166,26 +233,40 @@ extern "C" int ihgnn_gather_roles(const void* x, const void* i3, void* out_u,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The bf16 form: x f32 (x_bf16 == 0, rounded in the copy) or bf16
-// (x_bf16 == 1); out_u/out_q/out_i [E, d] bf16; d % 4 == 0.
+// The bf16 form: out_u/out_q/out_i [E, d] bf16 copied from bf16 rows x
+// [N, d] (x_bf16 == 1), at the vector width of bf16_vec_bytes. An f32 x
+// (x_bf16 == 0) is refused: it is rounded first, by ihgnn_round_bf16 into
+// a bf16 table (the wrapper does), whose rows this copies. The argument
+// list is the one of the form that rounded in the copy, so that builds of
+// both run side by side.
 extern "C" int ihgnn_gather_roles_bf16(const void* x, int x_bf16,
                                        const void* i3, void* out_u,
                                        void* out_q, void* out_i, int edges,
                                        int d, void* stream) {
-  if (d % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int quads = d / 4;
-  const dim3 grid((edges * quads + kThreads - 1) / kThreads, 3);
+  const int bytes = bf16_vec_bytes(d, x, out_u, out_q, out_i);
+  if (!x_bf16 || bytes == 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  uint2* ou = static_cast<uint2*>(out_u);
-  uint2* oq = static_cast<uint2*>(out_q);
-  uint2* oi = static_cast<uint2*>(out_i);
-  const int* idx = static_cast<const int*>(i3);
-  if (x_bf16)
-    gather_roles_bf16_kernel<<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), idx, ou, oq, oi, edges, quads);
-  else
-    gather_roles_bf16_kernel<<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(x), idx, ou, oq, oi, edges, quads);
+  return bytes == 16
+             ? launch_roles_bf16<uint4>(x, i3, out_u, out_q, out_i, edges,
+                                        d / 8, s)
+             : launch_roles_bf16<uint2>(x, i3, out_u, out_q, out_i, edges,
+                                        d / 4, s);
+}
+
+// out [n] bf16 = x [n] f32 rounded to nearest even; n % 4 == 0, x 16-byte
+// and out 8-byte aligned.
+extern "C" int ihgnn_round_bf16(const void* x, void* out, long long n,
+                                void* stream) {
+  if (n % 4 != 0 || !aligned(x, 16) || !aligned(out, 8))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long quads = n / 4;
+  if (quads == 0) return 0;
+  if (quads / kThreads >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  round_bf16_kernel<<<static_cast<unsigned>((quads + kThreads - 1) /
+                                            kThreads),
+                      kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(x), static_cast<uint2*>(out), quads);
   return static_cast<int>(cudaGetLastError());
 }
 

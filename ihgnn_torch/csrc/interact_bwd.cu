@@ -81,19 +81,20 @@
 // q, i, with du, dq, di each rounded to bf16 once; dW = parts_bf16^T . cot
 // in f32 (the parts rounded as the forward rounds them); db = sum cot in
 // f32. Both products are one mma.sync.m16n8k16 bf16 pass (bf16.cuh): a
-// bf16 x bf16 product is exact in f32, so no split. The design is the
-// direct fused kernel's, in bf16: the same chunks, tiles and slabs, the
-// same fixed-order partials and reduce_partials_kernel (so a step repeats
-// bit for bit), W rounded to bf16 once a block into shared memory, and
-// tiles of bf16 rows staged by cp.async. Each k step of the dW product is
-// 16 edges, whose pairs (edges 2 t, 2 t + 1 and 2 t + 8, 2 t + 9 of the
-// step) are packed from two staged rows; each k step of the data product
-// is 16 outputs, whose pairs are neighbours in a staged cot row and a W
-// row. It takes d % 8 == 0 when W and the two stages fit in one block's
-// shared memory. Bound: bytes. At order 3, E = 2M, d = out = 32 it reads
-// u, q, i and cot (4 x 128 MB) and writes du, dq, di (3 x 128 MB): 0.27 ms
-// at 3.35 TB/s; the two products' 28,672 FLOPs an edge take 0.058 ms at
-// the 989 TFLOP/s bf16 rate.
+// bf16 x bf16 product is exact in f32, so no split. It keeps the fused
+// kernel's arithmetic and its fixed-order partials, one a chunk, summed by
+// reduce_partials_kernel (so a step repeats bit for bit), on a design of
+// its own for Hopper (details above the kernel): persistent blocks of 8
+// warps that walk their chunks as one stream of 64-edge tiles through a
+// ring of 2-4 cp.async stages, W rounded to bf16 once a block, every mma
+// fragment read by ldmatrix, and du, dq, di staged in shared memory and
+// stored as whole 16-byte row pieces. It takes d % 8 == 0 when W, the
+// staged output rows and two stages fit in one block's shared memory (d
+// up to 120 at out = 32, order 3; the entry point refuses a larger d).
+// Bound: bytes. At order 3, E = 2M, d = out = 32 it reads u, q, i and cot
+// (4 x 128 MB) and writes du, dq, di (3 x 128 MB): 0.27 ms at 3.35 TB/s;
+// the two products' 28,672 FLOPs an edge take 0.058 ms at the 989 TFLOP/s
+// bf16 rate.
 //
 // The bf16 form with ABSORB (K5's backward on the routed pack's bf16
 // streams, _bwd_kernel_absorb on bf16 operands, interact.py:203-227): the
@@ -103,14 +104,16 @@
 // two bf16 values), then times the mask (0 or 1, exact). The merge runs in
 // shared memory, each thread on the vectors it copied, before the barrier
 // that shows the tile to all, so the dW product, the data product and db
-// all read the one rounded bf16 cotangent; di is stored at e_pi. Two
-// stages, as the direct bf16 form, each with its c2 plane; the chunk's
-// e_pi and mask are read once into shared memory. On the edges of one
-// [R, C] grid it is bit for bit the direct bf16 form on the pre-permuted
-// inputs. Bound: bytes, the direct bf16 form's
-// plus c2 (128 MB at the routed pack's 2,097,152 edges), pi and the mask.
+// all read the one rounded bf16 cotangent; di is stored at e_pi. Each
+// stage has its c2 plane, and each tile's pi and mask are copied into a
+// ring of their own ahead of its rows. On the edges of one [R, C] grid it
+// is bit for bit the direct bf16 form on the pre-permuted inputs. Bound:
+// bytes, the direct bf16 form's plus c2 (128 MB at the routed pack's
+// 2,097,152 edges), pi and the mask.
 
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 #include "bf16.cuh"
 #include "tf32.cuh"
@@ -120,6 +123,8 @@ namespace {
 constexpr int kReduceOut = 32;   // outputs a reduce block owns
 constexpr int kReduceLanes = 16; // chunk lanes of a reduce block
 constexpr size_t kSmemLimit = 232448;  // shared memory a block may use
+constexpr size_t kSmemPerSm = 233472;  // shared memory of an SM
+constexpr size_t kSmemReserved = 1024; // the runtime's share of a block
 
 template <int ORDER>
 __host__ __device__ constexpr int parts_of() {
@@ -178,6 +183,17 @@ reduce_partials_kernel(const float* __restrict__ partial,
 constexpr int kFusedWarps = 4;
 constexpr int kFusedThreads = 32 * kFusedWarps;
 constexpr int kFusedTile = 32;    // edges staged at once
+constexpr int kBf16Warps = 8;     // the bf16 form's warps a block
+constexpr int kBf16Threads = 32 * kBf16Warps;
+constexpr int kBf16MaxStages = 4; // the bf16 form's deepest ring
+constexpr int kBf16Tile = 64;     // the bf16 form's edges a stage
+
+// ABSORB's pi and mask ring: tile k's slot is written with tile k - stages
+// + 1's rows and read up to tile k, so it needs 2 stages - 1 slots; a power
+// of two
+__host__ __device__ constexpr int pi_slots_of(int stages) {
+  return stages <= 2 ? 4 : 8;
+}
 
 // Fragments of mma.m16n8k8: see tf32.cuh.
 //
@@ -551,42 +567,61 @@ interact_bwd_fused_kernel(const float* __restrict__ u,
 // The bf16 form (interact_bwd on bf16 streams)
 // ---------------------------------------------------------------------------
 //
-// grid (chunks, slabs), kFusedThreads threads, as the fused kernel above.
-// Shared memory: W rounded to bf16 [parts * d][OUT + 8] (slab 0), then two
-// stages of u, q, i rows [kFusedTile][d + 8] and cot rows [kFusedTile][OUT
-// + 8], all bf16 (16 bytes of pad a row); ABSORB adds to each stage the
-// gathered c2 rows [kFusedTile][OUT + 8], and after the two stages the
-// chunk's e_pi (int32) and mask (f32), chunk_edges each.
+// Persistent blocks: grid (blocks, slabs) of kBf16Threads threads, with
+// blocks the number the card holds at once (at most one a chunk). Block b
+// of a slab takes chunks b, b + blocks, ... in turn, as one stream of
+// kBf16Tile-edge tiles through a ring of `stages` (2-4) shared-memory
+// stages filled by cp.async, each tile issued stages - 1 tiles ahead of
+// its use and across the chunks' boundaries, so no chunk starts on an
+// empty pipeline. W is rounded to bf16 into shared memory once a block
+// (slab 0). A chunk's dW and db stay in registers while its tiles pass
+// and go to partial[chunk] at its last tile, so every partial, and the
+// fixed-order reduce_partials_kernel over them, is what a block a chunk
+// gives bit for bit. The launcher takes the deepest ring that leaves room
+// for three blocks an SM, else two: on the H100 the blocks resident, not
+// the depth, set the time (PERF.md).
 //
-// 1. dW^T [OUT, parts * d] += cot^T [OUT, T] . parts [T, parts * d]: warp w
-//    owns the features f = 32 fs + 8 w + g (the mma's n) and, for each
-//    16-output tile of slab os, an accumulator tile a part, as above. A k
-//    step is 16 edges: the lane's edges e = 16 ks + 2 t, + 1, + 8, + 9; its
-//    B pairs are the parts at (e, f) and its A pairs cot at (e, o), packed
-//    from two rows.
-// 2. Slab 0: dparts [16 edges, 8 features] = cot . W^T, k steps of 16
-//    outputs: A pairs from a staged cot row, B pairs from a staged W row;
-//    then the product rule in f32 and du, dq, di rounded to bf16, 4 bytes
-//    a store (ABSORB: di at row e_pi). Slab 0 also sums db in f32.
+// Shared memory: W rounded to bf16 [parts * d][OUT + 8], the tile's du,
+// dq, di rows [3][T][d + 8] (both slab 0), then the stages, each u, q, i
+// rows [T][d + 8] and cot rows [T][OUT + 8] (ABSORB: and the gathered c2
+// rows [T][OUT + 8]), all bf16 with 16 bytes of pad a row, so the 8 rows
+// of an ldmatrix fall in 8 bank groups; ABSORB adds a ring of tiles of pi
+// (int32) and mask (f32), four bytes an edge by cp.async, and each tile's
+// grid-row base.
+//
+// Each tile, two products on mma.sync.m16n8k16 bf16, every fragment read
+// by ldmatrix from the staged rows (the pairs the fragment layout asks,
+// bf16.cuh):
+// 1. dW^T [OUT, parts * d] += cot^T [OUT, T] . parts [T, parts * d]: warp
+//    w owns the features f = 32 fs + 8 (w % 4) + g (the mma's n) and the
+//    16-output tile w / 4 of slab os (warps 4-7 have none when OUT < 32),
+//    an accumulator tile a part. A k step is 16 edges: ldmatrix.trans
+//    gives the lane its u, q, i at (edges 2t, 2t + 1 and 2t + 8, 2t + 9 of
+//    the step, f) and cot at the same edges for its outputs; the parts are
+//    formed in bf16 from those pairs.
+// 2. Slab 0: dparts [16 edges, 8 features] = cot . W^T in k steps of 16
+//    outputs, a unit (8-feature block, 16 edges) a warp at a time, A from
+//    the staged cot rows and B from the staged W rows; then the product
+//    rule in f32 and du, dq, di rounded to bf16 into the staged output
+//    rows. Threads 0 .. OUT - 1 sum db in f32, edge by edge. After a
+//    barrier the block stores the tile's output rows whole, 16 bytes a
+//    thread (ABSORB: di at row e_pi).
+// Each accumulator sees the same products in the same order as in a form
+// with one block a chunk and scalar-packed fragments (k steps in edge
+// order within a chunk, outputs' k steps in order), so the bits are its.
 //
 // ABSORB: i and c2 through pi, the merged cotangent and the rho store of
 // di (the top of the file); cot2, pi, mask (or null) and cols are unused
-// without it. Before its first tile a block reads its chunk's slice of pi
-// and of the mask once, turns each pi into e_pi (the grid row's first edge
-// plus pi, the row found once for a chunk inside one grid row, else an
-// edge at a time) and keeps both in shared memory, so every tile's i and
-// c2 copies, the merge's mask and the di rows take their addresses from
-// shared memory and no copy waits on a load of pi.
+// without it. The pi and mask of tile k are copied with tile k - stages +
+// 1's rows, so they have landed, for every thread, by the barrier before
+// tile k's rows are issued; the rows then take e_pi (the tile's grid-row
+// base, found once a tile when the tile lies in one grid row, plus pi)
+// from shared memory, and the merge its mask.
 //
-// Shared memory and registers a block at order 3, d = out = 32 (ptxas,
-// sm_90a): the direct form 38,400 bytes and 160 registers a thread;
-// ABSORB 51,712 bytes and 164 registers, where the design that read pi
-// for each copy took 43,776 bytes and 158 registers (the chunk's 8,192
-// bytes of e_pi and mask replace each stage's 128 bytes of e_pi). Both
-// forms run 3 blocks an SM (12 warps), bound by registers, before and
-// after.
+// ptxas (sm_90a) at d = out = 32: order 3 128 registers (ABSORB 124),
+// order 1 72 (ABSORB 128), no spills.
 template <int OUT, int ORDER, bool ABSORB>
-__global__ void __launch_bounds__(kFusedThreads)
+__global__ void __launch_bounds__(kBf16Threads, 2)
 interact_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ u,
                          const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ it,
@@ -597,9 +632,10 @@ interact_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ u,
                          const float* __restrict__ mask,
                          __nv_bfloat16* __restrict__ droles,
                          float* __restrict__ partial, int edges, int d,
-                         int chunk_edges, int cols) {
+                         int chunk_edges, int cols, int stages) {
   constexpr int P = parts_of<ORDER>();
-  constexpr int T = kFusedTile;
+  constexpr int T = kBf16Tile;
+  constexpr int H = T / 16;                // 16-edge steps of a tile
   constexpr int SC = OUT + 8;              // staged cot row
   constexpr int SW = OUT + 8;              // staged W row
   constexpr int MT = OUT >= 32 ? 2 : 1;    // 16-output tiles of a slab
@@ -616,19 +652,21 @@ interact_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ u,
   const int fs = blockIdx.y / OS;
   const int os = blockIdx.y - fs * OS;
   const bool data = blockIdx.y == 0;
+  const int tid = threadIdx.x;
+  const int pi_slots = pi_slots_of(stages);
 
   extern __shared__ float4 smem[];
   bf16* ws = reinterpret_cast<bf16*>(smem);       // [R][SW], slab 0
-  bf16* stages = ws + (data ? static_cast<size_t>(R) * SW : 0);
-  // a stage: u, q, i rows [T][sd] and cot rows [T][SC]; ABSORB adds the
-  // gathered c2 rows [T][SC]
+  // slab 0: the tile's du, dq, di rows [3][T][sd], then written out whole
+  bf16* obuf = ws + static_cast<size_t>(R) * SW;
+  bf16* ring = obuf + 3 * T * sd;
   const int stage_elems = T * (3 * sd + SC) + (ABSORB ? T * SC : 0);
-  // ABSORB: the chunk's e_pi and mask, after the two stages
-  int* epis = reinterpret_cast<int*>(stages + 2 * stage_elems);
-  float* masks = reinterpret_cast<float*>(epis + chunk_edges);
+  // ABSORB: the pi and mask ring, [pi_slots][T] each, after the stages
+  int* pis = reinterpret_cast<int*>(ring + stages * stage_elems);
+  float* masks = reinterpret_cast<float*>(pis + pi_slots * T);
 
   if (data) {
-    for (int idx = threadIdx.x; idx < R * (OUT / 4); idx += kFusedThreads) {
+    for (int idx = tid; idx < R * (OUT / 4); idx += kBf16Threads) {
       const int r = idx / (OUT / 4);
       const int v = idx - r * (OUT / 4);
       reinterpret_cast<uint2*>(ws + r * SW)[v] =
@@ -636,145 +674,204 @@ interact_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ u,
     }
   }
 
-  const long long begin = static_cast<long long>(blockIdx.x) * chunk_edges;
-  const int e_begin = static_cast<int>(begin);
-  const int e_end = static_cast<int>(
-      begin + chunk_edges < edges ? begin + chunk_edges : edges);
-  const int tiles = (e_end - e_begin + T - 1) / T;
+  // The block's stream of tiles: chunks blockIdx.x, + blocks, ... in turn,
+  // each from its first edge in steps of T to its end. A Cursor follows
+  // one place in that stream (the tile in use, the next to issue, the next
+  // pi to copy) by additions alone; past the block's last tile its e0 is
+  // `edges`.
+  const int blocks = gridDim.x;
+  struct Cursor {
+    int c, e0, end;   // the chunk, the tile's first edge, the chunk's end
+  };
+  auto start_chunk = [&](Cursor& k, int c) {
+    const long long b = static_cast<long long>(c) * chunk_edges;
+    k.c = c;
+    k.e0 = static_cast<int>(min(b, static_cast<long long>(edges)));
+    k.end = static_cast<int>(
+        min(b + chunk_edges, static_cast<long long>(edges)));
+  };
+  auto advance = [&](Cursor& k) {
+    k.e0 += T;
+    if (k.e0 >= k.end) start_chunk(k, k.c + blocks);
+  };
+  // this thread's copies of a tile, the same every tile: role rows r =
+  // my_row, + rpv, ... of the 3 T, vector my_v; cot rows c_row, + CR, ...,
+  // vector c_v
   const int v8 = d >> 3;
+  const int rpv = kBf16Threads / v8;
+  const int my_row = tid / v8;
+  const int my_v = tid - my_row * v8;
+  constexpr int CR = kBf16Threads / C8;
+  const int c_row = tid / C8;
+  const int c_v = tid - c_row * C8;
+  // ABSORB: a tile's grid-row base (its first edge's row start when the
+  // tile lies in one grid row, else -1), beside its pi and mask
+  int* bases = reinterpret_cast<int*>(masks + pi_slots * T);
 
-  if constexpr (ABSORB) {
-    // the chunk's e_pi and mask, read once; a chunk inside one grid row
-    // finds the row's first edge once
-    const bool one_row = e_begin / cols == (e_end - 1) / cols;
-    const int row_base = e_begin - e_begin % cols;
-    for (int te = threadIdx.x; te < e_end - e_begin; te += kFusedThreads) {
-      const int e = e_begin + te;
-      epis[te] = (one_row ? row_base : e - e % cols) + __ldg(pi + e);
-      masks[te] = mask != nullptr ? __ldg(mask + e) : 1.f;
+  // ABSORB: the pi, mask and base of tile kidx (at k) into its ring slot
+  auto copy_pi = [&](const Cursor& k, int kidx) {
+    const int n_e = min(T, k.end - k.e0);
+    if (n_e <= 0) return;
+    const int slot = kidx & (pi_slots - 1);
+    if (tid < n_e) {
+      cp_async4(pis + slot * T + tid, pi + k.e0 + tid);
+    } else if (mask != nullptr && tid >= T && tid - T < n_e) {
+      cp_async4(masks + slot * T + tid - T, mask + k.e0 + tid - T);
+    } else if (tid == kBf16Threads - 1) {
+      bases[slot] = k.e0 / cols == (k.e0 + n_e - 1) / cols
+                        ? k.e0 - k.e0 % cols
+                        : -1;
     }
-    __syncthreads();
-  }
+  };
 
-  auto issue = [&](int tile) {
-    bf16* buf = stages + (tile & 1) * stage_elems;
-    const int t0 = tile * T;                // the tile's first chunk edge
-    const int e0 = e_begin + t0;
-    const int n_e = min(T, e_end - e0);
-    for (int idx = threadIdx.x; idx < 3 * T * v8; idx += kFusedThreads) {
-      const int a = idx / (T * v8);
-      const int rem = idx - a * T * v8;
-      const int te = rem / v8;
-      const int v = rem - te * v8;
-      const bool valid = te < n_e;
-      const bf16* src = a == 0 ? u : (a == 1 ? q : it);
-      int e = e0 + te;
-      if (ABSORB && a == 2 && valid) e = epis[t0 + te];
-      cp_async16(buf + (a * T + te) * sd + 8 * v,
-                 valid ? src + static_cast<size_t>(e) * d + 8 * v : u,
-                 valid);
+  // ABSORB: e_pi of edge e0 + te of tile kidx
+  auto e_pi = [&](int kidx, int e0, int te) {
+    const int slot = kidx & (pi_slots - 1);
+    const int base = bases[slot];
+    const int e = e0 + te;
+    return (base >= 0 ? base : e - e % cols) + pis[slot * T + te];
+  };
+
+  // tile kidx (at k) into stage st
+  auto issue = [&](const Cursor& k, int kidx, int st) {
+    const int e0 = k.e0;
+    const int n_e = min(T, k.end - e0);
+    if (n_e <= 0) return;
+    bf16* buf = ring + st * stage_elems;
+    if (my_row < rpv) {
+      for (int r = my_row; r < 3 * T; r += rpv) {
+        const int a = r / T;
+        const int te = r - a * T;
+        const bool valid = te < n_e;
+        const bf16* src = a == 0 ? u : (a == 1 ? q : it);
+        int e = e0 + te;
+        if (ABSORB && a == 2 && valid) e = e_pi(kidx, e0, te);
+        cp_async16(buf + r * sd + 8 * my_v,
+                   valid ? src + static_cast<size_t>(e) * d + 8 * my_v : u,
+                   valid);
+      }
     }
-    for (int idx = threadIdx.x; idx < T * C8; idx += kFusedThreads) {
-      const int te = idx / C8;
-      const int v = idx - te * C8;
+    for (int te = c_row; te < T; te += CR) {
       const bool valid = te < n_e;
-      cp_async16(buf + 3 * T * sd + te * SC + 8 * v,
-                 valid ? cot + static_cast<size_t>(e0 + te) * OUT + 8 * v
+      cp_async16(buf + 3 * T * sd + te * SC + 8 * c_v,
+                 valid ? cot + static_cast<size_t>(e0 + te) * OUT + 8 * c_v
                        : cot,
                  valid);
       if constexpr (ABSORB) {
         // c2 at e_pi, copied by the thread that copies the same c1 vector
         // (it merges them)
-        cp_async16(buf + 3 * T * sd + (T + te) * SC + 8 * v,
-                   valid ? cot2 + static_cast<size_t>(epis[t0 + te]) * OUT +
-                               8 * v
+        cp_async16(buf + 3 * T * sd + (T + te) * SC + 8 * c_v,
+                   valid ? cot2 + static_cast<size_t>(e_pi(kidx, e0, te)) *
+                                      OUT + 8 * c_v
                          : cot2,
                    valid);
       }
     }
-    cp_async_commit();
   };
 
-  // ABSORB: this thread's c1 vectors of the tile, merged with the c2
-  // vectors it copied: round_bf16(c1 + c2), then times the mask
-  auto merge = [&](bf16* buf, int t0, int n_e) {
-    bf16* cs = buf + 3 * T * sd;
+  // ABSORB: this thread's c1 vectors of tile kidx (stage st), merged with
+  // the c2 vectors it copied: round_bf16(c1 + c2), then times the mask
+  auto merge = [&](int st, int kidx, int n_e) {
+    bf16* cs = ring + st * stage_elems + 3 * T * sd;
     const bf16* c2s = cs + T * SC;
-    for (int idx = threadIdx.x; idx < T * C8; idx += kFusedThreads) {
-      const int te = idx / C8;
-      if (te >= n_e) continue;
-      const int at = te * SC + 8 * (idx - te * C8);
-      const float m = masks[t0 + te];
+    const float* ms = masks + (kidx & (pi_slots - 1)) * T;
+    for (int te = c_row; te < n_e; te += CR) {
+      const int at = te * SC + 8 * c_v;
+      const float mv = mask != nullptr ? ms[te] : 1.f;
       uint4 x = *reinterpret_cast<const uint4*>(cs + at);
       const uint4 y = *reinterpret_cast<const uint4*>(c2s + at);
       unsigned* xs = reinterpret_cast<unsigned*>(&x);
       const unsigned* ys = reinterpret_cast<const unsigned*>(&y);
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const float2 a = __bfloat1622float2(bits_bf16x2(xs[k]));
-        const float2 c = __bfloat1622float2(bits_bf16x2(ys[k]));
+      for (int c = 0; c < 4; ++c) {
+        const float2 a = __bfloat1622float2(bits_bf16x2(xs[c]));
+        const float2 b = __bfloat1622float2(bits_bf16x2(ys[c]));
         const float2 r = __bfloat1622float2(
-            __floats2bfloat162_rn(a.x + c.x, a.y + c.y));
-        xs[k] = pack_bf16(r.x * m, r.y * m);
+            __floats2bfloat162_rn(a.x + b.x, a.y + b.y));
+        xs[c] = pack_bf16(r.x * mv, r.y * mv);
       }
       *reinterpret_cast<uint4*>(cs + at) = x;
     }
   };
 
-  // product 1: this warp's features and accumulators
-  const int F2 = 32 * fs + 8 * warp;
-  const bool has2 = F2 < d;
-  float acc[MT][P][4];
+  auto wait_stages = [&]() {   // tile k's group (and all before) landed
+    if (stages == 4) cp_async_wait<2>();
+    else if (stages == 3) cp_async_wait<1>();
+    else cp_async_wait<0>();
+  };
+
+  // product 1: this warp's features and output tile, and accumulators
+  const int F2 = 32 * fs + 8 * (warp & 3);
+  const int mm = warp >> 2;
+  const int o2 = 32 * os + 16 * mm;        // the tile's first output
+  const bool has2 = F2 < d && mm < MT;
+  float acc[P][4];
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int j = 0; j < P; ++j)
-      acc[m][j][0] = acc[m][j][1] = acc[m][j][2] = acc[m][j][3] = 0.f;
+  for (int j = 0; j < P; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
   float bacc = 0.f;
   const size_t plane = static_cast<size_t>(edges) * d;
-  const bf16 zero = __float2bfloat16_rn(0.f);
+  // the staged row (within a 16-row step) and column offset of this lane's
+  // ldmatrix address: matrix l / 8, row l % 8
+  const int lrow = lane & 7;
+  const int lmat = lane >> 3;
 
-  if (tiles > 0) issue(0);
-  for (int tile = 0; tile < tiles; ++tile) {
-    const int t0 = tile * T;
-    const int e0 = e_begin + t0;
-    const int n_e = min(T, e_end - e0);
-    if (tile + 1 < tiles) {
-      issue(tile + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  Cursor cur, nxt, pic;   // the tile in use, the next to issue, next pi
+  start_chunk(cur, blockIdx.x);
+  nxt = pic = cur;
+  if constexpr (ABSORB) {
+    for (int k = 0; k < stages - 1; ++k) {
+      copy_pi(pic, k);
+      advance(pic);
     }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+  for (int k = 0; k < stages - 1; ++k) {
+    issue(nxt, k, k);
+    advance(nxt);
+    if (ABSORB) {
+      copy_pi(pic, k + stages - 1);
+      advance(pic);
+    }
+    cp_async_commit();
+  }
+
+  for (int tile = 0, st = 0; cur.e0 < edges; ++tile) {
+    const int e0 = cur.e0;
+    const int n_e = min(T, cur.end - e0);
+    wait_stages();
     // ABSORB: the tile has landed for this thread, which merges what it
     // copied
-    if (ABSORB) merge(stages + (tile & 1) * stage_elems, t0, n_e);
-    __syncthreads();  // the tile (and W) has landed for every thread
-    const bf16* us = stages + (tile & 1) * stage_elems;
+    if (ABSORB) merge(st, tile, n_e);
+    __syncthreads();  // the tile (and W, the ring's pi) has landed for all
+    issue(nxt, tile + stages - 1, st == 0 ? stages - 1 : st - 1);
+    advance(nxt);
+    if (ABSORB) {
+      copy_pi(pic, tile + 2 * stages - 2);
+      advance(pic);
+    }
+    cp_async_commit();
+    const bf16* us = ring + st * stage_elems;
     const bf16* qs = us + T * sd;
     const bf16* is = qs + T * sd;
     const bf16* cs = is + T * sd;
 
     // 1. dW^T += cot^T . parts, 16 edges a k step
     if (has2) {
-      const int f = F2 + g;
-      const bool fv = f < d;
 #pragma unroll
-      for (int ks = 0; ks < T / 16; ++ks) {
-        // the lane's edges: k = 2 t, 2 t + 1 (pair 0), 2 t + 8, 2 t + 9
-        // (pair 1)
-        const int ea = 16 * ks + 2 * t;
-        const int ek[4] = {ea, ea + 1, ea + 8, ea + 9};
-        __nv_bfloat162 x[2], y[2], z[2];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int e_lo = ek[2 * h], e_hi = ek[2 * h + 1];
-          x[h] = __halves2bfloat162(fv ? us[e_lo * sd + f] : zero,
-                                    fv ? us[e_hi * sd + f] : zero);
-          y[h] = __halves2bfloat162(fv ? qs[e_lo * sd + f] : zero,
-                                    fv ? qs[e_hi * sd + f] : zero);
-          z[h] = __halves2bfloat162(fv ? is[e_lo * sd + f] : zero,
-                                    fv ? is[e_hi * sd + f] : zero);
-        }
+      for (int ks = 0; ks < H; ++ks) {
+        // u and q (matrices 0, 1 and 2, 3: edges 0-7 and 8-15 of the step),
+        // i (lanes 0-15); x[h], y[h], z[h] hold edges 2t, 2t + 1 (h = 0)
+        // and 2t + 8, 2t + 9 (h = 1) at feature F2 + g
+        const int er = 16 * ks + lrow + 8 * (lmat & 1);
+        unsigned uq[4], iv[2];
+        ldsm_x4_t(uq, (lmat < 2 ? us : qs) + er * sd + F2);
+        ldsm_x2_t(iv, is + er * sd + F2);
+        __nv_bfloat162 x[2] = {bits_bf16x2(uq[0]), bits_bf16x2(uq[1])};
+        __nv_bfloat162 y[2] = {bits_bf16x2(uq[2]), bits_bf16x2(uq[3])};
+        __nv_bfloat162 z[2] = {bits_bf16x2(iv[0]), bits_bf16x2(iv[1])};
         unsigned bp[P][2];
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
@@ -782,144 +879,158 @@ interact_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ u,
           bp[1][h] = bf16x2_bits(y[h]);
           bp[2][h] = bf16x2_bits(z[h]);
           if constexpr (P >= 6) {
-            const __nv_bfloat162 uq = __hmul2(x[h], y[h]);
-            bp[3][h] = bf16x2_bits(uq);
+            const __nv_bfloat162 uq2 = __hmul2(x[h], y[h]);
+            bp[3][h] = bf16x2_bits(uq2);
             bp[4][h] = bf16x2_bits(__hmul2(y[h], z[h]));
             bp[5][h] = bf16x2_bits(__hmul2(z[h], x[h]));
-            if constexpr (P >= 7) bp[6][h] = bf16x2_bits(__hmul2(uq, z[h]));
+            if constexpr (P >= 7) bp[6][h] = bf16x2_bits(__hmul2(uq2, z[h]));
           }
         }
+        // A = cot^T: matrices (edges 0-7, outputs o2 .. o2 + 7), (0-7,
+        // o2 + 8 ..), (8-15, o2 ..), (8-15, o2 + 8 ..); outputs past OUT
+        // (OUT = 8) are zero
+        unsigned a[4];
+        ldsm_x4_t(a, cs + (16 * ks + lrow + 8 * (lmat >> 1)) * SC + o2 +
+                         8 * (lmat & 1));
+        if (o2 + 8 >= OUT) a[1] = a[3] = 0u;
 #pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          const int o = 32 * os + 16 * m + g;
-          auto c_at = [&](int e, int oo) {
-            return oo < OUT ? cs[e * SC + oo] : zero;
-          };
-          const unsigned a[4] = {
-              pack_bf16(c_at(ek[0], o), c_at(ek[1], o)),
-              pack_bf16(c_at(ek[0], o + 8), c_at(ek[1], o + 8)),
-              pack_bf16(c_at(ek[2], o), c_at(ek[3], o)),
-              pack_bf16(c_at(ek[2], o + 8), c_at(ek[3], o + 8))};
-#pragma unroll
-          for (int j = 0; j < P; ++j)
-            mma_bf16(acc[m][j], a, bp[j][0], bp[j][1]);
-        }
+        for (int j = 0; j < P; ++j) mma_bf16(acc[j], a, bp[j][0], bp[j][1]);
       }
     }
 
-    // 2. the data gradient and db (slab 0)
+    // 2. the data gradient (slab 0): units of (8-feature block, half tile)
     if (data) {
-      for (int fb = warp; 8 * fb < d; fb += kFusedWarps) {
-        const int F1 = 8 * fb;
-        const bool bv = F1 + g < d;     // this lane's W row exists
+      for (int unit = warp; unit < H * v8; unit += kBf16Warps) {
+        const int F1 = 8 * (unit / H);
+        const int mt = unit - H * (unit / H);
+        float dp[P][4];
 #pragma unroll
-        for (int mt = 0; mt < T / 16; ++mt) {
-          float dp[P][4];
+        for (int j = 0; j < P; ++j)
+          dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
 #pragma unroll
-          for (int j = 0; j < P; ++j)
-            dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-          const bf16* c_lo = cs + (16 * mt + g) * SC;
-          const bf16* c_hi = c_lo + 8 * SC;
+        for (int kk = 0; kk < KO; ++kk) {
+          // A = cot: matrices (edges 0-7, outputs 16 kk ..), (8-15, 16 kk
+          // ..), (0-7, 16 kk + 8 ..), (8-15, 16 kk + 8 ..) of the half
+          const bool up = 16 * kk + 8 < OUT;    // outputs 16 kk + 8 .. exist
+          unsigned a[4];
+          ldsm_x4(a, cs + (16 * mt + lrow + 8 * (lmat & 1)) * SC + 16 * kk +
+                         8 * (lmat >> 1));
+          if (!up) a[2] = a[3] = 0u;
+          // B = W^T: rows j d + F1 .. + 7, outputs 16 kk .. (b0) and
+          // 16 kk + 8 .. (b1), two parts an ldmatrix
 #pragma unroll
-          for (int kk = 0; kk < KO; ++kk) {
-            const int o = 16 * kk + 2 * t;
-            const bool up = o + 8 < OUT;    // outputs o + 8, o + 9 exist
-            const unsigned a[4] = {
-                *reinterpret_cast<const unsigned*>(c_lo + o),
-                *reinterpret_cast<const unsigned*>(c_hi + o),
-                up ? *reinterpret_cast<const unsigned*>(c_lo + o + 8) : 0u,
-                up ? *reinterpret_cast<const unsigned*>(c_hi + o + 8) : 0u};
-#pragma unroll
-            for (int j = 0; j < P; ++j) {
-              const bf16* wr = ws + static_cast<size_t>(j * d + F1 + g) * SW;
-              const unsigned b0 =
-                  bv ? *reinterpret_cast<const unsigned*>(wr + o) : 0u;
-              const unsigned b1 =
-                  bv && up ? *reinterpret_cast<const unsigned*>(wr + o + 8)
-                           : 0u;
-              mma_bf16(dp[j], a, b0, b1);
+          for (int j = 0; j < P; j += 2) {
+            if (j + 1 < P) {
+              unsigned b[4];
+              ldsm_x4(b, ws + static_cast<size_t>((j + (lmat >> 1)) * d +
+                                                  F1 + lrow) * SW +
+                             16 * kk + 8 * (lmat & 1));
+              mma_bf16(dp[j], a, b[0], up ? b[1] : 0u);
+              mma_bf16(dp[j + 1], a, b[2], up ? b[3] : 0u);
+            } else {
+              unsigned b[2];
+              ldsm_x2(b, ws + static_cast<size_t>(j * d + F1 + lrow) * SW +
+                             16 * kk + 8 * (lmat & 1));
+              mma_bf16(dp[j], a, b[0], up ? b[1] : 0u);
             }
           }
-          // the product rule in f32 (interact.py:111-122), at features f,
-          // f + 1 of edges 16 mt + g and 16 mt + g + 8
-          const int f = F1 + 2 * t;
-          if (f < d) {
+        }
+        // the product rule in f32 (interact.py:111-122), at features f,
+        // f + 1 of edges 16 mt + g and 16 mt + g + 8
+        const int f = F1 + 2 * t;
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int te = 16 * mt + g + 8 * h;
-              if (te >= n_e) continue;
-              const int at_s = te * sd + f;
-              const float2 uu = __bfloat1622float2(
-                  *reinterpret_cast<const __nv_bfloat162*>(us + at_s));
-              const float2 qq = __bfloat1622float2(
-                  *reinterpret_cast<const __nv_bfloat162*>(qs + at_s));
-              const float2 ii = __bfloat1622float2(
-                  *reinterpret_cast<const __nv_bfloat162*>(is + at_s));
-              float gu[2], gq[2], gi[2];
+        for (int h = 0; h < 2; ++h) {
+          const int te = 16 * mt + g + 8 * h;
+          if (te >= n_e) continue;
+          const int at_s = te * sd + f;
+          const float2 uu = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(us + at_s));
+          const float2 qq = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(qs + at_s));
+          const float2 ii = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(is + at_s));
+          float gu[2], gq[2], gi[2];
 #pragma unroll
-              for (int c = 0; c < 2; ++c) {
-                const float x = c ? uu.y : uu.x;
-                const float y = c ? qq.y : qq.x;
-                const float z = c ? ii.y : ii.x;
-                float du = dp[0][2 * h + c], dq = dp[1][2 * h + c],
-                      di = dp[2][2 * h + c];
-                if constexpr (P >= 6) {
-                  du += dp[3][2 * h + c] * y + dp[5][2 * h + c] * z;
-                  dq += dp[3][2 * h + c] * x + dp[4][2 * h + c] * z;
-                  di += dp[4][2 * h + c] * y + dp[5][2 * h + c] * x;
-                }
-                if constexpr (P >= 7) {
-                  du += dp[6][2 * h + c] * (y * z);
-                  dq += dp[6][2 * h + c] * (x * z);
-                  di += dp[6][2 * h + c] * (x * y);
-                }
-                gu[c] = du;
-                gq[c] = dq;
-                gi[c] = di;
-              }
-              const size_t at = static_cast<size_t>(e0 + te) * d + f;
-              // ABSORB: di for i_t1, at row e_pi
-              const size_t at_i =
-                  ABSORB ? static_cast<size_t>(epis[t0 + te]) * d + f : at;
-              *reinterpret_cast<unsigned*>(droles + at) =
-                  pack_bf16(gu[0], gu[1]);
-              *reinterpret_cast<unsigned*>(droles + plane + at) =
-                  pack_bf16(gq[0], gq[1]);
-              *reinterpret_cast<unsigned*>(droles + 2 * plane + at_i) =
-                  pack_bf16(gi[0], gi[1]);
+          for (int c = 0; c < 2; ++c) {
+            const float x = c ? uu.y : uu.x;
+            const float y = c ? qq.y : qq.x;
+            const float z = c ? ii.y : ii.x;
+            float du = dp[0][2 * h + c], dq = dp[1][2 * h + c],
+                  di = dp[2][2 * h + c];
+            if constexpr (P >= 6) {
+              du += dp[3][2 * h + c] * y + dp[5][2 * h + c] * z;
+              dq += dp[3][2 * h + c] * x + dp[4][2 * h + c] * z;
+              di += dp[4][2 * h + c] * y + dp[5][2 * h + c] * x;
             }
+            if constexpr (P >= 7) {
+              du += dp[6][2 * h + c] * (y * z);
+              dq += dp[6][2 * h + c] * (x * z);
+              di += dp[6][2 * h + c] * (x * y);
+            }
+            gu[c] = du;
+            gq[c] = dq;
+            gi[c] = di;
           }
+          bf16* ob = obuf + at_s;
+          *reinterpret_cast<unsigned*>(ob) = pack_bf16(gu[0], gu[1]);
+          *reinterpret_cast<unsigned*>(ob + T * sd) = pack_bf16(gq[0], gq[1]);
+          *reinterpret_cast<unsigned*>(ob + 2 * T * sd) =
+              pack_bf16(gi[0], gi[1]);
         }
       }
       if (threadIdx.x < OUT) {
-        for (int te = 0; te < n_e; ++te)
-          bacc += __bfloat162float(cs[te * SC + threadIdx.x]);
+        if (n_e == T) {
+#pragma unroll
+          for (int te = 0; te < T; ++te)
+            bacc += __bfloat162float(cs[te * SC + threadIdx.x]);
+        } else {
+          for (int te = 0; te < n_e; ++te)
+            bacc += __bfloat162float(cs[te * SC + threadIdx.x]);
+        }
+      }
+      __syncthreads();  // the tile's du, dq, di rows are staged
+      // whole rows out, 16 bytes a thread, as the roles came in (ABSORB:
+      // di at row e_pi)
+      if (my_row < rpv) {
+        for (int r = my_row; r < 3 * T; r += rpv) {
+          const int a = r / T;
+          const int te = r - a * T;
+          if (te >= n_e) continue;
+          const int row = ABSORB && a == 2 ? e_pi(tile, e0, te) : e0 + te;
+          *reinterpret_cast<uint4*>(droles + a * plane +
+                                    static_cast<size_t>(row) * d +
+                                    8 * my_v) =
+              *reinterpret_cast<const uint4*>(obuf + r * sd + 8 * my_v);
+        }
       }
     }
-    __syncthreads();  // the stage is read before it is refilled
-  }
 
-  float* out = partial + static_cast<size_t>(blockIdx.x) * (R + 1) * OUT;
-  if (has2 && F2 + 2 * t < d) {
+    // the chunk's last tile: its partial, then fresh accumulators
+    if (e0 + T >= cur.end) {
+      float* out = partial + static_cast<size_t>(cur.c) * (R + 1) * OUT;
+      if (has2) {
 #pragma unroll
-    for (int j = 0; j < P; ++j) {
-      const int r = j * d + F2 + 2 * t;
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        const int o = 32 * os + 16 * m + g;
-        if (o < OUT) {
-          out[static_cast<size_t>(r) * OUT + o] = acc[m][j][0];
-          out[static_cast<size_t>(r + 1) * OUT + o] = acc[m][j][1];
-        }
-        if (o + 8 < OUT) {
-          out[static_cast<size_t>(r) * OUT + o + 8] = acc[m][j][2];
-          out[static_cast<size_t>(r + 1) * OUT + o + 8] = acc[m][j][3];
+        for (int j = 0; j < P; ++j) {
+          const int r = j * d + F2 + 2 * t;
+          const int o = o2 + g;
+          if (o < OUT) {
+            out[static_cast<size_t>(r) * OUT + o] = acc[j][0];
+            out[static_cast<size_t>(r + 1) * OUT + o] = acc[j][1];
+          }
+          if (o + 8 < OUT) {
+            out[static_cast<size_t>(r) * OUT + o + 8] = acc[j][2];
+            out[static_cast<size_t>(r + 1) * OUT + o + 8] = acc[j][3];
+          }
+          acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
         }
       }
+      if (data && threadIdx.x < OUT)
+        out[static_cast<size_t>(R) * OUT + threadIdx.x] = bacc;
+      bacc = 0.f;
     }
+    advance(cur);
+    st = st + 1 == stages ? 0 : st + 1;
   }
-  if (data && threadIdx.x < OUT)
-    out[static_cast<size_t>(R) * OUT + threadIdx.x] = bacc;
 }
 
 // ABSORB: cot2, pi, mask (or null) and cols as above; else all unused.
@@ -1048,39 +1159,63 @@ int launch_out(const void* u, const void* q, const void* i, const void* w,
   return static_cast<int>(err);
 }
 
-// The bf16 form's shared memory: W [parts * d][OUT + 8] and two stages,
-// all bf16 (ABSORB: each stage with its c2 plane, then the chunk's e_pi and
-// mask, 8 bytes an edge); 0 when it does not fit in one block.
-size_t bf16_smem(int d, int out, int parts, bool absorb, int chunk_edges) {
-  const size_t bytes =
-      sizeof(__nv_bfloat16) *
-          (static_cast<size_t>(parts) * d * (out + 8) +
-           2 * static_cast<size_t>(kFusedTile) *
-               (3 * (d + 8) + out + 8 + (absorb ? out + 8 : 0))) +
-      (absorb ? 8 * static_cast<size_t>(chunk_edges) : 0);
-  return bytes <= kSmemLimit ? bytes : 0;
+// The bf16 form's shared memory with `stages` stages: W [parts * d][OUT +
+// 8] and the stages, all bf16 (ABSORB: each stage with its c2 plane, and
+// the pi and mask ring, pi_slots_of(stages) tiles of 8 bytes an edge and
+// a base each).
+size_t bf16_smem(int d, int out, int parts, bool absorb, int stages) {
+  return sizeof(__nv_bfloat16) *
+             (static_cast<size_t>(parts) * d * (out + 8) +
+              3 * static_cast<size_t>(kBf16Tile) * (d + 8) +
+              static_cast<size_t>(stages) * kBf16Tile *
+                  (3 * (d + 8) + out + 8 + (absorb ? out + 8 : 0))) +
+         (absorb ? static_cast<size_t>(pi_slots_of(stages)) *
+                       (kBf16Tile * 8 + sizeof(int))
+                 : 0);
 }
 
+// The deepest ring (4 stages, else 3, else 2) whose shared memory fits in
+// one block; the grid as many blocks a slab as the card holds at once, at
+// most one a chunk.
 template <int OUT, int ORDER, bool ABSORB>
 cudaError_t launch_bf16(const void* u, const void* q, const void* i,
                         const void* w, const void* cot, Absorb ab,
                         void* droles, void* partial, void* dw_ext, int edges,
                         int d, int chunk_edges, cudaStream_t stream) {
-  const int R = parts_of<ORDER>() * d;
-  const size_t smem =
-      bf16_smem(d, OUT, parts_of<ORDER>(), ABSORB, chunk_edges);
-  if (smem == 0 || d % 8 != 0) return cudaErrorInvalidValue;
+  constexpr int P = parts_of<ORDER>();
+  if (d % 8 != 0) return cudaErrorInvalidValue;
+  // the deepest ring (4 stages down to 2) that leaves room for three
+  // blocks an SM, else two, else the deepest that fits in one block
+  int stages = 0;
+  for (int per_sm = 3; per_sm >= 1 && stages == 0; --per_sm) {
+    for (int s = kBf16MaxStages; s >= 2 && stages == 0; --s) {
+      if (per_sm * (bf16_smem(d, OUT, P, ABSORB, s) + kSmemReserved) <=
+          kSmemPerSm)
+        stages = s;
+    }
+  }
+  if (stages == 0) return cudaErrorInvalidValue;
+  const size_t smem = bf16_smem(d, OUT, P, ABSORB, stages);
   auto kernel = interact_bwd_bf16_kernel<OUT, ORDER, ABSORB>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
+  int device = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, kBf16Threads, smem);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it: the caller gets it as the return value
     return err;
   }
   const int slabs = ((d + 31) / 32) * ((OUT + 31) / 32);
-  kernel<<<dim3(chunk_count(edges, chunk_edges), slabs), kFusedThreads, smem,
-           stream>>>(
+  const int chunks = chunk_count(edges, chunk_edges);
+  const int blocks = std::max(1, std::min(chunks, per_sm * sms / slabs));
+  kernel<<<dim3(blocks, slabs), kBf16Threads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(u),
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(i), static_cast<const float*>(w),
@@ -1088,11 +1223,10 @@ cudaError_t launch_bf16(const void* u, const void* q, const void* i,
       static_cast<const __nv_bfloat16*>(ab.cot2),
       static_cast<const int*>(ab.pi), static_cast<const float*>(ab.mask),
       static_cast<__nv_bfloat16*>(droles), static_cast<float*>(partial),
-      edges, d, chunk_edges, ab.cols);
+      edges, d, chunk_edges, ab.cols, stages);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return reduce_partials(partial, dw_ext, chunk_count(edges, chunk_edges),
-                         (R + 1) * OUT, stream);
+  return reduce_partials(partial, dw_ext, chunks, (P * d + 1) * OUT, stream);
 }
 
 template <int OUT, bool ABSORB>
@@ -1151,6 +1285,14 @@ extern "C" const char* ihgnn_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// out [n] = the fixed-order sum over chunks of partial [chunks, n], the
+// second kernel of every entry point below (for timing it apart).
+extern "C" int ihgnn_reduce_partials(const void* partial, void* out,
+                                     int chunks, int n, void* stream) {
+  return static_cast<int>(reduce_partials(
+      partial, out, chunks, n, static_cast<cudaStream_t>(stream)));
+}
+
 extern "C" int ihgnn_interact_bwd(const void* u, const void* q, const void* i,
                                   const void* w, const void* cot, void* droles,
                                   void* partial, void* dw_ext, int edges,
@@ -1180,7 +1322,8 @@ extern "C" int ihgnn_interact_bwd_absorb(
 // The bf16 form: u/q/i [edges, d] bf16, W [parts * d, out_dim] f32, cot
 // [edges, out_dim] bf16; droles [3, edges, d] bf16, partial and dw_ext f32
 // as ihgnn_interact_bwd. Refused (cudaErrorInvalidValue) for d % 8 != 0 or
-// when W and two stages do not fit in one block's shared memory.
+// when W, the staged output rows and two stages do not fit in one block's
+// shared memory (bf16_smem).
 extern "C" int ihgnn_interact_bwd_bf16(const void* u, const void* q,
                                        const void* i, const void* w,
                                        const void* cot, void* droles,

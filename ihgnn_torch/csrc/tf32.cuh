@@ -32,6 +32,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                "l"(src), "r"(bytes));
 }
 
+// 4 bytes from src (global) to dst (shared), through L1.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned saddr =
+      static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(saddr),
+               "l"(src));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }

@@ -13,9 +13,16 @@ one ``[3, E, d]`` tensor (planes u, q, i, each in edge order) with ``x``'s
 dtype, so the gradient that comes back to it is one ``[3E, d]`` buffer.
 
 With ``dtype=torch.bfloat16`` (``ModelConfig.bf16_stream``) the roles are
-bf16: the kernel's bf16 form reads ``x`` in f32 (each value rounded to
-nearest even in the copy) or in bf16, and writes bf16 rows. It counts in
-``gather_roles.launches_bf16``; the f32 form in ``gather_roles.launches``.
+bf16: the kernel's bf16 form copies bf16 rows of ``x``; an f32 ``x`` is
+first rounded to nearest even into a bf16 table of its shape (one more
+kernel of ``csrc/gather.cu``, into a ``torch.empty`` buffer freed on
+return: 44.8 MB at 700k × 32), the cast the JAX package makes before its
+gather. The copy moves 16-byte vectors where ``segsum.bf16_form`` says so
+for x and the three output planes (d % 8 == 0, 16-byte aligned), else
+8-byte vectors (d % 4 == 0, 8-byte aligned): K1's lane rule, which
+``csrc/gather.cu`` ``bf16_vec_bytes`` applies too. One call counts
+one in ``gather_roles.launches_bf16``; the f32 form counts in
+``gather_roles.launches``.
 
 The routed path (``ops/hyperagg.py``) expands through the single-index
 forms, the TPU's windowed expands themselves, over a pack's absolute
@@ -39,6 +46,7 @@ from typing import Optional
 import torch
 
 from ihgnn_torch.ops import _build
+from ihgnn_torch.ops.segsum import bf16_form
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
                                      ctypes.c_void_p]
@@ -49,6 +57,21 @@ _ROWS_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
     ctypes.c_void_p]
 _ROWS_BF16_ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [
     ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ROUND_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_longlong,
+                                           ctypes.c_void_p]
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """A new bf16 tensor of ``x``'s shape, each value of the contiguous,
+    16-byte aligned f32 CUDA tensor ``x`` (d % 4 == 0) rounded to nearest
+    even by ``csrc/gather.cu``: the first kernel of K2's bf16 form from an
+    f32 ``x`` (counted with its copy in ``gather_roles``)."""
+    table = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
+    fn = _build.function("gather", "ihgnn_round_bf16", _ROUND_ARGTYPES)
+    _build.check("gather", "round_bf16", fn(
+        x.data_ptr(), table.data_ptr(), x.numel(),
+        _build.stream_ptr(x.device)))
+    return table
 
 
 def gather_roles_plain(x: torch.Tensor, i3: torch.Tensor,
@@ -62,8 +85,9 @@ def gather_roles(x: torch.Tensor, i3: torch.Tensor,
     """``[3, E, d]``: the (u, q, i) endpoint rows of every edge, in
     ``dtype`` (default ``x``'s). CPU tensors run the plain twin; CUDA
     tensors launch ``csrc/gather.cu``: the f32 form (f32 ``x`` and roles,
-    counted in ``gather_roles.launches``) or the bf16 form (bf16 roles from
-    an f32 or bf16 ``x``, counted in ``gather_roles.launches_bf16``)."""
+    counted in ``gather_roles.launches``) or the bf16 form (bf16 roles
+    copied from a bf16 ``x``, or from an f32 ``x`` rounded first into a
+    bf16 table; counted in ``gather_roles.launches_bf16``)."""
     what = "gather_roles"
     dtype = dtype or x.dtype
     if dtype not in STREAM_DTYPES:
@@ -75,9 +99,10 @@ def gather_roles(x: torch.Tensor, i3: torch.Tensor,
     _build.require(x.dim() == 2 and x.dtype in (
         STREAM_DTYPES if bf16 else (torch.float32,)) and x.is_contiguous(),
         what, "x must be contiguous [N, d], f32 (or bf16 for bf16 roles)")
-    _build.require(x.shape[1] % 4 == 0 and x.data_ptr() % 16 == 0, what,
-                   "the kernel copies four features a thread: d must be a "
-                   "multiple of 4 and x 16-byte aligned")
+    if x.dtype == torch.float32:
+        _build.require(x.shape[1] % 4 == 0 and x.data_ptr() % 16 == 0, what,
+                       "f32 rows are read four features a thread: d must "
+                       "be a multiple of 4 and x 16-byte aligned")
     _build.require(i3.dim() == 2 and i3.shape[1] == 3
                    and i3.dtype == torch.int32 and i3.is_contiguous(), what,
                    "i3 must be contiguous [E, 3] int32")
@@ -87,11 +112,16 @@ def gather_roles(x: torch.Tensor, i3: torch.Tensor,
     if e == 0 or d == 0:
         return out
     if bf16:
+        stream = _build.stream_ptr(x.device)
+        if x.dtype == torch.float32:
+            x = round_bf16(x)
+        _build.require(bf16_form(d, x, *out) > 0, what,
+                       "the bf16 copy moves 8 or 4 features a thread: d "
+                       "must be a multiple of 4 and x 8-byte aligned")
         fn = _build.function("gather", "ihgnn_gather_roles_bf16",
                              _BF16_ARGTYPES)
-        err = fn(x.data_ptr(), int(x.dtype == torch.bfloat16),
-                 i3.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-                 out[2].data_ptr(), e, d, _build.stream_ptr(x.device))
+        err = fn(x.data_ptr(), 1, i3.data_ptr(), out[0].data_ptr(),
+                 out[1].data_ptr(), out[2].data_ptr(), e, d, stream)
     else:
         fn = _build.function("gather", "ihgnn_gather_roles", _ARGTYPES)
         err = fn(x.data_ptr(), i3.data_ptr(), out[0].data_ptr(),

@@ -271,9 +271,10 @@ def interact_bwd(u: torch.Tensor, q: torch.Tensor, i: torch.Tensor,
     (d above 268 to 288, by out) is refused by the C entry point, and the
     wrapper raises. bf16 u, q, i and cot (droles bf16, dW and db f32) run
     the bf16 form, one bf16 ``mma.sync`` pass, counted in
-    ``interact_bwd.launches_bf16``; it takes d % 8 == 0 when W and its
-    two stages fit in one block's shared memory, and the C entry point
-    refuses other shapes."""
+    ``interact_bwd.launches_bf16``; it takes d % 8 == 0 when W, the staged
+    du, dq, di rows and two 64-edge stages fit in one block's shared
+    memory (d up to 120 at out = 32, order 3; 88 at out = 64), and the C
+    entry point refuses other shapes."""
     what = "interact_bwd"
     _check_weights(what, u, w, order)
     if cot.shape != (u.shape[0], w.shape[1]):

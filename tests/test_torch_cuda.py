@@ -54,7 +54,7 @@ from ihgnn_torch.ops.edgedot import (CHUNK, csr_edge_dot, csr_edge_dot_plain,
 from ihgnn_torch.ops.gatconv import GatConvFn
 from ihgnn_torch.ops.gather import (gather_roles, gather_roles_plain,
                                    gather_rows, gather_rows_plain,
-                                   gather_rows_t)
+                                   gather_rows_t, round_bf16)
 from ihgnn_torch.ops.hyperagg import (make_hyper_ops, make_log_ops,
                                       make_spmm_op, sigma_to_edge_order)
 from ihgnn_torch.ops.interact import (CHUNK_EDGES, KERNEL_OUT_DIMS,
@@ -1836,7 +1836,7 @@ def test_interact_absorb_bf16(dev, order, masked, rows, cols, d, out):
 @pytest.mark.parametrize("rows,cols", [(7, 256), (3, 1024), (2, 4096),
                                        (37, 9), (5, 100)])
 def test_interact_bwd_absorb_bf16_chunks(dev, masked, out, rows, cols):
-    """K5's bf16 backward where the chunk's e_pi and mask are staged: a
+    """K5's bf16 backward where a tile's e_pi and mask are staged: a
     chunk across grid rows (cols 256, 9, 100), inside one (1024, 4096),
     E not a multiple of the 32-edge tile (333, 500), no mask: bit for bit
     ``interact_bwd``'s bf16 form on the pre-permuted inputs, 1 bf16 ulp
@@ -1849,6 +1849,141 @@ def test_interact_bwd_absorb_bf16_chunks(dev, masked, out, rows, cols):
             u, q, i_t1, pi, w, c1, c2, mask, order))
         _assert_bwd_bf16_close(got, interact_bwd_absorb_plain(
             u, q, i_t1, pi, w, c1, c2, mask, order))
+
+
+# The bf16 backward's design (persistent blocks that walk their chunks in
+# turn through a ring of 64-edge stages) and K2's bf16 form (an f32 x
+# rounded once into a bf16 table, then 16- or 8-byte row copies).
+
+
+@pytest.mark.parametrize("order", [1, 2, 3])
+@pytest.mark.parametrize("out", KERNEL_OUT_DIMS)
+@pytest.mark.parametrize("edges", [1, 31, 1023, 1025, 33 * 1024 + 17])
+def test_interact_bwd_bf16_edge_counts(dev, order, out, edges):
+    """Part of a tile, a chunk less one edge, a chunk and one, and 34
+    chunks with a ragged last (fewer chunks than the blocks the card
+    holds): 1 bf16 ulp (dW, db 1e-4) from the twin, bit for bit a second
+    run."""
+    u, q, i, w, _, cot = _bf16_inputs(dev, edges, 32, out, order,
+                                      edges + 7 * out + order)
+    got = interact_bwd(u, q, i, w, cot, order)
+    _assert_bwd_bf16_close(got, interact_bwd_plain(u, q, i, w, cot, order))
+    again = interact_bwd(u, q, i, w, cot, order)
+    for a, c in zip((*got[0], *got[1:]), (*again[0], *again[1:])):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("order", [1, 3])
+def test_interact_bwd_bf16_several_chunks_a_block(dev, order):
+    """1200 chunks and a ragged one, more than the card holds blocks at
+    once, so each block walks several: as the twin (1 bf16 ulp, dW and db
+    1e-4), and each chunk's du, dq, di bit for bit that chunk run alone
+    (the first, one in the middle, the ragged last)."""
+    edges = 1200 * CHUNK_EDGES + 77
+    u, q, i, w, _, cot = _bf16_inputs(dev, edges, 32, 32, order, 90 + order)
+    got = interact_bwd(u, q, i, w, cot, order)
+    _assert_bwd_bf16_close(got, interact_bwd_plain(u, q, i, w, cot, order))
+    for c in (0, 617, 1200):
+        rows = slice(c * CHUNK_EDGES, min((c + 1) * CHUNK_EDGES, edges))
+        alone = interact_bwd(u[rows].contiguous(), q[rows].contiguous(),
+                             i[rows].contiguous(), w,
+                             cot[rows].contiguous(), order)
+        assert torch.equal(alone[0], got[0][:, rows]), c
+
+
+@pytest.mark.parametrize("order", [1, 2, 3])
+@pytest.mark.parametrize("out", KERNEL_OUT_DIMS)
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("rows,cols", [(300, 9), (41, 100), (5, 1024),
+                                       (3, 4096)])
+def test_interact_bwd_absorb_bf16_cols(dev, order, out, masked, rows, cols):
+    """K5's bf16 backward at d = 32 with grid rows of 9 and 100 edges (a
+    64-edge tile across grid rows) and 1024, 4096 (inside one): bit for bit
+    ``interact_bwd``'s bf16 form on the pre-permuted inputs, 1 bf16 ulp
+    (dW, db 1e-4) from the twin; masked σ pads reach no gradient."""
+    u, q, i_t1, pi, w, _, c1, c2, mask = _absorb_bf16(
+        dev, rows, cols, 32, order, 3 * rows + cols + out + masked, masked,
+        out)
+    got = interact_bwd_absorb(u, q, i_t1, pi, w, c1, c2, mask, order)
+    _assert_identity(got, interact_bwd_absorb_via_direct(
+        u, q, i_t1, pi, w, c1, c2, mask, order))
+    _assert_bwd_bf16_close(got, interact_bwd_absorb_plain(
+        u, q, i_t1, pi, w, c1, c2, mask, order))
+    if masked:
+        pads = mask == 0
+        assert (got[0][0][pads] == 0).all() and (got[0][1][pads] == 0).all()
+
+
+@pytest.mark.parametrize("d,out,runs", [(120, 32, True), (128, 32, False),
+                                        (88, 64, True), (96, 64, False)])
+def test_interact_bwd_bf16_widest_rows(dev, d, out, runs):
+    """At order 3 the bf16 backward takes d up to 120 at out = 32 and 88
+    at out = 64 (W, the staged output rows and two stages in one block's
+    shared memory); the entry point refuses a wider d and the wrapper
+    raises."""
+    u, q, i, w, _, cot = _bf16_inputs(dev, CHUNK_EDGES + 5, d, out, 3, d)
+    if runs:
+        _assert_bwd_bf16_close(interact_bwd(u, q, i, w, cot, 3),
+                               interact_bwd_plain(u, q, i, w, cot, 3))
+    else:
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            interact_bwd(u, q, i, w, cot, 3)
+
+
+@pytest.mark.parametrize("x_bf16", [False, True])
+@pytest.mark.parametrize("d", [8, 12, 32, 64])
+def test_gather_roles_bf16_forms(dev, d, x_bf16):
+    """K2's bf16 form at both copy widths (16 bytes for d % 8 == 0, else
+    8), from an f32 x (rounded into a table) and a bf16 x, on a ragged E
+    whose ids reach the last row: bit for bit the twin and x rounded then
+    gathered, one launch counted. A bf16 x 8 bytes off a 16-byte boundary
+    takes the 8-byte copy with the same bits; 4 bytes off, it is refused;
+    an f32 x 8 bytes off is refused (its rounding reads 16-byte vectors)."""
+    g = _gen(dev, 40 + d)
+    n, e = 5003, 3 * 1024 + 5
+    x = torch.randn(n, d, device=dev, generator=g) * 3
+    i3 = torch.randint(0, n, (e, 3), device=dev, generator=g).int()
+    i3[0], i3[-1] = 0, n - 1
+    rows = x.to(BF16) if x_bf16 else x
+    before = (gather_roles.launches, gather_roles.launches_bf16)
+    got = gather_roles(rows, i3, BF16)
+    torch.cuda.synchronize()
+    assert (gather_roles.launches, gather_roles.launches_bf16) == \
+        (before[0], before[1] + 1)
+    assert torch.equal(got, gather_roles_plain(rows, i3, BF16))
+    assert torch.equal(got, x.to(BF16)[i3.t().long()])
+    out = torch.empty(3, e, d, dtype=BF16, device=dev)
+    assert bf16_form(d, x.to(BF16), *out) == (16 if d % 8 == 0 else 8)
+    shifted = rows_at(rows, 8)
+    if x_bf16:
+        assert bf16_form(d, shifted, *out) == 8
+        assert torch.equal(gather_roles(shifted, i3, BF16), got)
+        with pytest.raises(ValueError, match="8-byte aligned"):
+            gather_roles(rows_at(rows, 4), i3, BF16)
+    else:
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            gather_roles(shifted, i3, BF16)
+
+
+def test_round_bf16_is_nearest_even(dev):
+    """K2's rounding kernel gives PyTorch's cast bit for bit: ties either
+    way, subnormals, ±inf, values that round up to inf, any bit pattern."""
+    f = np.float32
+    one, half_ulp = f(1.0), f(2.0 ** -8)
+    tiny = np.finfo(np.float32).tiny
+    hard = np.array([0.0, -0.0, one + half_ulp, one + 3 * half_ulp,
+                     tiny, -tiny / 2, f(1e-45), np.inf, -np.inf,
+                     np.finfo(np.float32).max, f(3.3895314e38), f(-65504)],
+                    np.float32)
+    rng = np.random.default_rng(3)
+    bits = rng.integers(0, 2**32, 4096, dtype=np.uint64).astype(np.uint32)
+    anything = bits.view(np.float32)
+    vals = np.concatenate([hard, anything[~np.isnan(anything)]])
+    vals = vals[:len(vals) // 8 * 8].reshape(-1, 8)
+    x = torch.from_numpy(vals).to(dev)
+    got = round_bf16(x)
+    assert got.dtype == BF16 and got.shape == x.shape
+    assert torch.equal(got.view(torch.int16), x.to(BF16).view(torch.int16))
 
 
 @pytest.mark.parametrize("d", [4, 8, 32, 64, 96])
