@@ -152,6 +152,25 @@ over the chunks' partials alone (``reduce_ms``; the fused kernel takes
 the rest); K2's bf16 row times the copy from a ready bf16 x
 (``x_bf16_ms``) and the rounding of the f32 x alone (``round_ms``).
 
+Srrl and preprocessing (no hand-written kernel runs on either; a Srrl
+phase fails if one launched). Phase ``cli`` also runs ``--model srrl``
+for CLI_SRRL_EPOCHS (tested, ``--storecheckpoint``) and its ``--checkpoint
+latest`` resume, held to the saved state bit for bit. After it:
+``srrl_data`` (a ``GraphData`` of one single-positive log a (u, q, i) of
+the seeded 2M draw), ``srrl_serving`` (``Srrl``, the MLP scorer, d = 32,
+seeded weights: ``all_features`` timed as ``run_serving`` times the
+forward, ``evaluate`` over the serving logs in ``run_srrl``'s eval batch,
+one eval batch under ``torch.profiler``), ``srrl_train`` (``MetaPaths``
+over the 2M positives, KG steps of 1024 x 10 by mode and PS steps of
+1024 x 10, CUDA-event and host-issue times; a KG step with its sampling
+and a PS step under ``torch.profiler``), ``small_srrl_reference`` (tail,
+head and query KG steps, then 3 PS steps on a small split, card against
+CPU: losses, every step-0 gradient of both phases, the unused KG heads'
+zero gradients included, and the parameters) and ``preprocess`` (the
+port's CIKM writer at CIKM_SMALL through Steps 1 and 3 and one tested CLI
+epoch on the card from those artifacts, launches exact; the Amazon
+fixture through the three module CLIs; host seconds of each step).
+
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Needs a CUDA card; exits non-zero without one.
 """
@@ -1663,10 +1682,14 @@ def profile_window(torch, label, fn):
     the host operators that took the most CPU time. ``fn`` runs twice, a
     warm-up step the profiler discards and the recorded one: without the
     warm-up the first kernels of the window went missing from the record
-    (a bf16 step listed one of its two K2 launches). Beside the
-    profiler's events, the kernels of the exported Chrome trace, by name
-    with their calls (``trace_top_kernels``), which the launch counts of
-    the window can be held against."""
+    (a bf16 step listed one of its two K2 launches). The busy time and
+    the window come from the exported Chrome trace (``_trace_summary``:
+    the union of its kernel, copy and set spans over the span of all its
+    events); the profiler's GPU annotations (``ProfilerStep*``,
+    ``Optimizer.step``), which span the gaps between kernels, count as no
+    device time. ``top_kernels`` lists the trace's kernels by name with
+    their calls, which the launch counts of the window can be held
+    against."""
     import os
     import tempfile
 
@@ -1675,7 +1698,6 @@ def profile_window(torch, label, fn):
 
     def ready(prof):
         prof.export_chrome_trace(recorded["path"])
-        recorded["events"] = list(prof.events())
         recorded["host"] = list(prof.key_averages())
 
     torch.cuda.synchronize()
@@ -1689,6 +1711,7 @@ def profile_window(torch, label, fn):
                 fn()
                 torch.cuda.synchronize()
                 prof.step()
+        summary = _trace_summary(recorded["path"])
         with open(recorded["path"], encoding="utf-8") as f:
             traced = [e for e in json.load(f)["traceEvents"]
                       if e.get("ph") == "X" and e.get("cat") == "kernel"]
@@ -1696,41 +1719,15 @@ def profile_window(torch, label, fn):
     for e in traced:
         ms, n = by_trace.get(e["name"], (0.0, 0))
         by_trace[e["name"]] = (ms + e["dur"] / 1e3, n + 1)
-    trace_top = [{"name": k[:90], "ms": ms, "calls": n} for k, (ms, n) in
-                 sorted(by_trace.items(), key=lambda kv: -kv[1][0])[:14]]
-    events = recorded["events"]
-    kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    row = {"phase": "profile", "window": label, "device_events": len(kernels),
-           "trace_kernel_events": len(traced), "trace_top_kernels": trace_top}
-    if not kernels:
-        row["device_time"] = "not measured: the profiler saw no device events"
-        return row
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, cur_start, cur_end = 0.0, *spans[0]
-    for start, end in spans[1:]:
-        if start > cur_end:
-            busy += cur_end - cur_start
-            cur_start, cur_end = start, end
-        else:
-            cur_end = max(cur_end, end)
-    busy += cur_end - cur_start
-    window = (max(e.time_range.end for e in events)
-              - min(e.time_range.start for e in events))
-    by_name = {}
-    for e in kernels:
-        ms, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    top = [{"name": k[:90], "ms": ms, "calls": n} for k, (ms, n) in
+           sorted(by_trace.items(), key=lambda kv: -kv[1][0])[:14]]
     host = sorted(recorded["host"], key=lambda a: -a.self_cpu_time_total)
-    row.update({
-        "window_ms": window / 1e3, "device_busy_ms": busy / 1e3,
-        "device_idle_share": 1.0 - busy / window,
-        "top_kernels": [{"name": k[:90], "ms": ms, "calls": n}
-                        for k, (ms, n) in top],
-        "top_host_ops": [{"name": a.key[:60],
-                          "self_cpu_ms": a.self_cpu_time_total / 1e3,
-                          "calls": a.count} for a in host[:8]]})
+    row = {"phase": "profile", "window": label,
+           "trace_kernel_events": len(traced), "top_kernels": top}
+    row.update({k: v for k, v in summary.items() if k != "top_host_ops"})
+    row["top_host_ops"] = [{"name": a.key[:60],
+                            "self_cpu_ms": a.self_cpu_time_total / 1e3,
+                            "calls": a.count} for a in host[:8]]
     return row
 
 
@@ -2301,6 +2298,9 @@ KERNELS = {
 # for CLI_BF16_EPOCHS (tested)
 CLI_EPOCHS, CLI_RESUME_EPOCHS, CLI_GAT_EPOCHS = 4, 2, 1
 CLI_BF16_EPOCHS = 1
+# then --model srrl for CLI_SRRL_EPOCHS (tested at the last, stored), and
+# its --checkpoint latest resume for CLI_SRRL_RESUME_EPOCHS
+CLI_SRRL_EPOCHS, CLI_SRRL_RESUME_EPOCHS = 2, 1
 
 
 def _trace_summary(path):
@@ -2362,11 +2362,13 @@ def run_cli(torch, dev):
     with ``--storecheckpoint --storemetrics`` (epoch 2 under
     ``torch.profiler``), a ``--checkpoint latest`` resume for
     CLI_RESUME_EPOCHS more, then ``--gnn gat`` for CLI_GAT_EPOCHS, then
-    ``--bf16_stream --remat`` for CLI_BF16_EPOCHS. Fails
-    unless the resume renumbers from CLI_EPOCHS + 1 from exactly the saved
-    state, the log and metrics files exist, the average loss falls over
-    the first run, the metrics are finite and every launch count is exact.
-    Returns the launches."""
+    ``--bf16_stream --remat`` for CLI_BF16_EPOCHS, then ``--model srrl``
+    for CLI_SRRL_EPOCHS with ``--storecheckpoint`` and its ``--checkpoint
+    latest`` resume for CLI_SRRL_RESUME_EPOCHS. Fails
+    unless each resume renumbers from the next epoch from exactly the
+    saved state, the log and metrics files exist, the average loss falls
+    over the first run, the metrics are finite and every launch count is
+    exact (Srrl launches none). Returns the launches."""
     import copy
     import os
     import tempfile
@@ -2374,22 +2376,26 @@ def run_cli(torch, dev):
     from ihgnn_torch import cli
     from ihgnn_torch.data.artifacts import write_synthetic_dataset
     from ihgnn_torch.quality_parity import QUALITY_SET
+    from ihgnn_torch.train import srrl_loop
 
     def snapshot(model, opt):
         return ({k: v.detach().clone() for k, v in
                  model.state_dict().items()}, copy.deepcopy(opt.state_dict()))
 
-    saved, restored = {}, {}
     save, restore = cli.save_checkpoint, cli.restore_checkpoint
 
-    def spy_save(result_dir, epoch, model, opt):
-        saved[epoch] = snapshot(model, opt)
-        return save(result_dir, epoch, model, opt)
+    def spies(saved, restored):
+        def spy_save(result_dir, epoch, model, opt):
+            saved[epoch] = snapshot(model, opt)
+            return save(result_dir, epoch, model, opt)
 
-    def spy_restore(result_dir, name, model, opt):
-        epoch = restore(result_dir, name, model, opt)
-        restored[epoch] = snapshot(model, opt)
-        return epoch
+        def spy_restore(result_dir, name, model, opt):
+            epoch = restore(result_dir, name, model, opt)
+            restored[epoch] = snapshot(model, opt)
+            return epoch
+        return spy_save, spy_restore
+
+    saved, restored, srrl_saved, srrl_restored = {}, {}, {}, {}
 
     with tempfile.TemporaryDirectory() as tmp:
         data_dir = os.path.join(tmp, "quality_ds")
@@ -2400,7 +2406,9 @@ def run_cli(torch, dev):
             tmp, "profile")
         base = ["--dataset", data_dir, "--result_dir", results,
                 "--epoch_start_test", "2", "--epoch_test_frequency", "2"]
-        cli.save_checkpoint, cli.restore_checkpoint = spy_save, spy_restore
+        cli.save_checkpoint, cli.restore_checkpoint = spies(saved, restored)
+        srrl_loop.save_checkpoint, srrl_loop.restore_checkpoint = spies(
+            srrl_saved, srrl_restored)
         try:
             torch.cuda.synchronize()
             _zero_launches()
@@ -2425,9 +2433,24 @@ def run_cli(torch, dev):
                              str(CLI_BF16_EPOCHS), "--epoch_start_test",
                              "1"])
             bf16_s = time.perf_counter() - t0
+            srrl_base = ["--dataset", data_dir, "--result_dir", results,
+                         "--model", "srrl", "--epoch_start_test",
+                         str(CLI_SRRL_EPOCHS)]
+            t0 = time.perf_counter()
+            srrl = cli.main(srrl_base + ["--epoch_count",
+                                         str(CLI_SRRL_EPOCHS),
+                                         "--storecheckpoint"])
+            srrl_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            srrl_resumed = cli.main(srrl_base + [
+                "--epoch_count", str(CLI_SRRL_RESUME_EPOCHS),
+                "--checkpoint", "latest"])
+            srrl_resumed_s = time.perf_counter() - t0
             torch.cuda.synchronize()
         finally:
             cli.save_checkpoint, cli.restore_checkpoint = save, restore
+            srrl_loop.save_checkpoint = save
+            srrl_loop.restore_checkpoint = restore
         launches = _launch_counts()
         idle = _trace_summary(os.path.join(prof_dir, "epoch2.trace.json"))
         files = {d: sorted(os.listdir(os.path.join(results, d)))
@@ -2451,10 +2474,16 @@ def run_cli(torch, dev):
     logs_written = "train_log.txt" in ihgnn_files and all(
         any(f.endswith(suffix) for f in ihgnn_files)
         for suffix in ("_train_log.txt", "_metrics.txt"))
+    srrl_same_state = (list(srrl_saved) == [CLI_SRRL_EPOCHS]
+                       == list(srrl_restored)
+                       and _same_state(torch, srrl_saved[CLI_SRRL_EPOCHS],
+                                       srrl_restored[CLI_SRRL_EPOCHS]))
+    srrl_resumed_epochs = [s.epoch for s in srrl_resumed.epoch_stats]
     metrics = {name: [(e, m.as_row(), v.as_row())
                       for e, m, v in mc.iter_epoch_test_valid()]
                for name, mc in (("first", first), ("resumed", resumed),
-                                ("gat", gat), ("bf16_remat", bf16))}
+                                ("gat", gat), ("bf16_remat", bf16),
+                                ("srrl", srrl))}
     # the profiled second epoch aside, and the first one's set-up
     warm = [s for s in first.epoch_stats + resumed.epoch_stats
             if s.epoch not in (1, 2)]
@@ -2471,11 +2500,16 @@ def run_cli(torch, dev):
                                 for s in bf16.epoch_stats],
           "epoch_s": epoch_s, "steps_per_s": steps / epoch_s,
           "eval_s": float(np.median(evals)),
+          "srrl_epochs": [dataclasses.asdict(s) for s in srrl.epoch_stats
+                          + srrl_resumed.epoch_stats],
           "run_s": {"first": first_s, "resumed": resumed_s, "gat": gat_s,
-                    "bf16_remat": bf16_s},
+                    "bf16_remat": bf16_s, "srrl": srrl_s,
+                    "srrl_resumed": srrl_resumed_s},
           "profiled_epoch": {"epoch": 2, **idle},
           "losses": losses, "resumed_epochs": resumed_epochs,
-          "restored_equals_saved": same_state, "files": files,
+          "restored_equals_saved": same_state,
+          "srrl_resumed_epochs": srrl_resumed_epochs,
+          "srrl_restored_equals_saved": srrl_same_state, "files": files,
           "metrics": metrics, "launches": launches,
           "expected_launches": expected})
     if launches != expected:
@@ -2485,6 +2519,15 @@ def run_cli(torch, dev):
         fail(f"cli: the resume ran epochs {resumed_epochs}")
     if not same_state:
         fail("cli: the restored state differs from the saved one")
+    if srrl_resumed_epochs != list(range(
+            CLI_SRRL_EPOCHS + 1,
+            CLI_SRRL_EPOCHS + 1 + CLI_SRRL_RESUME_EPOCHS)):
+        fail(f"cli: the Srrl resume ran epochs {srrl_resumed_epochs}")
+    if not srrl_same_state:
+        fail("cli: the restored Srrl state differs from the saved one")
+    if not all(np.isfinite([s.avg_loss, s.kg_avg_loss]).all()
+               for s in srrl.epoch_stats + srrl_resumed.epoch_stats):
+        fail(f"cli: non-finite Srrl losses {srrl.epoch_stats}")
     if not logs_written:
         fail(f"cli: log or metrics file missing: {files}")
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
@@ -2496,6 +2539,389 @@ def run_cli(torch, dev):
         values = [x for _, m, v in rows for x in m + v]
         if not rows or not all(0.0 <= x <= 1.0 for x in values):
             fail(f"cli: bad {name} metrics {rows}")
+    return launches
+
+
+# ---- Srrl and preprocessing: no hand-written kernel runs on these paths
+
+# Srrl train phase: KG steps of 1024 positives x 10 negatives, one warm
+# step a mode, then SRRL_KG_TIMED; PS steps as the train phases take them
+SRRL_KG_WARM, SRRL_KG_TIMED = 3, 12
+# the CIKM-shaped raw files of the preprocess phase (synth_cikm's seed 3)
+CIKM_SMALL = dict(users=200, products=600, sessions=12, categories=20)
+AMAZON_SMALL = dict(items=300, users=120, reviews_per_user=8)
+
+
+def _no_launches(path):
+    """The launch counts since ``_zero_launches``; fails unless every one is
+    0 (Srrl runs no hand-written kernel)."""
+    launches = _launch_counts()
+    if any(launches.values()):
+        fail(f"{path}: a kernel was launched on a path that runs none: "
+             f"{ {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
+def srrl_data(uqi, qw, qc):
+    """A ``GraphData`` of one single-positive log an interaction of the
+    seeded 2M draw, and its build's host seconds."""
+    from ihgnn_torch.data.collections import SearchLogCollection
+    from ihgnn_torch.data.dataset import GraphData
+    from ihgnn_torch.data.schema import SearchLog
+    t0 = time.perf_counter()
+    logs = SearchLogCollection(
+        SearchLog(u, q, "t", [i], [1], [0], [1], ["t"])
+        for u, q, i in uqi.tolist())
+    return GraphData(U, Q, I, VOCAB, qw, qc, logs), time.perf_counter() - t0
+
+
+def _srrl_model(torch, dev, cfg, seed=0):
+    from ihgnn_torch.models.srrl import Srrl
+    return Srrl(cfg.model, U, Q, I, VOCAB,
+                generator=torch.Generator().manual_seed(seed)).to(dev)
+
+
+def run_srrl_serving(torch, dev, data):
+    """Phase ``srrl_serving``: ``Srrl`` (the MLP scorer, d = 32, seeded
+    weights) at full width: ``all_features`` (its second call, then
+    FEATURE_REPEATS warm calls), then ``evaluate`` over the serving logs in
+    ``run_srrl``'s eval batch (2^27 / (I · 2d) = 5 rows here), and one
+    eval batch under ``torch.profiler``."""
+    from ihgnn_torch.config import Config
+    from ihgnn_torch.train.eval import evaluate
+    from ihgnn_torch.train.srrl_loop import (eval_batch_size,
+                                             make_eval_fns_srrl)
+
+    cfg = Config()
+    model = _srrl_model(torch, dev, cfg)
+    model.eval()
+    logs = random_eval_logs(U, Q, I, EVAL_LOGS, seed=2)
+    batch = eval_batch_size(cfg, I)
+    features_fn, metrics_fn = make_eval_fns_srrl(model, data, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_launches()
+    t0 = time.perf_counter()
+    features = features_fn()
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    features = features_fn()
+    torch.cuda.synchronize()
+    features_ms = (time.perf_counter() - t0) * 1e3
+    metrics, rows, eval_s = evaluate(features_fn, metrics_fn, logs, batch,
+                                     collect_rows=True, features=features)
+    launches = _no_launches("srrl_serving")
+    repeats = time_features(torch, features_fn)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if tuple(features.shape) != (U + Q + I, D) or \
+            not torch.isfinite(features).all():
+        fail(f"srrl_serving: bad features {tuple(features.shape)}")
+    row = metrics.as_row()
+    if rows.shape != (logs.count, 4) or not np.isfinite(rows).all() \
+            or not all(0.0 <= v <= 1.0 for v in row):
+        fail(f"srrl_serving: bad metrics {row}")
+    users, queries, truth, counts, _ = next(logs.batches(batch))
+    profile = profile_window(
+        torch, f"one Srrl eval batch of {batch}",
+        lambda: metrics_fn(features, users, queries, truth, counts).cpu())
+    emit({"phase": "srrl_serving", "model": "srrl", "prediction": "mlp",
+          "d": D, "nodes": U + Q + I, "first_features_ms": first_ms,
+          "features_ms": features_ms, **repeats, "eval_logs": logs.count,
+          "eval_batch": batch, "eval_batches": -(-logs.count // batch),
+          "item_chunk": 8192, "eval_s": eval_s,
+          "eval_pairs_per_s": logs.count / eval_s,
+          "metrics": dict(zip(["HR@10", "NDCG@10", "MAP@10", "MRR@10"],
+                              row)),
+          "max_memory_allocated_bytes": peak,
+          "eval_batch_device_idle_share": profile.get("device_idle_share"),
+          "launches": launches})
+    emit(profile)
+
+
+def run_srrl_train(torch, dev, data, uqi):
+    """Phase ``srrl_train``: ``MetaPaths`` over the 2M positives, the KG
+    sampler's batches (1024 x 10, drawn ahead and timed alone),
+    SRRL_KG_WARM warm KG steps (one a mode) and SRRL_KG_TIMED timed ones,
+    each timed by CUDA events (``kg_step_ms``: from its first to its last
+    operation on the stream, which the host's pace sets when it issues
+    slower than the card runs) and by the host's issue; then PS steps as
+    ``run_train`` times them; a KG step with its sampling and a PS step
+    under ``torch.profiler``, whose rows give the device's busy time."""
+    from ihgnn_torch.config import Config, TrainConfig
+    from ihgnn_torch.data.srrl_sampler import MetaPaths, SrrlKGSampler
+    from ihgnn_torch.train.srrl_loop import (make_kg_steps, make_optimizer,
+                                             make_ps_step)
+
+    cfg = Config(train=TrainConfig(batch_size=TRAIN_B,
+                                   random_negative_sample_size=TRAIN_K))
+    t0 = time.perf_counter()
+    meta = MetaPaths(data)
+    meta_s = time.perf_counter() - t0
+    sampler = SrrlKGSampler(meta, TRAIN_B, TRAIN_K, seed=0)
+    t0 = time.perf_counter()
+    kg_batches = [sampler.next() for _ in range(SRRL_KG_WARM
+                                                + SRRL_KG_TIMED)]
+    sample_ms = (time.perf_counter() - t0) * 1e3 / len(kg_batches)
+    model = _srrl_model(torch, dev, cfg)
+    opt = make_optimizer(model, cfg.train.learning_rate)
+    kg_steps = make_kg_steps(model, data.query_words, data.query_word_counts,
+                             opt, cfg, dev)
+    ps_step = make_ps_step(model, data.query_words, data.query_word_counts,
+                           opt, cfg, dev)
+    ps_batches = [train_batch(uqi, I, TRAIN_B, TRAIN_K, seed)
+                  for seed in range(4)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_launches()
+    kg_losses = [kg_steps[m](*a) for m, *a in kg_batches[:SRRL_KG_WARM]]
+    torch.cuda.synchronize()
+    events, issue = [], []
+    t0 = time.perf_counter()
+    for mode, *arrays in kg_batches[SRRL_KG_WARM:]:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t1 = time.perf_counter()
+        start.record()
+        kg_losses.append(kg_steps[mode](*arrays))
+        end.record()
+        issue.append((time.perf_counter() - t1) * 1e3)
+        events.append((mode, start, end))
+    torch.cuda.synchronize()
+    kg_wall_ms = (time.perf_counter() - t0) * 1e3 / SRRL_KG_TIMED
+    by_mode = {}
+    for mode, start, end in events:
+        by_mode.setdefault(mode, []).append(start.elapsed_time(end))
+    ps_losses = [ps_step(ps_batches[k % 4]) for k in range(WARM_STEPS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(TIMED_STEPS):
+        ps_losses.append(ps_step(ps_batches[(WARM_STEPS + k) % 4]))
+    ps_issue_s = (time.perf_counter() - t0) / TIMED_STEPS
+    torch.cuda.synchronize()
+    ps_step_s = (time.perf_counter() - t0) / TIMED_STEPS
+    launches = _no_launches("srrl_train")
+    peak = torch.cuda.max_memory_allocated(dev)
+    kg_losses = [x.item() for x in kg_losses]
+    ps_losses = [x.item() for x in ps_losses]
+    if not all(np.isfinite(kg_losses + ps_losses)):
+        fail(f"srrl_train: non-finite losses {kg_losses} {ps_losses}")
+
+    def kg_step_with_sampling():
+        mode, *arrays = sampler.next()
+        kg_steps[mode](*arrays)
+
+    kg_profile = profile_window(torch, "one Srrl KG step with its sampling",
+                                kg_step_with_sampling)
+    ps_profile = profile_window(torch, "one Srrl PS step",
+                                lambda: ps_step(ps_batches[0]))
+    emit({"phase": "srrl_train", "model": "srrl", "d": D,
+          "positives": len(uqi), "meta_s": meta_s,
+          "kg_sample_ms": sample_ms, "rows_kg": [TRAIN_B, TRAIN_K],
+          "rows_ps": TRAIN_B * (1 + TRAIN_K),
+          "kg_warm_steps": SRRL_KG_WARM, "kg_timed_steps": SRRL_KG_TIMED,
+          "kg_step_ms": {m: float(np.median(v)) for m, v in by_mode.items()},
+          "kg_step_device_ms": by_mode, "kg_step_wall_ms": kg_wall_ms,
+          "kg_host_issue_ms": float(np.median(issue)),
+          "ps_warm_steps": WARM_STEPS, "ps_timed_steps": TIMED_STEPS,
+          "ps_step_ms": ps_step_s * 1e3, "host_issue_ms": ps_issue_s * 1e3,
+          "kg_losses": kg_losses, "ps_losses": ps_losses,
+          "max_memory_allocated_bytes": peak,
+          "kg_with_sampling_device_idle_share":
+              kg_profile.get("device_idle_share"),
+          "ps_device_idle_share": ps_profile.get("device_idle_share"),
+          "launches": launches})
+    emit(kg_profile)
+    emit(ps_profile)
+
+
+def check_small_srrl(torch, dev):
+    """Phase ``small_srrl_reference``: on a small split, the tail, head and
+    query KG steps then 3 PS steps on the card and on the CPU from the same
+    weights and batches: the losses, every gradient of the first KG and
+    the first PS step (the zero gradients of the KG heads a mode leaves
+    unused included) and the parameters after the last step."""
+    import copy
+
+    from ihgnn_torch.config import Config, ModelConfig, TrainConfig
+    from ihgnn_torch.data.dataset import TrainSampler
+    from ihgnn_torch.data.srrl_sampler import MetaPaths, SrrlKGSampler
+    from ihgnn_torch.data.synthetic import make_synthetic_data
+    from ihgnn_torch.models.srrl import Srrl
+    from ihgnn_torch.train.srrl_loop import (make_kg_steps, make_optimizer,
+                                             make_ps_step)
+
+    s = SMALL
+    data = make_synthetic_data(user_count=s["users"], query_count=s["queries"],
+                               item_count=s["items"], vocab_size=s["vocab"],
+                               log_count=s["edges"], seed=11)
+    cfg = Config(model=ModelConfig(), train=TrainConfig(
+        batch_size=SMALL_B, random_negative_sample_size=TRAIN_K))
+    model = Srrl(cfg.model, data.user_count, data.query_count,
+                 data.item_count, data.vocab_size,
+                 generator=torch.Generator().manual_seed(12))
+    sampler = SrrlKGSampler(MetaPaths(data), SMALL_B, TRAIN_K, seed=13)
+    kg_batches = [sampler.next() for _ in range(3)]
+    ps_batches = list(TrainSampler(data, SMALL_B, TRAIN_K,
+                                   seed=13).epoch())[:SMALL_STEPS]
+
+    def grads(m):
+        return {k: None if p.grad is None else p.grad.detach().cpu().clone()
+                for k, p in m.named_parameters()}
+
+    def train(device):
+        m = copy.deepcopy(model).to(device)
+        opt = make_optimizer(m, cfg.train.learning_rate)
+        kg_steps = make_kg_steps(m, data.query_words, data.query_word_counts,
+                                 opt, cfg, device)
+        ps_step = make_ps_step(m, data.query_words, data.query_word_counts,
+                               opt, cfg, device)
+        losses, step0 = [], {}
+        for k, (mode, *arrays) in enumerate(kg_batches):
+            losses.append(kg_steps[mode](*arrays).item())
+            if k == 0:
+                step0["kg"] = grads(m)
+        for k, b in enumerate(ps_batches):
+            losses.append(ps_step(b).item())
+            if k == 0:
+                step0["ps"] = grads(m)
+        return losses, step0, {k: v.detach().cpu()
+                               for k, v in m.state_dict().items()}
+
+    cpu_losses, cpu_grads, cpu_params = train("cpu")
+    card_losses, card_grads, card_params = train(dev)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card_losses,
+                                                       cpu_losses))
+    grad_err, unused = {}, {}
+    for phase in ("kg", "ps"):
+        for k, g in cpu_grads[phase].items():
+            c = card_grads[phase][k]
+            if (g is None) != (c is None):
+                fail(f"small_srrl_reference: {phase} gradient of {k}: "
+                     f"card {c is None}, CPU {g is None}")
+            if g is None:
+                continue
+            scale = max(g.abs().max().item(), 1e-30)
+            grad_err[f"{phase}:{k}"] = (c - g).abs().max().item() / scale
+            if not g.abs().max().item():
+                unused[f"{phase}:{k}"] = c.abs().max().item()
+    param_err = max((card_params[k] - v).abs().max().item()
+                    for k, v in cpu_params.items())
+    heads = {"kg:kg_aggre_head.fc.weight", "kg:kg_aggre_query.fc.weight"}
+    bad_grads = {k: v for k, v in grad_err.items()
+                 if not v <= SMALL_GRAD_RTOL}
+    ok = (loss_err <= SMALL_LOSS_RTOL and not bad_grads
+          and param_err <= SMALL_PARAM_ATOL and heads <= set(unused)
+          and not any(unused.values()))
+    emit({"phase": "small_srrl_reference",
+          "steps": [b[0] for b in kg_batches] + ["ps"] * len(ps_batches),
+          "card_losses": card_losses, "cpu_losses": cpu_losses,
+          "loss_max_rel_err": loss_err, "loss_rtol": SMALL_LOSS_RTOL,
+          "grad0_rel_err": grad_err, "grad0_rtol": SMALL_GRAD_RTOL,
+          "zero_grads_card_max_abs": unused,
+          "param_max_abs_err": param_err, "param_atol": SMALL_PARAM_ATOL})
+    if not ok:
+        fail("card and CPU Srrl training disagree on the small split")
+
+
+def write_amazon_fixture(root, items, users, reviews_per_user, seed=0):
+    """Amazon-shaped metadata and review JSON lines under ``root``;
+    returns their paths."""
+    import os
+    import random
+    rng = random.Random(seed)
+    cats = [["Electronics", "Home Audio"], ["Electronics", "Cameras"],
+            ["Books", "Science Fiction"], ["Books", "History"],
+            ["Clothing", "Running Shoes"], ["Home", "Kitchen Gadgets"]]
+    meta, reviews = (os.path.join(root, "meta.json"),
+                     os.path.join(root, "reviews.json"))
+    with open(meta, "w", encoding="utf-8") as f:
+        for i in range(items):
+            f.write(json.dumps({"asin": f"I{i:05d}",
+                                "category": rng.choice(cats)}) + "\n")
+    with open(reviews, "w", encoding="utf-8") as f:
+        for u in range(users):
+            for r in range(reviews_per_user):
+                f.write(json.dumps({
+                    "reviewerID": f"U{u:05d}",
+                    "asin": f"I{rng.randrange(items):05d}",
+                    "unixReviewTime": 1500000000 + u * 1000 + r}) + "\n")
+    return meta, reviews
+
+
+def run_preprocess(torch, dev):
+    """Phase ``preprocess``: the port's CIKM writer at CIKM_SMALL through
+    Steps 1 and 3, then one tested CLI epoch of the default model on the
+    card from those artifacts (launches exact); the Amazon fixture through
+    the three module CLIs (Steps 1, 2 with a 2-core item filter, 3). Host
+    seconds of each step. Returns the CLI epoch's launches."""
+    import os
+    import random
+    import tempfile
+
+    from ihgnn_torch import cli
+    from ihgnn_torch.data.dataset import GraphData
+    from ihgnn_torch.data.preprocess import amazon, onehot, subset
+    from ihgnn_torch.data.preprocess.synth_cikm import make_cikm_set
+    from ihgnn_torch.data.preprocess.text import TextPreprocessor
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cikm_dir = os.path.join(tmp, "cikm_ds")
+        cikm_s = make_cikm_set(cikm_dir, **CIKM_SMALL)
+        with open(os.path.join(cikm_dir, "graph_info.txt")) as f:
+            cikm_counts = [int(x) for x in f.read().split()]
+        torch.cuda.synchronize()
+        _zero_launches()
+        t0 = time.perf_counter()
+        mc = cli.main(["--dataset", cikm_dir, "--result_dir",
+                       os.path.join(tmp, "results"), "--epoch_count", "1",
+                       "--epoch_start_test", "1"])
+        cli_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = _launch_counts()
+
+        meta, reviews = write_amazon_fixture(tmp, **AMAZON_SMALL)
+        amazon_s = {}
+        t0 = time.perf_counter()
+        amazon.main(["--item", meta, "--search", reviews, "--result",
+                     os.path.join(tmp, "inter")])
+        amazon_s["step1_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        subset.main(["--source", os.path.join(tmp, "inter"), "--result",
+                     os.path.join(tmp, "sub"), "--nitem", "2"])
+        amazon_s["step2_s"] = time.perf_counter() - t0
+        random.seed(0)
+        t0 = time.perf_counter()
+        onehot.main(["--source", os.path.join(tmp, "sub"), "--result",
+                     os.path.join(tmp, "amazon_ds")])
+        amazon_s["step3_s"] = time.perf_counter() - t0
+        amazon_data = GraphData.from_files(os.path.join(tmp, "amazon_ds"))
+    expected = _cli_expected([(mc.epoch_stats, (IHGNN_STEP_LAUNCHES,
+                                                IHGNN_FORWARD_LAUNCHES))])
+    metrics = [(e, m.as_row(), v.as_row())
+               for e, m, v in mc.iter_epoch_test_valid()]
+    emit({"phase": "preprocess", "cikm": {**CIKM_SMALL, **cikm_s,
+                                          "graph_info": cikm_counts},
+          "cikm_cli_s": cli_s,
+          "cikm_epochs": [dataclasses.asdict(s) for s in mc.epoch_stats],
+          "cikm_metrics": metrics,
+          "amazon": {**AMAZON_SMALL, **amazon_s,
+                     "positives": amazon_data.pos_count,
+                     "counts": [amazon_data.user_count,
+                                amazon_data.query_count,
+                                amazon_data.item_count,
+                                amazon_data.vocab_size]},
+          "text_preprocess_sample": TextPreprocessor().preprocess(
+              "The Running Shoes 42 (Blue)!"),
+          "launches": launches, "expected_launches": expected})
+    if launches != expected:
+        fail(f"preprocess: kernel launches {launches}, expected {expected}")
+    if not metrics or not all(0.0 <= x <= 1.0 for _, m, v in metrics
+                              for x in m + v) or \
+            not np.isfinite(mc.epoch_stats[0].avg_loss):
+        fail(f"preprocess: bad CIKM epoch {metrics} {mc.epoch_stats}")
+    if amazon_data.pos_count <= 0:
+        fail("preprocess: the Amazon artifacts hold no positive")
     return launches
 
 
@@ -2799,6 +3225,15 @@ def main() -> int:
                                 "repeatable_gat_full_width")
     check_small_zoo(torch, dev)
     launches["cli"] = run_cli(torch, dev)
+    srrl_graph_data, srrl_data_s = srrl_data(uqi, qw, qc)
+    emit({"phase": "srrl_data", "seconds": srrl_data_s,
+          "logs": len(srrl_graph_data.search_logs),
+          "positives": srrl_graph_data.pos_count})
+    run_srrl_serving(torch, dev, srrl_graph_data)
+    run_srrl_train(torch, dev, srrl_graph_data, uqi)
+    del srrl_graph_data
+    check_small_srrl(torch, dev)
+    launches["preprocess"] = run_preprocess(torch, dev)
 
     kernels = []
     for kname, (source, replaces) in KERNELS.items():

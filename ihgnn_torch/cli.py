@@ -8,9 +8,11 @@ write ``train_log.txt``, ``<stamp>_metrics.txt`` and the long-tail CSV, and
 report the best epoch by valid NDCG@10. It runs on the card unless
 ``--device cpu`` is given.
 
-Flags whose modules are not ported yet (``--model srrl``, a mesh larger
-than one device, ``--multihost``) raise ``NotImplementedError`` before
-anything runs. ``--bf16_stream`` and ``--remat`` run (``models/rawgnn.py``);
+``--model srrl`` trains Srrl by its alternating KG/PS loop
+(``train/srrl_loop.py`` ``run_srrl``), as ``ihgnn_tpu/cli.py:139-141``
+does. Flags whose modules are not ported yet (a mesh larger than one
+device, ``--multihost``) raise ``NotImplementedError`` before anything
+runs. ``--bf16_stream`` and ``--remat`` run (``models/rawgnn.py``);
 the CLI builds no routed pack, so its graphs take the direct path.
 
 The epoch loop queues the train steps without waiting for the card: each
@@ -37,6 +39,7 @@ from ihgnn_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from ihgnn_torch.train.controller import EpochSchedule
 from ihgnn_torch.train.eval import evaluate, make_eval_fns
 from ihgnn_torch.train.metrics import EpochStats, Metrics, MetricsCollection
+from ihgnn_torch.train.srrl_loop import run_srrl
 from ihgnn_torch.train.train import (adjust_lr_after_epoch, make_optimizer,
                                      make_train_step)
 from ihgnn_torch.utils.logging import end_logging, log_print, start_logging
@@ -74,8 +77,6 @@ def check_ported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for a flag whose module is not ported
     yet, naming the ROADMAP item (queue 1) that ports it."""
     missing = []
-    if cfg.model.model == V.SRRL:
-        missing.append("--model srrl (ROADMAP queue 1 item 5, Srrl)")
     if cfg.mesh.data > 1 or cfg.mesh.model > 1:
         missing.append(f"--mesh_data {cfg.mesh.data} --mesh_model "
                        f"{cfg.mesh.model} (ROADMAP queue 1 item 8, "
@@ -161,6 +162,12 @@ def _run(cfg: Config, dev: torch.device, result_dir: str,
               f"{len(data.search_logs)} positives {data.pos_count}")
     log_print(f"valid logs {valid.count}/{valid.line_count}; "
               f"test logs {test.count}/{test.line_count}")
+
+    if cfg.model.model == V.SRRL:
+        all_metrics = run_srrl(cfg, data, valid, test, result_dir,
+                               fn_metrics, dev)
+        report_best(cfg, all_metrics, result_dir, fn_metrics)
+        return all_metrics
 
     # ---- model ----
     graph = pick_graph(data, cfg)

@@ -10,8 +10,8 @@ mean query transform, dot-product HEM head.
 
 The one field of the port's own is ``RuntimeConfig.device`` (``--device``,
 default ``cuda``), the counterpart of the JAX package's platform choice.
-Knobs whose modules are not ported yet (Srrl, a mesh, multi-host) parse
-as in the JAX package; the CLI refuses them.
+Knobs whose modules are not ported yet (a mesh, multi-host) parse as in
+the JAX package; the CLI refuses them.
 """
 
 from __future__ import annotations

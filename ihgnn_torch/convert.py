@@ -16,6 +16,11 @@ produces, with its leaves as NumPy arrays, onto the port's ``state_dict``:
 * ``prediction/items_bias [I]``.
 
 ``layer_params_from_jax`` maps one layer's tree the same way.
+``srrl_params_from_jax`` maps the tree of the JAX package's ``init_srrl``
+onto the port's ``Srrl``: the row-major ``{KG,PS}/*_table`` as they are,
+each ``<module>/.../dense/{kernel, bias}`` to ``<module>.....{weight =
+kernel.T, bias}``, and ``prediction/items_bias`` (the HEM scorer) to
+``prediction_layer.items_bias``.
 
 A leaf of the tree that none of these maps raises ``KeyError``, so no
 weight is silently left at its initial value. With it both packages
@@ -112,4 +117,31 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
                                                       for j in range(k)}
     if others:
         raise KeyError(f"params_from_jax: no port module for {sorted(others)}")
+    return sd
+
+
+_SRRL_TABLES = {"KG": ("user_table", "item_table", "vocab_table"),
+                "PS": ("user_table", "item_table")}
+
+
+def srrl_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's ``Srrl`` state_dict from a flax Srrl param tree
+    (``{"params": ...}`` or its inner mapping)."""
+    p = tree["params"] if "params" in tree else tree
+    sd: Dict[str, torch.Tensor] = {}
+    used = set()
+    for space, tables in _SRRL_TABLES.items():
+        for table in tables:
+            if table in p.get(space, {}):
+                sd[f"{space}.{table}"] = _t(p[space][table])
+                used.add((space, table))
+    for leaf in _leaves(p):
+        if leaf[-2:] == ("dense", "kernel"):
+            dense = leaf[:-1]
+            _linear(sd, ".".join(dense[:-1]), _sub(p, dense))
+            used.update({dense + ("kernel",), dense + ("bias",)})
+    if "prediction" in p:
+        sd["prediction_layer.items_bias"] = _t(p["prediction"]["items_bias"])
+        used.add(("prediction", "items_bias"))
+    _check_all_mapped(p, used, "srrl_params_from_jax")
     return sd

@@ -30,6 +30,18 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     return dev
 
 
+def model_device(model: torch.nn.Module,
+                 device: DeviceLike = "cuda") -> torch.device:
+    """``resolve_device(device)``; raises ``ValueError`` unless ``model``'s
+    parameters are already there."""
+    dev = resolve_device(device)
+    model_dev = next(model.parameters()).device
+    if model_dev != dev:
+        raise ValueError(f"the model is on {model_dev}, not {dev}; "
+                         "move it with model.to(device)")
+    return dev
+
+
 def moved(obj, device: DeviceLike):
     """A copy of the frozen dataclass ``obj`` with every tensor field on
     ``device``, and every nested dataclass field moved by its own ``to``."""

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from ihgnn_torch.data.dataset import EvalLogs
-from ihgnn_torch.device import DeviceLike, resolve_device
+from ihgnn_torch.device import DeviceLike, model_device
 from ihgnn_torch.graph import AnyGraph
 from ihgnn_torch.models.embedding import make_word_bag
 from ihgnn_torch.models.rawgnn import RawGnn
@@ -37,11 +37,7 @@ def make_eval_fns(model: RawGnn, graph: AnyGraph, query_words,
     ``metrics_fn(features, users, queries, truth, truth_counts)`` takes
     host arrays of one eval batch and returns its ``[B, 4]`` metric rows
     on ``device``."""
-    dev = resolve_device(device)
-    model_dev = next(model.parameters()).device
-    if model_dev != dev:
-        raise ValueError(f"the model is on {model_dev}, not {dev}; "
-                         "move it with model.to(device)")
+    dev = model_device(model, device)
     if graph.node_count != (model.user_count + model.query_count
                             + model.item_count):
         raise ValueError(f"the graph has {graph.node_count} nodes; the model "

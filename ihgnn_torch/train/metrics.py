@@ -191,13 +191,18 @@ class EpochStats:
     """One epoch of a CLI run: its average loss, its train pass (steps and
     seconds, until the losses reached the host) and, on a test epoch, the
     seconds of the whole evaluation (the shared forward, test and valid);
-    None otherwise."""
+    None otherwise. A Srrl epoch's ``avg_loss`` and ``steps`` are its PS
+    pass's, ``kg_avg_loss``, ``kg_steps`` and ``kg_s`` its KG pass's (None,
+    0 and None without one); ``train_s`` covers both."""
 
     epoch: int
     avg_loss: float
     steps: int
     train_s: float
     eval_s: Optional[float] = None
+    kg_avg_loss: Optional[float] = None
+    kg_steps: int = 0
+    kg_s: Optional[float] = None
 
 
 class MetricsCollection:

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 
 from ihgnn_torch.config import TrainConfig
 from ihgnn_torch.data.dataset import Batch
-from ihgnn_torch.device import DeviceLike, resolve_device
+from ihgnn_torch.device import DeviceLike, model_device
 from ihgnn_torch.graph import AnyGraph
 from ihgnn_torch.models.embedding import make_word_bag
 from ihgnn_torch.models.rawgnn import RawGnn
@@ -47,6 +47,18 @@ def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor,
     return (per_row * weight).sum() / torch.clamp(weight.sum(), min=1.0)
 
 
+def batch_putter(dev: torch.device) -> Callable[..., torch.Tensor]:
+    """``put(array)``: a host array as a tensor on ``dev``. A copy from
+    pageable memory waits for the stream to drain; from pinned memory it
+    queues behind the previous step instead."""
+    def put(a) -> torch.Tensor:
+        t = torch.as_tensor(np.asarray(a))
+        if dev.type != "cuda":
+            return t
+        return t.pin_memory().to(dev, non_blocking=True)
+    return put
+
+
 def make_train_step(model: RawGnn, graph: AnyGraph, query_words,
                     query_word_counts, optimizer: torch.optim.Optimizer,
                     grad_accum_steps: int = 1,
@@ -62,11 +74,7 @@ def make_train_step(model: RawGnn, graph: AnyGraph, query_words,
     gradients (``backward`` accumulates) and applies one update. The loss
     is a 0-d tensor on ``device``: the batch's loss, or the sum over the
     k microbatches (the caller averages)."""
-    dev = resolve_device(device)
-    model_dev = next(model.parameters()).device
-    if model_dev != dev:
-        raise ValueError(f"the model is on {model_dev}, not {dev}; "
-                         "move it with model.to(device)")
+    dev = model_device(model, device)
     if grad_accum_steps < 1:
         raise ValueError(f"grad_accum_steps must be >= 1, got "
                          f"{grad_accum_steps}")
@@ -74,13 +82,7 @@ def make_train_step(model: RawGnn, graph: AnyGraph, query_words,
     bag = make_word_bag(query_words, query_word_counts,
                         model.embeddings.vocab_table.shape[0]).to(dev)
 
-    def put(a) -> torch.Tensor:
-        t = torch.as_tensor(np.asarray(a))
-        if dev.type != "cuda":
-            return t
-        # a copy from pageable memory waits for the stream to drain; from
-        # pinned memory it queues behind the previous step instead
-        return t.pin_memory().to(dev, non_blocking=True)
+    put = batch_putter(dev)
 
     def loss_of(batch: Batch) -> torch.Tensor:
         logits = model(graph, bag, put(batch.users), put(batch.queries),

@@ -1,7 +1,8 @@
 """The port's training CLI against the JAX package's: the flags
 (``parse_args`` field by field, ``validate``), the result directory, whole
-runs of both ``main``s on one artifact directory, the checkpoint round trip
-and resume, and the flags the port refuses.
+runs of both ``main``s on one artifact directory (RawGnn, and Srrl with
+every KG and PS step's loss), the checkpoint round trip and resume (Srrl's
+too), ``quality_parity``'s sections, and the flags the port refuses.
 
 Tolerances of the whole runs (JAX's XLA path in f32 on the CPU against the
 port's plain twins, from the same initial weights, carried over from the
@@ -351,7 +352,6 @@ def test_cli_bf16_and_remat_equal_jax(monkeypatch, tmp_path, dataset_dir,
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--model", "srrl"], "item 5"),
     (["--mesh_data", "2"], "item 8"),
     (["--mesh_model", "2"], "item 8"),
     (["--multihost"], "item 8"),
@@ -361,6 +361,119 @@ def test_unported_flags_raise(tmp_path, dataset_dir, flags, item):
         tcli.main(["--dataset", dataset_dir, "--device", "cpu",
                    "--result_dir", str(tmp_path), *flags])
     assert not os.listdir(tmp_path)
+
+
+def _record_steps(monkeypatch, module, record):
+    """Wrap ``module``'s ``make_kg_steps`` and ``make_ps_step`` so every
+    step's loss is appended to ``record`` as a float; a JAX step returns
+    ``(state, loss)``, a port step the loss."""
+    def value(out):
+        return float(out[1] if isinstance(out, tuple) else out)
+
+    def wrap(step):
+        def recorded(*args):
+            out = step(*args)
+            record.append(value(out))
+            return out
+        return recorded
+
+    make_kg, make_ps = module.make_kg_steps, module.make_ps_step
+    monkeypatch.setattr(module, "make_kg_steps", lambda *a, **k: {
+        mode: wrap(step) for mode, step in make_kg(*a, **k).items()})
+    monkeypatch.setattr(module, "make_ps_step",
+                        lambda *a, **k: wrap(make_ps(*a, **k)))
+
+
+def test_cli_srrl_run_equal_jax(monkeypatch, tmp_path, dataset_dir):
+    """``--model srrl``: 4 epochs of both CLIs from the same initial
+    weights (JAX's ``init_srrl`` carried over with
+    ``convert.srrl_params_from_jax``) and the same sampler draws: every KG
+    and PS step's loss within LOSS_RTOL and the metrics as
+    ``test_cli_run_equal_jax`` holds them."""
+    from ihgnn_torch.convert import srrl_params_from_jax
+    from ihgnn_torch.train import srrl_loop as tloop
+    from ihgnn_tpu.train import srrl_loop as jloop
+
+    captured = {}
+    init_srrl = jloop.init_srrl
+
+    def spy_init(*args, **kwargs):
+        model, state, *rest = init_srrl(*args, **kwargs)
+        captured["params"] = jax.tree_util.tree_map(np.asarray, state.params)
+        return (model, state, *rest)
+
+    monkeypatch.setattr(jloop, "init_srrl", spy_init)
+    build = tloop.build_srrl
+
+    def carried(cfg, data, device):
+        model = build(cfg, data, device)
+        model.load_state_dict(srrl_params_from_jax(captured["params"]))
+        return model
+
+    monkeypatch.setattr(tloop, "build_srrl", carried)
+    j_losses, t_losses = [], []
+    _record_steps(monkeypatch, jloop, j_losses)
+    _record_steps(monkeypatch, tloop, t_losses)
+    argv = ["--dataset", dataset_dir, *RUN, "--storemetrics", "--model",
+            "srrl"]
+    j_mc = jcli.main(argv + ["--result_dir", str(tmp_path / "jax")])
+    t_mc = tcli.main(argv + ["--result_dir", str(tmp_path / "port"),
+                             "--device", "cpu"])
+    stats = t_mc.epoch_stats
+    assert [s.epoch for s in stats] == [1, 2, 3, 4]
+    assert len(t_losses) == len(j_losses) == 4 * (stats[0].kg_steps
+                                                  + stats[0].steps)
+    np.testing.assert_allclose(t_losses, j_losses, rtol=LOSS_RTOL)
+    assert stats[-1].avg_loss < stats[0].avg_loss
+    _assert_metrics_close(j_mc, t_mc, METRIC_ATOL)
+    (t_dir,) = os.listdir(tmp_path / "port")
+    assert t_dir == os.listdir(tmp_path / "jax")[0]
+    assert t_dir.endswith("-synth_ds-Srrl-emb16")
+
+
+def test_cli_srrl_resume_from_latest(monkeypatch, tmp_path, dataset_dir):
+    """``--model srrl --storecheckpoint`` stores the model and the shared
+    Adam; ``--checkpoint latest`` restores them bit for bit and renumbers
+    from the next epoch."""
+    from ihgnn_torch.train import srrl_loop as tloop
+
+    saved, restored = {}, {}
+    save, restore = tloop.save_checkpoint, tloop.restore_checkpoint
+
+    def snapshot(model, opt):
+        return ({k: v.clone() for k, v in model.state_dict().items()},
+                copy.deepcopy(opt.state_dict()))
+
+    def spy_save(result_dir, epoch, model, opt):
+        saved[epoch] = snapshot(model, opt)
+        return save(result_dir, epoch, model, opt)
+
+    def spy_restore(result_dir, name, model, opt):
+        epoch = restore(result_dir, name, model, opt)
+        restored[epoch] = snapshot(model, opt)
+        return epoch
+
+    monkeypatch.setattr(tloop, "save_checkpoint", spy_save)
+    monkeypatch.setattr(tloop, "restore_checkpoint", spy_restore)
+    base = ["--dataset", dataset_dir, "--emb", "8", "--device", "cpu",
+            "--result_dir", str(tmp_path), "--est", "2", "--model", "srrl"]
+    first = tcli.main(base + ["--epoch_count", "2", "--storecheckpoint"])
+    second = tcli.main(base + ["--epoch_count", "2", "--checkpoint",
+                               "latest"])
+    assert list(saved) == [2] == list(restored)
+    (params, opt_state), (r_params, r_opt_state) = saved[2], restored[2]
+    for name in params:
+        assert torch.equal(params[name], r_params[name]), name
+    assert r_opt_state["param_groups"] == opt_state["param_groups"]
+    assert r_opt_state["state"].keys() == opt_state["state"].keys()
+    for k, state in opt_state["state"].items():
+        for name, value in state.items():
+            assert torch.equal(value, r_opt_state["state"][k][name]), name
+    assert [s.epoch for s in first.epoch_stats] == [1, 2]
+    assert [s.epoch for s in second.epoch_stats] == [3, 4]
+    assert [e for e, _ in second.iter_epoch_test()] == [4]
+    (result,) = os.listdir(tmp_path)
+    assert result.endswith("-Srrl-emb8")
 
 
 def test_cuda_without_a_card_raises(tmp_path, dataset_dir):
@@ -416,6 +529,43 @@ def test_quality_parity_small_run(tmp_path, dataset_dir):
                            result["verdict"].values()) else 1)
 
 
+@pytest.mark.parametrize("argv,section", [
+    (["--model", "srrl", "--seeds", "2"], "srrl"),
+    (["--set", "cikm", "--seeds", "1"], "cikm"),
+])
+def test_quality_parity_srrl_and_cikm_small_runs(monkeypatch, tmp_path,
+                                                 dataset_dir, argv, section):
+    """``--model srrl`` (on the tiny set) and ``--set cikm`` (the CIKM
+    writer and Steps 1 and 3 at a small size) end to end on the CPU,
+    each held against its own ``PARITY.json`` section."""
+    import json
+
+    from ihgnn_torch import quality_parity
+    monkeypatch.setattr(quality_parity, "CIKM_SET", dict(
+        seed=3, users=30, products=80, sessions=6, categories=5,
+        graded_frac=0.3))
+    if section == "srrl":
+        argv = argv + ["--dataset", dataset_dir]
+    out = tmp_path / "qp.json"
+    rc = quality_parity.main(argv + ["--epochs", "5", "--emb", "8",
+                                     "--device", "cpu", "--out", str(out)])
+    result = json.loads(out.read_text())
+    assert result["section"] == section
+    parity = json.loads((quality_parity.ROOT / "PARITY.json").read_text())
+    assert result["summary"]["jax"] == parity[section]["summary"]["ours"]
+    runs = result["runs"]
+    assert len(runs) == int(argv[argv.index("--seeds") + 1])
+    assert all(r["epoch"] == 5 for r in runs)
+    assert all((r["kg_steps_per_epoch"] > 0) == (section == "srrl")
+               for r in runs)
+    if section == "cikm":
+        assert result["preprocess_s"]["bumped"] > 0
+    assert rc == (0 if all(v["within"] for v in
+                           result["verdict"].values()) else 1)
+    with pytest.raises(ValueError, match="RawGnn"):
+        quality_parity.parity_section("srrl", "cikm")
+
+
 def test_chip_smoke_imports_no_jax():
     """``chip_smoke.py`` runs where JAX is absent: none of its imports,
     inside functions too, names JAX or the JAX package."""
@@ -429,5 +579,6 @@ def test_chip_smoke_imports_no_jax():
         elif isinstance(node, ast.ImportFrom) and node.module:
             names.append(node.module)
     assert "ihgnn_torch.quality_parity" in names
-    forbidden = {"jax", "jaxlib", "flax", "optax", "orbax", "ihgnn_tpu"}
+    forbidden = {"jax", "jaxlib", "flax", "optax", "orbax", "ihgnn_tpu",
+                 "tools"}
     assert not [n for n in names if n.split(".")[0] in forbidden]

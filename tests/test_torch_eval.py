@@ -257,7 +257,7 @@ def test_make_eval_fns_checks_devices(splits):
 # the port stands alone
 # ---------------------------------------------------------------------------
 
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ihgnn_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ihgnn_tpu", "tools")
 
 
 def _package_modules():
