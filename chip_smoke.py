@@ -171,6 +171,34 @@ port's CIKM writer at CIKM_SMALL through Steps 1 and 3 and one tested CLI
 epoch on the card from those artifacts, launches exact; the Amazon
 fixture through the three module CLIs; host seconds of each step).
 
+The chunked pack and the routed 2D graph (after
+``routed_bf16_remat_equals_no_remat``): ``chunked_data`` builds the JAX
+package's stress graph (``STRESS_r05.json``: U/Q/I/V = 1M/500k/2M/200k,
+E = 10M, d = 32, seeded) and its pack, ``ChunkedHyperPack`` of 5 chunks
+(``pack_s``, each chunk's grid); phase 3's rows of
+``csr_segment_sum3_multi`` (K1's three-region form over the CSR spanning
+the 5 chunks, f32 and bf16) run at that shape; ``stress_serving`` and
+``chunked_serving`` (the default model in f32, direct and chunked:
+features within 1e-4, metrics equal, ``chunked_vs_direct``);
+``stress_bf16_train`` and ``chunked_bf16_train`` (the stress
+configuration's bf16 streams, 2 warm and 10 timed steps of 1024 x 10, a
+profiled chunked step; ``chunked_bf16_vs_direct_bf16``: features within
+2e-2 of the largest, step-0 losses within 1e-3); ``small_chunked_reference``
+(a small graph chunked at ``chunk_rows_cap=16``, card against CPU). The
+bench 2D graph is also built with ``pack_kernels=True``
+(``routed_2d_data``: the role pack's grid and the GAT packs, split by
+source region, with ``pack_s``); phase 3 adds K2's d = 1 form
+``gather_scalars`` on a GAT pack's destination table and K2 at the routed
+2D shapes; after ``repeatable_gat_full_width``: ``routed_gat_serving`` and
+``routed_gat_train`` (two concat-head layers through ``RoutedGatConvFn``,
+a profiled step; ``routed_gat_vs_direct``: features within 1e-4 of the
+direct GAT's, step-0 loss within 1e-4), ``routed_gcn`` (two GCN layers,
+one forward and 2 steps through ``RoutedSpmmFn`` against ``SpmmFn``) and
+``small_routed_2d_reference`` (GCN, GAT with both heads and on a
+``ChunkedGatPack``, card against CPU). Every launch count of these paths
+is exact; on the chunked paths K1's three-region launches are
+``csr_segment_sum3_multi``'s in the kernels line.
+
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Needs a CUDA card; exits non-zero without one.
 """
@@ -330,7 +358,8 @@ def rows_at(torch, x, offset_bytes):
 def _wrappers():
     """The kernel wrappers, whose ``launches`` counts the phases read."""
     from ihgnn_torch.ops.edgedot import csr_edge_dot
-    from ihgnn_torch.ops.gather import gather_roles, gather_rows, gather_rows_t
+    from ihgnn_torch.ops.gather import (gather_roles, gather_rows,
+                                        gather_rows_t, gather_scalars)
     from ihgnn_torch.ops.interact import (interact_bwd, interact_bwd_absorb,
                                           interact_fwd, interact_fwd_absorb)
     from ihgnn_torch.ops.permute import (row_local_permute,
@@ -342,7 +371,7 @@ def _wrappers():
             csr_segment_max, csr_segment_sum, csr_edge_dot, gather_rows,
             gather_rows_t, csr_segment_sum3, row_local_permute,
             transposed_local_permute, interact_fwd_absorb,
-            interact_bwd_absorb, csr_segment_scan)
+            interact_bwd_absorb, csr_segment_scan, gather_scalars)
 
 
 def _zero_launches():
@@ -1595,10 +1624,13 @@ def _describe(cfg, graph):
                            for k in range(cfg.gnn_layer_count)],
                    routed=graph.kp is not None)
         if graph.kp is not None:
-            row.update(grid=[graph.kp.rows, graph.kp.cols],
+            row.update(grids=[[pk.rows, pk.cols] for pk in graph.kp.packs],
                        e_pad=graph.kp.e_pad)
     else:
-        row.update(entries=graph.nnz, head=cfg.gat_head)
+        row.update(entries=graph.nnz, head=cfg.gat_head,
+                   routed=graph.pk_role is not None)
+        if cfg.gnn == V.GAT and graph.gat_pk is not None:
+            row["gat_packs"] = len(graph.gat_pk.packs)
     return row
 
 
@@ -1614,17 +1646,19 @@ def _check_counts(path, launches, per_unit, units):
 
 
 def run_serving(torch, dev, cfg, graph, qw, qc, path, expected,
-                per_forward=None):
+                per_forward=None, sizes=None):
     """Phases 4 and 10: a serving path at full width; returns the launch
-    counts and what the profile phase reuses."""
+    counts and what the profile phase reuses. ``sizes``: (U, Q, I, V), the
+    bench shape's when None."""
     from ihgnn_torch.config import TrainConfig
     from ihgnn_torch.models.rawgnn import RawGnn
     from ihgnn_torch.train.eval import evaluate, make_eval_fns
 
-    model = RawGnn(cfg, U, Q, I, VOCAB,
+    users, queries, items, vocab = sizes or (U, Q, I, VOCAB)
+    model = RawGnn(cfg, users, queries, items, vocab,
                    generator=torch.Generator().manual_seed(0)).to(dev)
     model.eval()
-    logs = random_eval_logs(U, Q, I, EVAL_LOGS, seed=2)
+    logs = random_eval_logs(users, queries, items, EVAL_LOGS, seed=2)
     features_fn, metrics_fn = make_eval_fns(model, graph, qw, qc,
                                             device=dev)
     torch.cuda.synchronize()
@@ -1656,10 +1690,11 @@ def run_serving(torch, dev, cfg, graph, qw, qc, path, expected,
     if not torch.isfinite(features).all():
         fail(f"{path}: non-finite features")
     with torch.inference_mode():
-        users = torch.as_tensor(logs.users[:EVAL_BATCH]).to(dev)
-        queries = torch.as_tensor(logs.queries[:EVAL_BATCH]).to(dev)
-        scores = model.score_all_items(features, users, queries)
-    if tuple(scores.shape) != (EVAL_BATCH, I) or not torch.isfinite(scores).all():
+        scores = model.score_all_items(
+            features, torch.as_tensor(logs.users[:EVAL_BATCH]).to(dev),
+            torch.as_tensor(logs.queries[:EVAL_BATCH]).to(dev))
+    if tuple(scores.shape) != (EVAL_BATCH, items) \
+            or not torch.isfinite(scores).all():
         fail(f"{path}: bad scores {tuple(scores.shape)}")
     row = metrics.as_row()
     if rows.shape != (logs.count, 4) or not np.isfinite(rows).all() \
@@ -1772,20 +1807,22 @@ def check_small(torch, dev):
 
 
 def run_train(torch, dev, cfg, graph, uqi, qw, qc, path, expected,
-              per_step=None):
+              per_step=None, sizes=None):
     """Phases 7 and 11: a train path at full width; returns the launch
-    counts and the step the profile phase reuses."""
+    counts and the step the profile phase reuses. ``sizes``: (U, Q, I, V),
+    the bench shape's when None."""
     from ihgnn_torch.config import TrainConfig, V
     from ihgnn_torch.models.rawgnn import RawGnn
     from ihgnn_torch.train.train import make_optimizer, make_train_step
 
+    users, queries, items, vocab = sizes or (U, Q, I, VOCAB)
     tcfg = TrainConfig(batch_size=TRAIN_B,
                        random_negative_sample_size=TRAIN_K)
-    model = RawGnn(cfg, U, Q, I, VOCAB,
+    model = RawGnn(cfg, users, queries, items, vocab,
                    generator=torch.Generator().manual_seed(0)).to(dev)
     opt = make_optimizer(model.parameters(), tcfg)
     step = make_train_step(model, graph, qw, qc, opt, device=dev)
-    batches = [train_batch(uqi, I, TRAIN_B, TRAIN_K, seed) for seed in
+    batches = [train_batch(uqi, items, TRAIN_B, TRAIN_K, seed) for seed in
                range(4)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2223,6 +2260,465 @@ def check_small_routed_bf16(torch, dev):
                                                "interact_bwd_bf16"))
 
 
+# ---------------------------------------------------------------------------
+# the chunked hypergraph pack at the JAX package's stress shape, and the
+# routed 2D graph
+# ---------------------------------------------------------------------------
+
+# STRESS_r05.json's configuration: U/Q/I/V and E (d = 32, two IHGNN layers
+# of orders 3 and 1, bf16 streams), whose routed pack has 5 chunks
+STRESS_SIZES = (1_000_000, 500_000, 2_000_000, 200_000)
+STRESS_E, STRESS_CHUNKS = 10_000_000, 5
+# the small chunked graph: SMALL's graph in chunks of 2 rows of 128 (2
+# chunks, 256 and 44 edges, each on a 128 x 128 grid, so both pad); and,
+# reported beside it, 3000 edges of SMALL's nodes in chunks of 16 rows
+# (2048 and 952 edges), whose interaction dW on the card differed from the
+# CPU's by more than SMALL_GRAD_RTOL (PERF.md §6)
+SMALL_CHUNK_CAP = 2
+SCALE_EDGES, SCALE_CHUNK_CAP = 3_000, 16
+# a chunked pack runs its expands and permutes once a chunk, and K1's node
+# sum (csr_segment_sum3_multi's counterpart) and K5 once over all chunks
+_PER_CHUNK = ("gather_rows", "gather_rows_t", "transposed_local_permute")
+# the paths on chunked packs: their K1 three-region launches are
+# csr_segment_sum3_multi's in the kernels line, the others csr_segment_sum3's
+CHUNKED_PATHS = ("chunked_serving", "chunked_bf16_train",
+                 "small_chunked_reference")
+# the routed GAT: a layer runs, a pack, the source expand (K2 transposed,
+# K7, K6), three scalar expands by destination (K2's d = 1 form), K4, the
+# denominators' scalar sum and K1's weighted sum; its backward, a pack,
+# the cotangent's expand by destination (K2), the tt and gd scalar sums,
+# the tsum expand (d = 1) and the source sums (two K7 and K1). The bag's K1
+# once each way; csr_edge_dot never
+ROUTED_GAT_SERVING = ("csr_gather_sum", "gather_rows_t",
+                      "transposed_local_permute", "row_local_permute",
+                      "gather_scalars", "csr_segment_max", "csr_segment_sum")
+ROUTED_GAT_TRAIN = ROUTED_GAT_SERVING + ("gather_rows",)
+# the routed GCN: a layer runs the role forward (K2 transposed, K7, K6) and
+# K1's weighted sum, its backward the same
+ROUTED_GCN = ("csr_gather_sum", "gather_rows_t", "transposed_local_permute",
+              "row_local_permute")
+ROUTED_GCN_STEPS = 2
+# the chunked path against the direct one at the stress shape: f32
+# features (absolute, as ROUTED_FEATURE_ATOL) and metrics equal; bf16
+# features within BF16_FEATURE_RTOL of the direct bf16 features' largest
+# value, step-0 losses within ROUTED_BF16_LOSS_RTOL. The routed 2D graph
+# against the direct one: features within 1e-4, losses within 1e-4
+# relative
+ROUTED_2D_ATOL, ROUTED_2D_LOSS_RTOL = 1e-4, 1e-4
+
+
+def per_chunk(counts, chunks):
+    """A routed path's launch counts on a pack of ``chunks`` chunks."""
+    return {k: v * chunks if k.removesuffix("_bf16") in _PER_CHUNK else v
+            for k, v in counts.items()}
+
+
+def routed_gat_launches(packs, step, layers=2):
+    """The routed GAT's launches of one forward (``step`` False) or one
+    train step of ``layers`` concat-head layers over ``packs`` packs."""
+    per = dict(gather_rows_t=1, transposed_local_permute=1,
+               row_local_permute=1, gather_scalars=3, csr_segment_max=1,
+               csr_segment_sum=1, csr_gather_sum=1, gather_rows=0,
+               csr_edge_dot=0)
+    if step:
+        for k, v in dict(gather_rows=1, csr_segment_sum=2, gather_scalars=1,
+                         transposed_local_permute=2,
+                         csr_gather_sum=1).items():
+            per[k] += v
+    out = {k: v * packs * layers for k, v in per.items()}
+    out["csr_gather_sum"] += 2 if step else 1
+    return out
+
+
+def routed_gcn_launches(steps, layers=2):
+    """The routed GCN's launches of one forward and ``steps`` train
+    steps."""
+    spmm = (1 + 2 * steps) * layers
+    return dict(gather_rows_t=spmm, transposed_local_permute=spmm,
+                row_local_permute=spmm,
+                csr_gather_sum=spmm + 1 + 2 * steps, csr_edge_dot=0)
+
+
+def features_of(torch, dev, cfg, graph_cpu, qw, qc, sizes):
+    """The full-graph features (on the CPU) of ``RawGnn(cfg)`` at ``sizes``
+    with the seeded weights of ``run_serving``."""
+    from ihgnn_torch.models.rawgnn import RawGnn
+    from ihgnn_torch.train.eval import make_eval_fns
+    model = RawGnn(cfg, *sizes,
+                   generator=torch.Generator().manual_seed(0)).to(dev)
+    model.eval()
+    features_fn, _ = make_eval_fns(model, graph_cpu, qw, qc, device=dev)
+    return features_fn().cpu()
+
+
+def check_multi_kernels(torch, dev, kp, results):
+    """Phase 3 at the stress shape: K1's three-region form over the CSR
+    spanning the 5 chunks of the stress graph's pack
+    (``csr_segment_sum3_multi``'s shape, ``segsum.py:686``: the chunks' u,
+    q and i regions of ``e_pad`` rows, 3E entries), f32 and bf16 regions,
+    against the twin, timed beside its bound and ``torch.sparse.mm`` over
+    the concatenated regions."""
+    from ihgnn_torch.ops.segsum import csr_segment_sum3, csr_segment_sum3_plain
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    m, n, e = kp.e_pad, kp.node_count, kp.edge_count
+    col, rowptr = kp.seg_col, kp.seg_rowptr
+    shape = (f"{len(kp.packs)} chunks, 3 x [{m}, {D}] regions, "
+             f"{col.numel()} entries -> [{n}, {D}]")
+    for dtype, name in ((torch.float32, "csr_segment_sum3_multi"),
+                        (torch.bfloat16, "csr_segment_sum3_multi_bf16")):
+        u, q, i = (torch.randn(m, D, device=dev, generator=gen).to(dtype)
+                   for _ in range(3))
+        k_out = csr_segment_sum3(u, q, i, col, rowptr)
+        p_out = csr_segment_sum3_plain(u, q, i, col, rowptr)
+        stream = torch.cat([u, q, i])
+        csr = torch.sparse_csr_tensor(rowptr, col, torch.ones(
+            col.numel(), device=dev, dtype=dtype), size=(n, 3 * m))
+        lib_err = (torch.sparse.mm(csr, stream).float()
+                   - p_out).abs().max().item()
+        size = stream.element_size()
+        record_row(torch, results, name, shape,
+                   (k_out - p_out).abs().max().item(), 1e-4,
+                   lambda: csr_segment_sum3(u, q, i, col, rowptr),
+                   lambda: csr_segment_sum3_plain(u, q, i, col, rowptr),
+                   lambda: torch.sparse.mm(csr, stream),
+                   3 * e * D * size + 4 * (3 * e + n + 1 + n * D),
+                   3 * e * D, lib_err,
+                   replaces="ihgnn_tpu/ops/pallas/segsum.py:686",
+                   chunks=len(kp.packs))
+        del u, q, i, k_out, p_out, stream, csr
+
+
+def check_routed_2d_kernels(torch, dev, graph2d, results):
+    """Phase 3 at the routed 2D graph's shapes: K2's d = 1 form on the
+    first GAT pack's destination table (the scalar expands), against its
+    twin and ``index_select``; K2 on the routed GCN's expand (the
+    ``pk_role`` grid) and on the GAT's cotangent expand by destination."""
+    from ihgnn_torch.ops.gather import (gather_rows, gather_rows_plain,
+                                        gather_rows_t, gather_scalars,
+                                        gather_scalars_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    n = graph2d.node_count
+    pk = graph2d.gat_pk.packs[0]
+    x = torch.randn(n, device=dev, generator=gen)
+    idx = pk.dst_idx
+    flat = idx.view(-1)
+    k_out = gather_scalars(x, idx)
+    lib_err = (x.index_select(0, flat).view(idx.shape)
+               - k_out).abs().max().item()
+    record_row(torch, results, "gather_scalars",
+               f"GAT scalar expand [{n}] -> {list(idx.shape)}",
+               (k_out - gather_scalars_plain(x, idx)).abs().max().item(), 0.0,
+               lambda: gather_scalars(x, idx),
+               lambda: gather_scalars_plain(x, idx),
+               lambda: x.index_select(0, flat), 4 * (2 * flat.numel() + n),
+               0, lib_err)
+    # a call over one pack's 2M entries issues faster on the card than the
+    # host issues the wrapper: the same expand over every pack's table at
+    # once (a layer's work, 12M entries) times the kernel itself
+    every = torch.cat([p.dst_idx.view(-1) for p in graph2d.gat_pk.packs])
+    k_out = gather_scalars(x, every)
+    record_row(torch, results, "gather_scalars",
+               f"every GAT pack's scalar expand [{n}] -> [{every.numel()}]",
+               (k_out - gather_scalars_plain(x, every)).abs().max().item(),
+               0.0, lambda: gather_scalars(x, every),
+               lambda: gather_scalars_plain(x, every),
+               lambda: x.index_select(0, every),
+               4 * (2 * every.numel() + n), 0,
+               (x.index_select(0, every) - k_out).abs().max().item())
+    rows = torch.randn(n, D, device=dev, generator=gen)
+    rp = graph2d.pk_role
+    for kname, fn, table, transposed, label in (
+            ("gather_rows_t", gather_rows_t, rp.idx, True,
+             f"GCN x[col] expand -> [{rp.cols}, {rp.rows}, {D}]"),
+            ("gather_rows", gather_rows, idx, False,
+             f"GAT cotangent expand -> [{pk.rows}, {pk.cols}, {D}]")):
+        cells = table.numel()
+        ids = (table.t() if transposed else table).reshape(-1).long()
+        k_rows = fn(rows, table)
+        record_row(torch, results, kname, label,
+                   (k_rows - gather_rows_plain(rows, table, transposed))
+                   .abs().max().item(), 0.0,
+                   lambda: fn(rows, table),
+                   lambda: gather_rows_plain(rows, table, transposed),
+                   lambda: rows.index_select(0, ids),
+                   4 * (n * D + cells + cells * D), 0,
+                   (rows.index_select(0, ids).view(k_rows.shape)
+                    - k_rows).abs().max().item())
+    del x, rows
+
+
+def run_chunked(torch, dev, results):
+    """The chunked pack at the JAX package's stress shape (STRESS_SIZES,
+    STRESS_E edges, 5 chunks of the 2048 x 1024 grid): phases
+    ``chunked_data`` (the pack's host build), the kernel rows of
+    ``check_multi_kernels``, ``stress_serving`` and ``chunked_serving``
+    (the default model in f32 on the direct path and on the chunked pack,
+    features within ROUTED_FEATURE_ATOL and metrics equal:
+    ``chunked_vs_direct``), then the stress configuration's own precision:
+    the bf16 features of both paths, ``stress_bf16_train`` and
+    ``chunked_bf16_train`` (2 warm and 10 timed steps of 1024 x 10, a
+    profiled chunked step) and ``chunked_bf16_vs_direct_bf16`` (features
+    within BF16_FEATURE_RTOL of the largest, step-0 losses within
+    ROUTED_BF16_LOSS_RTOL). Returns the launches by path."""
+    from ihgnn_torch.config import ModelConfig
+    from ihgnn_torch.ops.packing import (ChunkedHyperPack,
+                                         build_hyper_kernel_pack)
+
+    su, sq, si, sv = STRESS_SIZES
+    t0 = time.perf_counter()
+    direct_cpu, uqi = random_graph(su, sq, si, STRESS_E, seed=100)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kp = build_hyper_kernel_pack(direct_cpu.i3.numpy(),
+                                 direct_cpu.node_count)
+    pack_s = time.perf_counter() - t0
+    qw, qc = random_words(sq, sv, seed=101)
+    if not isinstance(kp, ChunkedHyperPack) or len(kp.packs) != \
+            STRESS_CHUNKS or not kp.absorbs:
+        fail(f"the stress graph packed as {type(kp).__name__}, not "
+             f"{STRESS_CHUNKS} chunks of one grid width")
+    chunks = len(kp.packs)
+    emit({"phase": "chunked_data", "edges": STRESS_E,
+          "nodes": direct_cpu.node_count, "unpacked_build_s": build_s,
+          "pack_s": pack_s, "chunks": chunks,
+          "grids": [[pk.rows, pk.cols] for pk in kp.packs],
+          "chunk_edges": [pk.edge_count for pk in kp.packs],
+          "e_pad": kp.e_pad, "sigma_pads": kp.e_pad - kp.edge_count,
+          "node_update_entries": int(kp.seg_col.numel())})
+    chunked_cpu = dataclasses.replace(direct_cpu, kp=kp)
+    with torch.no_grad():
+        check_multi_kernels(torch, dev, kp.to(dev), results)
+    torch.cuda.synchronize()
+
+    ihgnn = ModelConfig()
+    ihgnn16 = dataclasses.replace(ihgnn, bf16_stream=True)
+    launches = {}
+    launches["stress_serving"], serving, direct_metrics = run_serving(
+        torch, dev, ihgnn, direct_cpu, qw, qc, "stress_serving",
+        IHGNN_SERVING, IHGNN_FORWARD_LAUNCHES, sizes=STRESS_SIZES)
+    direct_features = serving[2].cpu()
+    del serving
+    launches["chunked_serving"], serving, chunked_metrics = run_serving(
+        torch, dev, ihgnn, chunked_cpu, qw, qc, "chunked_serving",
+        ROUTED_SERVING, per_chunk(ROUTED_FORWARD_LAUNCHES, chunks),
+        sizes=STRESS_SIZES)
+    feature_err = (serving[2].cpu() - direct_features).abs().max().item()
+    del serving, direct_features
+    emit({"phase": "chunked_vs_direct", "features_max_abs_err": feature_err,
+          "features_atol": ROUTED_FEATURE_ATOL,
+          "metrics_chunked": chunked_metrics,
+          "metrics_direct": direct_metrics})
+    if not feature_err <= ROUTED_FEATURE_ATOL:
+        fail(f"chunked features differ from the direct path's by "
+             f"{feature_err}")
+    if chunked_metrics != direct_metrics:
+        fail(f"chunked metrics {chunked_metrics} != direct {direct_metrics}")
+
+    direct16 = features_of(torch, dev, ihgnn16, direct_cpu, qw, qc,
+                           STRESS_SIZES)
+    chunked16 = features_of(torch, dev, ihgnn16, chunked_cpu, qw, qc,
+                            STRESS_SIZES)
+    launches["stress_bf16_train"], _, direct16_losses = run_train(
+        torch, dev, ihgnn16, direct_cpu, uqi, qw, qc, "stress_bf16_train",
+        IHGNN_TRAIN_BF16, IHGNN_STEP_LAUNCHES_BF16, sizes=STRESS_SIZES)
+    launches["chunked_bf16_train"], warm_step, chunked16_losses = run_train(
+        torch, dev, ihgnn16, chunked_cpu, uqi, qw, qc, "chunked_bf16_train",
+        ROUTED_TRAIN_BF16, per_chunk(ROUTED_STEP_LAUNCHES_BF16, chunks),
+        sizes=STRESS_SIZES)
+    emit(profile_window(torch, "one warm chunked bf16 train step",
+                        warm_step))
+    del warm_step
+    scale = direct16.abs().max().item()
+    feature_err = (chunked16 - direct16).abs().max().item()
+    loss_err = (abs(chunked16_losses[0] - direct16_losses[0])
+                / abs(direct16_losses[0]))
+    emit({"phase": "chunked_bf16_vs_direct_bf16",
+          "features_max_abs_err": feature_err, "features_scale": scale,
+          "features_rtol": BF16_FEATURE_RTOL,
+          "step0_loss_chunked_bf16": chunked16_losses[0],
+          "step0_loss_direct_bf16": direct16_losses[0],
+          "step0_loss_rel_err": loss_err,
+          "loss_rtol": ROUTED_BF16_LOSS_RTOL})
+    if not feature_err <= BF16_FEATURE_RTOL * scale:
+        fail(f"chunked bf16 features differ from the direct bf16 features "
+             f"by {feature_err} (scale {scale})")
+    if not loss_err <= ROUTED_BF16_LOSS_RTOL:
+        fail(f"chunked bf16 step-0 loss differs from the direct bf16 one "
+             f"by {loss_err}")
+    return launches
+
+
+def run_routed_gcn(torch, dev, graph2d_cpu, uqi, qw, qc):
+    """Phase ``routed_gcn``: ``RawGnn`` with two GCN layers at full width on
+    the packed 2D graph (``RoutedSpmmFn``) and on the same graph without
+    its packs (``SpmmFn``), from the same seeded weights: one forward and
+    ROUTED_GCN_STEPS train steps each; features within ROUTED_2D_ATOL and
+    every loss within ROUTED_2D_LOSS_RTOL; the routed launches exact.
+    Returns the routed launches."""
+    from ihgnn_torch.config import ModelConfig, TrainConfig, V
+    from ihgnn_torch.models.rawgnn import RawGnn
+    from ihgnn_torch.ops.hyperagg import strip_kernel_packing
+    from ihgnn_torch.train.eval import make_eval_fns
+    from ihgnn_torch.train.train import make_optimizer, make_train_step
+
+    cfg = ModelConfig(gnn=V.GCN)
+    batches = [train_batch(uqi, I, TRAIN_B, TRAIN_K, seed) for seed in
+               range(ROUTED_GCN_STEPS)]
+    out = {}
+    for path, graph in (("direct", strip_kernel_packing(graph2d_cpu)),
+                        ("routed", graph2d_cpu)):
+        model = RawGnn(cfg, U, Q, I, VOCAB,
+                       generator=torch.Generator().manual_seed(0)).to(dev)
+        features_fn, _ = make_eval_fns(model, graph, qw, qc, device=dev)
+        opt = make_optimizer(model.parameters(), TrainConfig(
+            batch_size=TRAIN_B, random_negative_sample_size=TRAIN_K))
+        step = make_train_step(model, graph, qw, qc, opt, device=dev)
+        torch.cuda.synchronize()
+        _zero_launches()
+        t0 = time.perf_counter()
+        features = features_fn().cpu()
+        losses = [step(b).item() for b in batches]
+        seconds = time.perf_counter() - t0
+        out[path] = (features, losses, _launch_counts(), seconds)
+        del model, features_fn, step, opt
+    launches = out["routed"][2]
+    _check_counts("routed_gcn", launches,
+                  routed_gcn_launches(ROUTED_GCN_STEPS), 1)
+    feature_err = (out["routed"][0] - out["direct"][0]).abs().max().item()
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(out["routed"][1],
+                                                      out["direct"][1]))
+    emit({"phase": "routed_gcn", "entries": graph2d_cpu.nnz,
+          "grid": [graph2d_cpu.pk_role.rows, graph2d_cpu.pk_role.cols],
+          "steps": ROUTED_GCN_STEPS,
+          "features_max_abs_err": feature_err,
+          "features_atol": ROUTED_2D_ATOL,
+          "losses_routed": out["routed"][1],
+          "losses_direct": out["direct"][1],
+          "loss_max_rel_err": loss_err, "loss_rtol": ROUTED_2D_LOSS_RTOL,
+          "seconds_routed": out["routed"][3],
+          "seconds_direct": out["direct"][3], "launches": launches})
+    if not feature_err <= ROUTED_2D_ATOL:
+        fail(f"routed GCN features differ from the direct ones by "
+             f"{feature_err}")
+    if not loss_err <= ROUTED_2D_LOSS_RTOL:
+        fail(f"routed GCN losses differ from the direct ones by {loss_err}")
+    return launches
+
+
+def check_small_chunked(torch, dev):
+    """Phase ``small_chunked_reference``: the chunked pack on SMALL's graph
+    (``build_hypergraph(..., pack_kernels=True,
+    chunk_rows_cap=SMALL_CHUNK_CAP)``: 2 chunks, both padded), card
+    against CPU as in phase 9, for the default model (absorbed), HGCN,
+    IHGNN with phase 2 (limits of phase 9) and the default model on bf16
+    streams (BF16_SMALL_TOL). Then ``small_chunked_scale``, reported and
+    not held: the default model on SCALE_EDGES edges of SMALL's nodes,
+    chunked at SCALE_CHUNK_CAP and on the direct path, card against CPU,
+    the step-0 gradients' largest errors of each. Returns the card's
+    launches of the held cases."""
+    from ihgnn_torch.config import ModelConfig, V
+    from ihgnn_torch.graph import build_hypergraph
+    from ihgnn_torch.ops.hyperagg import strip_kernel_packing
+
+    s = SMALL
+    nodes = s["users"] + s["queries"] + s["items"]
+    _, uqi = random_graph(s["users"], s["queries"], s["items"], s["edges"],
+                          90)
+    graph = build_hypergraph(uqi, nodes, s["users"], s["queries"],
+                             pack_kernels=True,
+                             chunk_rows_cap=SMALL_CHUNK_CAP)
+    if len(graph.kp.packs) < 2 or not graph.kp.absorbs:
+        fail("the small chunked graph did not pack in chunks of one width")
+    qw, qc = random_words(s["queries"], s["vocab"], 91)
+    cases = {"ihgnn": (ModelConfig(), None),
+             "hgcn": (ModelConfig(gnn=V.HGCN), None),
+             "phase2": (ModelConfig(phase2_attention=True), None),
+             "ihgnn_bf16": (ModelConfig(bf16_stream=True), BF16_SMALL_TOL)}
+    failed = []
+    _zero_launches()
+    for j, (case, (cfg, tol)) in enumerate(cases.items()):
+        row, ok = train_card_vs_cpu(torch, dev, cfg, graph, uqi, qw, qc,
+                                    92 + 10 * j, tol=tol)
+        emit({"phase": "small_chunked_reference", "case": case,
+              "chunks": len(graph.kp.packs), **row})
+        if not ok:
+            failed.append(case)
+    if failed:
+        fail(f"card and CPU disagree on the small chunked cases {failed}")
+    launches = _read_launches("small_chunked_reference",
+                              ROUTED_TRAIN + ROUTED_TRAIN_BF16
+                              + ("row_local_permute",))
+
+    _, uqi = random_graph(s["users"], s["queries"], s["items"], SCALE_EDGES,
+                          93)
+    scaled = build_hypergraph(uqi, nodes, s["users"], s["queries"],
+                              pack_kernels=True,
+                              chunk_rows_cap=SCALE_CHUNK_CAP)
+    grads = {}
+    for path, g in (("chunked", scaled), ("direct",
+                                          strip_kernel_packing(scaled))):
+        row, _ = train_card_vs_cpu(torch, dev, ModelConfig(), g, uqi, qw, qc,
+                                   94)
+        grads[path] = row["grad0_rel_err"]
+    emit({"phase": "small_chunked_scale", "edges": SCALE_EDGES,
+          "chunks": len(scaled.kp.packs), "held": False,
+          "grad0_rel_err_max": {k: max(v.values()) for k, v in
+                                grads.items()},
+          "grad0_rel_err": grads})
+    return launches
+
+
+def check_small_routed_2d(torch, dev):
+    """Phase ``small_routed_2d_reference``: the routed 2D graph on a small
+    graph (``build_graph2d(..., pack_kernels=True)``, a tenth of the flags
+    0), card against CPU as in phase 9: GCN (``RoutedSpmmFn``), GAT with
+    both heads on the graph's one pack, and GAT on a ``ChunkedGatPack`` of
+    the same entries (``build_gat_pack`` at ``cols=128,
+    chunk_rows_cap=4``, split by source region); returns the card's
+    launches."""
+    from ihgnn_torch.config import ModelConfig, V
+    from ihgnn_torch.graph import build_graph2d
+    from ihgnn_torch.ops.gatpack import ChunkedGatPack, build_gat_pack
+
+    s = SMALL
+    _, uqi = random_graph(s["users"], s["queries"], s["items"], s["edges"],
+                          100)
+    flags = (np.random.default_rng(101).random(len(uqi)) > 0.1).astype(
+        np.int64)
+    graph = build_graph2d(np.column_stack([uqi, flags]),
+                          s["users"] + s["queries"] + s["items"], s["users"],
+                          s["queries"], pack_kernels=True)
+    att = graph.attention
+    chunked = dataclasses.replace(graph, gat_pk=build_gat_pack(
+        att.src.numpy(), att.dst.numpy(), graph.node_count,
+        live=graph.val[graph.dst_order.long()].numpy(), cols=128,
+        chunk_rows_cap=4, src_cuts=(s["users"], s["users"] + s["queries"])))
+    if graph.pk_role is None or graph.gat_pk is None or not isinstance(
+            chunked.gat_pk, ChunkedGatPack):
+        fail("the small 2D graph did not pack")
+    qw, qc = random_words(s["queries"], s["vocab"], 102)
+    cases = {"gcn": (ModelConfig(gnn=V.GCN), graph),
+             "gat": (ModelConfig(gnn=V.GAT), graph),
+             "gat_product": (ModelConfig(gnn=V.GAT, gat_head=V.PRODUCT),
+                             graph),
+             "gat_chunked": (ModelConfig(gnn=V.GAT), chunked)}
+    failed = []
+    _zero_launches()
+    for j, (case, (cfg, g)) in enumerate(cases.items()):
+        row, ok = train_card_vs_cpu(torch, dev, cfg, g, uqi, qw, qc,
+                                    103 + 10 * j)
+        emit({"phase": "small_routed_2d_reference", "case": case,
+              "gat_packs": len(g.gat_pk.packs), **row})
+        if not ok:
+            failed.append(case)
+    if failed:
+        fail(f"card and CPU disagree on the small routed 2D cases {failed}")
+    return _read_launches("small_routed_2d_reference",
+                          ROUTED_GAT_TRAIN)
+
+
 KERNELS = {
     "csr_gather_sum": ("ihgnn_torch/csrc/segsum.cu",
                        "ihgnn_tpu/ops/pallas/segsum.py:403"),
@@ -2289,7 +2785,20 @@ KERNELS = {
                                "ihgnn_tpu/ops/pallas/permute.py:114"),
     "transposed_local_permute_bf16": ("ihgnn_torch/csrc/permute.cu",
                                       "ihgnn_tpu/ops/pallas/permute.py:289"),
+    # the chunked pack: csr_segment_sum3_multi's node sum is K1's
+    # three-region form over the CSR spanning the chunks (f32 and bf16
+    # chunk streams), counted on the chunked paths
+    "csr_segment_sum3_multi": ("ihgnn_torch/csrc/segsum.cu",
+                               "ihgnn_tpu/ops/pallas/segsum.py:686"),
+    "csr_segment_sum3_multi_bf16": ("ihgnn_torch/csrc/segsum.cu",
+                                    "ihgnn_tpu/ops/pallas/segsum.py:686"),
+    # the routed GAT's [1, N] expands: K2's d = 1 form
+    "gather_scalars": ("ihgnn_torch/csrc/gather.cu",
+                       "ihgnn_tpu/ops/pallas/gather.py:188"),
 }
+# kernel rows whose launches a wrapper counts under another name
+COUNTED_AS = {"csr_segment_sum3_multi": "csr_segment_sum3",
+              "csr_segment_sum3_multi_bf16": "csr_segment_sum3_bf16"}
 
 
 # phase cli: the quality set of ihgnn_torch.quality_parity, trained for
@@ -3063,6 +3572,22 @@ def main() -> int:
                                 U + Q + I, U, Q, completeness=V.GRAPH_UQI)
     graph2d_s = time.perf_counter() - t0
     graph2d = graph2d_cpu.to(dev)
+    # the same 2D graph with its routed packs (pk_role, gat_pk)
+    t0 = time.perf_counter()
+    graph2d_routed_cpu = build_graph2d(
+        np.column_stack([uqi, np.ones(len(uqi), np.int64)]), U + Q + I, U, Q,
+        completeness=V.GRAPH_UQI, pack_kernels=True)
+    graph2d_routed_s = time.perf_counter() - t0
+    rp, gat_pk = graph2d_routed_cpu.pk_role, graph2d_routed_cpu.gat_pk
+    if rp is None or gat_pk is None:
+        fail("the bench 2D graph did not pack")
+    emit({"phase": "routed_2d_data", "build_s": graph2d_routed_s,
+          "unpacked_build_s": graph2d_s,
+          "pack_s": graph2d_routed_s - graph2d_s,
+          "entries": graph2d_routed_cpu.nnz, "role_grid": [rp.rows, rp.cols],
+          "gat_packs": len(gat_pk.packs),
+          "gat_grids": [[p.rows, p.cols] for p in gat_pk.packs],
+          "gat_pack_entries": [p.nnz for p in gat_pk.packs]})
     # the per-graph cost of csr_edge_dot's order, built at its first use
     t0 = time.perf_counter()
     graph2d.attention.dot_order
@@ -3084,6 +3609,8 @@ def main() -> int:
         check_bf16_kernels(torch, dev, graph, checks)
         check_routed_bf16_kernels(torch, dev, kp_dev, checks)
         del kp_dev
+        check_routed_2d_kernels(torch, dev, graph2d_routed_cpu.to(dev),
+                                checks)
     torch.cuda.synchronize()
     del graph, graph2d, bag
     ihgnn, gat = ModelConfig(), ModelConfig(gnn=V.GAT)
@@ -3212,17 +3739,54 @@ def main() -> int:
         fail("routed_bf16_remat_equals_no_remat: a routed bf16 step with "
              "remat differs from the step without it")
 
-    launches["gat_serving"], serving, _ = run_serving(
+    # the chunked pack at the JAX package's stress shape
+    launches.update(run_chunked(torch, dev, checks))
+    launches["small_chunked_reference"] = check_small_chunked(torch, dev)
+
+    launches["gat_serving"], serving, gat_metrics = run_serving(
         torch, dev, gat, graph2d_cpu, qw, qc, "gat_serving", GAT_SERVING,
         GAT_FORWARD_LAUNCHES)
+    gat_features = serving[2].cpu()
     del serving
-    launches["gat_train"], warm_step, _ = run_train(
+    launches["gat_train"], warm_step, gat_losses = run_train(
         torch, dev, gat, graph2d_cpu, uqi, qw, qc, "gat_train", GAT_TRAIN,
         GAT_STEP_LAUNCHES)
     emit(profile_window(torch, "one warm GAT train step", warm_step))
     del warm_step
     check_repeatable_full_width(torch, dev, gat, graph2d_cpu, uqi, qw, qc,
                                 "repeatable_gat_full_width")
+
+    # the routed 2D graph: the same entries, weights and batches
+    packs = len(graph2d_routed_cpu.gat_pk.packs)
+    launches["routed_gat_serving"], serving, rgat_metrics = run_serving(
+        torch, dev, gat, graph2d_routed_cpu, qw, qc, "routed_gat_serving",
+        ROUTED_GAT_SERVING, routed_gat_launches(packs, False))
+    feature_err = (serving[2].cpu() - gat_features).abs().max().item()
+    del serving, gat_features
+    launches["routed_gat_train"], warm_step, rgat_losses = run_train(
+        torch, dev, gat, graph2d_routed_cpu, uqi, qw, qc, "routed_gat_train",
+        ROUTED_GAT_TRAIN, routed_gat_launches(packs, True))
+    emit(profile_window(torch, "one warm routed GAT train step", warm_step))
+    del warm_step
+    loss_err = abs(rgat_losses[0] - gat_losses[0]) / abs(gat_losses[0])
+    emit({"phase": "routed_gat_vs_direct",
+          "features_max_abs_err": feature_err,
+          "features_atol": ROUTED_2D_ATOL, "metrics_routed": rgat_metrics,
+          "metrics_direct": gat_metrics,
+          "step0_loss_routed": rgat_losses[0],
+          "step0_loss_direct": gat_losses[0],
+          "step0_loss_rel_err": loss_err, "loss_rtol": ROUTED_2D_LOSS_RTOL})
+    if not feature_err <= ROUTED_2D_ATOL:
+        fail(f"routed GAT features differ from the direct ones by "
+             f"{feature_err}")
+    if not loss_err <= ROUTED_2D_LOSS_RTOL:
+        fail(f"routed GAT step-0 loss differs from the direct one by "
+             f"{loss_err}")
+    launches["routed_gcn"] = run_routed_gcn(torch, dev, graph2d_routed_cpu,
+                                            uqi, qw, qc)
+    launches["small_routed_2d_reference"] = check_small_routed_2d(torch,
+                                                                  dev)
+    del graph2d_routed_cpu
     check_small_zoo(torch, dev)
     launches["cli"] = run_cli(torch, dev)
     srrl_graph_data, srrl_data_s = srrl_data(uqi, qw, qc)
@@ -3238,7 +3802,13 @@ def main() -> int:
     kernels = []
     for kname, (source, replaces) in KERNELS.items():
         main_row, *others = checks[kname]
-        by_path = {path: counts[kname] for path, counts in launches.items()}
+        # K1's three-region form counts as csr_segment_sum3_multi on the
+        # chunked paths and as csr_segment_sum3 on the others
+        counter = COUNTED_AS.get(kname, kname)
+        multi = counter != kname
+        by_path = {path: counts[counter] for path, counts in launches.items()
+                   if (path in CHUNKED_PATHS) == multi
+                   or counter not in COUNTED_AS.values()}
         if not any(by_path.values()):
             fail(f"{kname} was launched on no path")
         kernels.append({

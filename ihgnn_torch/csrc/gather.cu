@@ -47,6 +47,17 @@
 // Bound: bytes (x read once, in f32 or bf16, i3 read once, the roles
 // written once in bf16).
 //
+// gather_scalars, the d = 1 form of gather_rows: out[k] = x[idx[k]] over
+// f32 scalars. It replaces windowed_gather (gather.py:188) on the [1, N]
+// streams of the routed GAT (ihgnn_tpu/ops/gatconv.py:300-330: the
+// destination score s_dst, the segment max m, the denominators den and the
+// backward's tsum, each expanded to the entries by destination). A thread
+// writes four consecutive entries from one int4 of ids into one float4
+// where idx and out are 16-byte aligned and the count is a multiple of 4,
+// else one entry a thread. Bound: bytes (idx read and out written once;
+// x, a few MB at N = 700k, is read through L2 and counted once). The copy
+// is exact.
+//
 // gather_rows and gather_rows_t have the same bf16 forms (the routed pack's
 // bf16 streams: windowed_gather's and windowed_gather_t's bf16 bodies,
 // gather.py:162, :263, and their int8 byte-plane bodies, :82, :308, which
@@ -179,6 +190,26 @@ gather_roles_bf16_kernel(const V* __restrict__ x, const int* __restrict__ i3,
   __stcs(out_i + t, c);
 }
 
+__global__ void gather_scalars_kernel(const float* __restrict__ x,
+                                      const int* __restrict__ idx,
+                                      float* __restrict__ out, long long n) {
+  const long long t = static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  if (t < n) out[t] = __ldg(x + idx[t]);
+}
+
+__global__ void gather_scalars4_kernel(const float* __restrict__ x,
+                                       const int4* __restrict__ idx,
+                                       float4* __restrict__ out,
+                                       long long quads) {
+  const long long t = static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  if (t >= quads) return;
+  const int4 k = __ldg(idx + t);
+  out[t] = make_float4(__ldg(x + k.x), __ldg(x + k.y), __ldg(x + k.z),
+                       __ldg(x + k.w));
+}
+
 bool aligned(const void* p, int bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
@@ -302,4 +333,26 @@ extern "C" int ihgnn_gather_rows_t_bf16(const void* x, int x_bf16,
                       x, idx, out, rows, cols, d, stream)
                 : launch_gather_rows<true, float, uint2>(x, idx, out, rows,
                                                          cols, d, stream);
+}
+
+// out [n] f32: out[k] = x[idx[k]] (the d = 1 form; see gather_scalars).
+extern "C" int ihgnn_gather_scalars(const void* x, const void* idx,
+                                    void* out, long long n, void* stream) {
+  if (n <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool quad = n % 4 == 0 && aligned(idx, 16) && aligned(out, 16);
+  const long long items = quad ? n / 4 : n;
+  if (items / kThreads >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned blocks = static_cast<unsigned>((items + kThreads - 1) /
+                                                kThreads);
+  if (quad)
+    gather_scalars4_kernel<<<blocks, kThreads, 0, s>>>(
+        static_cast<const float*>(x), static_cast<const int4*>(idx),
+        static_cast<float4*>(out), items);
+  else
+    gather_scalars_kernel<<<blocks, kThreads, 0, s>>>(
+        static_cast<const float*>(x), static_cast<const int*>(idx),
+        static_cast<float*>(out), items);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -44,13 +44,16 @@ def model_device(model: torch.nn.Module,
 
 def moved(obj, device: DeviceLike):
     """A copy of the frozen dataclass ``obj`` with every tensor field on
-    ``device``, and every nested dataclass field moved by its own ``to``."""
+    ``device``, and every nested dataclass field (or tuple of them) moved by
+    its own ``to``."""
     dev = resolve_device(device)
-    changes = {}
-    for f in dataclasses.fields(obj):
-        v = getattr(obj, f.name)
-        if isinstance(v, torch.Tensor):
-            changes[f.name] = v.to(dev)
-        elif dataclasses.is_dataclass(v):
-            changes[f.name] = v.to(dev)
-    return dataclasses.replace(obj, **changes)
+
+    def move(v):
+        if isinstance(v, torch.Tensor) or dataclasses.is_dataclass(v):
+            return v.to(dev)
+        if isinstance(v, tuple):
+            return tuple(move(x) for x in v)
+        return v
+
+    return dataclasses.replace(obj, **{f.name: move(getattr(obj, f.name))
+                                       for f in dataclasses.fields(obj)})

@@ -1,9 +1,11 @@
 """Graph packing: interactions → sorted index tensors and the CSRs the
 kernels read.
 
-Counterpart of ``ihgnn_tpu/graph.py`` (reference: Helpers/Graph.py); of
-its TPU kernel packs only the hypergraph's routed pack is ported
-(``ops/packing.py``, ``build_hypergraph(pack_kernels=True)``). Node ids
+Counterpart of ``ihgnn_tpu/graph.py`` (reference: Helpers/Graph.py). Its
+TPU kernel packs are built on request (``pack_kernels=True``): the
+hypergraph's routed pack, chunked past 2048 grid rows (``ops/packing.py``),
+and the 2D graph's routed role pack and GAT pack (``ops/packing.py``
+``role_pack``, ``ops/gatpack.py``). Node ids
 are grouped [users | queries | items]: query ids are offset by
 ``user_count`` and item ids by ``user_count + query_count``. Zero-degree
 vertices get degree 1e-8 (Helpers/Graph.py:68,120,175).
@@ -43,7 +45,10 @@ import torch
 from ihgnn_torch.config import V
 from ihgnn_torch.device import DeviceLike, moved
 from ihgnn_torch.ops.edgedot import EdgeDotOrder, edge_dot_order
-from ihgnn_torch.ops.packing import HyperKernelPack, build_hyper_kernel_pack
+from ihgnn_torch.ops.gatpack import AnyGatPack, build_gat_pack
+from ihgnn_torch.ops.packing import (CHUNK_ROWS_CAP, AnyHyperPack, RolePack,
+                                     build_hyper_kernel_pack, role_pack)
+from ihgnn_torch.ops.permute import pick_grid
 
 DEGREE_FLOOR = 1e-8   # Helpers/Graph.py:120 — zero-degree vertices
 
@@ -111,8 +116,9 @@ class HyperGraph:
     phase2: AttentionCSR    # edge node N + e → its three member nodes
     node_count: int
     edge_count: int
-    # the routed pack (ops/packing.py), or None: the direct path
-    kp: Optional[HyperKernelPack] = None
+    # the routed pack, chunked or not (ops/packing.py), or None: the
+    # direct path
+    kp: Optional[AnyHyperPack] = None
 
     def to(self, device: DeviceLike) -> "HyperGraph":
         return moved(self, device)
@@ -131,6 +137,12 @@ class Graph2D:
     attention: AttentionCSR  # row → col entries, masked where val <= 0
     node_count: int
     nnz: int
+    # pack_kernels: the routed x[col] expand (forward stages only) on the
+    # pick_grid(nnz, 2048) grid, with its K1 column over entry positions
+    # (0..nnz-1), and the routed GAT's pack; None: the direct path
+    pk_role: Optional[RolePack] = None
+    pk_entry: Optional[torch.Tensor] = None
+    gat_pk: Optional[AnyGatPack] = None
 
     def to(self, device: DeviceLike) -> "Graph2D":
         return moved(self, device)
@@ -207,8 +219,8 @@ def _check_ids(uqi: np.ndarray, user_count: int, query_count: int,
 
 
 def build_hypergraph(uqi: np.ndarray, node_count: int, user_count: int,
-                     query_count: int,
-                     pack_kernels: bool = False) -> HyperGraph:
+                     query_count: int, pack_kernels: bool = False,
+                     chunk_rows_cap: int = CHUNK_ROWS_CAP) -> HyperGraph:
     """Pack positive interactions ``[P, >=3]`` of (u, q, i[, flag]) columns
     into a CPU ``HyperGraph``; the caller filters out flag <= 0.
 
@@ -221,7 +233,10 @@ def build_hypergraph(uqi: np.ndarray, node_count: int, user_count: int,
     pipeline of expands, Clos permutes and the absorbed interaction
     (``ops/hyperagg.py``). The default here is False, the direct path of
     one indexed gather and CSR sums, which is the faster one on the card;
-    the JAX package's default is True."""
+    the JAX package's default is True. A grid of more than
+    ``chunk_rows_cap`` rows (past 2,097,152 edges by default) packs as a
+    ``ChunkedHyperPack``, as the JAX package packs it; ``kp`` is None
+    where the JAX package refuses the pack."""
     uqi = np.asarray(uqi)
     _check_ids(uqi, user_count, query_count,
                node_count - user_count - query_count)
@@ -257,14 +272,16 @@ def build_hypergraph(uqi: np.ndarray, node_count: int, user_count: int,
         phase2=phase2,
         node_count=int(node_count),
         edge_count=int(e_count),
-        kp=(build_hyper_kernel_pack(i3, node_count)
+        kp=(build_hyper_kernel_pack(i3, node_count,
+                                    chunk_rows_cap=chunk_rows_cap)
             if pack_kernels and e_count else None),
     )
 
 
 def build_graph2d(uqif: np.ndarray, node_count: int, user_count: int,
                   query_count: int, completeness: str = V.GRAPH_UQI,
-                  use_self_connection: bool = False) -> Graph2D:
+                  use_self_connection: bool = False,
+                  pack_kernels: bool = False) -> Graph2D:
     """Pack positive interactions ``[P, 4]`` of (u, q, i, flag) into the
     CPU 2D graph (Helpers/Graph.py:19-81, ``ihgnn_tpu.graph.build_graph2d``).
 
@@ -273,7 +290,14 @@ def build_graph2d(uqif: np.ndarray, node_count: int, user_count: int,
     entries sorted by (row, col), with one ``np.unique`` over int64 keys.
     Vertex degrees count incidences: 2 per interaction in uqi mode, 1
     otherwise, plus 1 with self connections; without them zero degrees
-    are floored at 1e-8."""
+    are floored at 1e-8.
+
+    ``pack_kernels`` also builds the routed tail of
+    ``ihgnn_tpu.graph.build_graph2d`` (``graph.py:225-283``): ``pk_role``
+    over the sorted ``col`` ids (forward stages only: A is symmetric) and,
+    where it packs, ``gat_pk`` over the destination-sorted entries, split
+    by source region at ``(user_count, user_count + query_count)``. Either
+    is None where the JAX package's is."""
     uqif = np.asarray(uqif)
     _check_ids(uqif, user_count, query_count,
                node_count - user_count - query_count)
@@ -325,6 +349,19 @@ def build_graph2d(uqif: np.ndarray, node_count: int, user_count: int,
                                     node_count, node_count,
                                     None if live.all() else live)
 
+    nnz = len(uniq)
+    pk_role = gat_pk = None
+    if pack_kernels and nnz:
+        try:
+            pk_role = role_pack(ccol, *pick_grid(nnz, 2048), with_bwd=False)
+        except ValueError:
+            pk_role = None
+        if pk_role is not None:
+            gat_pk = build_gat_pack(
+                crow[dst_order], ccol[dst_order], node_count,
+                live=val_sum[dst_order],
+                src_cuts=(user_count, user_count + query_count))
+
     # the graph is symmetric, so its (row, col) order is the attention's
     # source order: the row CSR is also the attention's source side
     return Graph2D(
@@ -332,7 +369,9 @@ def build_graph2d(uqif: np.ndarray, node_count: int, user_count: int,
         dv=torch.from_numpy(dv.reshape(-1, 1)),
         dst_order=_i32(dst_order), rowptr=attention.src_rowptr,
         attention=attention,
-        node_count=int(node_count), nnz=int(len(uniq)))
+        node_count=int(node_count), nnz=int(nnz), pk_role=pk_role,
+        pk_entry=None if pk_role is None else _i32(np.arange(nnz)),
+        gat_pk=gat_pk)
 
 
 def build_log_hypergraph(log_nodes: Sequence[Sequence[int]],

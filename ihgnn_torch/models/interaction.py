@@ -25,7 +25,7 @@ from torch import nn
 from ihgnn_torch.models.common import TorchDense
 from ihgnn_torch.ops.interact import (ORDER_PARTS, InteractAbsorbFn,
                                       InteractFn)
-from ihgnn_torch.ops.packing import HyperKernelPack
+from ihgnn_torch.ops.packing import AnyHyperPack
 
 
 class FeatureInteractor(nn.Module):
@@ -40,15 +40,18 @@ class FeatureInteractor(nn.Module):
                                       output_dim, generator=generator)
 
     def forward(self, roles: torch.Tensor,
-                absorb: Optional[HyperKernelPack] = None):
+                absorb: Optional[AnyHyperPack] = None):
         """``[3, E, d]`` (u, q, i) role rows in edge order → ``[E, out]``.
 
         ``absorb``: the routed pack whose σ-ordered rows ``roles`` holds,
         with the i rows in t1 order; returns the absorbed interaction's
-        ``(o1, o2)``, o1 in σ order and o2 = ρ(o1)."""
+        ``(o1, o2)``, o1 in σ order and o2 = ρ(o1). On a chunked pack π is
+        the chunks' stage-2 tables stacked on the row axis
+        (``absorb_tables``, ``hyperagg.py:531-553``)."""
         agg = self.aggregation
         w = agg.weight.t().contiguous()
         if absorb is not None:
-            return InteractAbsorbFn.apply(roles, w, agg.bias, absorb.i.p2,
-                                          absorb.sig_mask, self.max_order)
+            pi, mask = absorb.absorb_tables()
+            return InteractAbsorbFn.apply(roles, w, agg.bias, pi, mask,
+                                          self.max_order)
         return InteractFn.apply(roles, w, agg.bias, self.max_order)

@@ -17,11 +17,15 @@ on the card.
   out = Dv⁻¹ · H · E, or with phase-2 attention a GAT over the bipartite
   graph edge node → member node on ``[X' | E]`` (GnnLayers.py:200-236).
 
-On a hypergraph with a routed pack (``graph.kp``) HGCN and IHGNN take the
-routed path (``ops/hyperagg.py``): the edge rows are in σ order, and
+On a 2D graph built with ``pack_kernels`` GCN takes the routed SpMM
+(``RoutedSpmmFn``) and GAT the routed attention (``RoutedGatConvFn``,
+``ihgnn_tpu/models/layers.py:134-148``), with the same parameters. On a
+hypergraph with a routed pack (``graph.kp``, chunked or not) HGCN and
+IHGNN take the routed path (``ops/hyperagg.py``): the edge rows are in σ order, and
 IHGNN without phase 2 absorbs the i role's last stage into its
-interaction (``ihgnn_tpu/models/layers.py:215-238``; the TPU's table and
-block gates of ``absorb_i_ok`` do not apply here). Phase 2 puts the edge
+interaction (``ihgnn_tpu/models/layers.py:215-238``) wherever the pack's
+tables stack (``kp.absorbs``: a single pack, or chunks of one grid width;
+the TPU's table and block gates of ``absorb_i_ok`` do not apply here). Phase 2 puts the edge
 rows back in edge order before the attention (``:254-262``).
 
 ``IHGNNLayer(bf16_stream=True)`` (``ModelConfig.bf16_stream``) runs either
@@ -46,7 +50,7 @@ from ihgnn_torch.graph import AttentionCSR, Graph2D, HyperGraph, LogHyperGraph
 from ihgnn_torch.models.common import TorchDense, TorchDenseT
 from ihgnn_torch.models.initializers import xavier_uniform_
 from ihgnn_torch.models.interaction import FeatureInteractor
-from ihgnn_torch.ops.gatconv import LEAKY_SLOPE, gat_conv
+from ihgnn_torch.ops.gatconv import LEAKY_SLOPE, gat_conv, routed_gat_conv
 from ihgnn_torch.ops.hyperagg import (make_hyper_ops, make_log_ops,
                                       make_spmm_op, sigma_to_edge_order)
 
@@ -97,8 +101,14 @@ class GatCore(nn.Module):
             self.feature_aggregate.bias.uniform_(-bound, bound,
                                                  generator=generator)
 
-    def forward(self, x: torch.Tensor, csr: AttentionCSR) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, csr: AttentionCSR,
+                pack=None) -> torch.Tensor:
+        """The conv over ``csr``, or over the routed GAT pack ``pack``
+        when given (the same function)."""
         agg = self.feature_aggregate
+        if pack is not None:
+            return routed_gat_conv(x, agg.weight[0], agg.bias, pack,
+                                   self.head)
         return gat_conv(x, agg.weight[0], agg.bias, csr, self.head)
 
 
@@ -111,7 +121,8 @@ class GATLayer(nn.Module):
         self.gat = GatCore(out_dim, head, generator=generator)
 
     def forward(self, x: torch.Tensor, graph: Graph2D) -> torch.Tensor:
-        return self.gat(self.feature_transform(x), graph.attention)
+        return self.gat(self.feature_transform(x), graph.attention,
+                        graph.gat_pk)
 
 
 class HGCNLayer(nn.Module):
@@ -152,7 +163,7 @@ class IHGNNLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, graph: HyperGraph) -> torch.Tensor:
         kp = graph.kp
-        absorb = kp is not None and not self.phase2_attention
+        absorb = kp is not None and not self.phase2_attention and kp.absorbs
         gather, scatter = make_hyper_ops(graph, bf16_stream=self.bf16_stream,
                                          absorb=absorb)
         x = self.feature_transform(x)

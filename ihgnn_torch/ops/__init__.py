@@ -33,6 +33,14 @@ The routed path (a ``HyperGraph`` built with ``pack_kernels=True``):
   K1's three-region form and K5, the absorbed interaction
   (``InteractAbsorbFn``); ``hyperagg`` the routed chains' Functions.
 
+Past 2048 grid rows the pack chunks (``packing.ChunkedHyperPack``: σ
+packs of contiguous edge slices, one K1 three-region sum over a CSR that
+spans them). The routed 2D graph (a ``Graph2D`` built with
+``pack_kernels=True``): ``packing.role_pack`` (the non-σ ``RolePack``,
+``hyperagg.RoutedSpmmFn``, GCN), ``gatpack`` (``GatPack``,
+``ChunkedGatPack``, ``build_gat_pack``) and ``gatconv.RoutedGatConvFn``,
+with K2's d = 1 form ``gather.gather_scalars``.
+
 Each wrapper runs its plain twin on CPU tensors and its CUDA kernel on CUDA
 tensors, and counts its kernel launches in ``<wrapper>.launches``. The
 ``*Fn`` classes are ``torch.autograd.Function``s whose forward and backward

@@ -36,6 +36,10 @@ forms, the TPU's windowed expands themselves, over a pack's absolute
 Both take ``dtype=torch.bfloat16`` (the routed pack's bf16 streams) as
 ``gather_roles`` does: bf16 rows from an f32 x (rounded in the copy) or a
 bf16 x, counted in ``launches_bf16``.
+
+``gather_scalars(x, idx)`` is their d = 1 form, ``out[k] = x[idx[k]]``
+over an f32 ``[N]`` stream: the routed GAT's ``[1, N]`` expands by
+destination (``windowed_gather`` on the TPU, ``gatconv.py:300-330``).
 """
 
 from __future__ import annotations
@@ -220,3 +224,39 @@ def gather_rows_t(x: torch.Tensor, idx: torch.Tensor,
 
 gather_rows_t.launches = 0
 gather_rows_t.launches_bf16 = 0
+
+
+_SCALARS_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong,
+                                             ctypes.c_void_p]
+
+
+def gather_scalars_plain(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Plain twin of ``gather_scalars`` (any device)."""
+    return x[idx.long()]
+
+
+def gather_scalars(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``out[k] = x[idx[k]]``, ``idx``'s shape, for an f32 ``x`` ``[N]``
+    and int32 row ids ``idx``: K2's d = 1 form. CPU tensors run the plain
+    twin; CUDA tensors launch ``csrc/gather.cu`` and count one in
+    ``gather_scalars.launches``."""
+    what = "gather_scalars"
+    if not _build.use_kernel(what, x, idx):
+        return gather_scalars_plain(x, idx)
+    _build.require(x.dim() == 1 and x.dtype == torch.float32
+                   and x.is_contiguous(), what, "x must be contiguous [N] "
+                   "f32")
+    _build.require(idx.dtype == torch.int32 and idx.is_contiguous(), what,
+                   "idx must be contiguous int32")
+    out = torch.empty(idx.shape, dtype=torch.float32, device=x.device)
+    if idx.numel() == 0:
+        return out
+    fn = _build.function("gather", "ihgnn_gather_scalars", _SCALARS_ARGTYPES)
+    _build.check("gather", what, fn(x.data_ptr(), idx.data_ptr(),
+                                    out.data_ptr(), idx.numel(),
+                                    _build.stream_ptr(x.device)))
+    gather_scalars.launches += 1
+    return out
+
+
+gather_scalars.launches = 0

@@ -51,7 +51,8 @@ import torch
 
 from ihgnn_torch.graph import Graph2D, HyperGraph, LogHyperGraph
 from ihgnn_torch.ops.gather import gather_roles, gather_rows, gather_rows_t
-from ihgnn_torch.ops.packing import HyperKernelPack, RoleTables
+from ihgnn_torch.ops.packing import (AnyHyperPack, HyperKernelPack, RolePack,
+                                     RoleTables)
 from ihgnn_torch.ops.permute import (row_local_permute,
                                      transposed_local_permute)
 from ihgnn_torch.ops.segsum import csr_gather_sum, csr_segment_sum3
@@ -142,11 +143,13 @@ class SpmmFn(torch.autograd.Function):
 # f32 and rounds once (the direct path's departure, ROADMAP §3).
 
 
-def _role_forward(x: torch.Tensor, rt: RoleTables, stop_pre_p2: bool = False,
+def _role_forward(x: torch.Tensor, rt, stop_pre_p2: bool = False,
                   out=None, dtype=None) -> torch.Tensor:
     """Role rows in σ order ``[R, C, d]`` (t1 order for the i role with
     ``stop_pre_p2``), in ``dtype`` (``x``'s when None), written into
-    ``out`` when given."""
+    ``out`` when given. ``rt`` is a σ pack's ``RoleTables`` or a non-σ
+    ``RolePack``, whose chain (expand, stage 1, stage 2) gives the rows in
+    edge order (``_role_forward``, ``hyperagg.py:214-238``)."""
     last = rt.p2 is None or stop_pre_p2
     t0 = gather_rows_t(x, rt.idx, dtype=dtype)               # [C, R, d]
     t1 = transposed_local_permute(t0, rt.p1, out=out if last else None)
@@ -155,70 +158,124 @@ def _role_forward(x: torch.Tensor, rt: RoleTables, stop_pre_p2: bool = False,
     return row_local_permute(t1, rt.p2, out=out)
 
 
-def _sig_inverse(y: torch.Tensor, rt: RoleTables,
-                 from_pre: bool = False) -> torch.Tensor:
-    """σ order (t1 order with ``from_pre``) → stage-0 order, ``[R, C, d]``."""
+def _permute_to_t1(y: torch.Tensor, rp: RolePack) -> torch.Tensor:
+    """Edge order → t1 order ``[R, C, d]`` of a non-σ ``RolePack``: its
+    backward route's stages 0 and 1, each with its transpose
+    (``_permute_to_t1``, ``hyperagg.py:240-249``); stage 2 is absorbed in
+    ``rp.seg_ids``."""
+    t0 = transposed_local_permute(y, rp.bwd_p0)              # [C, R, d]
+    return transposed_local_permute(t0, rp.bwd_p1)           # [R, C, d]
+
+
+def _sig_inverse(y: torch.Tensor, rt: RoleTables, from_pre: bool = False,
+                 out=None) -> torch.Tensor:
+    """σ order (t1 order with ``from_pre``) → stage-0 order, ``[R, C, d]``,
+    written into ``out`` when given."""
     if rt.p2_inv is None or from_pre:
-        return transposed_local_permute(y, rt.p1_inv, pre=True)
+        return transposed_local_permute(y, rt.p1_inv, pre=True, out=out)
     return transposed_local_permute(transposed_local_permute(y, rt.p2_inv),
-                                    rt.p1_inv)
+                                    rt.p1_inv, out=out)
 
 
 def _grid(t: torch.Tensor, kp: HyperKernelPack) -> torch.Tensor:
     return t.contiguous().view(kp.rows, kp.cols, t.shape[-1])
 
 
-def _segsum_regions(u, q, i, kp: HyperKernelPack,
+def _chunks(kp: AnyHyperPack):
+    """``(chunk, rows of its streams, first edge)`` of each chunk of
+    ``kp`` (the pack itself when it has no chunks): chunk k's streams are
+    rows ``[offset, offset + e_pad_k)`` of the pack's ``[e_pad, d]``
+    streams."""
+    offset = edge = 0
+    for pk in kp.packs:
+        yield pk, slice(offset, offset + pk.e_pad), edge
+        offset += pk.e_pad
+        edge += pk.edge_count
+
+
+def _rank_regions(y_q: torch.Tensor, y_i: torch.Tensor, kp: AnyHyperPack,
+                  i_from_pre: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The q and i regions ``[e_pad, d]`` of a node sum: each chunk's rows
+    of ``y_q`` and ``y_i`` (σ order, ``y_i`` in t1 order with
+    ``i_from_pre``) through its inverse chains, written into the chunk's
+    rows."""
+    d = y_q.shape[-1]
+    y_q, y_i = y_q.contiguous(), y_i.contiguous()
+    rq, ri = torch.empty_like(y_q), torch.empty_like(y_i)
+    for pk, rows, _ in _chunks(kp):
+        _sig_inverse(y_q[rows].view(pk.rows, pk.cols, d), pk.q,
+                     out=rq[rows].view(pk.rows, pk.cols, d))
+        _sig_inverse(y_i[rows].view(pk.rows, pk.cols, d), pk.i,
+                     from_pre=i_from_pre,
+                     out=ri[rows].view(pk.rows, pk.cols, d))
+    return rq, ri
+
+
+def _segsum_regions(u, q, i, kp: AnyHyperPack,
                     out_dtype=None) -> torch.Tensor:
-    """``[N, d]`` node sums of the ``[u | q | i]`` regions, in f32 (rounded
-    once to ``out_dtype`` when given); σ pads are dropped."""
+    """``[N, d]`` node sums of the ``[u | q | i]`` regions (each ``[e_pad,
+    d]``), in f32 (rounded once to ``out_dtype`` when given); σ pads are
+    dropped. On a chunked pack this one K1 over the CSR spanning the chunks
+    is ``csr_segment_sum3_multi`` (``hyperagg.py:328-356``)."""
     d = u.shape[-1]
     return csr_segment_sum3(u.reshape(-1, d), q.reshape(-1, d),
                             i.reshape(-1, d), kp.seg_col, kp.seg_rowptr,
                             out_dtype)
 
 
-def _gather_roles(x: torch.Tensor, kp: HyperKernelPack,
+def _gather_roles(x: torch.Tensor, kp: AnyHyperPack,
                   stop_pre_p2: bool, dtype=None) -> torch.Tensor:
     """``[3, e_pad, d]`` in ``dtype`` (``x``'s when None): u and q in σ
-    order, i in σ (or t1) order."""
+    order, i in σ (or t1) order; each chunk writes its rows."""
     x = x.contiguous()
-    roles = torch.empty(3, kp.rows, kp.cols, x.shape[1],
-                        dtype=dtype or x.dtype, device=x.device)
-    gather_rows(x, kp.u.idx, out=roles[0])
-    _role_forward(x, kp.q, out=roles[1], dtype=roles.dtype)
-    _role_forward(x, kp.i, stop_pre_p2, out=roles[2], dtype=roles.dtype)
-    return roles.view(3, kp.e_pad, x.shape[1])
+    d = x.shape[1]
+    roles = torch.empty(3, kp.e_pad, d, dtype=dtype or x.dtype,
+                        device=x.device)
+    for pk, rows, _ in _chunks(kp):
+        grid = (pk.rows, pk.cols, d)
+        gather_rows(x, pk.u.idx, out=roles[0, rows].view(grid))
+        _role_forward(x, pk.q, out=roles[1, rows].view(grid),
+                      dtype=roles.dtype)
+        _role_forward(x, pk.i, stop_pre_p2, out=roles[2, rows].view(grid),
+                      dtype=roles.dtype)
+    return roles
 
 
-def _gather_gradient(cot: torch.Tensor, kp: HyperKernelPack, from_pre: bool,
+def _gather_gradient(cot: torch.Tensor, kp: AnyHyperPack, from_pre: bool,
                      x_dtype) -> torch.Tensor:
     """The gradient of a gather's ``x`` (``x_dtype``) for the role
     cotangents ``cot`` ``[3, e_pad, d]``: the inverse chains' node sum,
     rounded once to bf16 for bf16 cotangents (then widened)."""
-    cu, cq, ci = (_grid(c, kp) for c in cot)
+    cot = cot.contiguous()
     bf16 = cot.dtype == torch.bfloat16
-    grad = _segsum_regions(cu, _sig_inverse(cq, kp.q),
-                           _sig_inverse(ci, kp.i, from_pre=from_pre), kp,
+    rq, ri = _rank_regions(cot[1], cot[2], kp, from_pre)
+    grad = _segsum_regions(cot[0], rq, ri, kp,
                            torch.bfloat16 if bf16 else None)
     return grad.to(x_dtype)
 
 
-def _scatter_gradient(cot: torch.Tensor, kp: HyperKernelPack,
+def _scatter_gradient(cot: torch.Tensor, kp: AnyHyperPack,
                       stop_pre_p2: bool, dtype):
-    """The three role expansions of a node cotangent in ``dtype`` (the
-    edge stream's), each ``[R, C, d]``."""
+    """The three role expansions ``[e_pad, d]`` of a node cotangent in
+    ``dtype`` (the edge stream's), each chunk writing its rows."""
     cot = cot.contiguous()
-    return (gather_rows(cot, kp.u.idx, dtype=dtype),
-            _role_forward(cot, kp.q, dtype=dtype),
-            _role_forward(cot, kp.i, stop_pre_p2, dtype=dtype))
+    d = cot.shape[1]
+    gu, gq, gi = (torch.empty(kp.e_pad, d, dtype=dtype, device=cot.device)
+                  for _ in range(3))
+    for pk, rows, _ in _chunks(kp):
+        grid = (pk.rows, pk.cols, d)
+        gather_rows(cot, pk.u.idx, out=gu[rows].view(grid))
+        _role_forward(cot, pk.q, out=gq[rows].view(grid), dtype=dtype)
+        _role_forward(cot, pk.i, stop_pre_p2, out=gi[rows].view(grid),
+                      dtype=dtype)
+    return gu, gq, gi
 
 
 class RoutedGatherFn(torch.autograd.Function):
     """``x [N, d]`` → ``[3, e_pad, d]`` role rows in σ order, in ``dtype``
     (``x``'s when None) (``_gather_roles_pallas``,
     ``hyperagg.py:403-432``); the gradient of ``x`` is the inverse chains'
-    node sum."""
+    node sum. ``kp`` is a routed pack or a chunked one."""
 
     @staticmethod
     def forward(ctx, x, kp, dtype=None):
@@ -241,9 +298,9 @@ class RoutedScatterFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, edge, kp):
         ctx.kp, ctx.dtype = kp, edge.dtype
-        g = _grid(edge, kp)
-        return _segsum_regions(g, _sig_inverse(g, kp.q),
-                               _sig_inverse(g, kp.i), kp)
+        edge = edge.contiguous()
+        return _segsum_regions(edge, *_rank_regions(edge, edge, kp, False),
+                               kp)
 
     @staticmethod
     def backward(ctx, cot):
@@ -253,7 +310,6 @@ class RoutedScatterFn(torch.autograd.Function):
             grad = (gu.float() + gq + gi).to(torch.bfloat16)
         else:
             grad = gu + gq + gi
-        grad = grad.view(kp.e_pad, -1)
         if kp.sig_mask is not None:
             grad = grad * kp.sig_mask[:, None].to(grad.dtype)
         return grad, None
@@ -286,49 +342,106 @@ class Scatter2Fn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, edge, pre_i, kp):
         ctx.kp, ctx.dtype = kp, edge.dtype
-        g = _grid(edge, kp)
-        return _segsum_regions(g, _sig_inverse(g, kp.q),
-                               _sig_inverse(_grid(pre_i, kp), kp.i,
-                                            from_pre=True), kp)
+        edge = edge.contiguous()
+        return _segsum_regions(edge, *_rank_regions(edge, pre_i, kp, True),
+                               kp)
 
     @staticmethod
     def backward(ctx, cot):
-        kp = ctx.kp
-        gu, gq, gi = _scatter_gradient(cot, kp, True, ctx.dtype)
-        return ((gu + gq).view(kp.e_pad, -1), gi.view(kp.e_pad, -1), None)
+        gu, gq, gi = _scatter_gradient(cot, ctx.kp, True, ctx.dtype)
+        return gu + gq, gi, None
 
 
 class SigmaToEdgeFn(torch.autograd.Function):
     """``edge [e_pad, d]`` in σ order → ``[E, d]`` in edge order, q's last
     stage (``sigma_to_edge_order``, ``hyperagg.py:284-298``), for phase 2,
-    which indexes edges by id. The backward is the same permute by the
-    inverse table; the σ pads get 0."""
+    which indexes edges by id. A chunk's real edges go to its first edge's
+    row, so pads in any chunk are dropped (the JAX package slices the
+    chunks' concat at E, right only when no chunk but the last pads). The
+    backward is the same permute by the inverse table; the σ pads get 0."""
 
     @staticmethod
     def forward(ctx, edge, kp):
         ctx.kp = kp
-        out = row_local_permute(_grid(edge, kp), kp.sig)
-        return out.view(kp.e_pad, -1)[:kp.edge_count]
+        if len(kp.packs) == 1:
+            out = row_local_permute(_grid(edge, kp), kp.sig)
+            return out.view(kp.e_pad, -1)[:kp.edge_count]
+        edge = edge.contiguous()
+        d = edge.shape[1]
+        out = edge.new_empty(kp.edge_count, d)
+        for pk, rows, first in _chunks(kp):
+            grid = (pk.rows, pk.cols, d)
+            dst = out[first:first + pk.edge_count]
+            if pk.edge_count == pk.e_pad:
+                row_local_permute(edge[rows].view(grid), pk.sig,
+                                  out=dst.view(grid))
+            else:
+                dst.copy_(row_local_permute(edge[rows].view(grid), pk.sig)
+                          .view(pk.e_pad, d)[:pk.edge_count])
+        return out
 
     @staticmethod
     def backward(ctx, cot):
         kp = ctx.kp
-        full = cot.new_zeros(kp.e_pad, cot.shape[1])
-        full[:kp.edge_count] = cot
-        grad = row_local_permute(_grid(full, kp), kp.sig_inv)
-        return grad.view(kp.e_pad, -1), None
+        cot = cot.contiguous()
+        d = cot.shape[1]
+        grad = cot.new_empty(kp.e_pad, d)
+        for pk, rows, first in _chunks(kp):
+            grid = (pk.rows, pk.cols, d)
+            part = cot[first:first + pk.edge_count]
+            if pk.edge_count != pk.e_pad:
+                full = cot.new_zeros(pk.e_pad, d)
+                full[:pk.edge_count] = part
+                part = full
+            row_local_permute(part.view(grid), pk.sig_inv,
+                              out=grad[rows].view(grid))
+        return grad, None
 
 
 def sigma_to_edge_order(edge: torch.Tensor,
-                        kp: HyperKernelPack) -> torch.Tensor:
+                        kp: AnyHyperPack) -> torch.Tensor:
     """``[E, d]``: the σ-ordered ``edge`` ``[e_pad, d]`` in edge order."""
     return SigmaToEdgeFn.apply(edge, kp)
 
 
-def strip_kernel_packing(graph: HyperGraph) -> HyperGraph:
-    """``graph`` without its routed pack: the layers take the direct
-    path."""
+def strip_kernel_packing(graph):
+    """``graph`` without its routed packs (a hypergraph's ``kp``, a 2D
+    graph's ``pk_role`` and ``gat_pk``; ``hyperagg.py:78-88``): the layers
+    take the direct path."""
+    if isinstance(graph, Graph2D):
+        return dataclasses.replace(graph, pk_role=None, pk_entry=None,
+                                   gat_pk=None)
     return dataclasses.replace(graph, kp=None)
+
+
+def _spmm_role(x: torch.Tensor, rp: RolePack, entry: torch.Tensor,
+               rowptr: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
+    """``A·x`` by the routed expand: ``x[col]`` in entry order by the
+    non-σ role forward, then K1 over the row CSR weighted by ``val``
+    (``_spmm_role_impl``, ``hyperagg.py:1076-1090``)."""
+    rows = _role_forward(x.contiguous(), rp)
+    return csr_gather_sum(rows.view(rp.e_pad, -1), entry, rowptr, val)
+
+
+class RoutedSpmmFn(torch.autograd.Function):
+    """The routed GCN SpMM (``_spmm_role_t``, ``hyperagg.py:1093-1113``):
+    ``A·x`` for the symmetric 2D adjacency, whose ``x[col]`` expand runs
+    the role pack ``rp`` (K2, K7, K6) and whose sum is K1 over the row CSR
+    ``(entry, rowptr)`` with weight ``val``. A is symmetric in structure
+    and values, so the backward is the same op on the cotangent; ``val``
+    is graph structure and gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, rp, entry, rowptr, val):
+        ctx.rp = rp
+        ctx.save_for_backward(entry, rowptr, val)
+        return _spmm_role(x, rp, entry, rowptr, val)
+
+    @staticmethod
+    def backward(ctx, cot):
+        entry, rowptr, val = ctx.saved_tensors
+        return (_spmm_role(cot, ctx.rp, entry, rowptr, val), None, None,
+                None, None)
 
 
 def make_hyper_ops(graph: HyperGraph, bf16_stream: bool = False,
@@ -373,8 +486,13 @@ def make_hyper_ops(graph: HyperGraph, bf16_stream: bool = False,
 
 
 def make_spmm_op(graph: Graph2D) -> Callable[[torch.Tensor], torch.Tensor]:
-    """``x [N, d]`` ↦ ``A·x`` for the symmetric 2D adjacency ``A``."""
+    """``x [N, d]`` ↦ ``A·x`` for the symmetric 2D adjacency ``A``: the
+    routed SpMM when the graph carries ``pk_role``
+    (``hyperagg.py:1115-1145``), else ``SpmmFn``."""
     col, rowptr, val = graph.col, graph.rowptr, graph.val
+    if graph.pk_role is not None:
+        rp, entry = graph.pk_role, graph.pk_entry
+        return lambda x: RoutedSpmmFn.apply(x, rp, entry, rowptr, val)
 
     def spmm(x: torch.Tensor) -> torch.Tensor:
         return SpmmFn.apply(x, col, rowptr, val, col, rowptr, val)

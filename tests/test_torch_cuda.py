@@ -12,7 +12,11 @@ repository's conftest is left out):
 
 The routed path's kernels (K6/K7 permutes, K2's single-index forms, K1's
 three-region form, K5, K8) and Functions are covered at the end, then the
-bf16 forms: K2, K1, K3 and ``interact_bwd`` (the direct path's), and the
+bf16 forms, then the chunked pack (K1's three-region form over a CSR that
+spans the chunks, ``csr_segment_sum3_multi``'s counterpart, in f32 and
+bf16, with regions past 2^31 bytes; the chunked Functions) and the routed
+2D graph (K2's d = 1 form ``gather_scalars``, ``RoutedSpmmFn``,
+``RoutedGatConvFn``). Before them, the bf16 forms: K2, K1, K3 and ``interact_bwd`` (the direct path's), and the
 routed pack's (``gather_rows[_t]``, the three-region K1, K5 and K8) with
 the routed Functions on bf16 streams. K3's
 forward (and K5's) has two forms, the tensor-core form (3xTF32 on staged
@@ -2096,3 +2100,198 @@ def test_routed_bf16_wrappers_refuse_what_no_form_takes(dev):
     with pytest.raises(ValueError, match="multiple of 4"):
         csr_segment_scan(torch.randn(SCAN_BLOCK, 6, device=dev).to(BF16),
                          pack)
+
+
+# ---------------------------------------------------------------------------
+# the chunked pack and the routed 2D graph
+# ---------------------------------------------------------------------------
+
+
+def _chunked_graph(edges=40000, seed=0):
+    """A hypergraph whose routed pack has 3 chunks (cap 128 rows at 128
+    columns), the last one padded."""
+    import dataclasses
+
+    from ihgnn_torch.ops.packing import build_hyper_kernel_pack
+    rng = np.random.default_rng(seed)
+    users, queries, items = 50, 40, 60
+    uqi = np.stack([rng.integers(0, users, edges),
+                    rng.integers(0, queries, edges),
+                    rng.integers(0, items, edges)], axis=1)
+    graph = build_hypergraph(uqi, users + queries + items, users, queries)
+    kp = build_hyper_kernel_pack(graph.i3.numpy(), graph.node_count,
+                                 cols=128, chunk_rows_cap=128)
+    assert len(kp.packs) == 3 and kp.absorbs
+    assert kp.packs[-1].sig_mask is not None
+    return dataclasses.replace(graph, kp=kp)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+def test_segment_sum3_spanning_chunks(dev, dtype):
+    """K1's three-region form over the CSR spanning 3 chunks (each node's
+    entries of chunk 0, then 1, then 2) against its twin: f32 and bf16
+    regions (bf16 into f32 and into bf16)."""
+    kp = _chunked_graph().kp.to(dev)
+    g = _gen(dev, 40)
+    u, q, i = (torch.randn(kp.e_pad, 32, device=dev, generator=g).to(dtype)
+               for _ in range(3))
+    outs = [None] if dtype == torch.float32 else [None, BF16]
+    for out_dtype in outs:
+        got = csr_segment_sum3(u, q, i, kp.seg_col, kp.seg_rowptr, out_dtype)
+        want = csr_segment_sum3_plain(u, q, i, kp.seg_col, kp.seg_rowptr,
+                                      out_dtype)
+        if out_dtype == BF16:
+            diff = (got.float() - want.float()).abs()
+            assert (diff <= want.float().abs() / 128 + 1e-6).all()
+        else:
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * (
+                want.abs().max().item()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+def test_segment_sum3_regions_past_2_31_bytes(dev, dtype):
+    """K1's three-region form on regions of M rows that pass 2^31 bytes
+    (M · d · size > 2^31): segments that read the last rows of each region
+    sum exactly what float64 sums of those rows give."""
+    m, d = 34_000_000, 32
+    assert m * d * torch.tensor([], dtype=dtype).element_size() > 2 ** 31
+    regions = [torch.empty(m, d, dtype=dtype, device=dev) for _ in range(3)]
+    g = _gen(dev, 41)
+    rows = torch.cat([torch.arange(m - 4000, m, device=dev),
+                      torch.arange(0, 1000, device=dev)])
+    for r in regions:
+        r[rows] = torch.randn(rows.numel(), d, device=dev,
+                              generator=g).to(dtype)
+    segments = 500
+    region = torch.randint(0, 3, (segments * 10,), device=dev, generator=g)
+    pick = rows[torch.randint(0, rows.numel(), (segments * 10,), device=dev,
+                              generator=g)]
+    col = (region * m + pick).int()
+    rowptr = torch.arange(0, segments * 10 + 1, 10, device=dev).int()
+    got = csr_segment_sum3(*regions, col, rowptr)
+    vals = torch.stack([regions[k][pick].double() for k in range(3)])
+    want = vals[region, torch.arange(region.numel(), device=dev)]
+    want = want.view(segments, 10, d).sum(1)
+    torch.testing.assert_close(got.double(), want, rtol=0, atol=1e-4)
+    assert (pick * d * regions[0].element_size() > 2 ** 31).any()
+
+
+@pytest.mark.parametrize("count", [1, 3, 1000, 4096, 12_345_678])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_gather_scalars(dev, count, offset):
+    """K2's d = 1 form against its twin, bit for bit: counts that are and
+    are not multiples of 4, ids that start on and off a 16-byte boundary
+    (the four-a-thread and one-a-thread forms)."""
+    from ihgnn_torch.ops.gather import gather_scalars, gather_scalars_plain
+    g = _gen(dev, 42)
+    x = torch.randn(700_000, device=dev, generator=g)
+    idx = torch.randint(0, x.numel(), (count + offset,), device=dev,
+                        generator=g).int()[offset:]
+    before = gather_scalars.launches
+    got = gather_scalars(x, idx)
+    assert gather_scalars.launches == before + 1
+    assert torch.equal(got, gather_scalars_plain(x, idx))
+    with pytest.raises(ValueError, match="int32"):
+        gather_scalars(x, idx.long())
+
+
+def test_chunked_functions_grads_on_card_match_cpu(dev):
+    """One IHGNN layer on the chunked pack (the absorbed interaction over
+    the stacked tables), and the σ → edge relabelling, on the card against
+    the CPU: values and gradients within 1e-5 of their largest values; the
+    launches of one forward and backward (3 chunks)."""
+    graph = _chunked_graph(seed=1)
+    kp_cpu = graph.kp
+    ops = {}
+
+    def layer(device, x, w, b):
+        if device not in ops:
+            g = graph.to(device)
+            ops[device] = (make_hyper_ops(g, absorb=True), g.kp)
+        (gather, scatter), kp = ops[device]
+        pi, mask = kp.absorb_tables()
+        pair = InteractAbsorbFn.apply(gather(x), w, b, pi, mask, 3)
+        return scatter(pair), sigma_to_edge_order(pair[0], kp)
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(kp_cpu.node_count, 32, generator=g)
+    w = torch.randn(7 * 32, 32, generator=g) / 15
+    b = torch.randn(32, generator=g)
+    before = _routed_launches()
+    cuda = _grads(dev, layer, x, w, b)
+    launched = {k: v - before[k] for k, v in _routed_launches().items()}
+    c = len(kp_cpu.packs)
+    assert launched == dict(
+        gather_rows=2 * c, gather_rows_t=4 * c, row_local_permute=2 * c,
+        transposed_local_permute=8 * c, csr_segment_sum3=2, interact_fwd=0,
+        interact_bwd=0, interact_fwd_absorb=1, interact_bwd_absorb=1)
+    _assert_grads_close(cuda, _grads(torch.device("cpu"), layer, x, w, b))
+
+
+def _packed_graph2d():
+    rng = np.random.default_rng(3)
+    users, queries, items, p = 40, 25, 60, 700
+    uqif = np.stack([rng.integers(0, users, p), rng.integers(0, queries, p),
+                     rng.integers(0, items, p),
+                     (rng.random(p) > 0.1).astype(np.int64)], axis=1)
+    return build_graph2d(uqif, users + queries + items, users, queries,
+                         pack_kernels=True)
+
+
+def test_routed_spmm_grads_on_card_match_cpu(dev):
+    """``RoutedSpmmFn`` on the card against the CPU, value and gradient,
+    with its launches: K2 ``gather_rows_t``, K7, K6 and K1 a call."""
+    from ihgnn_torch.ops.hyperagg import RoutedSpmmFn
+    graph = _packed_graph2d()
+    graphs = {}
+
+    def spmm(device, x):
+        if device not in graphs:
+            graphs[device] = graph.to(device)
+        gr = graphs[device]
+        return RoutedSpmmFn.apply(x, gr.pk_role, gr.pk_entry, gr.rowptr,
+                                  gr.val)
+
+    x = torch.randn(graph.node_count, 32,
+                    generator=torch.Generator().manual_seed(4))
+    names = ("gather_rows_t", "transposed_local_permute",
+             "row_local_permute", "csr_gather_sum")
+    before = [globals()[k].launches for k in names]
+    cuda = _grads(dev, spmm, x)
+    assert [globals()[k].launches - v for k, v in zip(names, before)] \
+        == [2, 2, 2, 2]
+    _assert_grads_close(cuda, _grads(torch.device("cpu"), spmm, x))
+
+
+@pytest.mark.parametrize("pack", ["single", "chunked"])
+@pytest.mark.parametrize("head", [V.CONCAT, V.PRODUCT])
+def test_routed_gat_grads_on_card_match_cpu(dev, head, pack):
+    """``RoutedGatConvFn`` on the card against the CPU (both heads; the
+    graph's one pack, and a ``ChunkedGatPack`` of the same entries split
+    by source region): the output and the gradients of x, the head's
+    kernel and bias (those within 1e-5 of the largest gradient of x)."""
+    from ihgnn_torch.ops.gatconv import RoutedGatConvFn
+    from ihgnn_torch.ops.gatpack import ChunkedGatPack, build_gat_pack
+    graph = _packed_graph2d()
+    pk = graph.gat_pk
+    if pack == "chunked":
+        att = graph.attention
+        pk = build_gat_pack(att.src.numpy(), att.dst.numpy(),
+                            graph.node_count,
+                            live=graph.val[graph.dst_order.long()].numpy(),
+                            cols=128, chunk_rows_cap=4, src_cuts=(40, 65))
+        assert isinstance(pk, ChunkedGatPack)
+    packs = {}
+
+    def conv(device, x, k, b):
+        if device not in packs:
+            packs[device] = pk.to(device)
+        return RoutedGatConvFn.apply(x, k, b, packs[device], head)
+
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(graph.node_count, 32, generator=g)
+    k = torch.randn(64 if head == V.CONCAT else 32, generator=g) / 8
+    b = torch.randn(1, generator=g)
+    cuda = _grads(dev, conv, x, k, b)
+    _assert_grads_close(cuda, _grads(torch.device("cpu"), conv, x, k, b),
+                        head_grads=(1, 2))
