@@ -145,8 +145,9 @@ spanning CSR (``csr_segment_sum3_multi``'s bf16 shape). With
 ``--reference ROOT`` (another checkout, e.g. the parent unpacked with
 ``git archive``) ROOT's ``csrc/segsum.cu``, ``csrc/interact_bwd.cu`` and
 ``csrc/gather.cu`` are built beside this checkout's, and each row of
-their bf16 forms (K1's, the backward's and K2's) also carries
-``parent_ms``: the same call on the same inputs through ROOT's build. The
+their bf16 forms (K1's, the backward's and K2's) and of the f32
+backwards (``interact_bwd``'s, K5's) also carries ``parent_ms``: the same
+call on the same inputs through ROOT's build. The
 bf16 backward rows (``interact_bwd`` and K5's) time the fixed-order sum
 over the chunks' partials alone (``reduce_ms``; the fused kernel takes
 the rest); K2's bf16 row times the copy from a ready bf16 x
@@ -198,6 +199,30 @@ one forward and 2 steps through ``RoutedSpmmFn`` against ``SpmmFn``) and
 ``ChunkedGatPack``, card against CPU). Every launch count of these paths
 is exact; on the chunked paths K1's three-region launches are
 ``csr_segment_sum3_multi``'s in the kernels line.
+
+``fault_3_1`` (after the build): the interaction's step-0 dW at
+FAULT31_EDGES edges of SMALL's nodes, direct (K3's ``interact_bwd``) and
+chunked (K5's ``interact_bwd_absorb``), the card's kernel and the CPU's
+f32 twin each against float64 on the same inputs; the card held at
+SMALL_GRAD_RTOL (with ``--reference``, the reference build's kernel
+reported beside it, and its time as ``parent_ms`` on the f32 backward
+rows of phase 3). ``small_chunked_scale`` is held at phase 9's limits.
+
+Data parallelism over the edge axis (``ihgnn_torch/parallel``), after
+``cli``: SHARDED_RANKS ranks, spawned processes that load the kernels
+built above and share the card over gloo (NCCL refuses two ranks on one
+GPU). ``sharded_small_reference`` (SMALL's nodes, padded edges, direct
+and per-rank routed packs: card ranks against CPU ranks at phase 9's
+limits and against one rank on the card within SHARDED_RTOL),
+``sharded_train`` (the bench graph, E / SHARDED_RANKS edges a rank, f32
+and then bf16 streams over the bf16 wire) and ``sharded_routed_train``
+(per-rank routed packs), each against one rank on the card, every rank's
+launches exact, the ranks' step and collective times and peak memory
+reported (not a multi-card time: the ranks share the card), and
+``cli_mesh`` (``torchrun -m ihgnn_torch.cli --mesh_data SHARDED_RANKS``
+on the quality set and a resume, each rank's ``--run_record``, held
+against phase cli's run). The kernels line counts the launches of every
+rank.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Needs a CUDA card; exits non-zero without one.
@@ -357,40 +382,21 @@ def rows_at(torch, x, offset_bytes):
 
 def _wrappers():
     """The kernel wrappers, whose ``launches`` counts the phases read."""
-    from ihgnn_torch.ops.edgedot import csr_edge_dot
-    from ihgnn_torch.ops.gather import (gather_roles, gather_rows,
-                                        gather_rows_t, gather_scalars)
-    from ihgnn_torch.ops.interact import (interact_bwd, interact_bwd_absorb,
-                                          interact_fwd, interact_fwd_absorb)
-    from ihgnn_torch.ops.permute import (row_local_permute,
-                                         transposed_local_permute)
-    from ihgnn_torch.ops.segmax import csr_segment_max, csr_segment_sum
-    from ihgnn_torch.ops.segscan import csr_segment_scan
-    from ihgnn_torch.ops.segsum import csr_gather_sum, csr_segment_sum3
-    return (csr_gather_sum, gather_roles, interact_fwd, interact_bwd,
-            csr_segment_max, csr_segment_sum, csr_edge_dot, gather_rows,
-            gather_rows_t, csr_segment_sum3, row_local_permute,
-            transposed_local_permute, interact_fwd_absorb,
-            interact_bwd_absorb, csr_segment_scan, gather_scalars)
+    from ihgnn_torch.ops.launches import wrappers
+    return wrappers()
 
 
 def _zero_launches():
-    for fn in _wrappers():
-        fn.launches = 0
-        if hasattr(fn, "launches_bf16"):
-            fn.launches_bf16 = 0
+    from ihgnn_torch.ops.launches import zero_launches
+    zero_launches()
 
 
 def _launch_counts():
     """Every wrapper's counts since ``_zero_launches``: ``name`` its f32
     forms' launches, ``name_bf16`` its bf16 forms' (the wrappers that have
     bf16 forms)."""
-    counts = {}
-    for fn in _wrappers():
-        counts[fn.__name__] = fn.launches
-        if hasattr(fn, "launches_bf16"):
-            counts[fn.__name__ + "_bf16"] = fn.launches_bf16
-    return counts
+    from ihgnn_torch.ops.launches import launch_counts
+    return launch_counts()
 
 
 def _read_launches(path, expected):
@@ -704,7 +710,11 @@ def check_kernels(torch, dev, graph, bag, graph2d):
                E * (D * (hadamard + product_rule) + D),
                tf32_flops=E * 2 * 2 * parts * D * D, errors=errors,
                max_abs_err_all=max(v["max_abs_err"]
-                                   for v in errors.values()))
+                                   for v in errors.values()),
+               **parent_ms(torch, "interact_bwd",
+                           lambda cb, ref: cb.run_bwd(
+                               ref, False, u, q, i, None, w, cot, None,
+                               None, order)))
         del k_droles, k_params, p_droles, p_params
     del u, q, i, cot
 
@@ -997,7 +1007,11 @@ def check_routed_kernels(torch, dev, kp, results):
                tf32_flops=e_pad * 2 * 2 * parts * D * D,
                errors=errors, max_abs_err_all=max(
                    v["max_abs_err"] for v in errors.values()),
-               bitwise_equal=bitwise, direct_on_permuted_ms=direct_ms)
+               bitwise_equal=bitwise, direct_on_permuted_ms=direct_ms,
+               **parent_ms(torch, "interact_bwd",
+                           lambda cb, ref: cb.run_bwd(
+                               ref, True, u, q, i_t1, pi, w, c1, c2, mask,
+                               order)))
         del k_b, p_b
     del u, q, i_t1, c1, c2
 
@@ -2271,11 +2285,15 @@ STRESS_SIZES = (1_000_000, 500_000, 2_000_000, 200_000)
 STRESS_E, STRESS_CHUNKS = 10_000_000, 5
 # the small chunked graph: SMALL's graph in chunks of 2 rows of 128 (2
 # chunks, 256 and 44 edges, each on a 128 x 128 grid, so both pad); and,
-# reported beside it, 3000 edges of SMALL's nodes in chunks of 16 rows
-# (2048 and 952 edges), whose interaction dW on the card differed from the
-# CPU's by more than SMALL_GRAD_RTOL (PERF.md §6)
+# held beside it, 3000 edges of SMALL's nodes in chunks of 16 rows (2048
+# and 952 edges)
 SMALL_CHUNK_CAP = 2
 SCALE_EDGES, SCALE_CHUNK_CAP = 3_000, 16
+# fault_3_1: the interaction's step-0 dW on SMALL's nodes at these edge
+# counts (chunked at SCALE_CHUNK_CAP, and direct), card and CPU twin each
+# against float64 on the same inputs, held at SMALL_GRAD_RTOL of the
+# float64 dW's largest value
+FAULT31_EDGES = (300, 3_000, 17_000)
 # a chunked pack runs its expands and permutes once a chunk, and K1's node
 # sum (csr_segment_sum3_multi's counterpart) and K5 once over all chunks
 _PER_CHUNK = ("gather_rows", "gather_rows_t", "transposed_local_permute")
@@ -2613,11 +2631,10 @@ def check_small_chunked(torch, dev):
     chunk_rows_cap=SMALL_CHUNK_CAP)``: 2 chunks, both padded), card
     against CPU as in phase 9, for the default model (absorbed), HGCN,
     IHGNN with phase 2 (limits of phase 9) and the default model on bf16
-    streams (BF16_SMALL_TOL). Then ``small_chunked_scale``, reported and
-    not held: the default model on SCALE_EDGES edges of SMALL's nodes,
-    chunked at SCALE_CHUNK_CAP and on the direct path, card against CPU,
-    the step-0 gradients' largest errors of each. Returns the card's
-    launches of the held cases."""
+    streams (BF16_SMALL_TOL). Then ``small_chunked_scale``, held at the
+    same limits: the default model on SCALE_EDGES edges of SMALL's nodes,
+    chunked at SCALE_CHUNK_CAP and on the direct path, card against CPU.
+    Returns the card's launches of the first cases."""
     from ihgnn_torch.config import ModelConfig, V
     from ihgnn_torch.graph import build_hypergraph
     from ihgnn_torch.ops.hyperagg import strip_kernel_packing
@@ -2656,18 +2673,140 @@ def check_small_chunked(torch, dev):
     scaled = build_hypergraph(uqi, nodes, s["users"], s["queries"],
                               pack_kernels=True,
                               chunk_rows_cap=SCALE_CHUNK_CAP)
-    grads = {}
+    grads, failed = {}, []
     for path, g in (("chunked", scaled), ("direct",
                                           strip_kernel_packing(scaled))):
-        row, _ = train_card_vs_cpu(torch, dev, ModelConfig(), g, uqi, qw, qc,
-                                   94)
+        row, ok = train_card_vs_cpu(torch, dev, ModelConfig(), g, uqi, qw,
+                                    qc, 94)
         grads[path] = row["grad0_rel_err"]
+        if not ok:
+            failed.append((path, row))
     emit({"phase": "small_chunked_scale", "edges": SCALE_EDGES,
-          "chunks": len(scaled.kp.packs), "held": False,
+          "chunks": len(scaled.kp.packs), "held": True,
           "grad0_rel_err_max": {k: max(v.values()) for k, v in
                                 grads.items()},
           "grad0_rel_err": grads})
+    if failed:
+        fail(f"card and CPU disagree on {SCALE_EDGES} edges: {failed}")
     return launches
+
+
+def _interaction_inputs(torch, cfg, graph, uqi, qw, qc, seed):
+    """The arguments of every ``interact_bwd`` and ``interact_bwd_absorb``
+    call of one CPU train step of ``RawGnn(cfg)`` (weights from ``seed``)
+    on ``graph``, with the f32 twin's dW of each: ``[(absorb, args,
+    dw)]``."""
+    from ihgnn_torch.config import TrainConfig
+    from ihgnn_torch.models.rawgnn import RawGnn
+    from ihgnn_torch.ops import interact as ops_interact
+    from ihgnn_torch.train.train import make_optimizer, make_train_step
+
+    s = SMALL
+    calls = []
+    saved = ops_interact.interact_bwd, ops_interact.interact_bwd_absorb
+
+    def recorder(fn, absorb):
+        def record(*args):
+            out = fn(*args)
+            calls.append((absorb, args, out[1]))
+            return out
+        return record
+
+    ops_interact.interact_bwd = recorder(saved[0], False)
+    ops_interact.interact_bwd_absorb = recorder(saved[1], True)
+    try:
+        model = RawGnn(cfg, s["users"], s["queries"], s["items"], s["vocab"],
+                       generator=torch.Generator().manual_seed(seed))
+        step = make_train_step(model, graph, qw, qc,
+                               make_optimizer(model.parameters(),
+                                              TrainConfig()), device="cpu")
+        step(train_batch(uqi, s["items"], SMALL_B, TRAIN_K, seed + 1))
+    finally:
+        ops_interact.interact_bwd, ops_interact.interact_bwd_absorb = saved
+    return calls
+
+
+def check_fault_3_1(torch, dev):
+    """Phase ``fault_3_1``: the interaction's step-0 dW (K3's
+    ``interact_bwd``, and K5's ``interact_bwd_absorb`` on the chunked
+    pack) at each of FAULT31_EDGES on SMALL's nodes, from the inputs of a
+    CPU train step: the card's kernel and the CPU's f32 twin, each against
+    float64 on the same inputs (the twin in float64), at SMALL_GRAD_RTOL of
+    the float64 dW's largest value. With ``--reference`` the reference
+    build's kernel is measured on the same inputs (reported). Held: the
+    card at every size; the twin is reported."""
+    from ihgnn_torch.config import ModelConfig
+    from ihgnn_torch.graph import build_hypergraph
+    from ihgnn_torch.ops.hyperagg import strip_kernel_packing
+    from ihgnn_torch.ops.interact import (interact_bwd, interact_bwd_absorb,
+                                          interact_bwd_absorb_plain,
+                                          interact_bwd_plain)
+
+    s = SMALL
+    nodes = s["users"] + s["queries"] + s["items"]
+    qw, qc = random_words(s["queries"], s["vocab"], 91)
+    ref_lib = REFERENCE.get("interact_bwd")
+    rows, worst = [], 0.0
+    torch.set_grad_enabled(False)
+    for edges in FAULT31_EDGES:
+        _, uqi = random_graph(s["users"], s["queries"], s["items"], edges, 93)
+        graph = build_hypergraph(uqi, nodes, s["users"], s["queries"],
+                                 pack_kernels=True,
+                                 chunk_rows_cap=SCALE_CHUNK_CAP)
+        for path, g in (("chunked", graph),
+                        ("direct", strip_kernel_packing(graph))):
+            with torch.enable_grad():
+                calls = _interaction_inputs(torch, ModelConfig(), g, uqi, qw,
+                                            qc, 94)
+            for absorb, args, twin_dw in calls:
+                order = args[-1]
+                args = [a.detach() if torch.is_tensor(a) else a
+                        for a in args]
+                f64 = [a.double() if torch.is_tensor(a) and
+                       a.is_floating_point() else a for a in args]
+                on_card = [a.to(dev) if torch.is_tensor(a) else a
+                           for a in args]
+                if absorb:
+                    want = interact_bwd_absorb_plain(*f64)[1]
+                    card_dw = interact_bwd_absorb(*on_card)[1]
+                else:
+                    want = interact_bwd_plain(*f64)[1]
+                    card_dw = interact_bwd(*on_card)[1]
+                scale = want.abs().max().item()
+                card_err = (card_dw.cpu().double() - want).abs().max().item()
+                twin_err = (twin_dw.double() - want).abs().max().item()
+                row = {"edges": edges, "path": path, "order": order,
+                       "kernel": ("interact_bwd_absorb" if absorb
+                                  else "interact_bwd"),
+                       "stream_edges": int(args[0].shape[0]),
+                       "card_rel_err": card_err / scale,
+                       "twin_rel_err": twin_err / scale}
+                if ref_lib is not None:
+                    from ihgnn_torch.compare_builds import run_bwd
+                    u, q, i, *rest = on_card
+                    if absorb:
+                        pi, w, c1, c2, mask = rest[:5]
+                        ref = run_bwd(ref_lib, True, u, q, i, pi, w, c1, c2,
+                                      mask if mask is not None else
+                                      torch.ones(u.shape[0], device=dev),
+                                      order)
+                    else:
+                        w, cot = rest[:2]
+                        ref = run_bwd(ref_lib, False, u, q, i, None, w, cot,
+                                      None, None, order)
+                    ref_dw = ref[1][:w.shape[0]].cpu().double()
+                    row["reference_rel_err"] = ((ref_dw - want).abs().max()
+                                                .item() / scale)
+                rows.append(row)
+                worst = max(worst, row["card_rel_err"])
+    torch.set_grad_enabled(True)
+    emit({"phase": "fault_3_1", "rtol": SMALL_GRAD_RTOL, "held": True,
+          "card_rel_err_max": worst,
+          "twin_rel_err_max": max(r["twin_rel_err"] for r in rows),
+          "cases": rows})
+    if not worst <= SMALL_GRAD_RTOL:
+        fail(f"fault_3_1: the card's dW is {worst} of its largest value off "
+             f"float64 (limit {SMALL_GRAD_RTOL})")
 
 
 def check_small_routed_2d(torch, dev):
@@ -3048,7 +3187,328 @@ def run_cli(torch, dev):
         values = [x for _, m, v in rows for x in m + v]
         if not rows or not all(0.0 <= x <= 1.0 for x in values):
             fail(f"cli: bad {name} metrics {rows}")
+    reference = {"epoch1_loss": losses[0],
+                 "epoch2_test": dict((e, m) for e, m, _ in
+                                     metrics["first"])[2]}
+    return launches, reference
+
+
+# ---- data parallelism over the edge axis: S ranks share the one card
+
+# ranks of the sharded phases, all on card 0 with gloo (NCCL refuses two
+# ranks on one GPU); full-width steps: SHARDED_WARM, then SHARDED_TIMED
+# timed (host clock, the card idle before and after)
+SHARDED_RANKS = 4
+SHARDED_WARM, SHARDED_TIMED = 2, 5
+# SMALL's nodes with 2 more edges than SMALL, so the edges pad to a
+# multiple of the ranks
+SHARDED_SMALL_EDGES = SMALL["edges"] + 2
+# the S-rank run against the one-rank run on the card: f32 within this
+# share of the largest value (features, step-0 gradients) and relative
+# (losses); bf16 streams with the bf16 wire: BF16_FEATURE_RTOL of scale
+# and ROUTED_BF16_LOSS_RTOL for the step-0 loss
+SHARDED_RTOL = 1e-5
+# the mesh CLI run against the one-rank CLI run of phase cli: the epoch-1
+# loss relative, the epoch-2 test metrics within 2 x the largest std of
+# PARITY.json's rawgnn runs
+CLI_MESH_LOSS_RTOL = 1e-4
+CLI_MESH_EPOCHS, CLI_MESH_RESUME_EPOCHS = 2, 1
+
+
+def _sum_counts(ranks, j):
+    """Job ``j``'s launch counts summed over the ranks."""
+    total = {}
+    for rank in ranks:
+        for k, v in rank[j]["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def _check_rank_counts(path, ranks, j, expected, per_step, steps):
+    """Fails unless every kernel of ``expected`` launched in every rank,
+    ``per_step`` times the steps each."""
+    for r, rank in enumerate(ranks):
+        launches = rank[j]["launches"]
+        for name in expected:
+            if launches[name] <= 0:
+                fail(f"{path}: {name} was not launched in rank {r}")
+        _check_counts(f"{path} rank {r}", launches, per_step, steps)
+
+
+def check_sharded_small(torch, dev):
+    """Phase ``sharded_small_reference``: SHARDED_RANKS gloo ranks on the
+    card train SMALL_STEPS steps of the default model on
+    SHARDED_SMALL_EDGES edges of SMALL's nodes (padded to a multiple of
+    the ranks), direct and with per-rank routed packs, f32, from the same
+    weights and batches as the same ranks on the CPU (plain twins) and
+    one rank on the card. Held: card ranks against CPU ranks at the
+    SMALL_* limits (features, losses, every step-0 gradient, the
+    parameters after the last step), against the one-rank card run within
+    SHARDED_RTOL of scale (features, losses, step-0 gradients), every
+    rank's parameters equal bit for bit, every kernel of the path launched
+    in every rank. Returns the launches summed over the card's ranks."""
+    from ihgnn_torch.config import ModelConfig
+    from ihgnn_torch.parallel.ranks import TrainJob, run_jobs
+
+    s = SMALL
+    _, uqi = random_graph(s["users"], s["queries"], s["items"],
+                          SHARDED_SMALL_EDGES, 95)
+    qw, qc = random_words(s["queries"], s["vocab"], 96)
+    batches = [train_batch(uqi, s["items"], SMALL_B, TRAIN_K, 97 + k)
+               for k in range(SMALL_STEPS)]
+    counts = (s["users"], s["queries"], s["items"], s["vocab"])
+    paths = {"direct": (False, IHGNN_TRAIN, IHGNN_STEP_LAUNCHES),
+             "routed": (True, ROUTED_TRAIN, ROUTED_STEP_LAUNCHES)}
+    jobs = [TrainJob(name, ModelConfig(), counts, uqi, qw, qc, batches,
+                     seed=98, pack_kernels=pack, keep_state=True,
+                     keep_features=True)
+            for name, (pack, _, _) in paths.items()]
+    t0 = time.perf_counter()
+    card = run_jobs(SHARDED_RANKS, jobs, "cuda")
+    card_s = time.perf_counter() - t0
+    cpu = run_jobs(SHARDED_RANKS, jobs, "cpu")
+    one = run_jobs(0, jobs, "cuda")[0]
+    failed, launches = [], {}
+    for j, (name, (_, expected, per_step)) in enumerate(paths.items()):
+        _check_rank_counts(f"sharded_small_reference {name}", card, j,
+                           expected, per_step, SMALL_STEPS)
+        launches[name] = _sum_counts(card, j)
+        got, want, single = card[0][j], cpu[0][j], one[j]
+        feat_err = (got["features"] - want["features"]).abs().max().item()
+        loss_err = max(abs(a - b) / abs(b) for a, b in
+                       zip(got["losses"], want["losses"]))
+        grad_err = {k: (got["grads0"][k] - g).abs().max().item()
+                    / grad_scale(k, want["grads0"])
+                    for k, g in want["grads0"].items()}
+        param_err = max((got["params"][k] - v).abs().max().item()
+                        for k, v in want["params"].items())
+        scale = single["features"].abs().max().item()
+        one_feat = (got["features"] - single["features"]).abs().max().item()
+        one_loss = max(abs(a - b) / abs(b) for a, b in
+                       zip(got["losses"], single["losses"]))
+        one_grad = max((got["grads0"][k] - g).abs().max().item()
+                       / grad_scale(k, single["grads0"])
+                       for k, g in single["grads0"].items())
+        replicas = {"card": len({r[j]["digest"] for r in card}) == 1,
+                    "cpu": len({r[j]["digest"] for r in cpu}) == 1}
+        ok = (feat_err <= SMALL_FEATURE_ATOL and loss_err <= SMALL_LOSS_RTOL
+              and max(grad_err.values()) <= SMALL_GRAD_RTOL
+              and param_err <= SMALL_PARAM_ATOL
+              and one_feat <= SHARDED_RTOL * scale
+              and one_loss <= SHARDED_RTOL and one_grad <= SHARDED_RTOL
+              and all(replicas.values()))
+        emit({"phase": "sharded_small_reference", "case": name,
+              "ranks": SHARDED_RANKS, "backend": got["backend"],
+              "combine": "reduce_scatter + all_gather",
+              "edges": SHARDED_SMALL_EDGES, "steps": SMALL_STEPS,
+              "card_ranks_s": card_s,
+              "vs_cpu_ranks": {"features_max_abs_err": feat_err,
+                               "loss_max_rel_err": loss_err,
+                               "grad0_rel_err_max": max(grad_err.values()),
+                               "grad0_rel_err": grad_err,
+                               "param_max_abs_err": param_err},
+              "vs_one_rank_card": {"features_rel_err": one_feat / scale,
+                                   "loss_max_rel_err": one_loss,
+                                   "grad0_rel_err_max": one_grad},
+              "replicas_equal": replicas, "card_losses": got["losses"],
+              "launches_rank0": card[0][j]["launches"], "held": True})
+        if not ok:
+            failed.append(name)
+    if failed:
+        fail(f"sharded_small_reference: {failed} disagree")
     return launches
+
+
+def run_sharded_train(torch, dev, uqi, qw, qc):
+    """Phases ``sharded_train`` (f32, then ``bf16`` streams with the bf16
+    wire) and ``sharded_routed_train`` (per-rank routed packs, f32): the
+    default model at full width (``bench.py``'s graph, E = 2M) in
+    SHARDED_RANKS gloo ranks of E / SHARDED_RANKS edges sharing the card,
+    batches of TRAIN_B positives x TRAIN_K negatives split over the ranks,
+    SHARDED_WARM + SHARDED_TIMED steps, against one rank on the card on
+    the same graph, weights and batches. Held: every kernel of the path
+    launched in every rank, each exactly a step's count times the steps;
+    the features before the first step and the step-0 loss against the
+    one-rank run (f32 SHARDED_RTOL; bf16 BF16_FEATURE_RTOL of scale and
+    ROUTED_BF16_LOSS_RTOL); every rank's parameters equal bit for bit.
+    Reported: each rank's step time and time inside collectives (the
+    ranks share one card: not a multi-card time), peak memory a rank.
+    Returns the launches summed over the ranks, by path."""
+    from ihgnn_torch.config import ModelConfig
+    from ihgnn_torch.parallel.ranks import TrainJob, run_jobs
+
+    steps = SHARDED_WARM + SHARDED_TIMED
+    batches = [train_batch(uqi, I, TRAIN_B, TRAIN_K, 300 + k)
+               for k in range(steps)]
+    ihgnn = ModelConfig()
+    ihgnn16 = dataclasses.replace(ihgnn, bf16_stream=True)
+    paths = {"sharded_train": (ihgnn, False, IHGNN_TRAIN,
+                               IHGNN_STEP_LAUNCHES),
+             "sharded_train_bf16": (ihgnn16, False, IHGNN_TRAIN_BF16,
+                                    IHGNN_STEP_LAUNCHES_BF16),
+             "sharded_routed_train": (ihgnn, True, ROUTED_TRAIN,
+                                      ROUTED_STEP_LAUNCHES)}
+    jobs = [TrainJob(path, cfg, (U, Q, I, VOCAB), uqi, qw, qc, batches,
+                     seed=0, pack_kernels=pack, keep_features=True,
+                     time_steps=SHARDED_TIMED)
+            for path, (cfg, pack, _, _) in paths.items()]
+    t0 = time.perf_counter()
+    ranks = run_jobs(SHARDED_RANKS, jobs, "cuda")
+    ranks_s = time.perf_counter() - t0
+    one = run_jobs(0, jobs, "cuda")[0]
+    launches, failed = {}, []
+    for j, (path, (cfg, pack, expected, per_step)) in enumerate(
+            paths.items()):
+        _check_rank_counts(path, ranks, j, expected, per_step, steps)
+        launches[path] = _sum_counts(ranks, j)
+        got, single = ranks[0][j], one[j]
+        scale = single["features"].abs().max().item()
+        feat_err = (got["features"] - single["features"]).abs().max().item()
+        loss_err = abs(got["losses"][0] - single["losses"][0]) \
+            / abs(single["losses"][0])
+        bf16 = cfg.bf16_stream
+        feat_tol = (BF16_FEATURE_RTOL if bf16 else SHARDED_RTOL) * scale
+        loss_tol = ROUTED_BF16_LOSS_RTOL if bf16 else SHARDED_RTOL
+        replicas = len({r[j]["digest"] for r in ranks}) == 1
+        finite = all(np.isfinite(r[j]["losses"]).all() for r in ranks)
+        step_ms = [float(np.median(r[j]["step_ms"])) for r in ranks]
+        coll_ms = [float(np.median(r[j]["collective_ms"])) for r in ranks]
+        emit({"phase": "sharded_routed_train" if pack else "sharded_train",
+              "streams": "bf16" if bf16 else "f32",
+              "bf16_wire": bf16, "ranks": SHARDED_RANKS,
+              "backend": got["backend"],
+              "combine": ("bf16 all_reduce" if bf16 else
+                          "reduce_scatter + all_gather"),
+              "note": ("the ranks share one card: not a multi-card time"
+                       if got["backend"] == "gloo" else
+                       "a card a rank"),
+              "edges_a_rank": E // SHARDED_RANKS,
+              "rows_a_rank": len(batches[0].users) // SHARDED_RANKS,
+              "steps": steps, "timed_steps": SHARDED_TIMED,
+              "rank_step_ms_median": step_ms,
+              "rank_collective_ms_median": coll_ms,
+              "rank_step_ms": [r[j]["step_ms"] for r in ranks],
+              "rank_collective_ms": [r[j]["collective_ms"] for r in ranks],
+              "max_memory_allocated_bytes": [
+                  r[j].get("max_memory_allocated_bytes") for r in ranks],
+              "graph_s": [r[j]["graph_s"] for r in ranks],
+              "ranks_run_s": ranks_s, "losses": got["losses"],
+              "one_rank_losses": single["losses"],
+              "features_max_abs_err": feat_err, "features_scale": scale,
+              "features_tol": feat_tol, "step0_loss_rel_err": loss_err,
+              "loss_rtol": loss_tol, "replicas_equal": replicas,
+              "launches_rank0": got["launches"], "held": True})
+        if not (feat_err <= feat_tol and loss_err <= loss_tol and replicas
+                and finite):
+            failed.append(path)
+    if failed:
+        fail(f"sharded full-width paths {failed} disagree with one rank")
+    return launches
+
+
+def run_cli_mesh(torch, dev, reference):
+    """Phase ``cli_mesh``: ``torchrun --standalone --nproc_per_node
+    SHARDED_RANKS -m ihgnn_torch.cli --mesh_data SHARDED_RANKS`` on phase
+    cli's quality set: CLI_MESH_EPOCHS epochs tested at the last with
+    ``--storecheckpoint --storemetrics``, then a ``--checkpoint latest``
+    resume for CLI_MESH_RESUME_EPOCHS; each rank writes ``--run_record``.
+    Held: one result directory, one checkpoint, the resume at the next
+    epoch, every kernel's launches in every rank exactly as phase cli
+    counts a run's, the epoch-1 loss within CLI_MESH_LOSS_RTOL of phase
+    cli's (``reference``), the epoch-2 test metrics within 2 x the largest
+    std of PARITY.json's rawgnn runs of phase cli's. Returns the launches
+    summed over the ranks."""
+    import json
+    import os
+    import shutil
+    import tempfile
+
+    from ihgnn_torch.data.artifacts import write_synthetic_dataset
+    from ihgnn_torch.quality_parity import METRICS, QUALITY_SET
+    from ihgnn_torch.train.metrics import EpochStats
+
+    parity = json.loads((pathlib.Path(__file__).resolve().parent
+                         / "PARITY.json").read_text())["rawgnn"]["runs"]
+    limit = {k: 2 * max(float(np.std([r["test"][k] for r in runs]))
+                        for runs in parity.values()) for k in METRICS}
+    launcher = shutil.which("torchrun")
+    launcher = [launcher] if launcher else [sys.executable, "-m",
+                                            "torch.distributed.run"]
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir = os.path.join(tmp, "quality_ds")
+        write_synthetic_dataset(data_dir, **QUALITY_SET)
+        results = os.path.join(tmp, "results")
+        records = [os.path.join(tmp, f"record{k}") for k in range(2)]
+        base = ["--dataset", data_dir, "--result_dir", results,
+                "--epoch_start_test", "2", "--epoch_test_frequency", "2",
+                "--mesh_data", str(SHARDED_RANKS)]
+        runs_s = []
+        for k, extra in enumerate((
+                ["--epoch_count", str(CLI_MESH_EPOCHS), "--storecheckpoint",
+                 "--storemetrics"],
+                ["--epoch_count", str(CLI_MESH_RESUME_EPOCHS),
+                 "--checkpoint", "latest"])):
+            t0 = time.perf_counter()
+            done = subprocess.run(
+                launcher + ["--standalone", "--nproc_per_node",
+                            str(SHARDED_RANKS), "-m", "ihgnn_torch.cli"]
+                + base + extra + ["--run_record", records[k]],
+                capture_output=True, text=True, timeout=600)
+            runs_s.append(time.perf_counter() - t0)
+            if done.returncode != 0:
+                fail(f"cli_mesh: torchrun rc {done.returncode}: "
+                     f"{done.stderr[-3000:]}")
+        files = {d: sorted(os.listdir(os.path.join(results, d)))
+                 for d in sorted(os.listdir(results))}
+        recs = [[json.loads(pathlib.Path(r, f"rank{n}.json").read_text())
+                 for n in range(SHARDED_RANKS)] for r in records]
+    first, resumed = recs
+    stats = [[EpochStats(**e) for e in rec[0]["epochs"]] for rec in recs]
+    expected = _cli_expected([(stats[0], (IHGNN_STEP_LAUNCHES,
+                                          IHGNN_FORWARD_LAUNCHES))])
+    expected_resume = _cli_expected([(stats[1], (IHGNN_STEP_LAUNCHES,
+                                                 IHGNN_FORWARD_LAUNCHES))])
+    bad_counts = [(k, n) for k, (rec, want) in enumerate(
+        ((first, expected), (resumed, expected_resume)))
+        for n in range(SHARDED_RANKS) if rec[n]["launches"] != want]
+    loss1 = stats[0][0].avg_loss
+    loss_err = abs(loss1 - reference["epoch1_loss"]) / abs(
+        reference["epoch1_loss"])
+    test = dict(first[0]["test"])[CLI_MESH_EPOCHS]
+    metric_diff = {k: test[n] - reference["epoch2_test"][n]
+                   for n, k in enumerate(METRICS)}
+    (run_dir, names), = files.items()
+    checkpoints = [n for n in names if n.startswith("checkpoint_")]
+    resumed_epochs = [s.epoch for s in stats[1]]
+    emit({"phase": "cli_mesh", "ranks": SHARDED_RANKS,
+          "backend": first[0]["backend"],
+          "launcher": " ".join(launcher[-2:]), "run_s": runs_s,
+          "epochs": [dataclasses.asdict(s) for s in stats[0] + stats[1]],
+          "one_rank_epoch1_loss": reference["epoch1_loss"],
+          "epoch1_loss_rel_err": loss_err, "loss_rtol": CLI_MESH_LOSS_RTOL,
+          "test_epoch2": test, "one_rank_test_epoch2":
+          reference["epoch2_test"], "metric_diff": metric_diff,
+          "metric_limit": limit, "files": files,
+          "resumed_epochs": resumed_epochs,
+          "launches_rank0": first[0]["launches"],
+          "expected_launches": expected, "held": True})
+    if bad_counts:
+        fail(f"cli_mesh: launch counts off in (run, rank) {bad_counts}")
+    if len(checkpoints) != 1 or not checkpoints[0].endswith(
+            f"_epoch{CLI_MESH_EPOCHS}"):
+        fail(f"cli_mesh: checkpoints {checkpoints} in {run_dir}")
+    if resumed_epochs != [CLI_MESH_EPOCHS + 1]:
+        fail(f"cli_mesh: the resume ran epochs {resumed_epochs}")
+    if not loss_err <= CLI_MESH_LOSS_RTOL:
+        fail(f"cli_mesh: epoch-1 loss {loss1} against one rank's "
+             f"{reference['epoch1_loss']}")
+    if not all(abs(metric_diff[k]) <= limit[k] for k in METRICS):
+        fail(f"cli_mesh: test metrics {metric_diff} beyond {limit}")
+    total = {}
+    for rec in first + resumed:
+        for k, v in rec["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
 
 
 # ---- Srrl and preprocessing: no hand-written kernel runs on these paths
@@ -3602,6 +4062,7 @@ def main() -> int:
           "graph2d_masked_entries": 0 if graph2d.attention.mask is None
           else int((graph2d.attention.mask == 0).sum().item())})
 
+    check_fault_3_1(torch, dev)
     with torch.no_grad():
         checks = check_kernels(torch, dev, graph, bag, graph2d)
         kp_dev = kp.to(dev)
@@ -3788,7 +4249,13 @@ def main() -> int:
                                                                   dev)
     del graph2d_routed_cpu
     check_small_zoo(torch, dev)
-    launches["cli"] = run_cli(torch, dev)
+    launches["cli"], cli_reference = run_cli(torch, dev)
+
+    # data parallelism over the edge axis: ranks sharing the card
+    for case, counts in check_sharded_small(torch, dev).items():
+        launches[f"sharded_small_reference_{case}"] = counts
+    launches.update(run_sharded_train(torch, dev, uqi, qw, qc))
+    launches["cli_mesh"] = run_cli_mesh(torch, dev, cli_reference)
     srrl_graph_data, srrl_data_s = srrl_data(uqi, qw, qc)
     emit({"phase": "srrl_data", "seconds": srrl_data_s,
           "logs": len(srrl_graph_data.search_logs),

@@ -10,10 +10,25 @@ report the best epoch by valid NDCG@10. It runs on the card unless
 
 ``--model srrl`` trains Srrl by its alternating KG/PS loop
 (``train/srrl_loop.py`` ``run_srrl``), as ``ihgnn_tpu/cli.py:139-141``
-does. Flags whose modules are not ported yet (a mesh larger than one
-device, ``--multihost``) raise ``NotImplementedError`` before anything
-runs. ``--bf16_stream`` and ``--remat`` run (``models/rawgnn.py``);
+does. ``--bf16_stream`` and ``--remat`` run (``models/rawgnn.py``);
 the CLI builds no routed pack, so its graphs take the direct path.
+
+``--mesh_data S`` trains data-parallel over S ranks (``parallel/``), one
+process each, started by ``torchrun --standalone --nproc_per_node S -m
+ihgnn_torch.cli --mesh_data S ...``, whose ``RANK``, ``WORLD_SIZE`` and
+``LOCAL_RANK`` it reads. A rank runs on card ``LOCAL_RANK`` with NCCL
+when there is a card a rank, else every rank on card 0 with gloo (the one
+layout one card allows; ``--device cpu``: gloo on the CPU); the log says
+which. The ranks build the same model from the seed and the graph,
+each keeps its slice of the padded edges and its block of each batch's
+rows (the sampler pads rows to a multiple of S), and every rank ends each
+step with the same parameters. Rank 0 alone writes the result directory,
+the log, the metrics, the long-tail CSV and the checkpoints, under a stamp
+it broadcasts; a resume reads rank 0's checkpoint on every rank. Flags
+whose modules are not ported yet raise ``NotImplementedError`` before
+anything runs, naming their ROADMAP item (queue 1): ``--mesh_model`` > 1,
+``--multihost`` and Srrl under a mesh (8c), GAT and phase-2 attention
+under a mesh (8d), the log hypergraph under a mesh (8e).
 
 The epoch loop queues the train steps without waiting for the card: each
 step's loss stays a tensor on the device, and the epoch's losses reach the
@@ -25,9 +40,11 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ihgnn_torch.config import Config, V, parse_args
 from ihgnn_torch.data.dataset import (Batch, EvalLogs, GraphData,
@@ -35,7 +52,11 @@ from ihgnn_torch.data.dataset import (Batch, EvalLogs, GraphData,
 from ihgnn_torch.device import resolve_device
 from ihgnn_torch.models.rawgnn import RawGnn
 from ihgnn_torch.ops.hyperagg import strip_kernel_packing
-from ihgnn_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+from ihgnn_torch.parallel import (Mesh, make_mesh, pad_graph2d_for_mesh,
+                                  pad_hypergraph_for_mesh, pick_backend,
+                                  shard_graph)
+from ihgnn_torch.train.checkpoint import (find_latest, restore_checkpoint,
+                                          save_checkpoint)
 from ihgnn_torch.train.controller import EpochSchedule
 from ihgnn_torch.train.eval import evaluate, make_eval_fns
 from ihgnn_torch.train.metrics import EpochStats, Metrics, MetricsCollection
@@ -77,15 +98,59 @@ def check_ported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for a flag whose module is not ported
     yet, naming the ROADMAP item (queue 1) that ports it."""
     missing = []
-    if cfg.mesh.data > 1 or cfg.mesh.model > 1:
-        missing.append(f"--mesh_data {cfg.mesh.data} --mesh_model "
-                       f"{cfg.mesh.model} (ROADMAP queue 1 item 8, "
-                       "multi-device)")
+    if cfg.mesh.model > 1:
+        missing.append(f"--mesh_model {cfg.mesh.model} (ROADMAP queue 1 "
+                       "item 8c, the tables over the model axis)")
     if cfg.runtime.multihost:
-        missing.append("--multihost (ROADMAP queue 1 item 8, multi-device)")
+        missing.append("--multihost (ROADMAP queue 1 item 8c)")
+    if cfg.mesh.data > 1:
+        m = cfg.model
+        if m.model == V.SRRL:
+            missing.append("--model srrl under --mesh_data (ROADMAP queue 1 "
+                           "item 8c)")
+        elif m.gnn == V.GAT or (m.gnn == V.IHGNN and m.phase2_attention):
+            missing.append("GAT and phase-2 attention under --mesh_data "
+                           "(ROADMAP queue 1 item 8d)")
+        elif m.use_log_hypergraph:
+            missing.append("--log_hypergraph under --mesh_data (ROADMAP "
+                           "queue 1 item 8e)")
     if missing:
         raise NotImplementedError("not ported to ihgnn_torch yet: "
                                   + "; ".join(missing))
+
+
+def start_ranks(cfg: Config) -> Tuple[torch.device, Optional[Mesh]]:
+    """The run's device and, for ``--mesh_data`` S > 1, its ``Mesh``: the
+    process group of torchrun's S ranks (``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``), on card
+    ``LOCAL_RANK`` with NCCL when each rank has a card, else on one card
+    (or the CPU) with gloo."""
+    if cfg.mesh.data <= 1:
+        return resolve_device(cfg.runtime.device), None
+    if "WORLD_SIZE" not in os.environ:
+        raise ValueError(f"--mesh_data {cfg.mesh.data} runs one process a "
+                         "rank: start it with torchrun --standalone "
+                         f"--nproc_per_node {cfg.mesh.data} -m "
+                         "ihgnn_torch.cli ...")
+    world = int(os.environ["WORLD_SIZE"])
+    local = int(os.environ.get("LOCAL_RANK", os.environ["RANK"]))
+    dev = resolve_device(cfg.runtime.device)
+    backend = pick_backend(world, dev)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", local if backend == "nccl" else 0)
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method="env://",
+                            rank=int(os.environ["RANK"]), world_size=world)
+    return dev, make_mesh(cfg.mesh, backend)
+
+
+def broadcast_from_rank0(value, mesh: Optional[Mesh]):
+    """``value`` as rank 0 has it (a picklable object)."""
+    if mesh is None:
+        return value
+    box = [value]
+    dist.broadcast_object_list(box, src=0, group=mesh.group)
+    return box[0]
 
 
 def build_model(cfg: Config, data: GraphData,
@@ -109,25 +174,38 @@ def run(cfg: Config) -> MetricsCollection:
     into the result directory, and return the per-epoch metrics and
     ``EpochStats``."""
     check_ported(cfg)
-    dev = resolve_device(cfg.runtime.device)
-    result_dir = result_dir_name(cfg)
-    os.makedirs(result_dir, exist_ok=True)
-    stamp = time.strftime("%y%m%d-%H%M%S", time.localtime())
-    fn_log = (f"{stamp}_train_log.txt" if cfg.io.store_metrics
-              else "train_log.txt")
-    fn_metrics = f"{stamp}_metrics.txt"
-    start_logging(os.path.join(result_dir, fn_log))
+    dev, mesh = start_ranks(cfg)
+    lead = mesh is None or mesh.rank == 0
     try:
-        return _run(cfg, dev, result_dir, fn_metrics)
+        result_dir, stamp = broadcast_from_rank0(
+            (result_dir_name(cfg),
+             time.strftime("%y%m%d-%H%M%S", time.localtime())), mesh)
+        fn_log = (f"{stamp}_train_log.txt" if cfg.io.store_metrics
+                  else "train_log.txt")
+        fn_metrics = f"{stamp}_metrics.txt"
+        if lead:
+            os.makedirs(result_dir, exist_ok=True)
+            start_logging(os.path.join(result_dir, fn_log))
+        else:
+            start_logging(None, echo=False)
+        try:
+            return _run(cfg, dev, result_dir, fn_metrics, mesh)
+        finally:
+            end_logging()
     finally:
-        end_logging()
+        if mesh is not None:
+            dist.destroy_process_group(mesh.group)
 
 
 def _run(cfg: Config, dev: torch.device, result_dir: str,
-         fn_metrics: str) -> MetricsCollection:
+         fn_metrics: str, mesh: Optional[Mesh] = None) -> MetricsCollection:
     t = cfg.train
+    lead = mesh is None or mesh.rank == 0
     log_print(f"device: {_device_text(dev)}")
-    log_print(f"mesh: data={cfg.mesh.data} model={cfg.mesh.model}")
+    log_print(f"mesh: data={cfg.mesh.data} model={cfg.mesh.model}"
+              + ("" if mesh is None else
+                 f" | {mesh.data} ranks, backend {mesh.backend}, bf16 wire "
+                 f"{'on' if mesh.bf16_wire else 'off'}"))
     log_print(f"batch size: {t.batch_size} | lr: {t.learning_rate} | "
               f"emb: {cfg.model.embedding_size} | wd: {t.weight_decay}")
     log_print(f"neg sampling rand/nonrand: {t.random_negative_sample_size}/"
@@ -174,29 +252,40 @@ def _run(cfg: Config, dev: torch.device, result_dir: str,
     if not cfg.runtime.use_pallas and getattr(graph, "kp", None) is not None:
         graph = strip_kernel_packing(graph)
         log_print("routed kernel pack stripped (--no_pallas): direct path")
+    if mesh is not None:
+        pad = (pad_graph2d_for_mesh if cfg.model.gnn == V.GCN
+               else pad_hypergraph_for_mesh)
+        graph = shard_graph(pad(graph, mesh.data), mesh)
     model = build_model(cfg, data, dev)
     optimizer = make_optimizer(model.parameters(), t)
     log_params(model)
 
-    # ---- checkpoint resume (Main.py:195-214) ----
+    # ---- checkpoint resume (Main.py:195-214): rank 0's file on every
+    # rank ----
     epoch_start = 1
     if cfg.io.checkpoint:
-        epoch_ckpt = restore_checkpoint(result_dir, cfg.io.checkpoint, model,
-                                        optimizer)
+        name = cfg.io.checkpoint
+        if name == "latest" and lead:
+            name = find_latest(result_dir) or name
+        epoch_ckpt = restore_checkpoint(result_dir,
+                                        broadcast_from_rank0(name, mesh),
+                                        model, optimizer)
         epoch_start = epoch_ckpt + 1
         log_print(f"restored checkpoint at epoch {epoch_ckpt}")
 
     # a fresh sampler after a resume too: its first epoch draws the
-    # negatives of the first run's first epoch, as the JAX package does
+    # negatives of the first run's first epoch, as the JAX package does;
+    # under a mesh its rows pad to a multiple of the ranks
     sampler = TrainSampler(data, t.batch_size, t.random_negative_sample_size,
-                           t.non_random_negative_sample_size, seed=t.seed)
+                           t.non_random_negative_sample_size, seed=t.seed,
+                           row_multiple=1 if mesh is None else mesh.data)
     train_step = make_train_step(model, graph, data.query_words,
                                  data.query_word_counts, optimizer,
                                  grad_accum_steps=t.grad_accum_steps,
-                                 device=dev)
+                                 device=dev, mesh=mesh)
     features_fn, metrics_fn = make_eval_fns(model, graph, data.query_words,
                                             data.query_word_counts,
-                                            device=dev)
+                                            device=dev, mesh=mesh)
 
     # ---- epoch loop (Main.py:238-290) ----
     schedule = EpochSchedule(
@@ -212,7 +301,8 @@ def _run(cfg: Config, dev: torch.device, result_dir: str,
         t0 = time.perf_counter()
         # profile the second epoch (the first carries one-time set-up)
         prof = None
-        if cfg.runtime.profile_dir is not None and epoch == epoch_start + 1:
+        if (cfg.runtime.profile_dir is not None and epoch == epoch_start + 1
+                and lead):
             prof = _start_profiler(dev)
         losses = [train_step(batch) for batch in
                   prefetch(batched_epoch(sampler, t.grad_accum_steps))]
@@ -247,15 +337,20 @@ def _run(cfg: Config, dev: torch.device, result_dir: str,
                           f"absmean={s['absmean']:.6f} std={s['std']:.6f}")
 
         if schedule.is_store_epoch(epoch):
-            name = save_checkpoint(result_dir, epoch, model, optimizer)
-            log_print(f"checkpoint saved: {name}")
+            if lead:
+                name = save_checkpoint(result_dir, epoch, model, optimizer)
+                log_print(f"checkpoint saved: {name}")
+            if mesh is not None:
+                dist.barrier(group=mesh.group)
 
         eval_s = None
         if schedule.is_test_epoch(epoch):
             t_eval = time.perf_counter()
             collect = bool(cfg.io.long_tail_filename)
-            # one full-graph forward for test and valid
+            # one full-graph forward for test and valid (every rank takes
+            # part in its collectives; rank 0 scores)
             feats = features_fn()
+        if schedule.is_test_epoch(epoch) and lead:
             m_t, rows, time_t = evaluate(features_fn, metrics_fn, test,
                                          t.eval_batch_size,
                                          collect_rows=collect,
@@ -289,8 +384,33 @@ def _run(cfg: Config, dev: torch.device, result_dir: str,
             epoch=epoch, avg_loss=avg_loss, steps=len(losses), train_s=dt,
             eval_s=eval_s))
 
-    report_best(cfg, all_metrics, result_dir, fn_metrics)
+    if lead:
+        report_best(cfg, all_metrics, result_dir, fn_metrics)
+    if cfg.runtime.run_record:
+        write_run_record(cfg.runtime.run_record,
+                         0 if mesh is None else mesh.rank,
+                         None if mesh is None else mesh.backend,
+                         all_metrics)
     return all_metrics
+
+
+def write_run_record(directory: str, rank: int, backend: Optional[str],
+                     all_metrics: MetricsCollection) -> None:
+    """``directory/rank<rank>.json``: the mesh's backend (None on one
+    device), this process's kernel launch counts, the run's epoch stats
+    and (rank 0) its test metrics by epoch, in full precision."""
+    import json
+
+    from ihgnn_torch.ops.launches import launch_counts
+    os.makedirs(directory, exist_ok=True)
+    record = {"backend": backend, "launches": launch_counts(),
+              "epochs": [dataclasses.asdict(s)
+                         for s in all_metrics.epoch_stats],
+              "test": [(e, m.as_row()) for e, m in
+                       all_metrics.iter_epoch_test()]}
+    with open(os.path.join(directory, f"rank{rank}.json"), "w",
+              encoding="utf-8") as f:
+        json.dump(record, f)
 
 
 def _start_profiler(dev: torch.device):

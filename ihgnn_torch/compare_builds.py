@@ -510,11 +510,13 @@ def main(argv=None) -> int:
                             order) for tag in ("reference", "this")]
             torch.cuda.synchronize()
             for case, (ref, this) in cases.items():
-                equal = all(torch.equal(a, c) for a, c in zip(ref, this))
+                outputs = [torch.equal(a, c) for a, c in zip(ref, this)]
+                equal = all(outputs)
                 equal_all = equal_all and equal
                 print(json.dumps({"case": case, "edges": e, "d": d,
                                   "out": out, "order": order,
-                                  "bitwise_equal": equal}), flush=True)
+                                  "bitwise_equal": equal,
+                                  "outputs_equal": outputs}), flush=True)
     equal_all = bf16_bwd_cases(libs, dev, gen) and equal_all
     print(json.dumps({"bitwise_equal": equal_all}), flush=True)
     return 0 if equal_all else 1

@@ -8,10 +8,11 @@ Defaults are the reference's (Main.py:45-59): ``RawGnn`` over two IHGNN
 layers, d = 32, interaction order 3 in the first layer and 1 after it,
 mean query transform, dot-product HEM head.
 
-The one field of the port's own is ``RuntimeConfig.device`` (``--device``,
-default ``cuda``), the counterpart of the JAX package's platform choice.
-Knobs whose modules are not ported yet (a mesh, multi-host) parse as in
-the JAX package; the CLI refuses them.
+The fields of the port's own are ``RuntimeConfig.device`` (``--device``,
+default ``cuda``), the counterpart of the JAX package's platform choice,
+and ``RuntimeConfig.run_record`` (``--run_record DIR``: each rank's
+record of the run). Knobs whose modules are not ported yet (the mesh's model
+axis, multi-host) parse as in the JAX package; the CLI refuses them.
 """
 
 from __future__ import annotations
@@ -130,8 +131,9 @@ class TrainConfig:
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
     """Device mesh shape: the data axis shards the batch and the
-    hyperedges, the model axis the embedding tables' rows. (1, 1) is one
-    device, the only shape the port runs yet."""
+    hyperedges (one rank a slice, ``ihgnn_torch/parallel``), the model
+    axis the embedding tables' rows, which the port does not run yet
+    (model = 1)."""
 
     data: int = 1
     model: int = 1
@@ -157,6 +159,9 @@ class RuntimeConfig:
     # where the run computes: "cuda" (the card; raises without one) or
     # "cpu"
     device: str = "cuda"
+    # a directory where each rank writes a record of its run at the end
+    # (rank<r>.json: kernel launches, epoch stats, test metrics), or None
+    run_record: Optional[str] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -263,6 +268,10 @@ def parse_args(argv=None) -> Config:
     p.add_argument("--device", type=str, default="cuda",
                    help="'cuda' (the default; raises without a card) or "
                         "'cpu'")
+    p.add_argument("--run_record", type=str, default="",
+                   help="write each rank's record of the run (kernel "
+                        "launches, epoch stats, test metrics) to "
+                        "DIR/rank<r>.json")
     a = p.parse_args(argv)
 
     base = Config()
@@ -307,6 +316,7 @@ def parse_args(argv=None) -> Config:
         multihost=a.multihost,
         debug_stats=a.debug_stats,
         device=a.device,
+        run_record=a.run_record or None,
     )
     io = IOConfig(
         data_dir=a.dataset,

@@ -29,7 +29,7 @@ compute with the same weights.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -90,15 +90,31 @@ def layer_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+def params_from_jax(tree: Mapping,
+                    table_rows: Optional[Mapping[str, int]] = None
+                    ) -> Dict[str, torch.Tensor]:
     """The port's ``RawGnn`` state_dict from a flax RawGnn param tree
-    (``{"params": ...}`` or its inner mapping)."""
+    (``{"params": ...}`` or its inner mapping).
+
+    ``table_rows`` (``{"user": U + 1, "item": I + 1, "vocab": V + 1}``,
+    e.g. ``RawGnn.table_rows``) maps a tree built with
+    ``table_row_multiple`` > 1, whose tables carry zero rows past their
+    logical rows (``ihgnn_tpu/models/embedding.py:90-96``, for the mesh's
+    model axis): the port keeps its tables unpadded, so those rows are
+    dropped (and must be zero)."""
     p = tree["params"] if "params" in tree else tree
     sd: Dict[str, torch.Tensor] = {}
     emb = p["embeddings"]
     for name in ("user", "item", "vocab"):
-        sd[f"embeddings.{name}_table"] = \
-            _t(emb[f"{name}_table"]).t().contiguous()
+        table = _t(emb[f"{name}_table"]).t().contiguous()
+        if table_rows is not None:
+            rows = table_rows[name]
+            if table.shape[0] < rows or torch.any(table[rows:] != 0):
+                raise ValueError(f"params_from_jax: {name}_table has "
+                                 f"{table.shape[0]} rows, not {rows} "
+                                 "followed by zero padding")
+            table = table[:rows].contiguous()
+        sd[f"embeddings.{name}_table"] = table
     used = {(f"{name}_table",) for name in ("user", "item", "vocab")}
     if "query_mlp" in emb:
         _linear(sd, "embeddings.query_mlp", emb["query_mlp"]["dense"])

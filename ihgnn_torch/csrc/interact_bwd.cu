@@ -236,6 +236,14 @@ __host__ __device__ constexpr int pi_slots_of(int stages) {
 // without it. WS: W staged in shared memory (else read from device
 // memory).
 //
+// At order 3 the launch bounds ask for three blocks an SM
+// (interact_bwd_fused_kernel3): the compiler then keeps the kernel at 168
+// registers (a few spills) instead of 191, and on the H100 80GB HBM3 at
+// 700 W that is faster (1.38 against 1.59 ms at 2M edges; K5 1.91
+// against 2.23); at order 1
+// the same bound made K5 slower (1.40 against 1.14 ms), so the kernel of
+// the other orders asks nothing.
+//
 // ABSORB streams its tiles through one stage, not two: beside W, the c2
 // plane and the rows' e_pi, two stages would leave shared memory for two
 // blocks an SM, one stage leaves it for three (12 warps, as the direct
@@ -249,18 +257,13 @@ __device__ __forceinline__ void prefetch_l1(const void* p) {
 }
 
 template <int OUT, int ORDER, bool ABSORB, bool WS>
-__global__ void __launch_bounds__(kFusedThreads)
-interact_bwd_fused_kernel(const float* __restrict__ u,
-                          const float* __restrict__ q,
-                          const float* __restrict__ it,
-                          const float* __restrict__ w,
-                          const float* __restrict__ cot,
-                          const float* __restrict__ cot2,
-                          const int* __restrict__ pi,
-                          const float* __restrict__ mask,
-                          float* __restrict__ droles,
-                          float* __restrict__ partial, int edges, int d,
-                          int chunk_edges, int cols) {
+__device__ __forceinline__ void interact_bwd_fused(
+    const float* __restrict__ u, const float* __restrict__ q,
+    const float* __restrict__ it, const float* __restrict__ w,
+    const float* __restrict__ cot, const float* __restrict__ cot2,
+    const int* __restrict__ pi, const float* __restrict__ mask,
+    float* __restrict__ droles, float* __restrict__ partial, int edges,
+    int d, int chunk_edges, int cols) {
   constexpr int P = parts_of<ORDER>();
   constexpr int T = kFusedTile;
   constexpr int SC = OUT + 8;              // staged cot row
@@ -414,10 +417,17 @@ interact_bwd_fused_kernel(const float* __restrict__ u,
     // ABSORB: e_pi of each row of the tile
     const int* pis = reinterpret_cast<const int*>(cs + T * SC);
 
-    // 1. dW^T += cot^T . parts, 8 edges a k step
+    // 1. dW^T += cot^T . parts, 8 edges a k step, into a fresh tile sum
     if (has2) {
       const int f = F2 + g;
       const bool fv = f < d;
+      float tacc[MT][P][4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int j = 0; j < P; ++j)
+          tacc[m][j][0] = tacc[m][j][1] = tacc[m][j][2] = tacc[m][j][3] =
+              0.f;
 #pragma unroll
       for (int ks = 0; ks < T / 8; ++ks) {
         const int ea = 8 * ks + t;
@@ -448,9 +458,21 @@ interact_bwd_fused_kernel(const float* __restrict__ u,
           unsigned ah[4], al[4];
 #pragma unroll
           for (int k = 0; k < 4; ++k) split_tf32(x[k], ah[k], al[k]);
-          mma_3xtf32<P>(acc[m], ah, al, bh, bl);
+          mma_3xtf32<P>(tacc[m], ah, al, bh, bl);
         }
       }
+      // the tile's sum joins the chunk's by a rounded f32 add. An mma
+      // truncates the sum it accumulates into; carried over a whole chunk
+      // (384 mma a 1024-edge chunk) that bias put dW up to 1.2e-5 of its
+      // largest value off float64 (H100 80GB HBM3, 700 W), a tile's 12
+      // below 3e-7
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int j = 0; j < P; ++j)
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            acc[m][j][k] = __fadd_rn(acc[m][j][k], tacc[m][j][k]);
     }
 
     // 2. the data gradient and db (slab 0)
@@ -561,6 +583,43 @@ interact_bwd_fused_kernel(const float* __restrict__ u,
   }
   if (data && threadIdx.x < OUT)
     out[static_cast<size_t>(R) * OUT + threadIdx.x] = bacc;
+}
+
+#define FUSED_PARAMS                                                       \
+  const float* __restrict__ u, const float* __restrict__ q,                \
+      const float* __restrict__ it, const float* __restrict__ w,           \
+      const float* __restrict__ cot, const float* __restrict__ cot2,       \
+      const int* __restrict__ pi, const float* __restrict__ mask,          \
+      float* __restrict__ droles, float* __restrict__ partial, int edges, \
+      int d, int chunk_edges, int cols
+#define FUSED_ARGS \
+  u, q, it, w, cot, cot2, pi, mask, droles, partial, edges, d, chunk_edges, cols
+
+// the fused kernel at orders 1 and 2
+template <int OUT, int ORDER, bool ABSORB, bool WS>
+__global__ void __launch_bounds__(kFusedThreads)
+interact_bwd_fused_kernel(FUSED_PARAMS) {
+  interact_bwd_fused<OUT, ORDER, ABSORB, WS>(FUSED_ARGS);
+}
+
+// at order 3, three blocks an SM asked of the compiler (above)
+template <int OUT, bool ABSORB, bool WS>
+__global__ void __launch_bounds__(kFusedThreads, 3)
+interact_bwd_fused_kernel3(FUSED_PARAMS) {
+  interact_bwd_fused<OUT, 3, ABSORB, WS>(FUSED_ARGS);
+}
+
+#undef FUSED_PARAMS
+#undef FUSED_ARGS
+
+// the fused kernel of ORDER (only the one taken is instantiated)
+template <int OUT, int ORDER, bool ABSORB, bool WS>
+constexpr auto fused_kernel() {
+  if constexpr (ORDER == 3) {
+    return interact_bwd_fused_kernel3<OUT, ABSORB, WS>;
+  } else {
+    return interact_bwd_fused_kernel<OUT, ORDER, ABSORB, WS>;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1064,7 +1123,7 @@ cudaError_t launch_kernel(const void* u, const void* q, const void* i,
                           const void* w, const void* cot, Absorb ab,
                           void* droles, void* partial, int edges, int d,
                           int chunk_edges, size_t smem, cudaStream_t stream) {
-  auto kernel = interact_bwd_fused_kernel<OUT, ORDER, ABSORB, WS>;
+  auto kernel = fused_kernel<OUT, ORDER, ABSORB, WS>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

@@ -119,6 +119,13 @@ class HyperGraph:
     # the routed pack, chunked or not (ops/packing.py), or None: the
     # direct path
     kp: Optional[AnyHyperPack] = None
+    # [E, 1] f32, 0 at the edges a mesh pads with (parallel/sharding.py),
+    # or None: every edge is real
+    edge_mask: Optional[torch.Tensor] = None
+    # a rank's slice of the edges (parallel/sharding.py shard_graph): the
+    # node sums are this rank's partials, combined over the mesh; None on
+    # one device
+    mesh: Optional[object] = None
 
     def to(self, device: DeviceLike) -> "HyperGraph":
         return moved(self, device)
@@ -143,6 +150,12 @@ class Graph2D:
     pk_role: Optional[RolePack] = None
     pk_entry: Optional[torch.Tensor] = None
     gat_pk: Optional[AnyGatPack] = None
+    # a rank's slice of the entries (parallel/sharding.py shard_graph),
+    # whose A is not symmetric: its transpose's weights in destination
+    # order, and the mesh its partials are combined over; None on one
+    # device
+    t_val: Optional[torch.Tensor] = None
+    mesh: Optional[object] = None
 
     def to(self, device: DeviceLike) -> "Graph2D":
         return moved(self, device)
@@ -241,29 +254,59 @@ def build_hypergraph(uqi: np.ndarray, node_count: int, user_count: int,
     _check_ids(uqi, user_count, query_count,
                node_count - user_count - query_count)
     u, q, i = _global_ids(uqi, user_count, query_count)
-    e_count = len(u)
-
     edge_order = np.argsort(u, kind="stable")
     i3 = np.stack([u[edge_order], q[edge_order], i[edge_order]],
                   axis=1).astype(np.int32)
+    graph = hypergraph_from_i3(i3, node_count)
+    if pack_kernels and graph.edge_count:
+        graph = dataclasses.replace(graph, kp=build_hyper_kernel_pack(
+            i3, node_count, chunk_rows_cap=chunk_rows_cap))
+    return graph
 
+
+def hypergraph_from_i3(i3: np.ndarray, node_count: int,
+                       dv: Optional[torch.Tensor] = None,
+                       edge_mask: Optional[np.ndarray] = None
+                       ) -> HyperGraph:
+    """The CPU ``HyperGraph`` (no routed pack) of the edges ``i3`` ``[E,
+    3]`` (global node ids, in edge order) over ``node_count`` nodes.
+
+    ``dv``: the vertex degrees to keep (default: counted from ``i3``).
+    ``edge_mask`` ``[E]``: 0 marks an edge a mesh pads with
+    (``ihgnn_tpu/parallel/sharding.py:243-295``); its incidence entries
+    target the last node (so the node-major CSR stays sorted), and phase
+    2's attention leaves them out of its softmax."""
+    i3 = np.ascontiguousarray(i3, np.int32)
+    e_count = len(i3)
     flat_nodes = i3.reshape(-1).astype(np.int64)
-    dv = np.bincount(flat_nodes, minlength=node_count).astype(np.float32)
-    dv[dv == 0] = DEGREE_FLOOR
+    if dv is None:
+        counts = np.bincount(flat_nodes, minlength=node_count).astype(
+            np.float32)
+        counts[counts == 0] = DEGREE_FLOOR
+        dv = torch.from_numpy(counts.reshape(-1, 1))
+    inc_mask = None
+    if edge_mask is not None:
+        edge_mask = np.asarray(edge_mask, np.float32).reshape(-1)
+        if edge_mask.shape != (e_count,):
+            raise ValueError(f"edge_mask must be [{e_count}]")
+        flat_nodes = np.where(np.repeat(edge_mask > 0, 3), flat_nodes,
+                              node_count - 1)
 
     # flat entry f = 3·edge + role
     order = np.argsort(flat_nodes, kind="stable")
     inc_node = flat_nodes[order]
     inc_edge = order // 3
+    if edge_mask is not None:
+        inc_mask = edge_mask[inc_edge]
 
     # phase 2: edge node N + e sends to its member nodes; the incidence is
     # already sorted by member node = destination
     phase2 = build_attention_csr(inc_edge + node_count, inc_node,
-                                 node_count + e_count, node_count)
+                                 node_count + e_count, node_count, inc_mask)
 
     return HyperGraph(
         i3=torch.from_numpy(i3),
-        dv=torch.from_numpy(dv.reshape(-1, 1)),
+        dv=dv,
         inc_node=phase2.dst,
         inc_edge=_i32(inc_edge),
         rowptr=phase2.dst_rowptr,
@@ -272,9 +315,8 @@ def build_hypergraph(uqi: np.ndarray, node_count: int, user_count: int,
         phase2=phase2,
         node_count=int(node_count),
         edge_count=int(e_count),
-        kp=(build_hyper_kernel_pack(i3, node_count,
-                                    chunk_rows_cap=chunk_rows_cap)
-            if pack_kernels and e_count else None),
+        edge_mask=(None if edge_mask is None else
+                   torch.from_numpy(edge_mask.reshape(-1, 1).copy())),
     )
 
 
@@ -343,35 +385,44 @@ def build_graph2d(uqif: np.ndarray, node_count: int, user_count: int,
                           minlength=len(uniq)).astype(np.float32)
     crow = uniq // node_count
     ccol = uniq % node_count
-    dst_order = np.argsort(ccol, kind="stable")
-    live = val_sum[dst_order] > 0
-    attention = build_attention_csr(crow[dst_order], ccol[dst_order],
+    graph = graph2d_from_coo(crow, ccol, val_sum,
+                             torch.from_numpy(dv.reshape(-1, 1)), node_count)
+    nnz = graph.nnz
+    if not (pack_kernels and nnz):
+        return graph
+    dst_order = graph.dst_order.numpy()
+    try:
+        pk_role = role_pack(ccol, *pick_grid(nnz, 2048), with_bwd=False)
+    except ValueError:
+        return graph
+    gat_pk = build_gat_pack(
+        crow[dst_order], ccol[dst_order], node_count,
+        live=val_sum[dst_order],
+        src_cuts=(user_count, user_count + query_count))
+    return dataclasses.replace(graph, pk_role=pk_role,
+                               pk_entry=_i32(np.arange(nnz)), gat_pk=gat_pk)
+
+
+def graph2d_from_coo(row: np.ndarray, col: np.ndarray, val: np.ndarray,
+                     dv: torch.Tensor, node_count: int) -> Graph2D:
+    """The CPU ``Graph2D`` (no routed pack) of COO entries sorted by (row,
+    col), with vertex degrees ``dv``. An entry of ``val`` <= 0 (a mesh's
+    padding, ``ihgnn_tpu/parallel/sharding.py:195``) is masked out of
+    GAT's attention."""
+    row = np.asarray(row, np.int64)
+    col = np.asarray(col, np.int64)
+    val = np.asarray(val, np.float32)
+    dst_order = np.argsort(col, kind="stable")
+    live = val[dst_order] > 0
+    attention = build_attention_csr(row[dst_order], col[dst_order],
                                     node_count, node_count,
                                     None if live.all() else live)
-
-    nnz = len(uniq)
-    pk_role = gat_pk = None
-    if pack_kernels and nnz:
-        try:
-            pk_role = role_pack(ccol, *pick_grid(nnz, 2048), with_bwd=False)
-        except ValueError:
-            pk_role = None
-        if pk_role is not None:
-            gat_pk = build_gat_pack(
-                crow[dst_order], ccol[dst_order], node_count,
-                live=val_sum[dst_order],
-                src_cuts=(user_count, user_count + query_count))
-
     # the graph is symmetric, so its (row, col) order is the attention's
     # source order: the row CSR is also the attention's source side
     return Graph2D(
-        row=_i32(crow), col=attention.src_dst, val=torch.from_numpy(val_sum),
-        dv=torch.from_numpy(dv.reshape(-1, 1)),
-        dst_order=_i32(dst_order), rowptr=attention.src_rowptr,
-        attention=attention,
-        node_count=int(node_count), nnz=int(nnz), pk_role=pk_role,
-        pk_entry=None if pk_role is None else _i32(np.arange(nnz)),
-        gat_pk=gat_pk)
+        row=_i32(row), col=attention.src_dst, val=torch.from_numpy(val),
+        dv=dv, dst_order=_i32(dst_order), rowptr=attention.src_rowptr,
+        attention=attention, node_count=int(node_count), nnz=int(len(row)))
 
 
 def build_log_hypergraph(log_nodes: Sequence[Sequence[int]],

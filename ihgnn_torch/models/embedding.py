@@ -27,7 +27,7 @@ from torch import nn
 from ihgnn_torch.config import V
 from ihgnn_torch.models.common import TorchDense
 from ihgnn_torch.models.initializers import xavier_uniform_
-from ihgnn_torch.ops.bag import BagMeanFn, WordBag, make_word_bag
+from ihgnn_torch.ops.bag import WordBag, make_word_bag
 
 __all__ = ["EmbeddingTables", "WordBag", "make_word_bag"]
 
@@ -60,8 +60,10 @@ class EmbeddingTables(nn.Module):
             raise ValueError(f"unknown query transform {query_transform!r}")
 
     def embed_query(self, bag: WordBag) -> torch.Tensor:
-        """``[Q, d]`` bag means (then Linear + ReLU under 'activation')."""
-        out = BagMeanFn.apply(self.vocab_table, bag)
+        """``[Q, d]`` bag means (then Linear + ReLU under 'activation');
+        ``bag`` is a ``WordBag`` or a rank's ``ShardedBag``
+        (``parallel/sharding.py``), which all-gathers the ranks' slices."""
+        out = bag.mean(self.vocab_table)
         if self.query_transform == V.ACTIVATION:
             out = torch.relu(self.query_mlp(out))
         return out

@@ -13,6 +13,13 @@ to memory. On a routed pack the IHGNN layer asks for the absorbed form
 (``interaction.py:81-107,135-138``): K5 through ``InteractAbsorbFn``, the
 i rows in t1 order and two outputs. The parameters are one Linear named
 ``aggregation``, as in the JAX package's ``aggregation/dense`` tree.
+
+Under a mesh (``parallel/``) a rank runs the interaction on its own edges
+as it is: du, dq, di stay the rank's, and its dW and db are partials that
+the step sums over the ranks with every other gradient
+(``reduce_gradients``), so it takes no ``mesh`` argument, where the JAX
+package's sums them inside ``fused_interaction_sharded``
+(``interaction.py:81-145``, ``ops/pallas/interact.py:484-565``).
 """
 
 from __future__ import annotations

@@ -53,9 +53,25 @@ from ihgnn_torch.models.interaction import FeatureInteractor
 from ihgnn_torch.ops.gatconv import LEAKY_SLOPE, gat_conv, routed_gat_conv
 from ihgnn_torch.ops.hyperagg import (make_hyper_ops, make_log_ops,
                                       make_spmm_op, sigma_to_edge_order)
+from ihgnn_torch.parallel.collectives import combine_rows
 
 # torch.nn.init.calculate_gain('leaky_relu') at the default slope
 LEAKY_RELU_GAIN = math.sqrt(2.0 / (1.0 + LEAKY_SLOPE ** 2))
+
+
+def _masked(edge: torch.Tensor, graph: HyperGraph) -> torch.Tensor:
+    """``edge`` with the rows of a mesh's pad edges zeroed (``edge_mask``,
+    ``ihgnn_tpu/models/layers.py:181-182``, ``:239-240``)."""
+    if graph.edge_mask is None:
+        return edge
+    return edge * graph.edge_mask.to(edge.dtype)
+
+
+def _refuse_attention_on_mesh(graph, what: str) -> None:
+    if graph.mesh is not None:
+        raise NotImplementedError(
+            f"{what} under a mesh (a destination's softmax may span ranks) "
+            "is not ported to ihgnn_torch yet (ROADMAP queue 1 item 8d)")
 
 
 class GCNLayer(nn.Module):
@@ -121,6 +137,7 @@ class GATLayer(nn.Module):
         self.gat = GatCore(out_dim, head, generator=generator)
 
     def forward(self, x: torch.Tensor, graph: Graph2D) -> torch.Tensor:
+        _refuse_attention_on_mesh(graph, "GAT")
         return self.gat(self.feature_transform(x), graph.attention,
                         graph.gat_pk)
 
@@ -138,7 +155,7 @@ class HGCNLayer(nn.Module):
         x = d_inv_sqrt * self.feature_transform(x)
         if isinstance(graph, HyperGraph):
             gather, scatter = make_hyper_ops(graph)
-            edge = gather(x).sum(0) / 3.0
+            edge = _masked(gather(x).sum(0) / 3.0, graph)
             return d_inv_sqrt * scatter(edge)
         edge_sum, node_sum = make_log_ops(graph)
         return d_inv_sqrt * node_sum(edge_sum(x) / graph.de)
@@ -161,13 +178,27 @@ class IHGNNLayer(nn.Module):
                                                generator=generator)
             self.phase2_gat = GatCore(out_dim, gat_head, generator=generator)
 
-    def forward(self, x: torch.Tensor, graph: HyperGraph) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, graph: HyperGraph,
+                out_nodes: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``[N, out]``; on a rank's slice with ``out_nodes`` ``[K]`` (no
+        phase 2), the ``[K, out]`` rows ``out_nodes`` only, their node
+        partials summed over the mesh as ``[K, out]`` rows (the tail
+        psum, ``ihgnn_tpu/models/layers.py:204-250``)."""
         kp = graph.kp
         absorb = kp is not None and not self.phase2_attention and kp.absorbs
+        if self.phase2_attention:
+            _refuse_attention_on_mesh(graph, "phase-2 attention")
+        tail = out_nodes is not None and graph.mesh is not None
         gather, scatter = make_hyper_ops(graph, bf16_stream=self.bf16_stream,
-                                         absorb=absorb)
+                                         absorb=absorb, combine=not tail)
         x = self.feature_transform(x)
         edge = self.interactor(gather(x), absorb=kp if absorb else None)
+        if not absorb:
+            edge = _masked(edge, graph)
+        if tail:
+            nodes = out_nodes.long()
+            return (combine_rows(scatter(edge), nodes, graph.mesh)
+                    / graph.dv[nodes])
         if self.phase2_attention:
             if kp is not None:
                 edge = sigma_to_edge_order(edge, kp)

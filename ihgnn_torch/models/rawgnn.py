@@ -88,6 +88,14 @@ class RawGnn(nn.Module):
                             f"{type(graph).__name__}")
 
     @property
+    def table_rows(self) -> dict:
+        """The embedding tables' rows, as ``convert.params_from_jax``
+        takes them."""
+        emb = self.embeddings
+        return {name: getattr(emb, f"{name}_table").shape[0]
+                for name in ("user", "item", "vocab")}
+
+    @property
     def query_start(self) -> int:
         return self.user_count
 
@@ -118,6 +126,48 @@ class RawGnn(nn.Module):
         return self.prediction.score_rows(
             features[users], features[queries + self.query_start],
             features[items + self.item_start], items)
+
+    def tail_restricted(self, graph: AnyGraph) -> bool:
+        """Whether ``score_tail`` applies: IHGNN layers (no phase 2) on a
+        rank's slice of the hypergraph (``_tail_restricted_ok``,
+        ``ihgnn_tpu/models/rawgnn.py:128-140``)."""
+        return (isinstance(graph, HyperGraph) and graph.mesh is not None
+                and self.cfg.gnn == V.IHGNN
+                and not self.cfg.phase2_attention and len(self.gnns) >= 1)
+
+    def score_tail(self, graph: HyperGraph, bag, users: torch.Tensor,
+                   queries: torch.Tensor, items: torch.Tensor,
+                   rows: slice) -> torch.Tensor:
+        """The scores of batch rows ``rows`` on a rank's slice, where
+        ``users``, ``queries``, ``items`` are the whole batch's (the same on
+        every rank): the last layer's node partial is combined at the
+        batch's ``3R`` node rows only (the tail psum,
+        ``_score_tail_restricted``, ``rawgnn.py:142-169``); every earlier
+        layer is combined whole, as the next one reads every node."""
+        self._check_graph(graph)
+        users, queries, items = users.long(), queries.long(), items.long()
+        r = users.shape[0]
+        nodes = torch.cat([users, queries + self.query_start,
+                           items + self.item_start])
+        mine = torch.arange(rows.start, rows.stop, device=nodes.device)
+        pick = torch.cat([mine, mine + r, mine + 2 * r])
+        x = self.embeddings.all_features(bag)
+        cols = [x[nodes[pick]]]
+        remat = self.cfg.remat and torch.is_grad_enabled()
+        last = len(self.gnns) - 1
+        for k, gnn in enumerate(self.gnns):
+            args = (x, graph, nodes) if k == last else (x, graph)
+            out = (checkpoint(gnn, *args, use_reentrant=False) if remat
+                   else gnn(*args))
+            if k == last:
+                cols.append(out[pick])
+            else:
+                x = out
+                cols.append(x[nodes[pick]])
+        feats = torch.cat(cols, dim=1)
+        n = len(mine)
+        return self.prediction.score_rows(feats[:n], feats[n:2 * n],
+                                          feats[2 * n:], items[rows])
 
     def score_all_items(self, features: torch.Tensor, users: torch.Tensor,
                         queries: torch.Tensor) -> torch.Tensor:

@@ -43,6 +43,10 @@ class WordBag:
     def vocab_rows(self) -> int:
         return self.t_rowptr.shape[0] - 1
 
+    def mean(self, vocab_table: torch.Tensor) -> torch.Tensor:
+        """``[Q, d]`` bag means of ``vocab_table`` (``BagMeanFn``)."""
+        return BagMeanFn.apply(vocab_table, self)
+
     def to(self, device: DeviceLike) -> "WordBag":
         dev = resolve_device(device)
         return WordBag(*(getattr(self, f.name).to(dev)

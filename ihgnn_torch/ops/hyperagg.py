@@ -56,6 +56,7 @@ from ihgnn_torch.ops.packing import (AnyHyperPack, HyperKernelPack, RolePack,
 from ihgnn_torch.ops.permute import (row_local_permute,
                                      transposed_local_permute)
 from ihgnn_torch.ops.segsum import csr_gather_sum, csr_segment_sum3
+from ihgnn_torch.parallel.collectives import combine_nodes
 
 
 class GatherRolesFn(torch.autograd.Function):
@@ -445,7 +446,7 @@ class RoutedSpmmFn(torch.autograd.Function):
 
 
 def make_hyper_ops(graph: HyperGraph, bf16_stream: bool = False,
-                   absorb: bool = False) -> Tuple[
+                   absorb: bool = False, combine: bool = True) -> Tuple[
         Callable[[torch.Tensor], torch.Tensor],
         Callable[[torch.Tensor], torch.Tensor]]:
     """Returns ``(gather_roles, scatter_incidence)`` bound to ``graph``,
@@ -462,27 +463,44 @@ def make_hyper_ops(graph: HyperGraph, bf16_stream: bool = False,
 
     ``bf16_stream``: bf16 streams (the module docstring, and the routed
     chains' note): the role rows are bf16, and the scatter takes bf16 edge
-    rows."""
+    rows.
+
+    On a rank's slice (``graph.mesh``, ``parallel/sharding.py``) both run
+    on the rank's edges, and the scatter's node sums are the rank's
+    partial, which it combines over the mesh (``combine_nodes``: f32, or
+    on bf16 streams the bf16 wire when ``mesh.bf16_wire``); with
+    ``combine`` False it returns the partial (the tail psum's input)."""
     kp = graph.kp
     dtype = torch.bfloat16 if bf16_stream else None
-    if kp is not None:
-        if absorb:
-            return (lambda x: GatherPreFn.apply(x, kp, dtype),
-                    lambda pair: Scatter2Fn.apply(pair[0], pair[1], kp))
-        return (lambda x: RoutedGatherFn.apply(x, kp, dtype),
-                lambda edge: RoutedScatterFn.apply(edge, kp))
-    if absorb:
+    mesh = graph.mesh
+    if kp is not None and absorb:
+        def gather(x):
+            return GatherPreFn.apply(x, kp, dtype)
+
+        def local(pair):
+            return Scatter2Fn.apply(pair[0], pair[1], kp)
+    elif kp is not None:
+        def gather(x):
+            return RoutedGatherFn.apply(x, kp, dtype)
+
+        def local(edge):
+            return RoutedScatterFn.apply(edge, kp)
+    elif absorb:
         raise ValueError("the absorbed interaction needs a routed pack")
+    else:
+        def gather(x):
+            return GatherRolesFn.apply(x, graph.i3, graph.inc_slot,
+                                       graph.rowptr, dtype)
 
-    def gather(x: torch.Tensor) -> torch.Tensor:
-        return GatherRolesFn.apply(x, graph.i3, graph.inc_slot, graph.rowptr,
-                                   dtype)
+        def local(edge):
+            return SpmmFn.apply(edge, graph.inc_edge, graph.rowptr, None,
+                                graph.i3.view(-1), graph.edge_rowptr, None,
+                                3)
 
-    def scatter(edge: torch.Tensor) -> torch.Tensor:
-        return SpmmFn.apply(edge, graph.inc_edge, graph.rowptr, None,
-                            graph.i3.view(-1), graph.edge_rowptr, None, 3)
-
-    return gather, scatter
+    if mesh is None or not combine:
+        return gather, local
+    bf16_wire = bf16_stream and mesh.bf16_wire
+    return gather, lambda edge: combine_nodes(local(edge), mesh, bf16_wire)
 
 
 def make_spmm_op(graph: Graph2D) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -490,6 +508,14 @@ def make_spmm_op(graph: Graph2D) -> Callable[[torch.Tensor], torch.Tensor]:
     routed SpMM when the graph carries ``pk_role``
     (``hyperagg.py:1115-1145``), else ``SpmmFn``."""
     col, rowptr, val = graph.col, graph.rowptr, graph.val
+    if graph.mesh is not None:
+        # a rank's entries: A_r is not symmetric, so its backward runs
+        # over its transpose (the destination-ordered CSR), and the
+        # partial A_r·x is combined over the mesh
+        att, mesh = graph.attention, graph.mesh
+        return lambda x: combine_nodes(SpmmFn.apply(
+            x, col, rowptr, val, att.src, att.dst_rowptr, graph.t_val),
+            mesh)
     if graph.pk_role is not None:
         rp, entry = graph.pk_role, graph.pk_entry
         return lambda x: RoutedSpmmFn.apply(x, rp, entry, rowptr, val)

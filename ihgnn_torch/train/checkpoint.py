@@ -6,7 +6,10 @@ Counterpart of ``ihgnn_tpu/train/checkpoint.py``, stored the reference's
 way (Main.py:195-214, 252-262): one ``torch.save`` file of
 ``{"epoch_count", "model": state_dict, "optimizer": state_dict}`` under
 ``<result_dir>/checkpoint_<stamp>_epoch<N>``. ``latest`` names the
-lexicographically last ``checkpoint_*`` entry.
+lexicographically last ``checkpoint_*`` entry. Under a mesh
+(``--mesh_data``) rank 0 alone saves, and every rank restores rank 0's
+file (``cli.py``), so no two ranks stamp a checkpoint from their own
+clocks.
 """
 
 from __future__ import annotations

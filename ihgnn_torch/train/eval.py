@@ -24,16 +24,22 @@ from ihgnn_torch.device import DeviceLike, model_device
 from ihgnn_torch.graph import AnyGraph
 from ihgnn_torch.models.embedding import make_word_bag
 from ihgnn_torch.models.rawgnn import RawGnn
+from ihgnn_torch.parallel.mesh import Mesh
+from ihgnn_torch.parallel.sharding import shard_bag
 from ihgnn_torch.train.metrics import Metrics, ranking_metrics
 
 
 def make_eval_fns(model: RawGnn, graph: AnyGraph, query_words,
-                  query_word_counts, device: DeviceLike = "cuda"
+                  query_word_counts, device: DeviceLike = "cuda",
+                  mesh: Optional[Mesh] = None
                   ) -> Tuple[Callable[[], torch.Tensor], Callable]:
     """``(features_fn, metrics_fn)`` on ``device``; the model must already
     be there (``model.to(device)``).
 
-    ``features_fn()`` is the ``[N, d·(1+L)]`` full-graph forward.
+    ``features_fn()`` is the ``[N, d·(1+L)]`` full-graph forward; with
+    ``mesh``, on a rank's slice of the graph (``shard_graph``), whose node
+    sums every layer combines: every rank calls it, and every rank gets
+    the same features.
     ``metrics_fn(features, users, queries, truth, truth_counts)`` takes
     host arrays of one eval batch and returns its ``[B, 4]`` metric rows
     on ``device``."""
@@ -50,7 +56,9 @@ def make_eval_fns(model: RawGnn, graph: AnyGraph, query_words,
         raise ValueError(f"query_words must be [{model.query_count}, L] "
                          f"word rows in [0, {vocab_rows})")
     graph = graph.to(dev)
-    bag = make_word_bag(words, query_word_counts, vocab_rows).to(dev)
+    bag = (make_word_bag(words, query_word_counts, vocab_rows)
+           if mesh is None else
+           shard_bag(words, query_word_counts, vocab_rows, mesh)).to(dev)
 
     def features_fn() -> torch.Tensor:
         with torch.inference_mode():

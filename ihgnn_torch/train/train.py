@@ -15,7 +15,7 @@ them to XLA.
 
 from __future__ import annotations
 
-from typing import Callable, Iterable
+from typing import Callable, Iterable, Optional
 
 import numpy as np
 import torch
@@ -27,6 +27,9 @@ from ihgnn_torch.device import DeviceLike, model_device
 from ihgnn_torch.graph import AnyGraph
 from ihgnn_torch.models.embedding import make_word_bag
 from ihgnn_torch.models.rawgnn import RawGnn
+from ihgnn_torch.parallel.collectives import all_reduce_sum, reduce_gradients
+from ihgnn_torch.parallel.mesh import Mesh
+from ihgnn_torch.parallel.sharding import shard_bag
 
 
 def make_optimizer(params: Iterable[torch.nn.Parameter],
@@ -62,7 +65,8 @@ def batch_putter(dev: torch.device) -> Callable[..., torch.Tensor]:
 def make_train_step(model: RawGnn, graph: AnyGraph, query_words,
                     query_word_counts, optimizer: torch.optim.Optimizer,
                     grad_accum_steps: int = 1,
-                    device: DeviceLike = "cuda") -> Callable[[Batch],
+                    device: DeviceLike = "cuda",
+                    mesh: Optional[Mesh] = None) -> Callable[[Batch],
                                                              torch.Tensor]:
     """Returns ``train_step(batch) -> loss`` on ``device``; the model must
     already be there (``model.to(device)``) and ``optimizer`` hold its
@@ -73,21 +77,51 @@ def make_train_step(model: RawGnn, graph: AnyGraph, query_words,
     stacked batches (``Batch.stack``, ``[k, R]`` arrays), sums their
     gradients (``backward`` accumulates) and applies one update. The loss
     is a 0-d tensor on ``device``: the batch's loss, or the sum over the
-    k microbatches (the caller averages)."""
+    k microbatches (the caller averages).
+
+    ``mesh``: the data-parallel step of a rank (``parallel/``), on
+    ``graph`` = the rank's slice (``shard_graph``). Every rank takes the
+    whole batch and scores its block of rows (``shard_batch``'s); its
+    loss is its rows' weighted BCE over the whole batch's weight, so the
+    ranks' losses sum to the batch's. Each rank back-propagates its own
+    loss (sum-of-partials, ``parallel/collectives.py``), the gradients
+    are summed over the ranks once, after the last microbatch, and Adam
+    updates every rank's replica alike. The returned loss is the sum over
+    the ranks, the whole batch's."""
     dev = model_device(model, device)
     if grad_accum_steps < 1:
         raise ValueError(f"grad_accum_steps must be >= 1, got "
                          f"{grad_accum_steps}")
+    if (mesh is None) != (getattr(graph, "mesh", None) is None):
+        raise ValueError("a mesh step takes a rank's slice of the graph "
+                         "(shard_graph), and a one-device step the graph")
     graph = graph.to(dev)
-    bag = make_word_bag(query_words, query_word_counts,
-                        model.embeddings.vocab_table.shape[0]).to(dev)
+    vocab_rows = model.embeddings.vocab_table.shape[0]
+    bag = (make_word_bag(query_words, query_word_counts, vocab_rows)
+           if mesh is None else
+           shard_bag(query_words, query_word_counts, vocab_rows, mesh)
+           ).to(dev)
 
     put = batch_putter(dev)
 
     def loss_of(batch: Batch) -> torch.Tensor:
-        logits = model(graph, bag, put(batch.users), put(batch.queries),
-                       put(batch.items))
-        return bce_with_logits(logits, put(batch.flags), put(batch.weight))
+        if mesh is None:
+            logits = model(graph, bag, put(batch.users), put(batch.queries),
+                           put(batch.items))
+            return bce_with_logits(logits, put(batch.flags),
+                                   put(batch.weight))
+        rows = mesh.block(batch.users.shape[-1])
+        users, queries, items = (put(batch.users), put(batch.queries),
+                                 put(batch.items))
+        if model.tail_restricted(graph):
+            logits = model.score_tail(graph, bag, users, queries, items, rows)
+        else:
+            logits = model(graph, bag, users[rows], queries[rows],
+                           items[rows])
+        per_row = F.binary_cross_entropy_with_logits(
+            logits, put(batch.flags[rows]), reduction="none")
+        total_weight = max(float(np.asarray(batch.weight).sum()), 1.0)
+        return (per_row * put(batch.weight[rows])).sum() / total_weight
 
     def train_step(batch: Batch) -> torch.Tensor:
         micro = batch.unstack()
@@ -100,6 +134,9 @@ def make_train_step(model: RawGnn, graph: AnyGraph, query_words,
             loss = loss_of(mb)
             loss.backward()
             total = loss.detach() if total is None else total + loss.detach()
+        if mesh is not None:
+            reduce_gradients(model.parameters(), mesh)
+            total = all_reduce_sum(total, mesh)
         optimizer.step()
         return total
 

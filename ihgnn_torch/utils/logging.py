@@ -17,9 +17,10 @@ _ANSI = re.compile(r"\033\[[0-9;]*m")
 
 
 class TeeLogger:
-    def __init__(self, filename: Optional[str] = None):
+    def __init__(self, filename: Optional[str] = None, echo: bool = True):
         self._file = open(filename, "a", encoding="utf-8") if filename \
             else None
+        self._echo = echo
 
     def log(self, text: str = "", put_time_in_single_line: bool = False
             ) -> None:
@@ -29,7 +30,8 @@ class TeeLogger:
         else:
             out = ("\n".join(stamp + line for line in text.split("\n"))
                    if text else stamp)
-        print(out, flush=True)
+        if self._echo:
+            print(out, flush=True)
         if self._file:
             self._file.write(_ANSI.sub("", out) + "\n")
             self._file.flush()
@@ -43,11 +45,13 @@ class TeeLogger:
 _logger = TeeLogger()
 
 
-def start_logging(filename: str) -> None:
-    """Tee every later ``log_print`` into ``filename`` (appended)."""
+def start_logging(filename: Optional[str], echo: bool = True) -> None:
+    """Tee every later ``log_print`` into ``filename`` (appended; None:
+    no file); with ``echo`` False nothing reaches stdout either (the ranks
+    of a mesh but rank 0)."""
     global _logger
     _logger.close()
-    _logger = TeeLogger(filename)
+    _logger = TeeLogger(filename, echo)
 
 
 def log_print(text: str = "", put_time_in_single_line: bool = False) -> None:
@@ -56,4 +60,6 @@ def log_print(text: str = "", put_time_in_single_line: bool = False) -> None:
 
 def end_logging() -> None:
     """Close the log file; later lines go to stdout only."""
+    global _logger
     _logger.close()
+    _logger = TeeLogger()

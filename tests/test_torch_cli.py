@@ -88,6 +88,7 @@ def test_parse_args_equal_jax(argv):
         td = dataclasses.asdict(getattr(t, section))
         if section == "runtime":
             assert td.pop("device") == "cuda"
+            assert td.pop("run_record") is None
         assert td == jd, section
     assert tcfg.parse_args(argv + ["--device", "cpu"]).runtime.device == "cpu"
 
@@ -352,7 +353,7 @@ def test_cli_bf16_and_remat_equal_jax(monkeypatch, tmp_path, dataset_dir,
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--mesh_data", "2"], "item 8"),
+    (["--mesh_data", "2", "--gnn", "gat"], "item 8"),
     (["--mesh_model", "2"], "item 8"),
     (["--multihost"], "item 8"),
 ])
