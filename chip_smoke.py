@@ -141,7 +141,8 @@ boundary, which take the 8-byte lanes (``eight_byte_ms``), and holds the
 two bit for bit; the direct bf16 rows also time the same call with the
 ids sorted (``sorted_ids_ms``: the same segment lengths, the rows read in
 order). Phase 3 also holds K1's bf16 form over the two-chunk
-spanning CSR (``csr_segment_sum3_multi``'s bf16 shape). With
+spanning CSR (``csr_segment_sum3_multi``'s bf16 shape).
+
 ``--reference ROOT`` (another checkout, e.g. the parent unpacked with
 ``git archive``) ROOT's ``csrc/segsum.cu``, ``csrc/interact_bwd.cu`` and
 ``csrc/gather.cu`` are built beside this checkout's, and each row of
@@ -202,11 +203,13 @@ is exact; on the chunked paths K1's three-region launches are
 
 ``fault_3_1`` (after the build): the interaction's step-0 dW at
 FAULT31_EDGES edges of SMALL's nodes, direct (K3's ``interact_bwd``) and
-chunked (K5's ``interact_bwd_absorb``), the card's kernel and the CPU's
-f32 twin each against float64 on the same inputs; the card held at
-SMALL_GRAD_RTOL (with ``--reference``, the reference build's kernel
-reported beside it, and its time as ``parent_ms`` on the f32 backward
-rows of phase 3). ``small_chunked_scale`` is held at phase 9's limits.
+chunked (K5's ``interact_bwd_absorb``), the f32 forwards' outputs (K3's
+``interact_fwd``, K5's ``interact_fwd_absorb``, orders 3 and 1) and the
+dW of ``interact_bwd``'s bf16 form on bf16 streams, the card's kernel and
+the CPU's twin each against float64 on the same inputs; the card's f32
+rows held at SMALL_GRAD_RTOL, the bf16 dW at 1e-2 (with ``--reference``,
+the reference build's f32 backward reported beside it, and its time as
+``parent_ms`` on the f32 backward rows of phase 3). ``small_chunked_scale`` is held at phase 9's limits.
 
 Data parallelism over the edge axis (``ihgnn_torch/parallel``), after
 ``cli``: SHARDED_RANKS ranks, spawned processes that load the kernels
@@ -221,8 +224,17 @@ launches exact, the ranks' step and collective times and peak memory
 reported (not a multi-card time: the ranks share the card), and
 ``cli_mesh`` (``torchrun -m ihgnn_torch.cli --mesh_data SHARDED_RANKS``
 on the quality set and a resume, each rank's ``--run_record``, held
-against phase cli's run). The kernels line counts the launches of every
-rank.
+against phase cli's run; then ``--gnn gat`` for an epoch, its loss and
+test metrics held to phase cli's GAT run). ``sharded_small_reference``
+also runs GAT (both heads), phase 2 (direct and routed), the log
+hypergraph and per-rank chunked packs; after ``sharded_train``,
+``sharded_gat_train``, ``sharded_phase2_train`` (direct, then per-rank
+routed packs), ``sharded_log_train`` and ``sharded_chunked_train`` (bf16
+streams over the bf16 wire, per-rank packs in chunks) run at full width,
+each against one rank on the card: features and step-0 gradients within
+SHARDED_RTOL of scale, step-0 loss SHARDED_RTOL relative, each rank's
+launches exact, its step, collective and scalar all-reduce times
+reported. The kernels line counts the launches of every rank.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Needs a CUDA card; exits non-zero without one.
@@ -1582,6 +1594,11 @@ GAT_FORWARD_LAUNCHES = {"csr_gather_sum": 3, "csr_segment_max": 2,
                         "csr_segment_sum": 2}
 GAT_STEP_LAUNCHES = {"csr_gather_sum": 6, "csr_segment_max": 2,
                      "csr_segment_sum": 8, "csr_edge_dot": 2}
+# the product head's step: csr_edge_dot for a layer's scores too, and its
+# backward's two K1 (g · x[dst] by source, g · x[src] by destination) in
+# place of the concat head's two sums
+GAT_PRODUCT_STEP_LAUNCHES = {"csr_gather_sum": 10, "csr_segment_max": 2,
+                             "csr_segment_sum": 4, "csr_edge_dot": 4}
 # the same for the default model on the direct path: a forward runs K1 for
 # the bag and, a layer, K2, K3 and K1's node update; a step adds the bag's
 # backward and, a layer, the node update's and the gather's backward (K1)
@@ -1594,6 +1611,37 @@ IHGNN_STEP_LAUNCHES = {"csr_gather_sum": 8, "gather_roles": 2,
 # backward: K2, K3 and the node update's K1 twice a layer
 IHGNN_STEP_LAUNCHES_REMAT = {"csr_gather_sum": 10, "gather_roles": 4,
                              "interact_fwd": 4, "interact_bwd": 2}
+# IHGNN with phase-2 attention, direct: a layer's gather (K2) and K3, then
+# the attention over [x' | edge] in place of the node update (K4, a sum,
+# K1); a step adds the bag's backward and, a layer, interact_bwd, the
+# gather's backward (K1) and the attention's backward (csr_edge_dot, K1,
+# three sums)
+PHASE2_TRAIN = IHGNN_TRAIN + ("csr_segment_max", "csr_segment_sum",
+                              "csr_edge_dot")
+PHASE2_STEP_LAUNCHES = {"csr_gather_sum": 8, "gather_roles": 2,
+                        "interact_fwd": 2, "interact_bwd": 2,
+                        "csr_segment_max": 2, "csr_segment_sum": 8,
+                        "csr_edge_dot": 2}
+# phase 2 on a routed pack: the routed gather (u expand; q and i expands
+# and stage-1 permutes, i's stage 2), K3 unabsorbed, the edge rows put back
+# in edge order (K6), the attention; a step adds the σ permute's backward
+# (K6), interact_bwd, the gather's backward (three inverse permutes and
+# the three-region K1) and the attention's backward
+PHASE2_ROUTED_TRAIN = ("csr_gather_sum", "gather_rows", "gather_rows_t",
+                       "transposed_local_permute", "row_local_permute",
+                       "csr_segment_sum3", "interact_fwd", "interact_bwd",
+                       "csr_segment_max", "csr_segment_sum", "csr_edge_dot")
+PHASE2_ROUTED_STEP_LAUNCHES = {
+    "csr_gather_sum": 6, "gather_rows": 2, "gather_rows_t": 4,
+    "transposed_local_permute": 10, "row_local_permute": 6,
+    "csr_segment_sum3": 2, "interact_fwd": 2, "interact_bwd": 2,
+    "csr_segment_max": 2, "csr_segment_sum": 8, "csr_edge_dot": 2,
+    "gather_roles": 0, "interact_fwd_absorb": 0, "interact_bwd_absorb": 0}
+# HGCN on the log hypergraph: K1 for the bag and, a layer, the edge sums
+# and the node sums, each the other's backward
+LOG_TRAIN = ("csr_gather_sum",)
+LOG_STEP_LAUNCHES = {"csr_gather_sum": 10, "gather_roles": 0,
+                     "csr_segment_sum3": 0, "interact_fwd": 0}
 # the default model on bf16 streams: the same kernels in their bf16 forms
 # (name_bf16), but for the bag's K1 (f32 rows) both ways; the f32 forms of
 # K2, K3 and interact_bwd must not run
@@ -2049,14 +2097,34 @@ def check_small_bf16(torch, dev):
 
 
 def small_log_graph(users, queries, items, logs, seed):
-    """A CPU ``LogHyperGraph`` of ``logs`` random {u, q, 1-3 items} logs."""
-    from ihgnn_torch.graph import build_log_hypergraph
+    """A CPU ``LogHyperGraph`` of ``log_edges``' logs."""
+    from ihgnn_torch.graph import log_hypergraph_from_edges
+    return log_hypergraph_from_edges(*log_edges(users, queries, items, logs,
+                                                seed),
+                                     users + queries + items)
+
+
+def log_edges(users, queries, items, logs, seed):
+    """``logs`` random {u, q, 1-3 distinct items} logs: ``(member ids,
+    sizes)`` for ``TrainJob.log_edges`` (global ids, each log's u, q, then
+    its items)."""
     rng = np.random.default_rng(seed)
-    nodes = [[int(rng.integers(0, users)), users + int(rng.integers(0, queries))]
-             + [users + queries + int(i) for i in
-                rng.choice(items, int(rng.integers(1, 4)), replace=False)]
-             for _ in range(logs)]
-    return build_log_hypergraph(nodes, users + queries + items)
+    sizes = rng.integers(1, 4, logs) + 2
+    picks = rng.integers(0, items, (logs, 3))
+    while True:
+        # a log's picks that repeat an earlier one are drawn again
+        dup = ((picks[:, 1] == picks[:, 0])
+               | ((picks[:, 2] == picks[:, 0]) | (picks[:, 2] == picks[:, 1]))
+               & (sizes == 5))
+        dup &= sizes >= 4
+        if not dup.any():
+            break
+        picks[dup, 1:] = rng.integers(0, items, (int(dup.sum()), 2))
+    rows = np.column_stack([rng.integers(0, users, logs),
+                            users + rng.integers(0, queries, logs),
+                            users + queries + picks])
+    keep = np.arange(5)[None, :] < sizes[:, None]
+    return rows[keep].astype(np.int64), sizes
 
 
 def check_small_zoo(torch, dev):
@@ -2300,7 +2368,8 @@ _PER_CHUNK = ("gather_rows", "gather_rows_t", "transposed_local_permute")
 # the paths on chunked packs: their K1 three-region launches are
 # csr_segment_sum3_multi's in the kernels line, the others csr_segment_sum3's
 CHUNKED_PATHS = ("chunked_serving", "chunked_bf16_train",
-                 "small_chunked_reference")
+                 "small_chunked_reference", "sharded_chunked_train",
+                 "sharded_small_reference_chunked")
 # the routed GAT: a layer runs, a pack, the source expand (K2 transposed,
 # K7, K6), three scalar expands by destination (K2's d = 1 form), K4, the
 # denominators' scalar sum and K1's weighted sum; its backward, a pack,
@@ -2696,6 +2765,17 @@ def _interaction_inputs(torch, cfg, graph, uqi, qw, qc, seed):
     call of one CPU train step of ``RawGnn(cfg)`` (weights from ``seed``)
     on ``graph``, with the f32 twin's dW of each: ``[(absorb, args,
     dw)]``."""
+    return [("absorb" in kernel, args, out) for kernel, args, out in
+            _interaction_calls(torch, cfg, graph, uqi, qw, qc, seed)
+            if "bwd" in kernel]
+
+
+def _interaction_calls(torch, cfg, graph, uqi, qw, qc, seed):
+    """The arguments of every call of the interaction's kernels (K3's
+    ``interact_fwd`` and ``interact_bwd``, K5's ``interact_fwd_absorb``
+    and ``interact_bwd_absorb``) in one CPU train step of ``RawGnn(cfg)``
+    (weights from ``seed``) on ``graph``, with the twin's result of each
+    (a forward's output, a backward's dW): ``[(kernel, args, out)]``."""
     from ihgnn_torch.config import TrainConfig
     from ihgnn_torch.models.rawgnn import RawGnn
     from ihgnn_torch.ops import interact as ops_interact
@@ -2703,17 +2783,22 @@ def _interaction_inputs(torch, cfg, graph, uqi, qw, qc, seed):
 
     s = SMALL
     calls = []
-    saved = ops_interact.interact_bwd, ops_interact.interact_bwd_absorb
+    names = ("interact_fwd", "interact_bwd", "interact_fwd_absorb",
+             "interact_bwd_absorb")
+    saved = {n: getattr(ops_interact, n) for n in names}
 
-    def recorder(fn, absorb):
+    def recorder(fn, name):
         def record(*args):
             out = fn(*args)
-            calls.append((absorb, args, out[1]))
+            # copies: the step's Adam update changes W and b in place
+            calls.append((name, [a.detach().clone() if torch.is_tensor(a)
+                                 else a for a in args],
+                          _checked_result(name, out)))
             return out
         return record
 
-    ops_interact.interact_bwd = recorder(saved[0], False)
-    ops_interact.interact_bwd_absorb = recorder(saved[1], True)
+    for n in names:
+        setattr(ops_interact, n, recorder(saved[n], n))
     try:
         model = RawGnn(cfg, s["users"], s["queries"], s["items"], s["vocab"],
                        generator=torch.Generator().manual_seed(seed))
@@ -2722,69 +2807,98 @@ def _interaction_inputs(torch, cfg, graph, uqi, qw, qc, seed):
                                               TrainConfig()), device="cpu")
         step(train_batch(uqi, s["items"], SMALL_B, TRAIN_K, seed + 1))
     finally:
-        ops_interact.interact_bwd, ops_interact.interact_bwd_absorb = saved
+        for n in names:
+            setattr(ops_interact, n, saved[n])
     return calls
 
 
+def _checked_result(kernel, out):
+    """What ``fault_3_1`` compares of an interaction kernel's result: a
+    backward's dW, K5's o1 (o2 is its permuted copy), K3's output."""
+    if "bwd" in kernel:
+        return out[1]
+    return out[0] if "absorb" in kernel else out
+
+
+def _bf16_dw_f64(torch, u, q, i, cot, order):
+    """float64 dW of the bf16 contract on bf16 ``u``, ``q``, ``i``,
+    ``cot``: its parts (each product rounded to bf16, exact in f32)
+    widened, times the widened cotangent, summed in float64."""
+    from ihgnn_torch.ops.interact import interact_parts_bf16
+    cot = cot.double()
+    return torch.cat([p.double().t() @ cot
+                      for p in interact_parts_bf16(u, q, i, order)])
+
+
 def check_fault_3_1(torch, dev):
-    """Phase ``fault_3_1``: the interaction's step-0 dW (K3's
-    ``interact_bwd``, and K5's ``interact_bwd_absorb`` on the chunked
-    pack) at each of FAULT31_EDGES on SMALL's nodes, from the inputs of a
-    CPU train step: the card's kernel and the CPU's f32 twin, each against
-    float64 on the same inputs (the twin in float64), at SMALL_GRAD_RTOL of
-    the float64 dW's largest value. With ``--reference`` the reference
-    build's kernel is measured on the same inputs (reported). Held: the
-    card at every size; the twin is reported."""
+    """Phase ``fault_3_1``: the interaction's kernels against float64 at
+    each of FAULT31_EDGES on SMALL's nodes, from the inputs of a CPU train
+    step, direct and on the chunked pack: the step-0 dW of the f32
+    backward (K3's ``interact_bwd``, K5's ``interact_bwd_absorb``), the f32
+    forward's output (K3's ``interact_fwd`` and K5's
+    ``interact_fwd_absorb``, orders 3 and 1), and on bf16 streams
+    (direct) the dW of ``interact_bwd``'s bf16 form against the float64
+    sum of its bf16 contract's parts. The card's kernel and the CPU's twin
+    each against float64 on the same inputs, of the float64 result's
+    largest value. With ``--reference`` the reference build's f32
+    backward is measured on the same inputs (reported). Held: the card's
+    f32 rows at SMALL_GRAD_RTOL, its bf16 dW at BF16_SMALL_TOL's
+    ``grad_rtol``; the twin is reported."""
     from ihgnn_torch.config import ModelConfig
     from ihgnn_torch.graph import build_hypergraph
+    from ihgnn_torch.ops import interact as ops_interact
     from ihgnn_torch.ops.hyperagg import strip_kernel_packing
-    from ihgnn_torch.ops.interact import (interact_bwd, interact_bwd_absorb,
-                                          interact_bwd_absorb_plain,
-                                          interact_bwd_plain)
 
     s = SMALL
     nodes = s["users"] + s["queries"] + s["items"]
     qw, qc = random_words(s["queries"], s["vocab"], 91)
     ref_lib = REFERENCE.get("interact_bwd")
-    rows, worst = [], 0.0
+    bf16_rtol = BF16_SMALL_TOL["grad_rtol"]
+    rows = []
     torch.set_grad_enabled(False)
     for edges in FAULT31_EDGES:
         _, uqi = random_graph(s["users"], s["queries"], s["items"], edges, 93)
         graph = build_hypergraph(uqi, nodes, s["users"], s["queries"],
                                  pack_kernels=True,
                                  chunk_rows_cap=SCALE_CHUNK_CAP)
-        for path, g in (("chunked", graph),
-                        ("direct", strip_kernel_packing(graph))):
+        direct = strip_kernel_packing(graph)
+        for path, g, cfg in (
+                ("chunked", graph, ModelConfig()),
+                ("direct", direct, ModelConfig()),
+                ("direct", direct, ModelConfig(bf16_stream=True))):
             with torch.enable_grad():
-                calls = _interaction_inputs(torch, ModelConfig(), g, uqi, qw,
-                                            qc, 94)
-            for absorb, args, twin_dw in calls:
+                calls = _interaction_calls(torch, cfg, g, uqi, qw, qc, 94)
+            for kernel, args, twin in calls:
+                bf16 = args[0].dtype == torch.bfloat16
+                if bf16 and "fwd" in kernel:
+                    continue      # the bf16 forward rounds its output
                 order = args[-1]
-                args = [a.detach() if torch.is_tensor(a) else a
-                        for a in args]
-                f64 = [a.double() if torch.is_tensor(a) and
-                       a.is_floating_point() else a for a in args]
                 on_card = [a.to(dev) if torch.is_tensor(a) else a
                            for a in args]
-                if absorb:
-                    want = interact_bwd_absorb_plain(*f64)[1]
-                    card_dw = interact_bwd_absorb(*on_card)[1]
+                got = _checked_result(
+                    kernel, getattr(ops_interact, kernel)(*on_card))
+                if bf16:
+                    u, q, i, _, cot = args[:5]
+                    want = _bf16_dw_f64(torch, u, q, i, cot, order)
                 else:
-                    want = interact_bwd_plain(*f64)[1]
-                    card_dw = interact_bwd(*on_card)[1]
+                    f64 = [a.double() if torch.is_tensor(a) and
+                           a.is_floating_point() else a for a in args]
+                    want = _checked_result(kernel, getattr(
+                        ops_interact, kernel + "_plain")(*f64))
                 scale = want.abs().max().item()
-                card_err = (card_dw.cpu().double() - want).abs().max().item()
-                twin_err = (twin_dw.double() - want).abs().max().item()
+                card_err = (got.cpu().double() - want).abs().max().item()
+                twin_err = (twin.double() - want).abs().max().item()
                 row = {"edges": edges, "path": path, "order": order,
-                       "kernel": ("interact_bwd_absorb" if absorb
-                                  else "interact_bwd"),
+                       "kernel": kernel + ("_bf16" if bf16 else ""),
+                       "result": "dW" if "bwd" in kernel else "out",
                        "stream_edges": int(args[0].shape[0]),
                        "card_rel_err": card_err / scale,
-                       "twin_rel_err": twin_err / scale}
-                if ref_lib is not None:
+                       "twin_rel_err": twin_err / scale,
+                       "rtol": bf16_rtol if bf16 else SMALL_GRAD_RTOL}
+                if ref_lib is not None and "bwd" in kernel and not bf16:
                     from ihgnn_torch.compare_builds import run_bwd
                     u, q, i, *rest = on_card
-                    if absorb:
+                    if kernel == "interact_bwd_absorb":
                         pi, w, c1, c2, mask = rest[:5]
                         ref = run_bwd(ref_lib, True, u, q, i, pi, w, c1, c2,
                                       mask if mask is not None else
@@ -2798,15 +2912,22 @@ def check_fault_3_1(torch, dev):
                     row["reference_rel_err"] = ((ref_dw - want).abs().max()
                                                 .item() / scale)
                 rows.append(row)
-                worst = max(worst, row["card_rel_err"])
     torch.set_grad_enabled(True)
-    emit({"phase": "fault_3_1", "rtol": SMALL_GRAD_RTOL, "held": True,
+    worst = {}
+    for r in rows:
+        worst[r["kernel"]] = max(worst.get(r["kernel"], 0.0),
+                                 r["card_rel_err"])
+    missed = sorted({r["kernel"] for r in rows
+                     if not r["card_rel_err"] <= r["rtol"]})
+    emit({"phase": "fault_3_1", "rtol": SMALL_GRAD_RTOL,
+          "bf16_rtol": bf16_rtol, "held": True,
           "card_rel_err_max": worst,
-          "twin_rel_err_max": max(r["twin_rel_err"] for r in rows),
+          "twin_rel_err_max": max(r["twin_rel_err"] for r in rows
+                                  if "bf16" not in r["kernel"]),
           "cases": rows})
-    if not worst <= SMALL_GRAD_RTOL:
-        fail(f"fault_3_1: the card's dW is {worst} of its largest value off "
-             f"float64 (limit {SMALL_GRAD_RTOL})")
+    if missed:
+        fail(f"fault_3_1: the card's {missed} miss float64 beyond their "
+             f"limits ({worst})")
 
 
 def check_small_routed_2d(torch, dev):
@@ -3189,7 +3310,10 @@ def run_cli(torch, dev):
             fail(f"cli: bad {name} metrics {rows}")
     reference = {"epoch1_loss": losses[0],
                  "epoch2_test": dict((e, m) for e, m, _ in
-                                     metrics["first"])[2]}
+                                     metrics["first"])[2],
+                 "gat_epoch1_loss": gat.epoch_stats[0].avg_loss,
+                 "gat_epoch1_test": dict((e, m) for e, m, _ in
+                                         metrics["gat"])[1]}
     return launches, reference
 
 
@@ -3201,8 +3325,12 @@ def run_cli(torch, dev):
 SHARDED_RANKS = 4
 SHARDED_WARM, SHARDED_TIMED = 2, 5
 # SMALL's nodes with 2 more edges than SMALL, so the edges pad to a
-# multiple of the ranks
+# multiple of the ranks; the log hypergraph's logs (not a multiple of the
+# ranks: memberless pad edges); the chunked case's edges, at
+# SMALL_CHUNK_RANK_CAP rows a chunk 3 chunks of a 128-column grid a rank
 SHARDED_SMALL_EDGES = SMALL["edges"] + 2
+SHARDED_SMALL_LOGS = 150
+SHARDED_SMALL_CHUNK_EDGES, SMALL_CHUNK_RANK_CAP = 1_200, 1
 # the S-rank run against the one-rank run on the card: f32 within this
 # share of the largest value (features, step-0 gradients) and relative
 # (losses); bf16 streams with the bf16 wire: BF16_FEATURE_RTOL of scale
@@ -3226,52 +3354,90 @@ def _sum_counts(ranks, j):
 
 def _check_rank_counts(path, ranks, j, expected, per_step, steps):
     """Fails unless every kernel of ``expected`` launched in every rank,
-    ``per_step`` times the steps each."""
+    ``per_step`` times the steps each; a callable ``per_step`` gives a
+    chunked pack's step counts from the rank's chunks."""
     for r, rank in enumerate(ranks):
         launches = rank[j]["launches"]
         for name in expected:
             if launches[name] <= 0:
                 fail(f"{path}: {name} was not launched in rank {r}")
-        _check_counts(f"{path} rank {r}", launches, per_step, steps)
+        _check_counts(f"{path} rank {r}", launches,
+                      per_step(rank[j]["chunks"]) if callable(per_step)
+                      else per_step, steps)
 
 
 def check_sharded_small(torch, dev):
     """Phase ``sharded_small_reference``: SHARDED_RANKS gloo ranks on the
-    card train SMALL_STEPS steps of the default model on
-    SHARDED_SMALL_EDGES edges of SMALL's nodes (padded to a multiple of
-    the ranks), direct and with per-rank routed packs, f32, from the same
-    weights and batches as the same ranks on the CPU (plain twins) and
-    one rank on the card. Held: card ranks against CPU ranks at the
-    SMALL_* limits (features, losses, every step-0 gradient, the
-    parameters after the last step), against the one-rank card run within
-    SHARDED_RTOL of scale (features, losses, step-0 gradients), every
-    rank's parameters equal bit for bit, every kernel of the path launched
-    in every rank. Returns the launches summed over the card's ranks."""
-    from ihgnn_torch.config import ModelConfig
+    card train SMALL_STEPS steps on SHARDED_SMALL_EDGES edges of SMALL's
+    nodes (padded to a multiple of the ranks): the default model direct
+    and with per-rank routed packs, GAT with either head (a tenth of the
+    2D graph's flags 0, so the softmax masks entries), IHGNN with phase 2
+    direct and routed, HGCN on a log hypergraph of SHARDED_SMALL_LOGS
+    logs (padded with memberless edges), and the default model on per-rank
+    packs chunked at SMALL_CHUNK_RANK_CAP over SHARDED_SMALL_CHUNK_EDGES
+    edges (3 chunks a rank); f32, from the same weights and batches as the
+    same ranks on the CPU (plain twins) and one rank on the card. Held:
+    card ranks against CPU ranks at the SMALL_* limits (features, losses,
+    every step-0 gradient, the parameters after the last step; score
+    heads as ``grad_scale``, their parameters reported), against the
+    one-rank card run within SHARDED_RTOL of scale (features, losses,
+    step-0 gradients), every rank's parameters equal bit for bit, every
+    kernel of the path launched in every rank, exactly. Returns the
+    launches summed over the card's ranks, by case."""
+    from ihgnn_torch.config import ModelConfig, V
     from ihgnn_torch.parallel.ranks import TrainJob, run_jobs
 
     s = SMALL
     _, uqi = random_graph(s["users"], s["queries"], s["items"],
                           SHARDED_SMALL_EDGES, 95)
+    _, uqi_big = random_graph(s["users"], s["queries"], s["items"],
+                              SHARDED_SMALL_CHUNK_EDGES, 99)
+    flags = (np.random.default_rng(100).random(len(uqi)) > 0.1).astype(
+        np.int64)
+    uqif = np.column_stack([uqi, flags])
+    logs = log_edges(s["users"], s["queries"], s["items"],
+                     SHARDED_SMALL_LOGS, 101)
     qw, qc = random_words(s["queries"], s["vocab"], 96)
-    batches = [train_batch(uqi, s["items"], SMALL_B, TRAIN_K, 97 + k)
-               for k in range(SMALL_STEPS)]
     counts = (s["users"], s["queries"], s["items"], s["vocab"])
-    paths = {"direct": (False, IHGNN_TRAIN, IHGNN_STEP_LAUNCHES),
-             "routed": (True, ROUTED_TRAIN, ROUTED_STEP_LAUNCHES)}
-    jobs = [TrainJob(name, ModelConfig(), counts, uqi, qw, qc, batches,
-                     seed=98, pack_kernels=pack, keep_state=True,
-                     keep_features=True)
-            for name, (pack, _, _) in paths.items()]
+    phase2 = ModelConfig(phase2_attention=True)
+    # case: (ModelConfig, interactions, TrainJob fields, kernels, per step)
+    paths = {
+        "direct": (ModelConfig(), uqi, {}, IHGNN_TRAIN, IHGNN_STEP_LAUNCHES),
+        "routed": (ModelConfig(), uqi, {"pack_kernels": True}, ROUTED_TRAIN,
+                   ROUTED_STEP_LAUNCHES),
+        "gat": (ModelConfig(gnn=V.GAT), uqif, {}, GAT_TRAIN,
+                GAT_STEP_LAUNCHES),
+        "gat_product": (ModelConfig(gnn=V.GAT, gat_head=V.PRODUCT), uqif, {},
+                        GAT_TRAIN, GAT_PRODUCT_STEP_LAUNCHES),
+        "phase2": (phase2, uqi, {}, PHASE2_TRAIN, PHASE2_STEP_LAUNCHES),
+        "phase2_routed": (phase2, uqi, {"pack_kernels": True},
+                          PHASE2_ROUTED_TRAIN, PHASE2_ROUTED_STEP_LAUNCHES),
+        "log": (ModelConfig(gnn=V.HGCN, use_log_hypergraph=True), uqi,
+                {"log_edges": logs}, LOG_TRAIN, LOG_STEP_LAUNCHES),
+        "chunked": (ModelConfig(), uqi_big,
+                    {"pack_kernels": True,
+                     "chunk_rows_cap": SMALL_CHUNK_RANK_CAP}, ROUTED_TRAIN,
+                    lambda chunks: per_chunk(ROUTED_STEP_LAUNCHES, chunks))}
+    jobs = []
+    for name, (cfg, inter, fields, _, _) in paths.items():
+        batches = [train_batch(inter, s["items"], SMALL_B, TRAIN_K, 97 + k)
+                   for k in range(SMALL_STEPS)]
+        jobs.append(TrainJob(name, cfg, counts, inter, qw, qc, batches,
+                             seed=98, keep_state=True, keep_features=True,
+                             **fields))
     t0 = time.perf_counter()
     card = run_jobs(SHARDED_RANKS, jobs, "cuda")
     card_s = time.perf_counter() - t0
     cpu = run_jobs(SHARDED_RANKS, jobs, "cpu")
     one = run_jobs(0, jobs, "cuda")[0]
     failed, launches = [], {}
-    for j, (name, (_, expected, per_step)) in enumerate(paths.items()):
+    for j, (name, (_, _, fields, expected, per_step)) in enumerate(
+            paths.items()):
+        if name == "chunked" and min(r[j]["chunks"] for r in card) < 2:
+            fail(f"sharded_small_reference chunked: rank chunks "
+                 f"{[r[j]['chunks'] for r in card]}, expected 2 or more")
         _check_rank_counts(f"sharded_small_reference {name}", card, j,
-                           expected, per_step, SMALL_STEPS)
+                             expected, per_step, SMALL_STEPS)
         launches[name] = _sum_counts(card, j)
         got, want, single = card[0][j], cpu[0][j], one[j]
         feat_err = (got["features"] - want["features"]).abs().max().item()
@@ -3280,8 +3446,12 @@ def check_sharded_small(torch, dev):
         grad_err = {k: (got["grads0"][k] - g).abs().max().item()
                     / grad_scale(k, want["grads0"])
                     for k, g in want["grads0"].items()}
-        param_err = max((got["params"][k] - v).abs().max().item()
-                        for k, v in want["params"].items())
+        param_errs = {k: (got["params"][k] - v).abs().max().item()
+                      for k, v in want["params"].items()}
+        param_err = max(v for k, v in param_errs.items()
+                        if ".feature_aggregate." not in k)
+        head_param_err = max([v for k, v in param_errs.items()
+                              if ".feature_aggregate." in k], default=None)
         scale = single["features"].abs().max().item()
         one_feat = (got["features"] - single["features"]).abs().max().item()
         one_loss = max(abs(a - b) / abs(b) for a, b in
@@ -3300,13 +3470,19 @@ def check_sharded_small(torch, dev):
         emit({"phase": "sharded_small_reference", "case": name,
               "ranks": SHARDED_RANKS, "backend": got["backend"],
               "combine": "reduce_scatter + all_gather",
-              "edges": SHARDED_SMALL_EDGES, "steps": SMALL_STEPS,
+              "edges": (SHARDED_SMALL_CHUNK_EDGES if name == "chunked"
+                        else SHARDED_SMALL_EDGES),
+              "logs": SHARDED_SMALL_LOGS if "log_edges" in fields else None,
+              "chunks_a_rank": [r[j]["chunks"] for r in card],
+              "steps": SMALL_STEPS,
               "card_ranks_s": card_s,
               "vs_cpu_ranks": {"features_max_abs_err": feat_err,
                                "loss_max_rel_err": loss_err,
                                "grad0_rel_err_max": max(grad_err.values()),
                                "grad0_rel_err": grad_err,
-                               "param_max_abs_err": param_err},
+                               "param_max_abs_err": param_err,
+                               "score_head_param_max_abs_err":
+                                   head_param_err},
               "vs_one_rank_card": {"features_rel_err": one_feat / scale,
                                    "loss_max_rel_err": one_loss,
                                    "grad0_rel_err_max": one_grad},
@@ -3406,18 +3582,153 @@ def run_sharded_train(torch, dev, uqi, qw, qc):
     return launches
 
 
+# the attention, log and chunked paths in ranks (after sharded_train): the
+# log hypergraph's logs (``log_edges``) and the per-rank chunked pack's
+# rows a chunk, so each rank's 500k edges pack in 8 chunks of a
+# [1024, 512] grid's 128 rows
+SHARDED_LOGS = 1_000_000
+SHARDED_CHUNK_CAP = 128
+
+
+def run_sharded_layers(torch, dev, uqi, qw, qc):
+    """Phases ``sharded_gat_train`` (two concat-head GAT layers on the
+    uqi 2D graph of the bench interactions, ~3M entries a rank),
+    ``sharded_phase2_train`` (IHGNN with phase-2 attention on the 2M-edge
+    hypergraph, direct and then with per-rank routed packs),
+    ``sharded_log_train`` (HGCN on a log hypergraph of SHARDED_LOGS logs
+    of the bench's nodes) and ``sharded_chunked_train`` (the default model
+    on bf16 streams over the bf16 wire, per-rank packs chunked at
+    SHARDED_CHUNK_CAP rows): full width (d = 32, batches of TRAIN_B x
+    TRAIN_K), SHARDED_RANKS gloo ranks sharing the card, SHARDED_WARM +
+    SHARDED_TIMED steps each, against one rank on the card on the same
+    graph (the chunked one at the same cap), weights and batches. Held:
+    every kernel of the path launched in every rank, each exactly a step's
+    count (on a chunked pack, of the rank's chunks) times the steps; the
+    features before the first step and every step-0 gradient within
+    SHARDED_RTOL of scale (score heads: of their layer's largest, as
+    ``grad_scale``), the step-0 loss within SHARDED_RTOL (bf16 streams:
+    BF16_FEATURE_RTOL of scale and ROUTED_BF16_LOSS_RTOL); every rank's
+    parameters equal bit for bit. Reported: each rank's step time, its
+    collectives and among them the softmax's scalar all-reduces, peak
+    memory a rank. Returns the launches summed over the ranks, by path."""
+    from ihgnn_torch.config import ModelConfig, V
+    from ihgnn_torch.parallel.ranks import TrainJob, run_jobs
+
+    steps = SHARDED_WARM + SHARDED_TIMED
+    batches = [train_batch(uqi, I, TRAIN_B, TRAIN_K, 400 + k)
+               for k in range(steps)]
+    t0 = time.perf_counter()
+    logs = log_edges(U, Q, I, SHARDED_LOGS, 401)
+    logs_s = time.perf_counter() - t0
+    chunked = lambda chunks: per_chunk(ROUTED_STEP_LAUNCHES_BF16, chunks)
+    # path: (phase, ModelConfig, TrainJob fields, kernels, per-step counts)
+    paths = {
+        "sharded_gat_train": ("sharded_gat_train", ModelConfig(gnn=V.GAT),
+                              {}, GAT_TRAIN, GAT_STEP_LAUNCHES),
+        "sharded_phase2_train": (
+            "sharded_phase2_train", ModelConfig(phase2_attention=True), {},
+            PHASE2_TRAIN, PHASE2_STEP_LAUNCHES),
+        "sharded_phase2_routed_train": (
+            "sharded_phase2_train", ModelConfig(phase2_attention=True),
+            {"pack_kernels": True}, PHASE2_ROUTED_TRAIN,
+            PHASE2_ROUTED_STEP_LAUNCHES),
+        "sharded_log_train": (
+            "sharded_log_train",
+            ModelConfig(gnn=V.HGCN, use_log_hypergraph=True),
+            {"log_edges": logs}, LOG_TRAIN, LOG_STEP_LAUNCHES),
+        "sharded_chunked_train": (
+            "sharded_chunked_train", ModelConfig(bf16_stream=True),
+            {"pack_kernels": True, "chunk_rows_cap": SHARDED_CHUNK_CAP},
+            ROUTED_TRAIN_BF16, chunked)}
+    jobs = [TrainJob(path, cfg, (U, Q, I, VOCAB), uqi, qw, qc, batches,
+                     seed=0, keep_state=True, keep_features=True,
+                     time_steps=SHARDED_TIMED, **fields)
+            for path, (_, cfg, fields, _, _) in paths.items()]
+    t0 = time.perf_counter()
+    ranks = run_jobs(SHARDED_RANKS, jobs, "cuda")
+    ranks_s = time.perf_counter() - t0
+    one = run_jobs(0, jobs, "cuda")[0]
+    launches, failed = {}, []
+    for j, (path, (phase, cfg, fields, expected, per_step)) in enumerate(
+            paths.items()):
+        _check_rank_counts(path, ranks, j, expected, per_step, steps)
+        launches[path] = _sum_counts(ranks, j)
+        got, single = ranks[0][j], one[j]
+        scale = single["features"].abs().max().item()
+        feat_err = (got["features"] - single["features"]).abs().max().item()
+        loss_err = abs(got["losses"][0] - single["losses"][0]) \
+            / abs(single["losses"][0])
+        grad_err = {k: (got["grads0"][k] - g).abs().max().item()
+                    / grad_scale(k, single["grads0"])
+                    for k, g in single["grads0"].items()}
+        bf16 = cfg.bf16_stream
+        rtol = BF16_FEATURE_RTOL if bf16 else SHARDED_RTOL
+        loss_tol = ROUTED_BF16_LOSS_RTOL if bf16 else SHARDED_RTOL
+        replicas = len({r[j]["digest"] for r in ranks}) == 1
+        finite = all(np.isfinite(r[j]["losses"]).all() for r in ranks)
+        step_ms = [float(np.median(r[j]["step_ms"])) for r in ranks]
+        coll_ms = [float(np.median(r[j]["collective_ms"])) for r in ranks]
+        scalar_ms = [float(np.median(r[j]["scalar_collective_ms"]))
+                     for r in ranks]
+        emit({"phase": phase, "path": path,
+              "streams": "bf16" if bf16 else "f32", "bf16_wire": bf16,
+              "pack_kernels": fields.get("pack_kernels", False),
+              "chunk_rows_cap": fields.get("chunk_rows_cap"),
+              "chunks_a_rank": [r[j]["chunks"] for r in ranks],
+              "one_rank_chunks": single["chunks"],
+              "ranks": SHARDED_RANKS, "backend": got["backend"],
+              "note": ("the ranks share one card: not a multi-card time"
+                       if got["backend"] == "gloo" else "a card a rank"),
+              "logs": SHARDED_LOGS if "log_edges" in fields else None,
+              "logs_draw_s": logs_s if "log_edges" in fields else None,
+              "rows_a_rank": len(batches[0].users) // SHARDED_RANKS,
+              "steps": steps, "timed_steps": SHARDED_TIMED,
+              "rank_step_ms_median": step_ms,
+              "rank_collective_ms_median": coll_ms,
+              "rank_scalar_all_reduce_ms_median": scalar_ms,
+              "rank_step_ms": [r[j]["step_ms"] for r in ranks],
+              "rank_collective_ms": [r[j]["collective_ms"] for r in ranks],
+              "rank_scalar_all_reduce_ms": [r[j]["scalar_collective_ms"]
+                                            for r in ranks],
+              "max_memory_allocated_bytes": [
+                  r[j].get("max_memory_allocated_bytes") for r in ranks],
+              "one_rank_max_memory_allocated_bytes":
+                  single.get("max_memory_allocated_bytes"),
+              "graph_s": [r[j]["graph_s"] for r in ranks],
+              "one_rank_graph_s": single["graph_s"],
+              "ranks_run_s": ranks_s, "losses": got["losses"],
+              "one_rank_losses": single["losses"],
+              "features_max_abs_err": feat_err, "features_scale": scale,
+              "features_rtol": rtol, "step0_loss_rel_err": loss_err,
+              "loss_rtol": loss_tol,
+              "grad0_rel_err_max": max(grad_err.values()),
+              "grad0_rel_err": grad_err, "grad_rtol": rtol,
+              "replicas_equal": replicas,
+              "launches_rank0": got["launches"], "held": True})
+        if not (feat_err <= rtol * scale and loss_err <= loss_tol
+                and max(grad_err.values()) <= rtol and replicas
+                and finite):
+            failed.append(path)
+    if failed:
+        fail(f"sharded paths {failed} disagree with one rank")
+    return launches
+
+
 def run_cli_mesh(torch, dev, reference):
     """Phase ``cli_mesh``: ``torchrun --standalone --nproc_per_node
     SHARDED_RANKS -m ihgnn_torch.cli --mesh_data SHARDED_RANKS`` on phase
     cli's quality set: CLI_MESH_EPOCHS epochs tested at the last with
     ``--storecheckpoint --storemetrics``, then a ``--checkpoint latest``
-    resume for CLI_MESH_RESUME_EPOCHS; each rank writes ``--run_record``.
-    Held: one result directory, one checkpoint, the resume at the next
-    epoch, every kernel's launches in every rank exactly as phase cli
-    counts a run's, the epoch-1 loss within CLI_MESH_LOSS_RTOL of phase
-    cli's (``reference``), the epoch-2 test metrics within 2 x the largest
-    std of PARITY.json's rawgnn runs of phase cli's. Returns the launches
-    summed over the ranks."""
+    resume for CLI_MESH_RESUME_EPOCHS, then ``--gnn gat`` for
+    CLI_GAT_EPOCHS, tested, as phase cli runs it; each rank writes
+    ``--run_record``. Held: one result directory, one checkpoint, the
+    resume at the next epoch, every kernel's launches in every rank
+    exactly as phase cli counts a run's, the epoch-1 loss within
+    CLI_MESH_LOSS_RTOL of phase cli's (``reference``), the epoch-2 test
+    metrics within 2 x the largest std of PARITY.json's rawgnn runs of
+    phase cli's; the GAT run's epoch-1 loss within CLI_MESH_LOSS_RTOL of
+    phase cli's GAT run and its test metrics equal to them. Returns the
+    launches summed over the ranks."""
     import json
     import os
     import shutil
@@ -3438,21 +3749,24 @@ def run_cli_mesh(torch, dev, reference):
         data_dir = os.path.join(tmp, "quality_ds")
         write_synthetic_dataset(data_dir, **QUALITY_SET)
         results = os.path.join(tmp, "results")
-        records = [os.path.join(tmp, f"record{k}") for k in range(2)]
-        base = ["--dataset", data_dir, "--result_dir", results,
-                "--epoch_start_test", "2", "--epoch_test_frequency", "2",
-                "--mesh_data", str(SHARDED_RANKS)]
+        records = [os.path.join(tmp, f"record{k}") for k in range(3)]
+        mesh = ["--dataset", data_dir, "--mesh_data", str(SHARDED_RANKS)]
+        base = mesh + ["--result_dir", results, "--epoch_start_test", "2",
+                       "--epoch_test_frequency", "2"]
         runs_s = []
-        for k, extra in enumerate((
-                ["--epoch_count", str(CLI_MESH_EPOCHS), "--storecheckpoint",
-                 "--storemetrics"],
-                ["--epoch_count", str(CLI_MESH_RESUME_EPOCHS),
-                 "--checkpoint", "latest"])):
+        for k, argv in enumerate((
+                base + ["--epoch_count", str(CLI_MESH_EPOCHS),
+                        "--storecheckpoint", "--storemetrics"],
+                base + ["--epoch_count", str(CLI_MESH_RESUME_EPOCHS),
+                        "--checkpoint", "latest"],
+                mesh + ["--result_dir", os.path.join(tmp, "results_gat"),
+                        "--gnn", "gat", "--epoch_count",
+                        str(CLI_GAT_EPOCHS), "--epoch_start_test", "1"])):
             t0 = time.perf_counter()
             done = subprocess.run(
                 launcher + ["--standalone", "--nproc_per_node",
                             str(SHARDED_RANKS), "-m", "ihgnn_torch.cli"]
-                + base + extra + ["--run_record", records[k]],
+                + argv + ["--run_record", records[k]],
                 capture_output=True, text=True, timeout=600)
             runs_s.append(time.perf_counter() - t0)
             if done.returncode != 0:
@@ -3462,15 +3776,22 @@ def run_cli_mesh(torch, dev, reference):
                  for d in sorted(os.listdir(results))}
         recs = [[json.loads(pathlib.Path(r, f"rank{n}.json").read_text())
                  for n in range(SHARDED_RANKS)] for r in records]
-    first, resumed = recs
+    first, resumed, gat = recs
     stats = [[EpochStats(**e) for e in rec[0]["epochs"]] for rec in recs]
     expected = _cli_expected([(stats[0], (IHGNN_STEP_LAUNCHES,
                                           IHGNN_FORWARD_LAUNCHES))])
     expected_resume = _cli_expected([(stats[1], (IHGNN_STEP_LAUNCHES,
                                                  IHGNN_FORWARD_LAUNCHES))])
+    expected_gat = _cli_expected([(stats[2], (GAT_STEP_LAUNCHES,
+                                              GAT_FORWARD_LAUNCHES))])
     bad_counts = [(k, n) for k, (rec, want) in enumerate(
-        ((first, expected), (resumed, expected_resume)))
+        ((first, expected), (resumed, expected_resume), (gat, expected_gat)))
         for n in range(SHARDED_RANKS) if rec[n]["launches"] != want]
+    gat_loss_err = abs(stats[2][0].avg_loss - reference["gat_epoch1_loss"]) \
+        / abs(reference["gat_epoch1_loss"])
+    gat_test = dict(gat[0]["test"])[1]
+    gat_metric_diff = {k: gat_test[n] - reference["gat_epoch1_test"][n]
+                       for n, k in enumerate(METRICS)}
     loss1 = stats[0][0].avg_loss
     loss_err = abs(loss1 - reference["epoch1_loss"]) / abs(
         reference["epoch1_loss"])
@@ -3490,8 +3811,15 @@ def run_cli_mesh(torch, dev, reference):
           reference["epoch2_test"], "metric_diff": metric_diff,
           "metric_limit": limit, "files": files,
           "resumed_epochs": resumed_epochs,
+          "gat_epochs": [dataclasses.asdict(s) for s in stats[2]],
+          "one_rank_gat_epoch1_loss": reference["gat_epoch1_loss"],
+          "gat_epoch1_loss_rel_err": gat_loss_err, "gat_test_epoch1":
+          gat_test, "one_rank_gat_test_epoch1": reference["gat_epoch1_test"],
+          "gat_metric_diff": gat_metric_diff,
           "launches_rank0": first[0]["launches"],
-          "expected_launches": expected, "held": True})
+          "expected_launches": expected,
+          "gat_launches_rank0": gat[0]["launches"],
+          "gat_expected_launches": expected_gat, "held": True})
     if bad_counts:
         fail(f"cli_mesh: launch counts off in (run, rank) {bad_counts}")
     if len(checkpoints) != 1 or not checkpoints[0].endswith(
@@ -3504,8 +3832,14 @@ def run_cli_mesh(torch, dev, reference):
              f"{reference['epoch1_loss']}")
     if not all(abs(metric_diff[k]) <= limit[k] for k in METRICS):
         fail(f"cli_mesh: test metrics {metric_diff} beyond {limit}")
+    if not gat_loss_err <= CLI_MESH_LOSS_RTOL:
+        fail(f"cli_mesh: GAT epoch-1 loss {stats[2][0].avg_loss} against "
+             f"one rank's {reference['gat_epoch1_loss']}")
+    if any(gat_metric_diff.values()):
+        fail(f"cli_mesh: GAT test metrics differ from one rank's by "
+             f"{gat_metric_diff}")
     total = {}
-    for rec in first + resumed:
+    for rec in first + resumed + gat:
         for k, v in rec["launches"].items():
             total[k] = total.get(k, 0) + v
     return total
@@ -4004,7 +4338,6 @@ def main() -> int:
           "libraries": [str(p.relative_to(_build.PACKAGE.parent))
                         for p in (*libs.values(), native.library_path())],
           "reference": sys.argv[2] if reference is not None else None})
-
     t0 = time.perf_counter()
     graph_cpu, uqi = random_graph(U, Q, I, E, seed=0)
     direct_s = time.perf_counter() - t0
@@ -4255,6 +4588,7 @@ def main() -> int:
     for case, counts in check_sharded_small(torch, dev).items():
         launches[f"sharded_small_reference_{case}"] = counts
     launches.update(run_sharded_train(torch, dev, uqi, qw, qc))
+    launches.update(run_sharded_layers(torch, dev, uqi, qw, qc))
     launches["cli_mesh"] = run_cli_mesh(torch, dev, cli_reference)
     srrl_graph_data, srrl_data_s = srrl_data(uqi, qw, qc)
     emit({"phase": "srrl_data", "seconds": srrl_data_s,

@@ -24,11 +24,12 @@ each keeps its slice of the padded edges and its block of each batch's
 rows (the sampler pads rows to a multiple of S), and every rank ends each
 step with the same parameters. Rank 0 alone writes the result directory,
 the log, the metrics, the long-tail CSV and the checkpoints, under a stamp
-it broadcasts; a resume reads rank 0's checkpoint on every rank. Flags
-whose modules are not ported yet raise ``NotImplementedError`` before
-anything runs, naming their ROADMAP item (queue 1): ``--mesh_model`` > 1,
-``--multihost`` and Srrl under a mesh (8c), GAT and phase-2 attention
-under a mesh (8d), the log hypergraph under a mesh (8e).
+it broadcasts; a resume reads rank 0's checkpoint on every rank. Every
+layer type runs under a mesh: GAT and phase-2 attention with a softmax
+over every rank's entries, the log hypergraph in blocks of whole edges.
+Flags whose modules are not ported yet raise ``NotImplementedError``
+before anything runs, naming their ROADMAP item (queue 1):
+``--mesh_model`` > 1, ``--multihost`` and Srrl under a mesh (8c).
 
 The epoch loop queues the train steps without waiting for the card: each
 step's loss stays a tensor on the device, and the epoch's losses reach the
@@ -52,9 +53,8 @@ from ihgnn_torch.data.dataset import (Batch, EvalLogs, GraphData,
 from ihgnn_torch.device import resolve_device
 from ihgnn_torch.models.rawgnn import RawGnn
 from ihgnn_torch.ops.hyperagg import strip_kernel_packing
-from ihgnn_torch.parallel import (Mesh, make_mesh, pad_graph2d_for_mesh,
-                                  pad_hypergraph_for_mesh, pick_backend,
-                                  shard_graph)
+from ihgnn_torch.parallel import (Mesh, make_mesh, pad_graph_for_mesh,
+                                  pick_backend, shard_graph)
 from ihgnn_torch.train.checkpoint import (find_latest, restore_checkpoint,
                                           save_checkpoint)
 from ihgnn_torch.train.controller import EpochSchedule
@@ -103,17 +103,9 @@ def check_ported(cfg: Config) -> None:
                        "item 8c, the tables over the model axis)")
     if cfg.runtime.multihost:
         missing.append("--multihost (ROADMAP queue 1 item 8c)")
-    if cfg.mesh.data > 1:
-        m = cfg.model
-        if m.model == V.SRRL:
-            missing.append("--model srrl under --mesh_data (ROADMAP queue 1 "
-                           "item 8c)")
-        elif m.gnn == V.GAT or (m.gnn == V.IHGNN and m.phase2_attention):
-            missing.append("GAT and phase-2 attention under --mesh_data "
-                           "(ROADMAP queue 1 item 8d)")
-        elif m.use_log_hypergraph:
-            missing.append("--log_hypergraph under --mesh_data (ROADMAP "
-                           "queue 1 item 8e)")
+    if cfg.mesh.data > 1 and cfg.model.model == V.SRRL:
+        missing.append("--model srrl under --mesh_data (ROADMAP queue 1 "
+                       "item 8c)")
     if missing:
         raise NotImplementedError("not ported to ihgnn_torch yet: "
                                   + "; ".join(missing))
@@ -253,9 +245,7 @@ def _run(cfg: Config, dev: torch.device, result_dir: str,
         graph = strip_kernel_packing(graph)
         log_print("routed kernel pack stripped (--no_pallas): direct path")
     if mesh is not None:
-        pad = (pad_graph2d_for_mesh if cfg.model.gnn == V.GCN
-               else pad_hypergraph_for_mesh)
-        graph = shard_graph(pad(graph, mesh.data), mesh)
+        graph = shard_graph(pad_graph_for_mesh(graph, mesh.data), mesh)
     model = build_model(cfg, data, dev)
     optimizer = make_optimizer(model.parameters(), t)
     log_params(model)

@@ -175,6 +175,10 @@ class LogHyperGraph:
     de: torch.Tensor           # [E, 1] f32 — edge degrees
     node_count: int
     edge_count: int
+    # a rank's block of whole edges (parallel/sharding.py shard_graph):
+    # the node sums are this rank's partials, combined over the mesh; None
+    # on one device
+    mesh: Optional[object] = None
 
     def to(self, device: DeviceLike) -> "LogHyperGraph":
         return moved(self, device)
@@ -431,16 +435,38 @@ def build_log_hypergraph(log_nodes: Sequence[Sequence[int]],
     items}; lists with only {u, q} must be dropped by the caller) into a
     CPU ``LogHyperGraph`` (Helpers/Graph.py:148-189)."""
     de = np.asarray([len(nodes) for nodes in log_nodes], np.int64)
-    e_count = len(de)
     flat_nodes = np.fromiter((n for nodes in log_nodes for n in nodes),
                              np.int64, count=int(de.sum()))
+    return log_hypergraph_from_edges(flat_nodes, de, node_count)
+
+
+def log_hypergraph_from_edges(flat_nodes: np.ndarray, sizes: np.ndarray,
+                              node_count: int,
+                              dv: Optional[torch.Tensor] = None,
+                              de: Optional[torch.Tensor] = None
+                              ) -> LogHyperGraph:
+    """The CPU ``LogHyperGraph`` of edges laid end to end: edge e's
+    members are the next ``sizes[e]`` ids of ``flat_nodes``. ``dv`` /
+    ``de``: the vertex and edge degrees to keep (default: counted here;
+    a mesh's slice keeps the global ``dv``, and its memberless pad edges
+    the degree 1 of ``parallel/sharding.py``)."""
+    sizes = np.asarray(sizes, np.int64)
+    flat_nodes = np.asarray(flat_nodes, np.int64)
+    e_count = len(sizes)
+    if len(flat_nodes) != sizes.sum():
+        raise ValueError(f"{len(flat_nodes)} member ids for edges of "
+                         f"{int(sizes.sum())} members")
     if len(flat_nodes) and (flat_nodes.min() < 0
                             or flat_nodes.max() >= node_count):
         raise ValueError(f"node ids must lie in [0, {node_count})")
-    edge_ids = np.repeat(np.arange(e_count, dtype=np.int64), de)
-
-    dv = np.bincount(flat_nodes, minlength=node_count).astype(np.float32)
-    dv[dv == 0] = DEGREE_FLOOR
+    edge_ids = np.repeat(np.arange(e_count, dtype=np.int64), sizes)
+    if dv is None:
+        counts = np.bincount(flat_nodes, minlength=node_count).astype(
+            np.float32)
+        counts[counts == 0] = DEGREE_FLOOR
+        dv = torch.from_numpy(counts.reshape(-1, 1))
+    if de is None:
+        de = torch.from_numpy(sizes.astype(np.float32).reshape(-1, 1))
 
     node_order = np.argsort(flat_nodes, kind="stable")
     inc_node = flat_nodes[node_order]
@@ -451,8 +477,8 @@ def build_log_hypergraph(log_nodes: Sequence[Sequence[int]],
         edge_nodes=_i32(flat_nodes),
         edge_ids=_i32(edge_ids),
         edge_rowptr=_i32(_rowptr(edge_ids, e_count)),
-        dv=torch.from_numpy(dv.reshape(-1, 1)),
-        de=torch.from_numpy(de.astype(np.float32).reshape(-1, 1)),
+        dv=dv,
+        de=de,
         node_count=int(node_count),
         edge_count=int(e_count),
     )

@@ -67,13 +67,6 @@ def _masked(edge: torch.Tensor, graph: HyperGraph) -> torch.Tensor:
     return edge * graph.edge_mask.to(edge.dtype)
 
 
-def _refuse_attention_on_mesh(graph, what: str) -> None:
-    if graph.mesh is not None:
-        raise NotImplementedError(
-            f"{what} under a mesh (a destination's softmax may span ranks) "
-            "is not ported to ihgnn_torch yet (ROADMAP queue 1 item 8d)")
-
-
 class GCNLayer(nn.Module):
     def __init__(self, in_dim: int, out_dim: int,
                  generator: Optional[torch.Generator] = None):
@@ -118,14 +111,16 @@ class GatCore(nn.Module):
                                                  generator=generator)
 
     def forward(self, x: torch.Tensor, csr: AttentionCSR,
-                pack=None) -> torch.Tensor:
+                pack=None, mesh=None) -> torch.Tensor:
         """The conv over ``csr``, or over the routed GAT pack ``pack``
-        when given (the same function)."""
+        when given (the same function). With ``mesh``, ``csr`` is a
+        rank's entries and the rank's partial is summed over the mesh in
+        f32 (``ops/gatconv.py``); a rank's slice carries no routed pack."""
         agg = self.feature_aggregate
         if pack is not None:
             return routed_gat_conv(x, agg.weight[0], agg.bias, pack,
                                    self.head)
-        return gat_conv(x, agg.weight[0], agg.bias, csr, self.head)
+        return gat_conv(x, agg.weight[0], agg.bias, csr, self.head, mesh)
 
 
 class GATLayer(nn.Module):
@@ -137,9 +132,8 @@ class GATLayer(nn.Module):
         self.gat = GatCore(out_dim, head, generator=generator)
 
     def forward(self, x: torch.Tensor, graph: Graph2D) -> torch.Tensor:
-        _refuse_attention_on_mesh(graph, "GAT")
         return self.gat(self.feature_transform(x), graph.attention,
-                        graph.gat_pk)
+                        graph.gat_pk, graph.mesh)
 
 
 class HGCNLayer(nn.Module):
@@ -186,8 +180,6 @@ class IHGNNLayer(nn.Module):
         psum, ``ihgnn_tpu/models/layers.py:204-250``)."""
         kp = graph.kp
         absorb = kp is not None and not self.phase2_attention and kp.absorbs
-        if self.phase2_attention:
-            _refuse_attention_on_mesh(graph, "phase-2 attention")
         tail = out_nodes is not None and graph.mesh is not None
         gather, scatter = make_hyper_ops(graph, bf16_stream=self.bf16_stream,
                                          absorb=absorb, combine=not tail)
@@ -204,9 +196,10 @@ class IHGNNLayer(nn.Module):
                 edge = sigma_to_edge_order(edge, kp)
             # GAT from edge node N + e to its member nodes over
             # [x' | edge] (bf16 edge rows widened), keeping the node rows;
-            # no / dv
+            # no / dv. On a rank's slice: its own edge rows, and its
+            # partial summed over the mesh in f32 whatever the wire
             both = self.phase2_transform(torch.cat([x, edge.float()], dim=0))
-            return self.phase2_gat(both, graph.phase2)
+            return self.phase2_gat(both, graph.phase2, mesh=graph.mesh)
         # node update: Dv^-1 · H · E (GnnLayers.py:232-234); zero-degree
         # nodes sum to 0 and 0 / 1e-8 stays 0
         return scatter(edge) / graph.dv

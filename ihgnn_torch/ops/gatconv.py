@@ -30,6 +30,19 @@ the LeakyReLU slope (times the mask) are saved, never a ``[K, d]`` tensor.
 ``[dst_count, d]`` (IHGNN phase 2 reads node rows out of
 ``[nodes | edge nodes]``).
 
+On a rank's slice (``mesh``, ``parallel/``) a destination's entries may
+lie on several ranks. The softmax then combines the ranks' scalars as a
+``ChunkedGatPack`` combines its packs': K4's local maxima by a max
+all-reduce and the local denominators by a sum all-reduce, both of an
+``[S]`` f32 stream (``parallel/collectives.py``), so α is exact on every
+rank's entries; an empty destination keeps K4's -3e38 and a 0
+denominator. The weighted sum is the rank's ``[S, d]`` partial, which
+``gat_conv`` combines over the mesh in f32 (``combine_nodes``). The
+backward's cotangent arrives whole (the combine's backward sums it);
+``tsum`` is its one more sum all-reduce, and ``dx``, the head's gradients
+and the bias's are the rank's partials, summed with the other parameter
+gradients once a step.
+
 ``RoutedGatConvFn`` is the routed GAT of a packed 2D graph
 (``graph.gat_pk``, ``ops/gatpack.py``): ``gat_conv_t`` (``_gat_impl``,
 ``_gat_bwd_impl``, ``gatconv.py:190-362``), row-major, with JAX's
@@ -64,6 +77,8 @@ from ihgnn_torch.ops.gatpack import AnyGatPack, GatPack
 from ihgnn_torch.ops.hyperagg import _permute_to_t1, _role_forward
 from ihgnn_torch.ops.segmax import csr_segment_max, csr_segment_sum
 from ihgnn_torch.ops.segsum import csr_gather_sum
+from ihgnn_torch.parallel.collectives import (all_reduce_max, all_reduce_sum,
+                                              combine_nodes)
 
 LEAKY_SLOPE = 0.01     # torch nn.LeakyReLU default (models/common.py)
 MASKED_SCORE = -1e30   # finite: an all-masked segment stays NaN-free
@@ -77,10 +92,13 @@ def _take(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 class GatConvFn(torch.autograd.Function):
     """``x [M, d]`` → ``[S, d]`` attention output over ``csr``; ``khead``
     is the score head's kernel (``[2d]`` concat: source half first;
-    ``[d]`` product), ``bhead`` its ``[1]`` bias."""
+    ``[d]`` product), ``bhead`` its ``[1]`` bias. With ``mesh``, ``csr``
+    is a rank's entries and the result the rank's partial (the module
+    docstring)."""
 
     @staticmethod
-    def forward(ctx, x, khead, bhead, csr: AttentionCSR, head: str):
+    def forward(ctx, x, khead, bhead, csr: AttentionCSR, head: str,
+                mesh=None):
         x = x.contiguous()
         d, s_count = x.shape[1], csr.dst_count
         if head == V.CONCAT:
@@ -99,13 +117,17 @@ class GatConvFn(torch.autograd.Function):
             scores = torch.where(csr.mask > 0, scores, MASKED_SCORE)
             slope = slope * csr.mask
         m = csr_segment_max(scores, csr.dst_rowptr)
+        if mesh is not None:
+            m = all_reduce_max(m, mesh)
         w = torch.exp(scores - _take(m, csr.dst))
         if csr.mask is not None:
             w = w * csr.mask
         den = csr_segment_sum(w, csr.dst_rowptr)
+        if mesh is not None:
+            den = all_reduce_sum(den, mesh, kind="scalar")
         alpha = w / torch.clamp(_take(den, csr.dst), min=1e-30)
         ctx.save_for_backward(x, khead, alpha, slope)
-        ctx.csr, ctx.head = csr, head
+        ctx.csr, ctx.head, ctx.mesh = csr, head, mesh
         return csr_gather_sum(x, csr.src, csr.dst_rowptr, alpha)
 
     @staticmethod
@@ -117,6 +139,8 @@ class GatConvFn(torch.autograd.Function):
         x_dst = x[:s_count]
         tt = alpha * csr_edge_dot(cot, x, csr.dot_order)
         tsum = csr_segment_sum(tt, csr.dst_rowptr)
+        if ctx.mesh is not None:
+            tsum = all_reduce_sum(tsum, ctx.mesh, kind="scalar")
         g = (tt - alpha * _take(tsum, csr.dst)) * slope
         g_src = _take(g, csr.to_dst)
         dx = csr_gather_sum(cot, csr.src_dst, csr.src_rowptr,
@@ -135,16 +159,18 @@ class GatConvFn(torch.autograd.Function):
             dx += g_x_dst * khead
             dx[:s_count] += g_x_src * khead
             dkhead = (x_dst * g_x_src).sum(0)
-        return dx, dkhead, g.sum().reshape(1), None, None
+        return dx, dkhead, g.sum().reshape(1), None, None, None
 
 
 def gat_conv(x: torch.Tensor, khead: torch.Tensor, bhead: torch.Tensor,
-             attention_csr: AttentionCSR, head: str = V.CONCAT
-             ) -> torch.Tensor:
+             attention_csr: AttentionCSR, head: str = V.CONCAT,
+             mesh=None) -> torch.Tensor:
     """``[S, d]`` attention conv of ``x [M, d]`` over ``attention_csr``
     (see the module docstring); ``head`` is ``V.CONCAT`` or
-    ``V.PRODUCT``."""
-    return GatConvFn.apply(x, khead, bhead, attention_csr, head)
+    ``V.PRODUCT``. With ``mesh``, ``attention_csr`` is a rank's entries
+    and the result is summed over the mesh's ranks in f32."""
+    out = GatConvFn.apply(x, khead, bhead, attention_csr, head, mesh)
+    return out if mesh is None else combine_nodes(out, mesh)
 
 
 def _dst_sum(v: torch.Tensor, p: GatPack) -> torch.Tensor:

@@ -532,15 +532,19 @@ def make_log_ops(graph: LogHyperGraph) -> Tuple[
     """Returns ``(edge_sum, node_sum)`` over the log hypergraph's
     incidence: ``edge_sum(x [N, d])`` is ``[E, d]``, each edge's member
     rows summed; ``node_sum(edge [E, d])`` is ``[N, d]``, each node's
-    edge rows summed."""
+    edge rows summed. On a rank's block of whole edges (``graph.mesh``)
+    ``edge_sum`` is local, and ``node_sum`` combines the rank's partial
+    over the mesh (``combine_nodes``, f32)."""
     nodes, edge_rowptr = graph.edge_nodes, graph.edge_rowptr
     edges, rowptr = graph.inc_edge, graph.rowptr
+    mesh = graph.mesh
 
     def edge_sum(x: torch.Tensor) -> torch.Tensor:
         return SpmmFn.apply(x, nodes, edge_rowptr, None, edges, rowptr, None)
 
     def node_sum(edge: torch.Tensor) -> torch.Tensor:
-        return SpmmFn.apply(edge, edges, rowptr, None, nodes, edge_rowptr,
-                            None)
+        out = SpmmFn.apply(edge, edges, rowptr, None, nodes, edge_rowptr,
+                           None)
+        return out if mesh is None else combine_nodes(out, mesh)
 
     return edge_sum, node_sum

@@ -26,6 +26,11 @@ rank, and equal to the one-device step's up to the order of adds.
 * ``gather_slices`` — the all-gather of each rank's ``[rows, d]`` slice
   (the word bag's query slices); its backward reduce-scatters the
   cotangent into the rank's slice.
+
+Two plain functions (no autograd) serve an attention softmax whose
+destination's entries span ranks (``ops/gatconv.py``): ``all_reduce_max``
+and ``all_reduce_sum`` of an ``[N]`` f32 stream, the segment maxima and
+the denominators (and the backward's ``tsum``) over every rank's entries.
 """
 
 from __future__ import annotations
@@ -44,8 +49,9 @@ _ALL_GATHER = getattr(dist, "all_gather_single", None) \
 _REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) \
     or dist.reduce_scatter_tensor
 
-# while timing is on (set_timing), the host time in ms of each collective
-# call from the card idle before it to the card idle after it
+# while timing is on (set_timing), ``(kind, ms)`` of each collective call:
+# the host time from the card idle before it to the card idle after it;
+# kind "scalar" for the softmax's [N] streams, else "rows"
 TIMES: list = []
 _TIMING = [False]
 
@@ -58,18 +64,19 @@ def set_timing(on: bool) -> None:
     _TIMING[0] = on
 
 
-def _call(op, tensor: torch.Tensor, *args, **kwargs) -> None:
+def _call(fn, tensor: torch.Tensor, *args, kind: str = "rows",
+          **kwargs) -> None:
     if not _TIMING[0]:
-        op(tensor, *args, **kwargs)
+        fn(tensor, *args, **kwargs)
         return
     cuda = tensor.device.type == "cuda"
     if cuda:
         torch.cuda.synchronize(tensor.device)
     t0 = time.perf_counter()
-    op(tensor, *args, **kwargs)
+    fn(tensor, *args, **kwargs)
     if cuda:
         torch.cuda.synchronize(tensor.device)
-    TIMES.append((time.perf_counter() - t0) * 1e3)
+    TIMES.append((kind, (time.perf_counter() - t0) * 1e3))
 
 
 def node_pad(n: int, ranks: int) -> int:
@@ -165,10 +172,21 @@ def gather_slices(local: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return GatherSlicesFn.apply(local, mesh)
 
 
-def all_reduce_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """A copy of ``x`` summed over the ranks (no gradient)."""
+def all_reduce_sum(x: torch.Tensor, mesh: Mesh,
+                   kind: str = "rows") -> torch.Tensor:
+    """A copy of ``x`` summed over the ranks (no gradient); ``kind`` the
+    label of its time (``TIMES``)."""
     x = x.detach().clone()
-    _call(dist.all_reduce, x, group=mesh.group)
+    _call(dist.all_reduce, x, group=mesh.group, kind=kind)
+    return x
+
+
+def all_reduce_max(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """A copy of the ``[N]`` stream ``x``, its elementwise max over the
+    ranks (no gradient)."""
+    x = x.detach().clone()
+    _call(dist.all_reduce, x, op=dist.ReduceOp.MAX, group=mesh.group,
+          kind="scalar")
     return x
 
 

@@ -17,10 +17,11 @@ mesh) and returns ``[rank][job]`` results. A job is a ``TrainJob`` or a
 picklable ``job(mesh, device)`` of an importable module. A
 ``TrainJob``'s result holds the losses of every step, a SHA-256 of every
 parameter's bytes after the last step (equal on every rank when the
-replicas agree) and the kernel launches during the steps; on request,
-rank 0's step-0 gradients (after the sum over ranks) and parameters, its
-features of ``all_features`` before the first step, and each rank's step
-and collective times. Nothing here imports JAX.
+replicas agree), the kernel launches during the steps and the chunks of
+the rank's routed pack; on request, rank 0's step-0 gradients (after the
+sum over ranks) and parameters, its features of ``all_features`` before
+the first step, and each rank's step and collective times (and the
+softmax's scalar all-reduces among them). Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -36,17 +37,20 @@ import numpy as np
 import torch
 
 from ihgnn_torch.config import ModelConfig, TrainConfig
+from ihgnn_torch.ops.packing import CHUNK_ROWS_CAP
 
 
 @dataclasses.dataclass
 class TrainJob:
     """One run of ``steps`` train steps of ``RawGnn(cfg)`` on the graph of
-    the interactions ``uqi`` ``[P, >=3]`` (the hypergraph, or for GCN the
-    uqi 2D graph), from weights drawn from ``seed`` or the state dict
-    ``state``. ``batches``: the whole batches (``Batch``, their rows a
-    multiple of the ranks), one a step. ``pack_kernels``: a rank's slice
-    carries the routed pack of its edges (on one device, the graph its
-    routed pack)."""
+    the interactions ``uqi`` ``[P, >=3]`` (the hypergraph, or for GCN and
+    GAT the 2D graph of ``cfg.graph_completeness``; with
+    ``cfg.use_log_hypergraph`` the log hypergraph of ``log_edges``), from
+    weights drawn from ``seed`` or the state dict ``state``. ``batches``:
+    the whole batches (``Batch``, their rows a multiple of the ranks), one
+    a step. ``pack_kernels``: a rank's slice carries the routed pack of
+    its edges (on one device, the graph its routed pack), chunked past
+    ``chunk_rows_cap`` grid rows."""
 
     name: str
     cfg: ModelConfig
@@ -58,6 +62,9 @@ class TrainJob:
     seed: int = 0
     state: Optional[dict] = None
     pack_kernels: bool = False
+    chunk_rows_cap: int = CHUNK_ROWS_CAP
+    # the log hypergraph's edges laid end to end: (member ids, sizes)
+    log_edges: Optional[tuple] = None
     bf16_wire: bool = True
     grad_accum_steps: int = 1
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
@@ -76,10 +83,9 @@ def _digest(model) -> str:
 
 def _graph(job: TrainJob, mesh):
     from ihgnn_torch.config import V
-    from ihgnn_torch.graph import build_graph2d, build_hypergraph
-    from ihgnn_torch.parallel.sharding import (pad_graph2d_for_mesh,
-                                               pad_hypergraph_for_mesh,
-                                               shard_graph)
+    from ihgnn_torch.graph import (build_graph2d, build_hypergraph,
+                                   log_hypergraph_from_edges)
+    from ihgnn_torch.parallel.sharding import pad_graph_for_mesh, shard_graph
     users, queries, items, _ = job.counts
     nodes = users + queries + items
     uqi = np.asarray(job.uqi)
@@ -88,15 +94,18 @@ def _graph(job: TrainJob, mesh):
             [uqi, np.ones(len(uqi), np.int64)])
         graph = build_graph2d(uqif, nodes, users, queries,
                               job.cfg.graph_completeness)
-        if mesh is None:
-            return graph
-        return shard_graph(pad_graph2d_for_mesh(graph, mesh.data), mesh)
-    graph = build_hypergraph(uqi, nodes, users, queries,
-                             pack_kernels=job.pack_kernels and mesh is None)
+    elif job.cfg.use_log_hypergraph:
+        graph = log_hypergraph_from_edges(*job.log_edges, nodes)
+    else:
+        graph = build_hypergraph(uqi, nodes, users, queries,
+                                 pack_kernels=job.pack_kernels
+                                 and mesh is None,
+                                 chunk_rows_cap=job.chunk_rows_cap)
     if mesh is None:
         return graph
-    return shard_graph(pad_hypergraph_for_mesh(graph, mesh.data), mesh,
-                       pack_kernels=job.pack_kernels)
+    return shard_graph(pad_graph_for_mesh(graph, mesh.data), mesh,
+                       pack_kernels=job.pack_kernels,
+                       chunk_rows_cap=job.chunk_rows_cap)
 
 
 def run_job(job: TrainJob, mesh, device) -> dict:
@@ -111,8 +120,10 @@ def run_job(job: TrainJob, mesh, device) -> dict:
     users, queries, items, vocab = job.counts
     t0 = time.perf_counter()
     graph = _graph(job, mesh)
+    kp = getattr(graph, "kp", None)
     out = {"graph_s": time.perf_counter() - t0,
-           "backend": None if mesh is None else mesh.backend}
+           "backend": None if mesh is None else mesh.backend,
+           "chunks": 0 if kp is None else len(kp.packs)}
     model = RawGnn(job.cfg, users, queries, items, vocab,
                    generator=torch.Generator().manual_seed(job.seed))
     if job.state is not None:
@@ -137,7 +148,7 @@ def run_job(job: TrainJob, mesh, device) -> dict:
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
     launches.zero_launches()
-    losses, step_ms, collective_ms = [], [], []
+    losses, step_ms, collective_ms, scalar_ms = [], [], [], []
     timed_from = len(job.batches) - job.time_steps
     for k, batch in enumerate(job.batches):
         timed = job.time_steps and k >= timed_from
@@ -152,7 +163,9 @@ def run_job(job: TrainJob, mesh, device) -> dict:
                 torch.cuda.synchronize(dev)
             step_ms.append((time.perf_counter() - t0) * 1e3)
             collectives.set_timing(False)
-            collective_ms.append(sum(collectives.TIMES))
+            collective_ms.append(sum(ms for _, ms in collectives.TIMES))
+            scalar_ms.append(sum(ms for kind, ms in collectives.TIMES
+                                 if kind == "scalar"))
         losses.append(loss.item())
         if k == 0 and job.keep_state and lead:
             out["grads0"] = {n: p.grad.detach().cpu().clone()
@@ -166,6 +179,7 @@ def run_job(job: TrainJob, mesh, device) -> dict:
     if job.time_steps:
         out["step_ms"] = step_ms
         out["collective_ms"] = collective_ms
+        out["scalar_collective_ms"] = scalar_ms
     if cuda:
         out["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated(
             dev)

@@ -8,28 +8,37 @@ Counterpart of ``ihgnn_tpu/parallel/sharding.py`` (``round_up``,
 padded arrays with ``NamedSharding``s and each device reads its block; a
 rank here builds its own slice on the host:
 
-* ``pad_hypergraph_for_mesh`` / ``pad_graph2d_for_mesh`` — the padded
-  one-device graph: hyperedges padded to a multiple of the data axis by
-  copies of the last real edge, zeroed by ``edge_mask`` (their incidence
-  entries target the last node), or 2D entries padded by ``val = 0``
-  entries at the last node. Either gives the unpadded loss.
+* ``pad_hypergraph_for_mesh`` / ``pad_graph2d_for_mesh`` /
+  ``pad_log_hypergraph_for_mesh`` (``pad_graph_for_mesh`` picks by type)
+  — the padded one-device graph: hyperedges padded to a multiple of the
+  data axis by copies of the last real edge, zeroed by ``edge_mask``
+  (their incidence entries target the last node, and phase 2's softmax
+  leaves them out); 2D entries padded by ``val = 0`` entries at the last
+  node (masked out of GAT's softmax); log edges padded by memberless
+  edges of degree 1. Each gives the unpadded loss.
 * ``shard_graph`` — rank r's slice: the r-th contiguous block of the
-  padded edges (entries), with its own CSRs over all N nodes and the
-  global degrees, marked with the mesh so the layers combine its node
-  partials (``parallel/collectives.py``). With ``pack_kernels`` a rank's
-  hypergraph slice carries the routed σ pack of its real edges
-  (``build_hyper_kernel_pack``, absorption included): a rank's pipeline
-  from its gather to its node partial is local, and the mesh's pad edges,
-  zero by their mask, are left out of the pack rather than masked in it.
+  padded edges (2D entries; whole log edges with their members), with its
+  own CSRs over all N nodes and the global vertex degrees, marked with
+  the mesh so the layers combine its node partials
+  (``parallel/collectives.py``) and GAT's and phase 2's softmax spans the
+  ranks (``ops/gatconv.py``). With ``pack_kernels`` a rank's hypergraph
+  slice carries the routed σ pack of its real edges
+  (``build_hyper_kernel_pack``, absorption included), chunked past
+  ``chunk_rows_cap`` grid rows as the one-device pack is (its node sums,
+  K1's three-region form over the CSR spanning the chunks, are the rank's
+  partial): a rank's pipeline from its gather to its node partial is
+  local, and the mesh's pad edges, zero by their mask, are left out of
+  the pack rather than masked in it. The JAX package's per-shard packs
+  are non-σ and never chunk (``ihgnn_tpu/ops/packing.py:601-622``); ROADMAP
+  §3 states the departure.
 * ``shard_batch`` — the rank's contiguous block of a batch's rows (of
   each ``[R]`` array, or the row axis of stacked ``[k, R]`` arrays).
 * ``ShardedBag`` — the rank's slice of the queries' word bags, dummy
   empty queries padding Q to a multiple of the data axis.
 
-Left for later (ROADMAP queue 1), each raising ``NotImplementedError``:
-GAT and phase-2 attention under a mesh (item 8d: a destination's softmax
-may span ranks), the log hypergraph and a rank's chunked pack (item 8e),
-the tables over ``model`` (item 8c).
+Left for later (ROADMAP queue 1): the tables over ``model`` (item 8c,
+``make_mesh`` raises). A 2D graph's routed packs are dropped by the
+padding, as the JAX package strips them under a mesh.
 """
 
 from __future__ import annotations
@@ -42,7 +51,8 @@ import torch
 from ihgnn_torch.data.dataset import Batch
 from ihgnn_torch.device import DeviceLike
 from ihgnn_torch.graph import (Graph2D, HyperGraph, LogHyperGraph,
-                               graph2d_from_coo, hypergraph_from_i3)
+                               graph2d_from_coo, hypergraph_from_i3,
+                               log_hypergraph_from_edges)
 from ihgnn_torch.ops.bag import BagMeanFn, WordBag, make_word_bag
 from ihgnn_torch.ops.packing import CHUNK_ROWS_CAP, build_hyper_kernel_pack
 from ihgnn_torch.parallel.collectives import gather_slices
@@ -94,15 +104,46 @@ def pad_graph2d_for_mesh(graph: Graph2D, data_parallel: int) -> Graph2D:
         graph.dv, graph.node_count)
 
 
+def pad_log_hypergraph_for_mesh(graph: LogHyperGraph,
+                                data_parallel: int) -> LogHyperGraph:
+    """``graph`` with its edge count padded to a multiple of
+    ``data_parallel`` by memberless edges of degree 1, which add nothing
+    to either sum; ``graph`` itself when no edge is added."""
+    e = graph.edge_count
+    e_pad = round_up(max(e, 1), data_parallel)
+    if e_pad == e:
+        return graph
+    sizes = np.diff(graph.edge_rowptr.numpy()).astype(np.int64)
+    de = np.concatenate([graph.de.numpy().reshape(-1),
+                         np.ones(e_pad - e, np.float32)])
+    return log_hypergraph_from_edges(
+        graph.edge_nodes.numpy(),
+        np.concatenate([sizes, np.zeros(e_pad - e, np.int64)]),
+        graph.node_count, dv=graph.dv,
+        de=torch.from_numpy(de.reshape(-1, 1)))
+
+
+def pad_graph_for_mesh(graph, data_parallel: int):
+    """``graph`` padded for ``data_parallel`` ranks by the pad of its
+    type (the module docstring)."""
+    if isinstance(graph, HyperGraph):
+        return pad_hypergraph_for_mesh(graph, data_parallel)
+    if isinstance(graph, Graph2D):
+        return pad_graph2d_for_mesh(graph, data_parallel)
+    if isinstance(graph, LogHyperGraph):
+        return pad_log_hypergraph_for_mesh(graph, data_parallel)
+    raise TypeError(type(graph))
+
+
 def shard_graph(graph, mesh: Mesh, pack_kernels: bool = False,
                 chunk_rows_cap: int = CHUNK_ROWS_CAP):
     """Rank ``mesh.rank``'s slice of the padded CPU ``graph`` (see the
     module docstring); its node sums are partials the layers combine over
     ``mesh``. ``pack_kernels``: a hypergraph slice carries the routed pack
-    of its real edges (raises when it would take chunks, item 8e)."""
+    of its real edges, in chunks of at most ``chunk_rows_cap`` grid rows."""
+    if getattr(graph, "mesh", None) is not None:
+        raise ValueError("the graph is a rank's slice already")
     if isinstance(graph, HyperGraph):
-        if graph.mesh is not None:
-            raise ValueError("the graph is a rank's slice already")
         block = mesh.block(graph.edge_count)
         i3 = graph.i3.numpy()[block]
         mask = (None if graph.edge_mask is None
@@ -114,11 +155,6 @@ def shard_graph(graph, mesh: Mesh, pack_kernels: bool = False,
             kp = (build_hyper_kernel_pack(i3, graph.node_count,
                                           chunk_rows_cap=chunk_rows_cap)
                   if len(i3) else None)
-            if kp is not None and len(kp.packs) > 1:
-                raise NotImplementedError(
-                    f"a rank's {len(i3)} edges pack in {len(kp.packs)} "
-                    "chunks: the chunked pack per rank is not ported to "
-                    "ihgnn_torch yet (ROADMAP queue 1 item 8e)")
             return dataclasses.replace(local, kp=kp, mesh=mesh)
         if mask is not None and mask.all():
             mask = None
@@ -126,8 +162,6 @@ def shard_graph(graph, mesh: Mesh, pack_kernels: bool = False,
                                    edge_mask=mask)
         return dataclasses.replace(local, mesh=mesh)
     if isinstance(graph, Graph2D):
-        if graph.mesh is not None:
-            raise ValueError("the graph is a rank's slice already")
         block = mesh.block(graph.nnz)
         local = graph2d_from_coo(graph.row.numpy()[block],
                                  graph.col.numpy()[block],
@@ -136,9 +170,14 @@ def shard_graph(graph, mesh: Mesh, pack_kernels: bool = False,
         return dataclasses.replace(
             local, t_val=local.val[local.dst_order.long()], mesh=mesh)
     if isinstance(graph, LogHyperGraph):
-        raise NotImplementedError(
-            "the log hypergraph under a mesh is not ported to ihgnn_torch "
-            "yet (ROADMAP queue 1 item 8e)")
+        block = mesh.block(graph.edge_count)
+        rowptr = graph.edge_rowptr.numpy()
+        members = graph.edge_nodes.numpy()[rowptr[block.start]:
+                                           rowptr[block.stop]]
+        local = log_hypergraph_from_edges(
+            members, np.diff(rowptr[block.start:block.stop + 1]),
+            graph.node_count, dv=graph.dv, de=graph.de[block].clone())
+        return dataclasses.replace(local, mesh=mesh)
     raise TypeError(type(graph))
 
 

@@ -353,7 +353,7 @@ def test_cli_bf16_and_remat_equal_jax(monkeypatch, tmp_path, dataset_dir,
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--mesh_data", "2", "--gnn", "gat"], "item 8"),
+    (["--mesh_data", "2", "--model", "srrl"], "item 8"),
     (["--mesh_model", "2"], "item 8"),
     (["--multihost"], "item 8"),
 ])

@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from ihgnn_torch.config import ModelConfig
-from ihgnn_torch.graph import build_hypergraph
+from ihgnn_torch.graph import build_attention_csr, build_hypergraph
 from ihgnn_torch.models.rawgnn import RawGnn
 from ihgnn_torch.ops.bag import make_word_bag
 from ihgnn_torch.parallel.collectives import reduce_gradients
@@ -60,6 +60,33 @@ def tail_job(counts, uqi, words, word_counts, state, batch, mesh, device):
         reduce_gradients(model.parameters(), mesh)
         out[name] = (logits.detach(),
                      {n: p.grad.clone() for n, p in model.named_parameters()})
+    return out
+
+
+def softmax_job(entries, node_count, dst_count, x, heads, cot, mesh,
+                device):
+    """The attention conv ``gat_conv`` of ``x`` over the entries of
+    ``entries`` ``[(rank, src, dst, live)]`` (sorted by destination), for
+    each head of ``heads`` ``{head: (khead, bhead)}``: with a mesh over
+    the rank's own entries (the output summed over the ranks), else over
+    all. Returns ``{head: (out, dx, dkhead, dbhead)}``: the output and the
+    gradients of ``(out * cot).sum()``, each rank back-propagating its
+    share and the gradients summed over the ranks."""
+    from ihgnn_torch.ops.gatconv import gat_conv
+    mine = [e for e in entries if mesh is None or e[0] == mesh.rank]
+    src, dst, live = (np.asarray([e[k] for e in mine], np.int64)
+                      for k in (1, 2, 3))
+    csr = build_attention_csr(src, dst, node_count, dst_count,
+                              None if live.all() else live)
+    share = 1 if mesh is None else mesh.data
+    out = {}
+    for head, (khead, bhead) in heads.items():
+        params = [t.clone().requires_grad_(True) for t in (x, khead, bhead)]
+        y = gat_conv(*params, csr, head, mesh)
+        ((y * cot).sum() / share).backward()
+        if mesh is not None:
+            reduce_gradients(params, mesh)
+        out[head] = (y.detach(), *(p.grad for p in params))
     return out
 
 
