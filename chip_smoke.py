@@ -234,7 +234,34 @@ streams over the bf16 wire, per-rank packs in chunks) run at full width,
 each against one rank on the card: features and step-0 gradients within
 SHARDED_RTOL of scale, step-0 loss SHARDED_RTOL relative, each rank's
 launches exact, its step, collective and scalar all-reduce times
-reported. The kernels line counts the launches of every rank.
+reported. The kernels line counts the launches of every rank. Every
+sharded phase prints one ``collective_stats`` line a step (rank 0's
+counts and bytes of each collective kind, ``ihgnn_torch/utils/
+collective_stats.py``) and holds every rank's every step to the counts
+``expected_collectives`` predicts for its path and mesh.
+
+The model axis (``ihgnn_torch/parallel/tables.py``: the embedding
+tables' rows and their Adam moments over ranks), after the sharded
+phases: ``sharded_model_small_reference`` (SMALL, card ranks against CPU
+ranks and one rank as ``sharded_small_reference`` holds them, at (2, 2),
+(1, 4) and (2, 2) with the rows over every rank, then at (2, 2) bf16
+streams over the bf16 wire, per-rank routed packs and GAT),
+``sharded_model_train`` (the bench graph at (2, 2), (1, 4), (2, 2) with
+the rows over every rank, and (2, 2) bf16; features and step-0 gradients
+within SHARDED_RTOL of scale with the tables assembled, the step-0 loss
+within MODEL_LOSS_RTOL; step, collective and table-gather times, peak
+memory and persistent parameter and Adam bytes a rank reported),
+``dryrun`` (``ihgnn_torch.entry``: ``entry()``'s forward, then
+``dryrun_multichip(SHARDED_RANKS)``); then ``cli_mesh`` resumes its
+first run's checkpoint at ``--mesh_data 2 --mesh_model 2 --multihost``
+as two torchrun nodes of 2 ranks on 127.0.0.1 (held equal to a one-rank
+resume from the same file: loss within CLI_MESH_LOSS_RTOL, test metrics
+equal) and runs ``--model srrl --mesh_data 2`` (held to phase cli's Srrl
+run the same way). Every sharded phase's card ranks run in one spawn
+(``run_sharded``).
+``gather_scalars`` (one GAT pack) and ``gather_rows_t`` (the routed GCN's
+grid) also carry the device time of their kernels alone and of
+``index_select``, from the profiler (``device``, ``library_device``).
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Needs a CUDA card; exits non-zero without one.
@@ -283,7 +310,14 @@ FEATURE_REPEATS = 9
 L2_RESIDENT_ROWS = 100_000
 
 
+_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries ``t_s``, the seconds since
+    the script started."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _START}
     print(json.dumps(obj), flush=True)
 
 
@@ -341,6 +375,42 @@ def time_ms(torch, fn) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / REPS
+
+
+def kernel_device_ms(torch, fn, calls=20) -> dict:
+    """The device time a call of ``fn`` takes in kernels, from a
+    ``torch.profiler`` trace of ``calls`` warm calls: the sum of the
+    trace's kernel spans over the calls (a wrapper's host issue between
+    launches counts nothing), and the kernels by name with their launches
+    a call."""
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "calls.trace.json")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(path)
+        with open(path, encoding="utf-8") as f:
+            spans = [e for e in json.load(f)["traceEvents"]
+                     if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    by_name = {}
+    for e in spans:
+        ms, n = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (ms + e["dur"] / 1e3, n + 1)
+    if not spans:
+        return {"ms": "not measured: the trace has no kernel events"}
+    return {"ms": sum(e["dur"] for e in spans) / 1e3 / calls,
+            "kernels": [{"name": k[:70], "ms": ms / calls,
+                         "launches": n / calls}
+                        for k, (ms, n) in by_name.items()]}
 
 
 # --reference ROOT: {stem: ROOT's build of csrc/<stem>.cu}
@@ -2494,13 +2564,18 @@ def check_routed_2d_kernels(torch, dev, graph2d, results):
     k_out = gather_scalars(x, idx)
     lib_err = (x.index_select(0, flat).view(idx.shape)
                - k_out).abs().max().item()
+    # device time in kernels alone (the profiler's spans), beside the
+    # events' time, which holds the wrapper's host issue
     record_row(torch, results, "gather_scalars",
                f"GAT scalar expand [{n}] -> {list(idx.shape)}",
                (k_out - gather_scalars_plain(x, idx)).abs().max().item(), 0.0,
                lambda: gather_scalars(x, idx),
                lambda: gather_scalars_plain(x, idx),
                lambda: x.index_select(0, flat), 4 * (2 * flat.numel() + n),
-               0, lib_err)
+               0, lib_err,
+               device=kernel_device_ms(torch, lambda: gather_scalars(x, idx)),
+               library_device=kernel_device_ms(
+                   torch, lambda: x.index_select(0, flat)))
     # a call over one pack's 2M entries issues faster on the card than the
     # host issues the wrapper: the same expand over every pack's table at
     # once (a layer's work, 12M entries) times the kernel itself
@@ -2532,7 +2607,10 @@ def check_routed_2d_kernels(torch, dev, graph2d, results):
                    lambda: rows.index_select(0, ids),
                    4 * (n * D + cells + cells * D), 0,
                    (rows.index_select(0, ids).view(k_rows.shape)
-                    - k_rows).abs().max().item())
+                    - k_rows).abs().max().item(),
+                   device=kernel_device_ms(torch, lambda: fn(rows, table)),
+                   library_device=kernel_device_ms(
+                       torch, lambda: rows.index_select(0, ids)))
     del x, rows
 
 
@@ -3154,12 +3232,12 @@ def run_cli(torch, dev):
     save, restore = cli.save_checkpoint, cli.restore_checkpoint
 
     def spies(saved, restored):
-        def spy_save(result_dir, epoch, model, opt):
+        def spy_save(result_dir, epoch, model, opt, **kw):
             saved[epoch] = snapshot(model, opt)
-            return save(result_dir, epoch, model, opt)
+            return save(result_dir, epoch, model, opt, **kw)
 
-        def spy_restore(result_dir, name, model, opt):
-            epoch = restore(result_dir, name, model, opt)
+        def spy_restore(result_dir, name, model, opt, **kw):
+            epoch = restore(result_dir, name, model, opt, **kw)
             restored[epoch] = snapshot(model, opt)
             return epoch
         return spy_save, spy_restore
@@ -3309,6 +3387,9 @@ def run_cli(torch, dev):
         if not rows or not all(0.0 <= x <= 1.0 for x in values):
             fail(f"cli: bad {name} metrics {rows}")
     reference = {"epoch1_loss": losses[0],
+                 "srrl_stats": srrl.epoch_stats,
+                 "srrl_test": dict((e, m) for e, m, _ in
+                                   metrics["srrl"])[CLI_SRRL_EPOCHS],
                  "epoch2_test": dict((e, m) for e, m, _ in
                                      metrics["first"])[2],
                  "gat_epoch1_loss": gat.epoch_stats[0].avg_loss,
@@ -3321,9 +3402,10 @@ def run_cli(torch, dev):
 
 # ranks of the sharded phases, all on card 0 with gloo (NCCL refuses two
 # ranks on one GPU); full-width steps: SHARDED_WARM, then SHARDED_TIMED
-# timed (host clock, the card idle before and after)
+# timed (host clock, the card idle before and after; 2 + 5 before the
+# model axis's phases joined them)
 SHARDED_RANKS = 4
-SHARDED_WARM, SHARDED_TIMED = 2, 5
+SHARDED_WARM, SHARDED_TIMED = 1, 2
 # SMALL's nodes with 2 more edges than SMALL, so the edges pad to a
 # multiple of the ranks; the log hypergraph's logs (not a multiple of the
 # ranks: memberless pad edges); the chunked case's edges, at
@@ -3336,11 +3418,11 @@ SHARDED_SMALL_CHUNK_EDGES, SMALL_CHUNK_RANK_CAP = 1_200, 1
 # (losses); bf16 streams with the bf16 wire: BF16_FEATURE_RTOL of scale
 # and ROUTED_BF16_LOSS_RTOL for the step-0 loss
 SHARDED_RTOL = 1e-5
-# the mesh CLI run against the one-rank CLI run of phase cli: the epoch-1
-# loss relative, the epoch-2 test metrics within 2 x the largest std of
-# PARITY.json's rawgnn runs
+# the mesh CLI runs against their one-rank runs: the losses relative; the
+# first run's test metrics within 2 x the largest std of PARITY.json's
+# rawgnn runs, every other run's equal
 CLI_MESH_LOSS_RTOL = 1e-4
-CLI_MESH_EPOCHS, CLI_MESH_RESUME_EPOCHS = 2, 1
+CLI_MESH_EPOCHS, CLI_MESH_RESUME_EPOCHS = 1, 1
 
 
 def _sum_counts(ranks, j):
@@ -3366,6 +3448,67 @@ def _check_rank_counts(path, ranks, j, expected, per_step, steps):
                       else per_step, steps)
 
 
+def expected_collectives(cfg, data, model=1, shard_both=False,
+                          bf16_wire=True):
+    """``{kind: count}`` of the collectives one train step issues on a
+    (``data``, ``model``) mesh, as ``ihgnn_torch/parallel/`` issues them
+    (a collective over one rank does not run): the tables' gather over the
+    model group (first over the data group with ``shard_both``) and its
+    gradient's sum over the data group (an all-reduce; a reduce-scatter
+    with ``shard_both``); with data > 1 the bag's all-gather and its
+    reduce-scatter, the loss's and the gradients' all-reduce, and a
+    layer's node sums: GAT and phase 2 a max and a sum all-reduce and an
+    f32 combine (reduce-scatter + all-gather) forward, the combine and the
+    ``tsum`` all-reduce backward; IHGNN's last layer the tail's all-reduce
+    both ways, its others a combine both ways (one bf16 all-reduce on
+    bf16 streams over the bf16 wire); the log HGCN a combine both ways."""
+    from ihgnn_torch.config import V
+    ar = ag = rs = 0
+    if (data * model if shard_both else model) > 1:
+        ag += (model > 1) + (shard_both and data > 1)
+        if data > 1:
+            rs, ar = (rs + 1, ar) if shard_both else (rs, ar + 1)
+    if data > 1:
+        ar, ag, rs = ar + 2, ag + 1, rs + 1
+        last = cfg.gnn_layer_count - 1
+        for layer in range(cfg.gnn_layer_count):
+            if cfg.gnn == V.GAT or (cfg.gnn == V.IHGNN
+                                    and cfg.phase2_attention):
+                ar, rs, ag = ar + 3, rs + 2, ag + 2
+            elif cfg.gnn == V.IHGNN and layer == last:
+                ar += 2
+            elif cfg.gnn == V.IHGNN and cfg.bf16_stream and bf16_wire:
+                ar += 2
+            else:
+                rs, ag = rs + 2, ag + 2
+    return {"all-reduce": ar, "all-gather": ag, "reduce-scatter": rs}
+
+
+def _check_collectives(path, ranks, j, expected):
+    """One ``collective_stats`` line a step of job ``j`` (rank 0's counts
+    and bytes, its largest calls), and fails unless every rank's every
+    step issued exactly ``expected`` (``expected_collectives``)."""
+    from ihgnn_torch.utils.collective_stats import (collective_stats,
+                                                    collective_table,
+                                                    comm_bytes)
+    bad = []
+    for r, rank in enumerate(ranks):
+        for k, record in enumerate(rank[j]["collectives"]):
+            stats = collective_stats(record)
+            counts = {kind: stats.get(kind, {}).get("count", 0)
+                      for kind in expected}
+            if counts != expected or set(stats) - set(expected):
+                bad.append((r, k, counts))
+            if r == 0:
+                emit({"phase": "collective_stats", "path": path, "step": k,
+                      "stats": stats, "comm_bytes": comm_bytes(record),
+                      "expected_counts": expected,
+                      "largest": collective_table(record)[:4]})
+    if bad:
+        fail(f"{path}: collective counts off in (rank, step, counts) {bad}, "
+             f"expected {expected}")
+
+
 def check_sharded_small(torch, dev):
     """Phase ``sharded_small_reference``: SHARDED_RANKS gloo ranks on the
     card train SMALL_STEPS steps on SHARDED_SMALL_EDGES edges of SMALL's
@@ -3382,10 +3525,14 @@ def check_sharded_small(torch, dev):
     heads as ``grad_scale``, their parameters reported), against the
     one-rank card run within SHARDED_RTOL of scale (features, losses,
     step-0 gradients), every rank's parameters equal bit for bit, every
-    kernel of the path launched in every rank, exactly. Returns the
-    launches summed over the card's ranks, by case."""
+    kernel of the path launched in every rank, exactly. The cases of
+    ``sharded_model_small_reference`` run beside them
+    (``_check_model_small``). Returns ``(jobs, finish)``: ``finish(card,
+    card_s)`` takes the card ranks' results of ``jobs`` (``run_sharded``
+    spawns every sharded phase's card ranks at once) and returns the
+    launches summed over the card's ranks, by case, of each phase."""
     from ihgnn_torch.config import ModelConfig, V
-    from ihgnn_torch.parallel.ranks import TrainJob, run_jobs
+    from ihgnn_torch.parallel.ranks import TrainJob
 
     s = SMALL
     _, uqi = random_graph(s["users"], s["queries"], s["items"],
@@ -3425,9 +3572,20 @@ def check_sharded_small(torch, dev):
         jobs.append(TrainJob(name, cfg, counts, inter, qw, qc, batches,
                              seed=98, keep_state=True, keep_features=True,
                              **fields))
-    t0 = time.perf_counter()
-    card = run_jobs(SHARDED_RANKS, jobs, "cuda")
-    card_s = time.perf_counter() - t0
+    # the model axis's small cases run beside them
+    model_cases, model_jobs = _model_small_jobs()
+    n = len(jobs)
+    return jobs + model_jobs, lambda card, card_s: _finish_sharded_small(
+        paths, jobs + model_jobs, n, model_cases, card, card_s)
+
+
+def _finish_sharded_small(paths, jobs, n, model_cases, card, card_s):
+    """The second half of ``check_sharded_small``: ``card`` holds the
+    card ranks' results of ``jobs`` (the first ``n`` of
+    ``sharded_small_reference``, then ``_model_small_jobs``'); runs the
+    same jobs on CPU ranks and in one rank on the card and holds them."""
+    from ihgnn_torch.parallel.ranks import run_jobs
+
     cpu = run_jobs(SHARDED_RANKS, jobs, "cpu")
     one = run_jobs(0, jobs, "cuda")[0]
     failed, launches = [], {}
@@ -3438,6 +3596,9 @@ def check_sharded_small(torch, dev):
                  f"{[r[j]['chunks'] for r in card]}, expected 2 or more")
         _check_rank_counts(f"sharded_small_reference {name}", card, j,
                              expected, per_step, SMALL_STEPS)
+        _check_collectives(f"sharded_small_reference {name}", card, j,
+                           expected_collectives(paths[name][0],
+                                                SHARDED_RANKS))
         launches[name] = _sum_counts(card, j)
         got, want, single = card[0][j], cpu[0][j], one[j]
         feat_err = (got["features"] - want["features"]).abs().max().item()
@@ -3490,8 +3651,45 @@ def check_sharded_small(torch, dev):
               "launches_rank0": card[0][j]["launches"], "held": True})
         if not ok:
             failed.append(name)
+    model_launches = _check_model_small(
+        model_cases, [r[n:] for r in card], [r[n:] for r in cpu], one[n:],
+        card_s)
     if failed:
         fail(f"sharded_small_reference: {failed} disagree")
+    return launches, model_launches
+
+
+def run_sharded(torch, dev, uqi, qw, qc):
+    """The sharded phases' card ranks in one spawn (a spawn of
+    SHARDED_RANKS ranks costs ~20 s on the card's host): the jobs of
+    ``check_sharded_small`` (with ``sharded_model_small_reference``'s),
+    ``run_sharded_train``, ``run_sharded_layers`` and
+    ``run_sharded_model_train``, in that order; then each phase's second
+    half holds and reports its share (its ``ranks_run_s`` is the whole
+    spawn's). Returns the launches by path, each phase's prefixed as
+    ``main`` names them."""
+    from ihgnn_torch.parallel.ranks import run_jobs
+
+    phases = [check_sharded_small(torch, dev),
+              run_sharded_train(torch, dev, uqi, qw, qc),
+              run_sharded_layers(torch, dev, uqi, qw, qc),
+              run_sharded_model_train(torch, dev, uqi, qw, qc)]
+    jobs = [job for phase_jobs, _ in phases for job in phase_jobs]
+    t0 = time.perf_counter()
+    card = run_jobs(SHARDED_RANKS, jobs, "cuda")
+    card_s = time.perf_counter() - t0
+    del jobs
+    out, start = [], 0
+    for phase_jobs, finish in phases:
+        stop = start + len(phase_jobs)
+        out.append(finish([rank[start:stop] for rank in card], card_s))
+        start = stop
+    (small, model_small), train, layers, model_train = out
+    launches = {f"sharded_small_reference_{k}": v for k, v in small.items()}
+    launches.update({f"sharded_model_small_reference_{k}": v
+                     for k, v in model_small.items()})
+    for counts in (train, layers, model_train):
+        launches.update(counts)
     return launches
 
 
@@ -3509,7 +3707,8 @@ def run_sharded_train(torch, dev, uqi, qw, qc):
     ROUTED_BF16_LOSS_RTOL); every rank's parameters equal bit for bit.
     Reported: each rank's step time and time inside collectives (the
     ranks share one card: not a multi-card time), peak memory a rank.
-    Returns the launches summed over the ranks, by path."""
+    Returns ``(jobs, finish)`` as ``check_sharded_small`` does;
+    ``finish`` returns the launches summed over the ranks, by path."""
     from ihgnn_torch.config import ModelConfig
     from ihgnn_torch.parallel.ranks import TrainJob, run_jobs
 
@@ -3528,14 +3727,22 @@ def run_sharded_train(torch, dev, uqi, qw, qc):
                      seed=0, pack_kernels=pack, keep_features=True,
                      time_steps=SHARDED_TIMED)
             for path, (cfg, pack, _, _) in paths.items()]
-    t0 = time.perf_counter()
-    ranks = run_jobs(SHARDED_RANKS, jobs, "cuda")
-    ranks_s = time.perf_counter() - t0
+    return jobs, lambda ranks, ranks_s: _finish_sharded_train(
+        paths, jobs, steps, batches, ranks, ranks_s)
+
+
+def _finish_sharded_train(paths, jobs, steps, batches, ranks, ranks_s):
+    """The second half of ``run_sharded_train`` (``ranks``: the card
+    ranks' results of ``jobs``)."""
+    from ihgnn_torch.parallel.ranks import run_jobs
+
     one = run_jobs(0, jobs, "cuda")[0]
     launches, failed = {}, []
     for j, (path, (cfg, pack, expected, per_step)) in enumerate(
             paths.items()):
         _check_rank_counts(path, ranks, j, expected, per_step, steps)
+        _check_collectives(path, ranks, j,
+                           expected_collectives(cfg, SHARDED_RANKS))
         launches[path] = _sum_counts(ranks, j)
         got, single = ranks[0][j], one[j]
         scale = single["features"].abs().max().item()
@@ -3567,6 +3774,7 @@ def run_sharded_train(torch, dev, uqi, qw, qc):
               "rank_collective_ms": [r[j]["collective_ms"] for r in ranks],
               "max_memory_allocated_bytes": [
                   r[j].get("max_memory_allocated_bytes") for r in ranks],
+              "state_bytes_a_rank": got["state_bytes"],
               "graph_s": [r[j]["graph_s"] for r in ranks],
               "ranks_run_s": ranks_s, "losses": got["losses"],
               "one_rank_losses": single["losses"],
@@ -3610,9 +3818,11 @@ def run_sharded_layers(torch, dev, uqi, qw, qc):
     BF16_FEATURE_RTOL of scale and ROUTED_BF16_LOSS_RTOL); every rank's
     parameters equal bit for bit. Reported: each rank's step time, its
     collectives and among them the softmax's scalar all-reduces, peak
-    memory a rank. Returns the launches summed over the ranks, by path."""
+    memory a rank. Returns ``(jobs, finish)`` as ``check_sharded_small``
+    does; ``finish`` returns the launches summed over the ranks, by
+    path."""
     from ihgnn_torch.config import ModelConfig, V
-    from ihgnn_torch.parallel.ranks import TrainJob, run_jobs
+    from ihgnn_torch.parallel.ranks import TrainJob
 
     steps = SHARDED_WARM + SHARDED_TIMED
     batches = [train_batch(uqi, I, TRAIN_B, TRAIN_K, 400 + k)
@@ -3644,14 +3854,23 @@ def run_sharded_layers(torch, dev, uqi, qw, qc):
                      seed=0, keep_state=True, keep_features=True,
                      time_steps=SHARDED_TIMED, **fields)
             for path, (_, cfg, fields, _, _) in paths.items()]
-    t0 = time.perf_counter()
-    ranks = run_jobs(SHARDED_RANKS, jobs, "cuda")
-    ranks_s = time.perf_counter() - t0
+    return jobs, lambda ranks, ranks_s: _finish_sharded_layers(
+        paths, jobs, steps, batches, logs_s, ranks, ranks_s)
+
+
+def _finish_sharded_layers(paths, jobs, steps, batches, logs_s, ranks,
+                           ranks_s):
+    """The second half of ``run_sharded_layers`` (``ranks``: the card
+    ranks' results of ``jobs``)."""
+    from ihgnn_torch.parallel.ranks import run_jobs
+
     one = run_jobs(0, jobs, "cuda")[0]
     launches, failed = {}, []
     for j, (path, (phase, cfg, fields, expected, per_step)) in enumerate(
             paths.items()):
         _check_rank_counts(path, ranks, j, expected, per_step, steps)
+        _check_collectives(path, ranks, j,
+                           expected_collectives(cfg, SHARDED_RANKS))
         launches[path] = _sum_counts(ranks, j)
         got, single = ranks[0][j], one[j]
         scale = single["features"].abs().max().item()
@@ -3715,25 +3934,31 @@ def run_sharded_layers(torch, dev, uqi, qw, qc):
 
 
 def run_cli_mesh(torch, dev, reference):
-    """Phase ``cli_mesh``: ``torchrun --standalone --nproc_per_node
-    SHARDED_RANKS -m ihgnn_torch.cli --mesh_data SHARDED_RANKS`` on phase
-    cli's quality set: CLI_MESH_EPOCHS epochs tested at the last with
-    ``--storecheckpoint --storemetrics``, then a ``--checkpoint latest``
-    resume for CLI_MESH_RESUME_EPOCHS, then ``--gnn gat`` for
-    CLI_GAT_EPOCHS, tested, as phase cli runs it; each rank writes
-    ``--run_record``. Held: one result directory, one checkpoint, the
-    resume at the next epoch, every kernel's launches in every rank
-    exactly as phase cli counts a run's, the epoch-1 loss within
-    CLI_MESH_LOSS_RTOL of phase cli's (``reference``), the epoch-2 test
+    """Phase ``cli_mesh``: ``ihgnn_torch.cli`` under torchrun on phase
+    cli's quality set, each rank writing ``--run_record``:
+    ``--mesh_data SHARDED_RANKS`` for CLI_MESH_EPOCHS epochs tested at the
+    last with ``--storecheckpoint --storemetrics``; its ``--checkpoint
+    latest`` resume for CLI_MESH_RESUME_EPOCHS at ``--mesh_data 2
+    --mesh_model 2 --multihost``, two torchrun nodes of 2 ranks on
+    127.0.0.1 (the model axis, the resume across meshes and the
+    multi-host group in one run); ``--gnn gat`` for CLI_GAT_EPOCHS at ``--mesh_data
+    SHARDED_RANKS``; ``--model srrl --mesh_data 2`` as phase cli's first
+    Srrl run (CLI_SRRL_EPOCHS epochs, ``--storecheckpoint``). This process
+    runs the one-rank counterparts of the first run and of the resume
+    (from the same checkpoint). Held: one result directory with one
+    checkpoint, the resume at the next epoch, every kernel's launches in
+    every rank exactly as phase cli counts a run's (Srrl none); the first
+    run's loss within CLI_MESH_LOSS_RTOL of the one rank's and its test
     metrics within 2 x the largest std of PARITY.json's rawgnn runs of
-    phase cli's; the GAT run's epoch-1 loss within CLI_MESH_LOSS_RTOL of
-    phase cli's GAT run and its test metrics equal to them. Returns the
-    launches summed over the ranks."""
+    them; the resume's, the GAT run's (against phase cli's GAT run) and
+    Srrl's (against phase cli's) losses within CLI_MESH_LOSS_RTOL and
+    test metrics equal. Returns the launches summed over the ranks."""
     import json
     import os
     import shutil
     import tempfile
 
+    from ihgnn_torch import cli
     from ihgnn_torch.data.artifacts import write_synthetic_dataset
     from ihgnn_torch.quality_parity import METRICS, QUALITY_SET
     from ihgnn_torch.train.metrics import EpochStats
@@ -3745,104 +3970,462 @@ def run_cli_mesh(torch, dev, reference):
     launcher = shutil.which("torchrun")
     launcher = [launcher] if launcher else [sys.executable, "-m",
                                             "torch.distributed.run"]
+    tested = ["--epoch_start_test", "1", "--epoch_test_frequency", "1"]
+    mesh22 = ["--multihost", "--mesh_data", "2", "--mesh_model", "2"]
     with tempfile.TemporaryDirectory() as tmp:
         data_dir = os.path.join(tmp, "quality_ds")
         write_synthetic_dataset(data_dir, **QUALITY_SET)
         results = os.path.join(tmp, "results")
-        records = [os.path.join(tmp, f"record{k}") for k in range(3)]
-        mesh = ["--dataset", data_dir, "--mesh_data", str(SHARDED_RANKS)]
-        base = mesh + ["--result_dir", results, "--epoch_start_test", "2",
-                       "--epoch_test_frequency", "2"]
-        runs_s = []
-        for k, argv in enumerate((
-                base + ["--epoch_count", str(CLI_MESH_EPOCHS),
-                        "--storecheckpoint", "--storemetrics"],
-                base + ["--epoch_count", str(CLI_MESH_RESUME_EPOCHS),
-                        "--checkpoint", "latest"],
-                mesh + ["--result_dir", os.path.join(tmp, "results_gat"),
-                        "--gnn", "gat", "--epoch_count",
-                        str(CLI_GAT_EPOCHS), "--epoch_start_test", "1"])):
-            t0 = time.perf_counter()
-            done = subprocess.run(
-                launcher + ["--standalone", "--nproc_per_node",
-                            str(SHARDED_RANKS), "-m", "ihgnn_torch.cli"]
-                + argv + ["--run_record", records[k]],
-                capture_output=True, text=True, timeout=600)
-            runs_s.append(time.perf_counter() - t0)
-            if done.returncode != 0:
-                fail(f"cli_mesh: torchrun rc {done.returncode}: "
-                     f"{done.stderr[-3000:]}")
+        data = ["--dataset", data_dir]
+        one = cli.main(data + ["--result_dir", os.path.join(tmp, "one"),
+                               "--epoch_count", str(CLI_MESH_EPOCHS)]
+                       + tested)
+        # run: (nodes, ranks a node, flags)
+        runs = {
+            "first": (1, SHARDED_RANKS, [
+                "--mesh_data", str(SHARDED_RANKS), "--result_dir", results,
+                "--epoch_count", str(CLI_MESH_EPOCHS), "--storecheckpoint",
+                "--storemetrics"] + tested),
+            "resume_multihost_2x2": (2, 2, mesh22 + [
+                "--result_dir", results, "--checkpoint", "latest",
+                "--epoch_count", str(CLI_MESH_RESUME_EPOCHS)] + tested),
+            "gat": (1, SHARDED_RANKS, [
+                "--mesh_data", str(SHARDED_RANKS), "--result_dir",
+                os.path.join(tmp, "results_gat"), "--gnn", "gat",
+                "--epoch_count", str(CLI_GAT_EPOCHS), "--epoch_start_test",
+                "1"]),
+            "srrl_mesh_data_2": (1, 2, [
+                "--mesh_data", "2", "--model", "srrl", "--result_dir",
+                os.path.join(tmp, "results_srrl"), "--epoch_count",
+                str(CLI_SRRL_EPOCHS), "--epoch_start_test",
+                str(CLI_SRRL_EPOCHS), "--storecheckpoint",
+                "--storemetrics"])}
+        recs, runs_s = {}, {}
+        for name, (nodes, per_node, flags) in runs.items():
+            runs_s[name], recs[name] = _torchrun(
+                launcher, nodes, per_node, data + flags,
+                os.path.join(tmp, f"record_{name}"))
+            if name == "first":
+                # the one-rank resume from the same checkpoint
+                one_resumed = cli.main(data + [
+                    "--result_dir", results, "--checkpoint", "latest",
+                    "--epoch_count", str(CLI_MESH_RESUME_EPOCHS)] + tested)
         files = {d: sorted(os.listdir(os.path.join(results, d)))
                  for d in sorted(os.listdir(results))}
-        recs = [[json.loads(pathlib.Path(r, f"rank{n}.json").read_text())
-                 for n in range(SHARDED_RANKS)] for r in records]
-    first, resumed, gat = recs
-    stats = [[EpochStats(**e) for e in rec[0]["epochs"]] for rec in recs]
-    expected = _cli_expected([(stats[0], (IHGNN_STEP_LAUNCHES,
-                                          IHGNN_FORWARD_LAUNCHES))])
-    expected_resume = _cli_expected([(stats[1], (IHGNN_STEP_LAUNCHES,
-                                                 IHGNN_FORWARD_LAUNCHES))])
-    expected_gat = _cli_expected([(stats[2], (GAT_STEP_LAUNCHES,
-                                              GAT_FORWARD_LAUNCHES))])
-    bad_counts = [(k, n) for k, (rec, want) in enumerate(
-        ((first, expected), (resumed, expected_resume), (gat, expected_gat)))
-        for n in range(SHARDED_RANKS) if rec[n]["launches"] != want]
-    gat_loss_err = abs(stats[2][0].avg_loss - reference["gat_epoch1_loss"]) \
-        / abs(reference["gat_epoch1_loss"])
-    gat_test = dict(gat[0]["test"])[1]
-    gat_metric_diff = {k: gat_test[n] - reference["gat_epoch1_test"][n]
-                       for n, k in enumerate(METRICS)}
-    loss1 = stats[0][0].avg_loss
-    loss_err = abs(loss1 - reference["epoch1_loss"]) / abs(
-        reference["epoch1_loss"])
-    test = dict(first[0]["test"])[CLI_MESH_EPOCHS]
-    metric_diff = {k: test[n] - reference["epoch2_test"][n]
-                   for n, k in enumerate(METRICS)}
+        srrl_files = [n for d in os.listdir(os.path.join(tmp, "results_srrl"))
+                      for n in os.listdir(os.path.join(tmp, "results_srrl",
+                                                       d))]
+
+    def last_test(rows):
+        return [m for _, m in rows][-1]
+
+    # run: (one rank's epoch stats, its last test row, launches a step and
+    # a forward or None for none)
+    want = {"first": (one.epoch_stats, [m.as_row() for _, m in
+                                        one.iter_epoch_test()][-1],
+                      (IHGNN_STEP_LAUNCHES, IHGNN_FORWARD_LAUNCHES)),
+            "resume_multihost_2x2": (
+                one_resumed.epoch_stats,
+                [m.as_row() for _, m in one_resumed.iter_epoch_test()][-1],
+                (IHGNN_STEP_LAUNCHES, IHGNN_FORWARD_LAUNCHES)),
+            "gat": (None, reference["gat_epoch1_test"],
+                    (GAT_STEP_LAUNCHES, GAT_FORWARD_LAUNCHES)),
+            "srrl_mesh_data_2": (reference["srrl_stats"],
+                                 reference["srrl_test"], None)}
+    rows, bad = {}, []
+    for name, ranks in recs.items():
+        stats = [[EpochStats(**e) for e in rec["epochs"]] for rec in ranks]
+        one_stats, one_test, counts = want[name]
+        one_losses = ([reference["gat_epoch1_loss"]] if one_stats is None
+                      else [st.avg_loss for st in one_stats])
+        expected = ({k: 0 for k in _launch_counts()} if counts is None
+                    else _cli_expected([(stats[0], counts)]))
+        loss_err = max(abs(st.avg_loss - w) / abs(w) for rank in stats
+                       for st, w in zip(rank, one_losses))
+        test = last_test(ranks[0]["test"])
+        diff = {k: test[n] - one_test[n] for n, k in enumerate(METRICS)}
+        metrics_ok = (all(abs(diff[k]) <= limit[k] for k in METRICS)
+                      if name == "first" else not any(diff.values()))
+        epochs = [[st.epoch for st in rank] for rank in stats]
+        rows[name] = {
+            "nodes": runs[name][0], "ranks_a_node": runs[name][1],
+            "flags": runs[name][2][:6], "backend": ranks[0]["backend"],
+            "run_s": runs_s[name],
+            "epochs": [dataclasses.asdict(st) for st in stats[0]],
+            "one_rank_losses": one_losses, "loss_max_rel_err": loss_err,
+            "test": test, "one_rank_test": one_test, "metric_diff": diff,
+            "launches_rank0": ranks[0]["launches"],
+            "expected_launches": expected}
+        if not (loss_err <= CLI_MESH_LOSS_RTOL and metrics_ok
+                and all(rank["launches"] == expected for rank in ranks)
+                and all(e == epochs[0] for e in epochs)):
+            bad.append(name)
     (run_dir, names), = files.items()
     checkpoints = [n for n in names if n.startswith("checkpoint_")]
-    resumed_epochs = [s.epoch for s in stats[1]]
+    resumed_epochs = [st["epoch"] for st in
+                      rows["resume_multihost_2x2"]["epochs"]]
     emit({"phase": "cli_mesh", "ranks": SHARDED_RANKS,
-          "backend": first[0]["backend"],
-          "launcher": " ".join(launcher[-2:]), "run_s": runs_s,
-          "epochs": [dataclasses.asdict(s) for s in stats[0] + stats[1]],
-          "one_rank_epoch1_loss": reference["epoch1_loss"],
-          "epoch1_loss_rel_err": loss_err, "loss_rtol": CLI_MESH_LOSS_RTOL,
-          "test_epoch2": test, "one_rank_test_epoch2":
-          reference["epoch2_test"], "metric_diff": metric_diff,
-          "metric_limit": limit, "files": files,
-          "resumed_epochs": resumed_epochs,
-          "gat_epochs": [dataclasses.asdict(s) for s in stats[2]],
-          "one_rank_gat_epoch1_loss": reference["gat_epoch1_loss"],
-          "gat_epoch1_loss_rel_err": gat_loss_err, "gat_test_epoch1":
-          gat_test, "one_rank_gat_test_epoch1": reference["gat_epoch1_test"],
-          "gat_metric_diff": gat_metric_diff,
-          "launches_rank0": first[0]["launches"],
-          "expected_launches": expected,
-          "gat_launches_rank0": gat[0]["launches"],
-          "gat_expected_launches": expected_gat, "held": True})
-    if bad_counts:
-        fail(f"cli_mesh: launch counts off in (run, rank) {bad_counts}")
+          "launcher": " ".join(launcher[-2:]), "runs": rows,
+          "loss_rtol": CLI_MESH_LOSS_RTOL, "first_metric_limit": limit,
+          "files": files, "srrl_files": sorted(srrl_files),
+          "resumed_epochs": resumed_epochs, "held": True})
+    if bad:
+        fail(f"cli_mesh: {bad} differ from one rank's runs")
     if len(checkpoints) != 1 or not checkpoints[0].endswith(
             f"_epoch{CLI_MESH_EPOCHS}"):
         fail(f"cli_mesh: checkpoints {checkpoints} in {run_dir}")
-    if resumed_epochs != [CLI_MESH_EPOCHS + 1]:
+    if len([n for n in names if n.endswith("_metrics.txt")]) != 1:
+        fail(f"cli_mesh: metrics files {names} in {run_dir}")
+    if resumed_epochs != list(range(CLI_MESH_EPOCHS + 1, CLI_MESH_EPOCHS
+                                    + 1 + CLI_MESH_RESUME_EPOCHS)):
         fail(f"cli_mesh: the resume ran epochs {resumed_epochs}")
-    if not loss_err <= CLI_MESH_LOSS_RTOL:
-        fail(f"cli_mesh: epoch-1 loss {loss1} against one rank's "
-             f"{reference['epoch1_loss']}")
-    if not all(abs(metric_diff[k]) <= limit[k] for k in METRICS):
-        fail(f"cli_mesh: test metrics {metric_diff} beyond {limit}")
-    if not gat_loss_err <= CLI_MESH_LOSS_RTOL:
-        fail(f"cli_mesh: GAT epoch-1 loss {stats[2][0].avg_loss} against "
-             f"one rank's {reference['gat_epoch1_loss']}")
-    if any(gat_metric_diff.values()):
-        fail(f"cli_mesh: GAT test metrics differ from one rank's by "
-             f"{gat_metric_diff}")
+    if len([n for n in srrl_files if n.startswith("checkpoint_")]) != 1:
+        fail(f"cli_mesh: Srrl's files {srrl_files}")
     total = {}
-    for rec in first + resumed + gat:
-        for k, v in rec["launches"].items():
-            total[k] = total.get(k, 0) + v
+    for ranks in recs.values():
+        for rec in ranks:
+            for k, v in rec["launches"].items():
+                total[k] = total.get(k, 0) + v
     return total
+
+
+def _torchrun(launcher, nodes, per_node, argv, record, timeout=600):
+    """``ihgnn_torch.cli *argv --run_record record`` in ``nodes`` ×
+    ``per_node`` ranks: one ``torchrun --standalone``, or one torchrun a
+    node on 127.0.0.1 (``--nnodes``, ``--node_rank``, a free port) as
+    across hosts; fails on a non-zero exit. Returns the host seconds and
+    every rank's record."""
+    import json
+    import socket
+    if nodes == 1:
+        launches = [["--standalone"]]
+    else:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = str(sock.getsockname()[1])
+        launches = [["--nnodes", str(nodes), "--node_rank", str(k),
+                     "--master_addr", "127.0.0.1", "--master_port", port]
+                    for k in range(nodes)]
+    t0 = time.perf_counter()
+    logs = [f"{record}.node{k}.log" for k in range(len(launches))]
+    procs = []
+    for launch, log in zip(launches, logs):
+        with open(log, "w", encoding="utf-8") as f:
+            procs.append(subprocess.Popen(
+                launcher + launch + ["--nproc_per_node", str(per_node),
+                                     "-m", "ihgnn_torch.cli"] + argv
+                + ["--run_record", record], stdout=subprocess.DEVNULL,
+                stderr=f))
+    try:
+        for proc in procs:
+            proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        for proc in procs:
+            proc.terminate()         # torchrun stops its workers
+        for proc in procs:
+            proc.wait(timeout=60)
+        fail(f"cli_mesh: torchrun {argv} outlasted {timeout} s")
+    run_s = time.perf_counter() - t0
+    for proc, log in zip(procs, logs):
+        if proc.returncode != 0:
+            fail(f"cli_mesh: torchrun rc {proc.returncode}: "
+                 f"{pathlib.Path(log).read_text()[-3000:]}")
+    return run_s, [json.loads(pathlib.Path(record, f"rank{n}.json")
+                              .read_text())
+                   for n in range(nodes * per_node)]
+
+
+# ---- the model axis: the tables' rows (and their Adam moments) over ranks
+
+# mesh: (model axis, tables over every rank) of SHARDED_RANKS ranks
+MODEL_MESHES = {"2x2": (2, False), "1x4": (4, False), "2x2_both": (2, True)}
+# the full-width model-axis runs against one rank: f32 features and step-0
+# gradients within SHARDED_RTOL of scale, the step-0 loss within this
+MODEL_LOSS_RTOL = 1e-6
+
+
+def _model_case_errors(got, want):
+    """Features (absolute), losses (relative), step-0 gradients (of
+    ``grad_scale``) and parameters (absolute; score heads apart) of a
+    rank-0 result ``got`` against ``want``."""
+    params = {k: (got["params"][k] - v).abs().max().item()
+              for k, v in want["params"].items()}
+    return {"features": (got["features"] - want["features"]).abs().max()
+            .item(),
+            "loss": max(abs(a - b) / abs(b) for a, b in
+                        zip(got["losses"], want["losses"])),
+            "grad": max((got["grads0"][k] - g).abs().max().item()
+                        / grad_scale(k, want["grads0"])
+                        for k, g in want["grads0"].items()),
+            "param": max(v for k, v in params.items()
+                         if ".feature_aggregate." not in k),
+            "head_param": max([v for k, v in params.items()
+                               if ".feature_aggregate." in k], default=None)}
+
+
+def _model_small_jobs():
+    """Phase ``sharded_model_small_reference``'s cases and their
+    ``TrainJob``s (``check_sharded_small`` runs them in its spawns): the
+    default model at (2, 2), (1, 4) and (2, 2) with the rows over every
+    rank, bf16 streams over the bf16 wire at (2, 2), per-rank routed packs
+    at (2, 2), GAT at (2, 2), on ``sharded_small_reference``'s graphs."""
+    from ihgnn_torch.config import ModelConfig, V
+    from ihgnn_torch.parallel.ranks import TrainJob
+
+    s = SMALL
+    _, uqi = random_graph(s["users"], s["queries"], s["items"],
+                          SHARDED_SMALL_EDGES, 95)
+    flags = (np.random.default_rng(100).random(len(uqi)) > 0.1).astype(
+        np.int64)
+    uqif = np.column_stack([uqi, flags])
+    qw, qc = random_words(s["queries"], s["vocab"], 96)
+    counts = (s["users"], s["queries"], s["items"], s["vocab"])
+    bf16 = ModelConfig(bf16_stream=True)
+    # case: (mesh, ModelConfig, interactions, TrainJob fields, kernels,
+    # per step)
+    cases = {
+        "2x2": ("2x2", ModelConfig(), uqi, {}, IHGNN_TRAIN,
+                IHGNN_STEP_LAUNCHES),
+        "1x4": ("1x4", ModelConfig(), uqi, {}, IHGNN_TRAIN,
+                IHGNN_STEP_LAUNCHES),
+        "2x2_both": ("2x2_both", ModelConfig(), uqi, {}, IHGNN_TRAIN,
+                     IHGNN_STEP_LAUNCHES),
+        "2x2_bf16": ("2x2", bf16, uqi, {}, IHGNN_TRAIN_BF16,
+                     IHGNN_STEP_LAUNCHES_BF16),
+        "2x2_routed": ("2x2", ModelConfig(), uqi, {"pack_kernels": True},
+                       ROUTED_TRAIN, ROUTED_STEP_LAUNCHES),
+        "2x2_gat": ("2x2", ModelConfig(gnn=V.GAT), uqif, {}, GAT_TRAIN,
+                    GAT_STEP_LAUNCHES)}
+    jobs = []
+    for name, (mesh, cfg, inter, fields, _, _) in cases.items():
+        model, both = MODEL_MESHES[mesh]
+        batches = [train_batch(inter, s["items"], SMALL_B, TRAIN_K, 97 + k)
+                   for k in range(SMALL_STEPS)]
+        jobs.append(TrainJob(name, cfg, counts, inter, qw, qc, batches,
+                             seed=98, keep_state=True, keep_features=True,
+                             model_axis=model, table_shard_both=both,
+                             **fields))
+    return cases, jobs
+
+
+def _check_model_small(cases, card, cpu, one, card_s):
+    """Phase ``sharded_model_small_reference`` (``_model_small_jobs``'
+    cases; ``card``, ``cpu``: ``[rank][case]`` results of SHARDED_RANKS
+    gloo ranks on the card and on the CPU, plain twins; ``one``: one rank
+    on the card). Held as ``sharded_small_reference`` holds its cases
+    (the SMALL_* limits card against CPU, bf16 BF16_SMALL_TOL's;
+    SHARDED_RTOL of scale against one rank on the card, bf16
+    BF16_FEATURE_RTOL and ROUTED_BF16_LOSS_RTOL; the one-device
+    parameters of every rank bit for bit; every kernel of the path
+    launched in every rank, exactly; every step's collectives exactly).
+    Returns the launches summed over the card's ranks, by case."""
+    failed, launches = [], {}
+    for j, (name, (mesh, cfg, _, fields, expected, per_step)) in enumerate(
+            cases.items()):
+        model, both = MODEL_MESHES[mesh]
+        _check_rank_counts(f"sharded_model_small_reference {name}", card, j,
+                           expected, per_step, SMALL_STEPS)
+        _check_collectives(f"sharded_model_small_reference {name}", card, j,
+                           expected_collectives(cfg, SHARDED_RANKS // model,
+                                                model, both))
+        launches[name] = _sum_counts(card, j)
+        got, want, single = card[0][j], cpu[0][j], one[j]
+        vs_cpu = _model_case_errors(got, want)
+        vs_one = _model_case_errors(got, single)
+        scale = single["features"].abs().max().item()
+        if cfg.bf16_stream:
+            tol = dict(BF16_SMALL_TOL)
+            one_feat, one_loss = BF16_FEATURE_RTOL, ROUTED_BF16_LOSS_RTOL
+        else:
+            tol = dict(feature_atol=SMALL_FEATURE_ATOL,
+                       loss_rtol=SMALL_LOSS_RTOL, grad_rtol=SMALL_GRAD_RTOL,
+                       param_atol=SMALL_PARAM_ATOL)
+            one_feat = one_loss = SHARDED_RTOL
+        replicas = {"card": len({r[j]["digest"] for r in card}) == 1,
+                    "cpu": len({r[j]["digest"] for r in cpu}) == 1}
+        ok = (vs_cpu["features"] <= tol["feature_atol"]
+              and vs_cpu["loss"] <= tol["loss_rtol"]
+              and vs_cpu["grad"] <= tol["grad_rtol"]
+              and vs_cpu["param"] <= tol["param_atol"]
+              and vs_one["features"] <= one_feat * scale
+              and vs_one["loss"] <= one_loss
+              and vs_one["grad"] <= one_feat and all(replicas.values()))
+        emit({"phase": "sharded_model_small_reference", "case": name,
+              "mesh": {"data": SHARDED_RANKS // model, "model": model,
+                       "table_shard_both": both},
+              "ranks": SHARDED_RANKS, "backend": got["backend"],
+              "streams": "bf16" if cfg.bf16_stream else "f32",
+              "pack_kernels": fields.get("pack_kernels", False),
+              "edges": SHARDED_SMALL_EDGES, "steps": SMALL_STEPS,
+              "card_ranks_s": card_s, "vs_cpu_ranks": vs_cpu,
+              "vs_cpu_limits": tol,
+              "vs_one_rank_card": dict(vs_one, features=vs_one["features"]
+                                       / scale),
+              "state_bytes_a_rank": [r[j]["state_bytes"] for r in card],
+              "one_rank_state_bytes": single["state_bytes"],
+              "replicas_equal": replicas, "card_losses": got["losses"],
+              "launches_rank0": got["launches"], "held": True})
+        if not ok:
+            failed.append(name)
+    if failed:
+        fail(f"sharded_model_small_reference: {failed} disagree")
+    return launches
+
+
+def run_sharded_model_train(torch, dev, uqi, qw, qc):
+    """Phase ``sharded_model_train``: the default model at full width
+    (``bench.py``'s graph, E = 2M, d = 32) in SHARDED_RANKS gloo ranks
+    sharing the card, the tables' rows (89.6 MB) and their Adam moments
+    over the model axis: (2, 2), (1, 4) and (2, 2) with the rows over
+    every rank on f32 streams, (2, 2) on bf16 streams over the bf16 wire;
+    SHARDED_WARM + SHARDED_TIMED steps against one rank on the card on the
+    same graph, weights and batches. Held: the features before the first
+    step and every step-0 gradient (the tables' assembled from the
+    ranks' blocks) within SHARDED_RTOL of scale, the step-0 loss within
+    MODEL_LOSS_RTOL (bf16: BF16_FEATURE_RTOL and ROUTED_BF16_LOSS_RTOL);
+    every rank's one-device parameters equal bit for bit; every kernel of
+    the path launched in every rank, exactly a step's count times the
+    steps; every step's collectives exactly. Reported: each rank's step
+    time, its collectives and among them the tables' gathers and their
+    gradients' sums, peak memory and persistent parameter and Adam bytes
+    a rank (one rank's, as every rank of ``sharded_train`` holds them).
+    Returns ``(jobs, finish)`` as ``check_sharded_small`` does; ``finish``
+    returns the launches summed over the ranks, by mesh."""
+    from ihgnn_torch.config import ModelConfig
+    from ihgnn_torch.parallel.ranks import TrainJob
+
+    steps = SHARDED_WARM + SHARDED_TIMED
+    batches = [train_batch(uqi, I, TRAIN_B, TRAIN_K, 500 + k)
+               for k in range(steps)]
+    ihgnn = ModelConfig()
+    ihgnn16 = dataclasses.replace(ihgnn, bf16_stream=True)
+    # path: (mesh, ModelConfig, kernels, per step)
+    paths = {"2x2": ("2x2", ihgnn, IHGNN_TRAIN, IHGNN_STEP_LAUNCHES),
+             "1x4": ("1x4", ihgnn, IHGNN_TRAIN, IHGNN_STEP_LAUNCHES),
+             "2x2_both": ("2x2_both", ihgnn, IHGNN_TRAIN,
+                          IHGNN_STEP_LAUNCHES),
+             "2x2_bf16": ("2x2", ihgnn16, IHGNN_TRAIN_BF16,
+                          IHGNN_STEP_LAUNCHES_BF16)}
+
+    def job(name, cfg, mesh=None):
+        model, both = MODEL_MESHES[mesh] if mesh else (1, False)
+        return TrainJob(name, cfg, (U, Q, I, VOCAB), uqi, qw, qc, batches,
+                        seed=0, keep_state=True, keep_features=True,
+                        time_steps=SHARDED_TIMED, model_axis=model,
+                        table_shard_both=both)
+
+    jobs = [job(name, cfg, mesh) for name, (mesh, cfg, _, _) in paths.items()]
+    ones = [job("one_f32", ihgnn), job("one_bf16", ihgnn16)]
+    return jobs, lambda ranks, ranks_s: _finish_sharded_model_train(
+        paths, ones, steps, batches, ranks, ranks_s)
+
+
+def _finish_sharded_model_train(paths, ones, steps, batches, ranks,
+                                ranks_s):
+    """The second half of ``run_sharded_model_train`` (``ranks``: the
+    card ranks' results of its jobs; ``ones``: the one-rank f32 and bf16
+    jobs)."""
+    from ihgnn_torch.parallel.ranks import run_jobs
+
+    one = dict(zip(("f32", "bf16"), run_jobs(0, ones, "cuda")[0]))
+    launches, failed = {}, []
+    for j, (name, (mesh, cfg, expected, per_step)) in enumerate(
+            paths.items()):
+        model, both = MODEL_MESHES[mesh]
+        path = f"sharded_model_train_{name}"
+        _check_rank_counts(path, ranks, j, expected, per_step, steps)
+        _check_collectives(path, ranks, j, expected_collectives(
+            cfg, SHARDED_RANKS // model, model, both))
+        launches[path] = _sum_counts(ranks, j)
+        bf16 = cfg.bf16_stream
+        got, single = ranks[0][j], one["bf16" if bf16 else "f32"]
+        err = _model_case_errors(got, single)
+        scale = single["features"].abs().max().item()
+        rtol = BF16_FEATURE_RTOL if bf16 else SHARDED_RTOL
+        loss_err = abs(got["losses"][0] - single["losses"][0]) \
+            / abs(single["losses"][0])
+        loss_tol = ROUTED_BF16_LOSS_RTOL if bf16 else MODEL_LOSS_RTOL
+        replicas = len({r[j]["digest"] for r in ranks}) == 1
+        finite = all(np.isfinite(r[j]["losses"]).all() for r in ranks)
+        med = lambda key: [float(np.median(r[j][key])) for r in ranks]
+        emit({"phase": "sharded_model_train", "path": name,
+              "mesh": {"data": SHARDED_RANKS // model, "model": model,
+                       "table_shard_both": both},
+              "streams": "bf16" if bf16 else "f32", "bf16_wire": bf16,
+              "ranks": SHARDED_RANKS, "backend": got["backend"],
+              "note": ("the ranks share one card: not a multi-card time"
+                       if got["backend"] == "gloo" else "a card a rank"),
+              "edges_a_rank": E // (SHARDED_RANKS // model),
+              "rows_a_rank": len(batches[0].users) // (SHARDED_RANKS
+                                                        // model),
+              "steps": steps, "timed_steps": SHARDED_TIMED,
+              "rank_step_ms_median": med("step_ms"),
+              "rank_collective_ms_median": med("collective_ms"),
+              "rank_table_collective_ms_median":
+                  med("table_collective_ms"),
+              "rank_step_ms": [r[j]["step_ms"] for r in ranks],
+              "rank_collective_ms": [r[j]["collective_ms"] for r in ranks],
+              "rank_table_collective_ms": [r[j]["table_collective_ms"]
+                                           for r in ranks],
+              "max_memory_allocated_bytes": [
+                  r[j].get("max_memory_allocated_bytes") for r in ranks],
+              "one_rank_max_memory_allocated_bytes":
+                  single.get("max_memory_allocated_bytes"),
+              "state_bytes_a_rank": [r[j]["state_bytes"] for r in ranks],
+              "sharded_train_state_bytes_a_rank": single["state_bytes"],
+              "graph_s": [r[j]["graph_s"] for r in ranks],
+              "ranks_run_s": ranks_s, "losses": got["losses"],
+              "one_rank_losses": single["losses"],
+              "features_max_abs_err": err["features"],
+              "features_scale": scale, "features_rtol": rtol,
+              "grad0_rel_err_max": err["grad"], "grad_rtol": rtol,
+              "step0_loss_rel_err": loss_err, "loss_rtol": loss_tol,
+              "param_max_abs_err": err["param"], "replicas_equal": replicas,
+              "launches_rank0": got["launches"], "held": True})
+        if not (err["features"] <= rtol * scale and err["grad"] <= rtol
+                and loss_err <= loss_tol and replicas and finite):
+            failed.append(name)
+    if failed:
+        fail(f"sharded_model_train: {failed} disagree with one rank")
+    return launches
+
+
+def run_dryrun(torch, dev):
+    """Phase ``dryrun``: ``ihgnn_torch.entry``'s ``entry()`` forward on
+    the card, then ``dryrun_multichip(SHARDED_RANKS)``: one train step of
+    the tiny model at mesh (2, 2) in gloo ranks sharing the card, the
+    tables' rows over ``model``, each rank's slice with its routed pack.
+    Held: finite scores, a finite loss, every rank launched K1 and the
+    same kernels as the other rank of its data index, and the step's
+    collectives exactly. Returns the launches summed over the ranks."""
+    from ihgnn_torch.entry import dryrun_multichip, entry
+
+    t0 = time.perf_counter()
+    fn, args = entry()
+    scores = fn(*args)
+    torch.cuda.synchronize()
+    entry_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = dryrun_multichip(SHARDED_RANKS)
+    dryrun_s = time.perf_counter() - t0
+    from ihgnn_torch.config import ModelConfig
+    _check_collectives("dryrun", ranks, 0, expected_collectives(
+        ModelConfig(), SHARDED_RANKS // 2, 2))
+    launches = [r[0]["launches"] for r in ranks]
+    emit({"phase": "dryrun", "entry_scores": list(scores.shape),
+          "entry_s": entry_s, "dryrun_s": dryrun_s,
+          "mesh": {"data": SHARDED_RANKS // 2, "model": 2},
+          "backend": ranks[0][0]["backend"],
+          "losses": [r[0]["losses"][0] for r in ranks],
+          "launches": launches, "held": True})
+    if not torch.isfinite(scores).all():
+        fail("dryrun: entry() gave non-finite scores")
+    if not all(np.isfinite(r[0]["losses"]).all() for r in ranks):
+        fail(f"dryrun: losses {[r[0]['losses'] for r in ranks]}")
+    if not all(c["csr_gather_sum"] > 0 for c in launches) or any(
+            launches[r] != launches[r ^ 1] for r in range(len(launches))):
+        fail(f"dryrun: launches {launches}")
+    return _sum_counts(ranks, 0)
 
 
 # ---- Srrl and preprocessing: no hand-written kernel runs on these paths
@@ -4585,10 +5168,10 @@ def main() -> int:
     launches["cli"], cli_reference = run_cli(torch, dev)
 
     # data parallelism over the edge axis: ranks sharing the card
-    for case, counts in check_sharded_small(torch, dev).items():
-        launches[f"sharded_small_reference_{case}"] = counts
-    launches.update(run_sharded_train(torch, dev, uqi, qw, qc))
-    launches.update(run_sharded_layers(torch, dev, uqi, qw, qc))
+    # and the model axis: the tables' rows and their Adam moments over
+    # ranks; every phase's card ranks in one spawn
+    launches.update(run_sharded(torch, dev, uqi, qw, qc))
+    launches["dryrun"] = run_dryrun(torch, dev)
     launches["cli_mesh"] = run_cli_mesh(torch, dev, cli_reference)
     srrl_graph_data, srrl_data_s = srrl_data(uqi, qw, qc)
     emit({"phase": "srrl_data", "seconds": srrl_data_s,

@@ -13,23 +13,38 @@ report the best epoch by valid NDCG@10. It runs on the card unless
 does. ``--bf16_stream`` and ``--remat`` run (``models/rawgnn.py``);
 the CLI builds no routed pack, so its graphs take the direct path.
 
-``--mesh_data S`` trains data-parallel over S ranks (``parallel/``), one
-process each, started by ``torchrun --standalone --nproc_per_node S -m
-ihgnn_torch.cli --mesh_data S ...``, whose ``RANK``, ``WORLD_SIZE`` and
-``LOCAL_RANK`` it reads. A rank runs on card ``LOCAL_RANK`` with NCCL
-when there is a card a rank, else every rank on card 0 with gloo (the one
-layout one card allows; ``--device cpu``: gloo on the CPU); the log says
-which. The ranks build the same model from the seed and the graph,
-each keeps its slice of the padded edges and its block of each batch's
-rows (the sampler pads rows to a multiple of S), and every rank ends each
-step with the same parameters. Rank 0 alone writes the result directory,
-the log, the metrics, the long-tail CSV and the checkpoints, under a stamp
-it broadcasts; a resume reads rank 0's checkpoint on every rank. Every
-layer type runs under a mesh: GAT and phase-2 attention with a softmax
-over every rank's entries, the log hypergraph in blocks of whole edges.
-Flags whose modules are not ported yet raise ``NotImplementedError``
-before anything runs, naming their ROADMAP item (queue 1):
-``--mesh_model`` > 1, ``--multihost`` and Srrl under a mesh (8c).
+``--mesh_data D --mesh_model M`` trains over D × M ranks
+(``parallel/``), one process each, started by ``torchrun --standalone
+--nproc_per_node D·M -m ihgnn_torch.cli --mesh_data D --mesh_model M
+...``, whose ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` and
+``LOCAL_WORLD_SIZE`` it reads. A rank runs on card ``LOCAL_RANK`` with
+NCCL when its host has a card for each of its ranks, else every rank of
+the host on card 0 with gloo (the one layout one card allows; ``--device
+cpu``: gloo on the CPU); the log says which. The ranks build the same
+model from the seed and the graph; the ranks of data index k keep the
+k-th slice of the padded edges and of each batch's rows (the sampler pads
+rows to a multiple of D), and with M > 1 each rank keeps its block of the
+embedding tables' rows and of their Adam moments (``parallel/tables.py``),
+so every rank ends each step with the same replicated parameters. Rank 0
+alone writes the result directory, the log, the metrics, the long-tail CSV
+and the checkpoints (one-device format: the tables gathered), under a
+stamp it broadcasts; a resume reads rank 0's checkpoint on every rank and
+cuts out its blocks, on any mesh. Every layer type runs under a mesh: GAT
+and phase-2 attention with a softmax over every rank's entries, the log
+hypergraph in blocks of whole edges.
+
+``--multihost`` runs one process group across hosts, the counterpart of
+``jax.distributed.initialize()`` (``ihgnn_tpu/cli.py:66-69``): torchrun
+on each host (``--nnodes H --node_rank i --nproc_per_node P
+--master_addr ADDR --master_port PORT``), the backend and card chosen by
+the host's own ranks; the result directory must be on a file system that
+every host sees, as rank 0 writes it and every rank reads its
+checkpoint. Without it a process group that spans hosts is refused.
+
+``--model srrl`` under a mesh runs as ``ihgnn_tpu/cli.py:139-141`` does:
+the JAX package builds the mesh and runs ``run_srrl`` without it, on one
+device. Here every rank runs ``run_srrl`` on its own card from the same
+seed, and rank 0 alone writes.
 
 The epoch loop queues the train steps without waiting for the card: each
 step's loss stays a tensor on the device, and the epoch's losses reach the
@@ -55,6 +70,7 @@ from ihgnn_torch.models.rawgnn import RawGnn
 from ihgnn_torch.ops.hyperagg import strip_kernel_packing
 from ihgnn_torch.parallel import (Mesh, make_mesh, pad_graph_for_mesh,
                                   pick_backend, shard_graph)
+from ihgnn_torch.parallel.tables import shard_tables
 from ihgnn_torch.train.checkpoint import (find_latest, restore_checkpoint,
                                           save_checkpoint)
 from ihgnn_torch.train.controller import EpochSchedule
@@ -94,40 +110,30 @@ def pick_graph(data: GraphData, cfg: Config):
     return data.hypergraph
 
 
-def check_ported(cfg: Config) -> None:
-    """Raise ``NotImplementedError`` for a flag whose module is not ported
-    yet, naming the ROADMAP item (queue 1) that ports it."""
-    missing = []
-    if cfg.mesh.model > 1:
-        missing.append(f"--mesh_model {cfg.mesh.model} (ROADMAP queue 1 "
-                       "item 8c, the tables over the model axis)")
-    if cfg.runtime.multihost:
-        missing.append("--multihost (ROADMAP queue 1 item 8c)")
-    if cfg.mesh.data > 1 and cfg.model.model == V.SRRL:
-        missing.append("--model srrl under --mesh_data (ROADMAP queue 1 "
-                       "item 8c)")
-    if missing:
-        raise NotImplementedError("not ported to ihgnn_torch yet: "
-                                  + "; ".join(missing))
-
-
 def start_ranks(cfg: Config) -> Tuple[torch.device, Optional[Mesh]]:
-    """The run's device and, for ``--mesh_data`` S > 1, its ``Mesh``: the
-    process group of torchrun's S ranks (``RANK``, ``WORLD_SIZE``,
-    ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``), on card
-    ``LOCAL_RANK`` with NCCL when each rank has a card, else on one card
-    (or the CPU) with gloo."""
-    if cfg.mesh.data <= 1:
+    """The run's device and, for a mesh of more than one rank (or
+    ``--multihost``), its ``Mesh``: the process group of torchrun's ranks
+    (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``,
+    ``MASTER_ADDR``/``MASTER_PORT``), each on card ``LOCAL_RANK`` with
+    NCCL when its host has a card a rank, else on one card (or the CPU)
+    with gloo."""
+    if cfg.mesh.device_count <= 1 and not cfg.runtime.multihost:
         return resolve_device(cfg.runtime.device), None
+    ranks = cfg.mesh.device_count
     if "WORLD_SIZE" not in os.environ:
-        raise ValueError(f"--mesh_data {cfg.mesh.data} runs one process a "
-                         "rank: start it with torchrun --standalone "
-                         f"--nproc_per_node {cfg.mesh.data} -m "
-                         "ihgnn_torch.cli ...")
+        raise ValueError(f"--mesh_data {cfg.mesh.data} --mesh_model "
+                         f"{cfg.mesh.model} runs one process a rank: start "
+                         "it with torchrun --standalone --nproc_per_node "
+                         f"{ranks} -m ihgnn_torch.cli ... (across hosts: "
+                         "--nnodes and --multihost)")
     world = int(os.environ["WORLD_SIZE"])
     local = int(os.environ.get("LOCAL_RANK", os.environ["RANK"]))
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    if local_world != world and not cfg.runtime.multihost:
+        raise ValueError(f"the process group spans hosts ({world} ranks, "
+                         f"{local_world} on this host): pass --multihost")
     dev = resolve_device(cfg.runtime.device)
-    backend = pick_backend(world, dev)
+    backend = pick_backend(local_world, dev)
     if dev.type == "cuda":
         dev = torch.device("cuda", local if backend == "nccl" else 0)
         torch.cuda.set_device(dev)
@@ -141,8 +147,18 @@ def broadcast_from_rank0(value, mesh: Optional[Mesh]):
     if mesh is None:
         return value
     box = [value]
-    dist.broadcast_object_list(box, src=0, group=mesh.group)
+    dist.broadcast_object_list(box, src=0, group=mesh.world_group)
     return box[0]
+
+
+def checkpoint_name(cfg: Config, result_dir: str,
+                    mesh: Optional[Mesh]) -> str:
+    """``--checkpoint`` as rank 0 resolves it (``latest``: its newest
+    ``checkpoint_*`` file), on every rank."""
+    name = cfg.io.checkpoint
+    if name == "latest" and (mesh is None or mesh.rank == 0):
+        name = find_latest(result_dir) or name
+    return broadcast_from_rank0(name, mesh)
 
 
 def build_model(cfg: Config, data: GraphData,
@@ -155,6 +171,12 @@ def build_model(cfg: Config, data: GraphData,
     return model.to(device)
 
 
+def _host_count() -> int:
+    """The hosts of torchrun's process group (``GROUP_WORLD_SIZE``: its
+    nodes), 1 without torchrun."""
+    return int(os.environ.get("GROUP_WORLD_SIZE", 1))
+
+
 def _device_text(dev: torch.device) -> str:
     if dev.type == "cuda":
         return f"{dev} ({torch.cuda.get_device_name(dev)})"
@@ -165,7 +187,6 @@ def run(cfg: Config) -> MetricsCollection:
     """One experiment: train and evaluate as ``cfg`` says, tee the log
     into the result directory, and return the per-epoch metrics and
     ``EpochStats``."""
-    check_ported(cfg)
     dev, mesh = start_ranks(cfg)
     lead = mesh is None or mesh.rank == 0
     try:
@@ -186,7 +207,7 @@ def run(cfg: Config) -> MetricsCollection:
             end_logging()
     finally:
         if mesh is not None:
-            dist.destroy_process_group(mesh.group)
+            dist.destroy_process_group()
 
 
 def _run(cfg: Config, dev: torch.device, result_dir: str,
@@ -196,8 +217,9 @@ def _run(cfg: Config, dev: torch.device, result_dir: str,
     log_print(f"device: {_device_text(dev)}")
     log_print(f"mesh: data={cfg.mesh.data} model={cfg.mesh.model}"
               + ("" if mesh is None else
-                 f" | {mesh.data} ranks, backend {mesh.backend}, bf16 wire "
-                 f"{'on' if mesh.bf16_wire else 'off'}"))
+                 f" | {mesh.data * mesh.model} ranks on "
+                 f"{_host_count()} host(s), backend {mesh.backend}, bf16 "
+                 f"wire {'on' if mesh.bf16_wire else 'off'}"))
     log_print(f"batch size: {t.batch_size} | lr: {t.learning_rate} | "
               f"emb: {cfg.model.embedding_size} | wd: {t.weight_decay}")
     log_print(f"neg sampling rand/nonrand: {t.random_negative_sample_size}/"
@@ -234,9 +256,20 @@ def _run(cfg: Config, dev: torch.device, result_dir: str,
               f"test logs {test.count}/{test.line_count}")
 
     if cfg.model.model == V.SRRL:
+        # under a mesh every rank trains its own replica from the seed on
+        # its card (the JAX package runs Srrl on one device); rank 0 writes
+        if cfg.io.checkpoint:
+            cfg = dataclasses.replace(cfg, io=dataclasses.replace(
+                cfg.io, checkpoint=checkpoint_name(cfg, result_dir, mesh)))
         all_metrics = run_srrl(cfg, data, valid, test, result_dir,
-                               fn_metrics, dev)
-        report_best(cfg, all_metrics, result_dir, fn_metrics)
+                               fn_metrics, dev, lead=lead)
+        if lead:
+            report_best(cfg, all_metrics, result_dir, fn_metrics)
+        if cfg.runtime.run_record:
+            write_run_record(cfg.runtime.run_record,
+                             0 if mesh is None else mesh.rank,
+                             None if mesh is None else mesh.backend,
+                             all_metrics)
         return all_metrics
 
     # ---- model ----
@@ -247,6 +280,9 @@ def _run(cfg: Config, dev: torch.device, result_dir: str,
     if mesh is not None:
         graph = shard_graph(pad_graph_for_mesh(graph, mesh.data), mesh)
     model = build_model(cfg, data, dev)
+    if mesh is not None:
+        # a rank's blocks of the tables' rows (model axis); before Adam
+        model = shard_tables(model, mesh)
     optimizer = make_optimizer(model.parameters(), t)
     log_params(model)
 
@@ -254,12 +290,9 @@ def _run(cfg: Config, dev: torch.device, result_dir: str,
     # rank ----
     epoch_start = 1
     if cfg.io.checkpoint:
-        name = cfg.io.checkpoint
-        if name == "latest" and lead:
-            name = find_latest(result_dir) or name
-        epoch_ckpt = restore_checkpoint(result_dir,
-                                        broadcast_from_rank0(name, mesh),
-                                        model, optimizer)
+        epoch_ckpt = restore_checkpoint(
+            result_dir, checkpoint_name(cfg, result_dir, mesh), model,
+            optimizer, mesh=mesh)
         epoch_start = epoch_ckpt + 1
         log_print(f"restored checkpoint at epoch {epoch_ckpt}")
 
@@ -327,11 +360,14 @@ def _run(cfg: Config, dev: torch.device, result_dir: str,
                           f"absmean={s['absmean']:.6f} std={s['std']:.6f}")
 
         if schedule.is_store_epoch(epoch):
-            if lead:
-                name = save_checkpoint(result_dir, epoch, model, optimizer)
-                log_print(f"checkpoint saved: {name}")
+            # under a mesh every rank gathers its table blocks, rank 0
+            # writes the one-device state
+            name = save_checkpoint(result_dir, epoch, model, optimizer,
+                                   mesh=mesh)
             if mesh is not None:
-                dist.barrier(group=mesh.group)
+                dist.barrier(group=mesh.world_group)
+            if lead:
+                log_print(f"checkpoint saved: {name}")
 
         eval_s = None
         if schedule.is_test_epoch(epoch):

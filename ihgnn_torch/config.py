@@ -11,8 +11,8 @@ mean query transform, dot-product HEM head.
 The fields of the port's own are ``RuntimeConfig.device`` (``--device``,
 default ``cuda``), the counterpart of the JAX package's platform choice,
 and ``RuntimeConfig.run_record`` (``--run_record DIR``: each rank's
-record of the run). Knobs whose modules are not ported yet (the mesh's model
-axis, multi-host) parse as in the JAX package; the CLI refuses them.
+record of the run). Every knob of the JAX package runs, the mesh's model
+axis and ``--multihost`` among them.
 """
 
 from __future__ import annotations
@@ -132,8 +132,8 @@ class TrainConfig:
 class MeshConfig:
     """Device mesh shape: the data axis shards the batch and the
     hyperedges (one rank a slice, ``ihgnn_torch/parallel``), the model
-    axis the embedding tables' rows, which the port does not run yet
-    (model = 1)."""
+    axis the embedding tables' rows and their Adam moments
+    (``parallel/tables.py``)."""
 
     data: int = 1
     model: int = 1
@@ -256,7 +256,8 @@ def parse_args(argv=None) -> Config:
     p.add_argument("--mesh_data", type=int, default=1)
     p.add_argument("--mesh_model", type=int, default=1)
     p.add_argument("--multihost", action="store_true", default=False,
-                   help="one process per host (not ported yet)")
+                   help="one process group across hosts (torchrun "
+                        "--nnodes on each host)")
     p.add_argument("--no_pallas", action="store_true", default=False,
                    help="strip a routed kernel pack from the graph")
     p.add_argument("--debug_stats", action="store_true", default=False,

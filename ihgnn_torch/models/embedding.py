@@ -14,7 +14,10 @@ Counterpart of ``ihgnn_tpu/models/embedding.py`` ``EmbeddingTables``
   'activation'``, EmbeddingLayers.py:38-48).
 
 Tables are row-major ``[rows, d]`` (the JAX package stores them
-feature-major ``[d, rows]``), xavier-uniform over (rows, d).
+feature-major ``[d, rows]``), xavier-uniform over (rows, d). On a mesh
+with a model axis a rank holds a block of each table's rows
+(``parallel/tables.py`` ``shard_tables``, which sets ``table_mesh``), and
+``tables()`` gathers the full tables from every rank's blocks.
 """
 
 from __future__ import annotations
@@ -49,6 +52,11 @@ class EmbeddingTables(nn.Module):
         self.user_count = user_count
         self.item_count = item_count
         self.query_transform = query_transform
+        # the tables' logical rows; a rank's blocks hold fewer
+        self.rows = {"user_table": user_count + 1,
+                     "item_table": item_count + 1,
+                     "vocab_table": vocab_size + 1}
+        self.table_mesh = None
         self.user_table = _table(user_count + 1, d, True, generator)
         self.item_table = _table(item_count + 1, d, True, generator)
         # EmbeddingBag has no padding_idx in the reference; row 0 is only
@@ -59,11 +67,27 @@ class EmbeddingTables(nn.Module):
         elif query_transform != V.MEAN:
             raise ValueError(f"unknown query transform {query_transform!r}")
 
-    def embed_query(self, bag: WordBag) -> torch.Tensor:
-        """``[Q, d]`` bag means (then Linear + ReLU under 'activation');
-        ``bag`` is a ``WordBag`` or a rank's ``ShardedBag``
-        (``parallel/sharding.py``), which all-gathers the ranks' slices."""
-        out = bag.mean(self.vocab_table)
+    def tables(self):
+        """``(user, item, vocab)`` tables, whole: the parameters, or on a
+        mesh with a model axis the full tables gathered from every rank's
+        blocks (``GatherTablesFn``)."""
+        if self.table_mesh is None:
+            return self.user_table, self.item_table, self.vocab_table
+        from ihgnn_torch.parallel.tables import TABLES, gather_tables
+        return gather_tables(self.table_mesh,
+                             [self.rows[n] for n in TABLES],
+                             [getattr(self, n) for n in TABLES])
+
+    def embed_query(self, bag: WordBag,
+                    vocab_table: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+        """``[Q, d]`` bag means of ``vocab_table`` (default: the module's
+        whole table) (then Linear + ReLU under 'activation'); ``bag`` is a
+        ``WordBag`` or a rank's ``ShardedBag`` (``parallel/sharding.py``),
+        which all-gathers the ranks' slices."""
+        if vocab_table is None:
+            vocab_table = self.tables()[2]
+        out = bag.mean(vocab_table)
         if self.query_transform == V.ACTIVATION:
             out = torch.relu(self.query_mlp(out))
         return out
@@ -71,8 +95,9 @@ class EmbeddingTables(nn.Module):
     def all_features(self, bag: WordBag) -> torch.Tensor:
         """X0 = [users | queries | items] in global node order, ``[N, d]``
         (RawGnn.py:112)."""
+        users, items, vocab = self.tables()
         return torch.cat([
-            self.user_table[1:self.user_count + 1],
-            self.embed_query(bag),
-            self.item_table[1:self.item_count + 1],
+            users[1:self.user_count + 1],
+            self.embed_query(bag, vocab),
+            items[1:self.item_count + 1],
         ], dim=0)

@@ -16,6 +16,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ihgnn_torch.ops.rows import take_rows
+
 COSINE_EPS = 1e-8
 
 
@@ -45,7 +47,7 @@ class HemPredictionLayer(nn.Module):
                    item_indices: torch.Tensor) -> torch.Tensor:
         """``[R, F]`` rows of (u, q, i) → ``[R]`` scores."""
         m = self._m_uq(user_feature, query_feature)
-        bias = self.items_bias[item_indices.long()]
+        bias = take_rows(self.items_bias, item_indices)
         if self.use_cosine_similarity:
             num = (item_feature * m).sum(-1)
             den = torch.clamp(item_feature.norm(dim=-1) * m.norm(dim=-1),

@@ -16,6 +16,8 @@ backward (``torch.utils.checkpoint``), the counterpart of ``nn.checkpoint``
 (``ihgnn_tpu/models/rawgnn.py:103-107``): a layer's activations are not
 kept between the forward and the backward, and every kernel is
 deterministic, so the gradients are those without remat, bit for bit.
+The batch's rows are gathered by ``ops/rows.py`` ``take_rows``, whose
+gradient adds repeated rows in a fixed order on either device.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from ihgnn_torch.graph import AnyGraph, Graph2D, HyperGraph, LogHyperGraph
 from ihgnn_torch.models.embedding import EmbeddingTables, WordBag
 from ihgnn_torch.models.layers import GATLayer, GCNLayer, HGCNLayer, IHGNNLayer
 from ihgnn_torch.models.prediction import HemPredictionLayer
+from ihgnn_torch.ops.rows import take_rows
 
 
 class RawGnn(nn.Module):
@@ -89,10 +92,9 @@ class RawGnn(nn.Module):
 
     @property
     def table_rows(self) -> dict:
-        """The embedding tables' rows, as ``convert.params_from_jax``
-        takes them."""
-        emb = self.embeddings
-        return {name: getattr(emb, f"{name}_table").shape[0]
+        """The embedding tables' logical rows (a rank's blocks hold
+        fewer), as ``convert.params_from_jax`` takes them."""
+        return {name: self.embeddings.rows[f"{name}_table"]
                 for name in ("user", "item", "vocab")}
 
     @property
@@ -124,8 +126,9 @@ class RawGnn(nn.Module):
         """``[R]`` scores of (user, query, item) triples (0-based ids)."""
         users, queries, items = users.long(), queries.long(), items.long()
         return self.prediction.score_rows(
-            features[users], features[queries + self.query_start],
-            features[items + self.item_start], items)
+            take_rows(features, users),
+            take_rows(features, queries + self.query_start),
+            take_rows(features, items + self.item_start), items)
 
     def tail_restricted(self, graph: AnyGraph) -> bool:
         """Whether ``score_tail`` applies: IHGNN layers (no phase 2) on a
@@ -152,7 +155,7 @@ class RawGnn(nn.Module):
         mine = torch.arange(rows.start, rows.stop, device=nodes.device)
         pick = torch.cat([mine, mine + r, mine + 2 * r])
         x = self.embeddings.all_features(bag)
-        cols = [x[nodes[pick]]]
+        cols = [take_rows(x, nodes[pick])]
         remat = self.cfg.remat and torch.is_grad_enabled()
         last = len(self.gnns) - 1
         for k, gnn in enumerate(self.gnns):
@@ -160,10 +163,10 @@ class RawGnn(nn.Module):
             out = (checkpoint(gnn, *args, use_reentrant=False) if remat
                    else gnn(*args))
             if k == last:
-                cols.append(out[pick])
+                cols.append(take_rows(out, pick))
             else:
                 x = out
-                cols.append(x[nodes[pick]])
+                cols.append(take_rows(x, nodes[pick]))
         feats = torch.cat(cols, dim=1)
         n = len(mine)
         return self.prediction.score_rows(feats[:n], feats[n:2 * n],

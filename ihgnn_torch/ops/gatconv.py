@@ -124,7 +124,8 @@ class GatConvFn(torch.autograd.Function):
             w = w * csr.mask
         den = csr_segment_sum(w, csr.dst_rowptr)
         if mesh is not None:
-            den = all_reduce_sum(den, mesh, kind="scalar")
+            den = all_reduce_sum(den, mesh, kind="scalar",
+                                 site="softmax_sum")
         alpha = w / torch.clamp(_take(den, csr.dst), min=1e-30)
         ctx.save_for_backward(x, khead, alpha, slope)
         ctx.csr, ctx.head, ctx.mesh = csr, head, mesh
@@ -140,7 +141,8 @@ class GatConvFn(torch.autograd.Function):
         tt = alpha * csr_edge_dot(cot, x, csr.dot_order)
         tsum = csr_segment_sum(tt, csr.dst_rowptr)
         if ctx.mesh is not None:
-            tsum = all_reduce_sum(tsum, ctx.mesh, kind="scalar")
+            tsum = all_reduce_sum(tsum, ctx.mesh, kind="scalar",
+                                  site="grad:softmax_tsum")
         g = (tt - alpha * _take(tsum, csr.dst)) * slope
         g_src = _take(g, csr.to_dst)
         dx = csr_gather_sum(cot, csr.src_dst, csr.src_rowptr,

@@ -13,15 +13,21 @@ build it.
 
 ``run_jobs(world, jobs, device)`` runs the jobs one after the other in
 one spawn of ``world`` ranks (``world`` = 0: in this process, without a
-mesh) and returns ``[rank][job]`` results. A job is a ``TrainJob`` or a
-picklable ``job(mesh, device)`` of an importable module. A
-``TrainJob``'s result holds the losses of every step, a SHA-256 of every
-parameter's bytes after the last step (equal on every rank when the
-replicas agree), the kernel launches during the steps and the chunks of
-the rank's routed pack; on request, rank 0's step-0 gradients (after the
-sum over ranks) and parameters, its features of ``all_features`` before
-the first step, and each rank's step and collective times (and the
-softmax's scalar all-reduces among them). Nothing here imports JAX.
+mesh) and returns ``[rank][job]`` results. A job runs on a mesh of
+``world / model_axis`` × ``model_axis`` ranks (its ``model_axis``, 1 when
+it has none), the tables' rows over all of them with its
+``table_shard_both``. A job is a ``TrainJob`` or a picklable
+``job(mesh, device)`` of an importable module. A ``TrainJob``'s result
+holds the losses of every step, a SHA-256 of every parameter's bytes
+after the last step in the one-device format (the tables gathered: equal
+on every rank when the replicas agree), the kernel launches during the
+steps, the collectives of every step (``collectives.RECORD``), the
+rank's persistent parameter and Adam bytes and the chunks of the rank's
+routed pack; on request, rank 0's step-0 gradients (after the sum over
+ranks) and parameters, one-device format, its features of
+``all_features`` before the first step, and each rank's step and
+collective times (and among them the softmax's scalar all-reduces and the
+tables' gathers). Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -66,6 +72,10 @@ class TrainJob:
     # the log hypergraph's edges laid end to end: (member ids, sizes)
     log_edges: Optional[tuple] = None
     bf16_wire: bool = True
+    # the mesh's model axis (the tables' rows over it), and the rows over
+    # every rank instead
+    model_axis: int = 1
+    table_shard_both: bool = False
     grad_accum_steps: int = 1
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     keep_state: bool = False          # rank 0's step-0 grads and params
@@ -73,9 +83,9 @@ class TrainJob:
     time_steps: int = 0               # the last steps timed (0: none)
 
 
-def _digest(model) -> str:
+def _digest(state: dict) -> str:
     h = hashlib.sha256()
-    for name, p in model.state_dict().items():
+    for name, p in state.items():
         h.update(name.encode())
         h.update(p.detach().cpu().contiguous().numpy().tobytes())
     return h.hexdigest()
@@ -113,6 +123,8 @@ def run_job(job: TrainJob, mesh, device) -> dict:
     from ihgnn_torch.models.rawgnn import RawGnn
     from ihgnn_torch.ops import launches
     from ihgnn_torch.parallel import collectives
+    from ihgnn_torch.parallel.tables import (gather_grads, gather_params,
+                                             shard_tables, state_bytes)
     from ihgnn_torch.train.eval import make_eval_fns
     from ihgnn_torch.train.train import make_optimizer, make_train_step
 
@@ -129,6 +141,8 @@ def run_job(job: TrainJob, mesh, device) -> dict:
     if job.state is not None:
         model.load_state_dict(job.state)
     model = model.to(dev)
+    if mesh is not None:
+        model = shard_tables(model, mesh)
     lead = mesh is None or mesh.rank == 0
     if job.keep_features:
         # every rank takes part in the forward's collectives
@@ -148,9 +162,11 @@ def run_job(job: TrainJob, mesh, device) -> dict:
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
     launches.zero_launches()
-    losses, step_ms, collective_ms, scalar_ms = [], [], [], []
+    losses, step_ms, collective_ms, scalar_ms, table_ms = [], [], [], [], []
+    records = []
     timed_from = len(job.batches) - job.time_steps
     for k, batch in enumerate(job.batches):
+        collectives.set_recording(True)
         timed = job.time_steps and k >= timed_from
         if timed:
             if cuda:
@@ -166,23 +182,34 @@ def run_job(job: TrainJob, mesh, device) -> dict:
             collective_ms.append(sum(ms for _, ms in collectives.TIMES))
             scalar_ms.append(sum(ms for kind, ms in collectives.TIMES
                                  if kind == "scalar"))
+            table_ms.append(sum(ms for kind, ms in collectives.TIMES
+                                if kind == "table"))
+        collectives.set_recording(False)
+        records.append(list(collectives.RECORD))
         losses.append(loss.item())
-        if k == 0 and job.keep_state and lead:
-            out["grads0"] = {n: p.grad.detach().cpu().clone()
-                             for n, p in model.named_parameters()}
-    out["losses"] = losses
-    out["digest"] = _digest(model)
-    if job.keep_state and lead:
-        out["params"] = {n: v.detach().cpu() for n, v in
-                         model.state_dict().items()}
+        if k == 0 and job.keep_state:
+            # every rank takes part in gathering the table blocks' grads
+            grads = gather_grads(model)
+            if lead:
+                out["grads0"] = {n: g.cpu() for n, g in grads.items()}
+            del grads
     out["launches"] = launches.launch_counts()
+    if cuda:
+        out["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated(
+            dev)
+    out["losses"] = losses
+    out["collectives"] = records
+    out["state_bytes"] = state_bytes(model, optimizer)
+    params = gather_params(model)
+    out["digest"] = _digest(params)
+    if job.keep_state and lead:
+        out["params"] = {n: v.cpu() for n, v in params.items()}
+    del params
     if job.time_steps:
         out["step_ms"] = step_ms
         out["collective_ms"] = collective_ms
         out["scalar_collective_ms"] = scalar_ms
-    if cuda:
-        out["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated(
-            dev)
+        out["table_collective_ms"] = table_ms
     return out
 
 
@@ -202,8 +229,12 @@ def _rank_main(rank: int, world: int, store: str, results: str, jobs,
     try:
         out = []
         for job in jobs:
-            mesh = make_mesh(MeshConfig(data=world), backend,
-                             bf16_wire=getattr(job, "bf16_wire", True))
+            model = getattr(job, "model_axis", 1)
+            mesh = make_mesh(MeshConfig(data=world // model, model=model),
+                             backend,
+                             bf16_wire=getattr(job, "bf16_wire", True),
+                             table_shard_both=getattr(job, "table_shard_both",
+                                                      False))
             out.append(run_job(job, mesh, device)
                        if isinstance(job, TrainJob) else job(mesh, device))
         torch.save(out, os.path.join(results, f"rank{rank}.pt"))

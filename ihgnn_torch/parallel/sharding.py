@@ -36,9 +36,11 @@ rank here builds its own slice on the host:
 * ``ShardedBag`` — the rank's slice of the queries' word bags, dummy
   empty queries padding Q to a multiple of the data axis.
 
-Left for later (ROADMAP queue 1): the tables over ``model`` (item 8c,
-``make_mesh`` raises). A 2D graph's routed packs are dropped by the
-padding, as the JAX package strips them under a mesh.
+Every slice is by the rank's data index (``Mesh.data_index``): the ranks
+of one data index on a mesh with a model axis hold the same slice. The
+tables' rows over ``model`` are ``parallel/tables.py``'s. A 2D graph's
+routed packs are dropped by the padding, as the JAX package strips them
+under a mesh.
 """
 
 from __future__ import annotations
@@ -137,7 +139,8 @@ def pad_graph_for_mesh(graph, data_parallel: int):
 
 def shard_graph(graph, mesh: Mesh, pack_kernels: bool = False,
                 chunk_rows_cap: int = CHUNK_ROWS_CAP):
-    """Rank ``mesh.rank``'s slice of the padded CPU ``graph`` (see the
+    """The slice of data index ``mesh.data_index`` of the padded CPU
+    ``graph`` (see the
     module docstring); its node sums are partials the layers combine over
     ``mesh``. ``pack_kernels``: a hypergraph slice carries the routed pack
     of its real edges, in chunks of at most ``chunk_rows_cap`` grid rows."""
@@ -191,11 +194,12 @@ def shard_batch(batch: Batch, mesh: Mesh) -> Batch:
 
 @dataclasses.dataclass(frozen=True)
 class ShardedBag:
-    """The rank's slice of the word bags: queries ``[r·Qs, (r+1)·Qs)`` of
+    """The rank's slice of the word bags: queries ``[k·Qs, (k+1)·Qs)`` of
     ``Qs = ceil(Q / S)``, dummy queries with no word past Q
-    (``ShardedBagPack``, ``ihgnn_tpu/ops/bag.py:233-333``). Its ``mean``
-    is every rank's slice of bag means all-gathered, the first Q rows; the
-    vocab table's gradient is the rank's partial."""
+    (``ShardedBagPack``, ``ihgnn_tpu/ops/bag.py:233-333``), k the data
+    index. Its ``mean`` is every data index's slice of bag means
+    all-gathered over the data group, the first Q rows; the vocab table's
+    gradient is the rank's partial."""
 
     local: WordBag
     query_count: int
@@ -216,7 +220,7 @@ def shard_bag(query_words, query_word_counts, vocab_rows: int,
     counts = np.asarray(query_word_counts)
     q = len(words)
     per = -(-max(q, 1) // mesh.data)
-    lo, hi = mesh.rank * per, min((mesh.rank + 1) * per, q)
+    lo, hi = mesh.data_index * per, min((mesh.data_index + 1) * per, q)
     mine_w = np.zeros((per, words.shape[1]), words.dtype)
     mine_c = np.zeros(per, counts.dtype)
     if hi > lo:

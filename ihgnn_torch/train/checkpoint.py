@@ -9,7 +9,12 @@ way (Main.py:195-214, 252-262): one ``torch.save`` file of
 lexicographically last ``checkpoint_*`` entry. Under a mesh
 (``--mesh_data``) rank 0 alone saves, and every rank restores rank 0's
 file (``cli.py``), so no two ranks stamp a checkpoint from their own
-clocks.
+clocks. With the tables' rows over the model axis, every rank takes part
+in gathering the tables and their Adam moments, and rank 0 saves them in
+the one-device format (as ``ihgnn_tpu/cli.py:228-236`` does with
+``process_allgather``); a restore cuts each rank's blocks out of it, so a
+checkpoint of any mesh resumes on any other, or on one device. The
+result directory must then be on a file system every host sees.
 """
 
 from __future__ import annotations
@@ -27,12 +32,23 @@ def checkpoint_name(epoch: int) -> str:
 
 
 def save_checkpoint(result_dir: str, epoch: int, model: torch.nn.Module,
-                    optimizer: torch.optim.Optimizer) -> str:
-    """Write the state under ``result_dir``; returns the file's name."""
+                    optimizer: torch.optim.Optimizer,
+                    mesh=None) -> Optional[str]:
+    """Write the state under ``result_dir``; returns the file's name.
+    With ``mesh`` every rank calls it, rank 0 writes the one-device state
+    and returns its name, the others None."""
+    if mesh is None:
+        model_state, opt_state = model.state_dict(), optimizer.state_dict()
+    else:
+        from ihgnn_torch.parallel.tables import (gather_optimizer_state,
+                                                 gather_params)
+        model_state = gather_params(model)
+        opt_state = gather_optimizer_state(optimizer, model)
+        if mesh.rank != 0:
+            return None
     name = checkpoint_name(epoch)
-    torch.save({"epoch_count": epoch, "model": model.state_dict(),
-                "optimizer": optimizer.state_dict()},
-               os.path.join(result_dir, name))
+    torch.save({"epoch_count": epoch, "model": model_state,
+                "optimizer": opt_state}, os.path.join(result_dir, name))
     return name
 
 
@@ -45,7 +61,7 @@ def find_latest(result_dir: str) -> Optional[str]:
 
 
 def restore_checkpoint(result_dir: str, name: str, model: torch.nn.Module,
-                       optimizer: torch.optim.Optimizer) -> int:
+                       optimizer: torch.optim.Optimizer, mesh=None) -> int:
     """Load checkpoint ``name`` (or ``latest``) into ``model`` and
     ``optimizer`` and return its epoch. The optimizer must already hold the
     model's parameters on their device.
@@ -54,7 +70,8 @@ def restore_checkpoint(result_dir: str, name: str, model: torch.nn.Module,
     parameters and Adam's moments onto the parameters' device and leaves
     Adam's step counters on the CPU, where a fresh run keeps them. A step
     counter on the card would make every later Adam step read it back to
-    the host."""
+    the host. With ``mesh`` (the tables over its model axis) each rank
+    loads its blocks of the tables and of their moments."""
     if name == "latest":
         resolved = find_latest(result_dir)
         if resolved is None:
@@ -62,6 +79,12 @@ def restore_checkpoint(result_dir: str, name: str, model: torch.nn.Module,
         name = resolved
     saved = torch.load(os.path.join(result_dir, name), map_location="cpu",
                        weights_only=True)
-    model.load_state_dict(saved["model"])
-    optimizer.load_state_dict(saved["optimizer"])
+    model_state, opt_state = saved["model"], saved["optimizer"]
+    if mesh is not None:
+        from ihgnn_torch.parallel.tables import (shard_optimizer_state,
+                                                 shard_params)
+        model_state = shard_params(model_state, model.embeddings.table_mesh)
+        opt_state = shard_optimizer_state(opt_state, optimizer, model)
+    model.load_state_dict(model_state)
+    optimizer.load_state_dict(opt_state)
     return int(saved["epoch_count"])

@@ -50,7 +50,7 @@ def make_eval_fns(model: RawGnn, graph: AnyGraph, query_words,
                          "has users + queries + items = "
                          f"{model.user_count + model.query_count + model.item_count}")
     words = np.asarray(query_words)
-    vocab_rows = model.embeddings.vocab_table.shape[0]
+    vocab_rows = model.embeddings.rows["vocab_table"]
     if len(words) != model.query_count or (words.size and (
             words.min() < 0 or words.max() >= vocab_rows)):
         raise ValueError(f"query_words must be [{model.query_count}, L] "

@@ -222,11 +222,13 @@ def _host_mean(losses) -> float:
 
 
 def run_srrl(cfg: Config, data: GraphData, valid: EvalLogs, test: EvalLogs,
-             result_dir: str, fn_metrics: str,
-             dev: torch.device) -> MetricsCollection:
+             result_dir: str, fn_metrics: str, dev: torch.device,
+             lead: bool = True) -> MetricsCollection:
     """The Srrl branch of the experiment: train and evaluate as ``cfg``
     says on ``dev``; returns the per-epoch metrics and ``EpochStats``.
-    Each phase's losses stay on the device until the phase ends."""
+    Each phase's losses stay on the device until the phase ends. Only a
+    ``lead`` run writes checkpoints and metrics (under a mesh every rank
+    runs its own replica, and rank 0 leads)."""
     t = cfg.train
     model = build_srrl(cfg, data, dev)
     optimizer = make_optimizer(model, t.learning_rate)
@@ -282,7 +284,7 @@ def run_srrl(cfg: Config, data: GraphData, valid: EvalLogs, test: EvalLogs,
                   f"in {time.perf_counter() - t1:.2f}s "
                   f"(remaining {schedule.remaining_text(epoch)})")
 
-        if schedule.is_store_epoch(epoch):
+        if schedule.is_store_epoch(epoch) and lead:
             name = save_checkpoint(result_dir, epoch, model, optimizer)
             log_print(f"checkpoint saved: {name}")
 
@@ -304,7 +306,7 @@ def run_srrl(cfg: Config, data: GraphData, valid: EvalLogs, test: EvalLogs,
                 all_metrics.add(epoch, m_t)
                 schedule.record_eval_seconds(time_t)
             eval_s = time.perf_counter() - t_eval
-            if cfg.io.store_metrics:
+            if cfg.io.store_metrics and lead:
                 with open(os.path.join(result_dir, fn_metrics), "a",
                           encoding="utf-8") as f:
                     f.write(f"Epoch {epoch} Avg loss {avg_loss:.4f}\n"

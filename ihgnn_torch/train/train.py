@@ -30,6 +30,7 @@ from ihgnn_torch.models.rawgnn import RawGnn
 from ihgnn_torch.parallel.collectives import all_reduce_sum, reduce_gradients
 from ihgnn_torch.parallel.mesh import Mesh
 from ihgnn_torch.parallel.sharding import shard_bag
+from ihgnn_torch.parallel.tables import replicated_parameters
 
 
 def make_optimizer(params: Iterable[torch.nn.Parameter],
@@ -87,7 +88,11 @@ def make_train_step(model: RawGnn, graph: AnyGraph, query_words,
     loss (sum-of-partials, ``parallel/collectives.py``), the gradients
     are summed over the ranks once, after the last microbatch, and Adam
     updates every rank's replica alike. The returned loss is the sum over
-    the ranks, the whole batch's."""
+    the ranks, the whole batch's. "The ranks" are the data group: on a
+    mesh with a model axis the ranks of one data index hold the same rows
+    and loss, and each its blocks of the tables (``parallel/tables.py``
+    ``shard_tables``, done before the optimizer is made), whose gradients
+    the tables' gather sums."""
     dev = model_device(model, device)
     if grad_accum_steps < 1:
         raise ValueError(f"grad_accum_steps must be >= 1, got "
@@ -96,7 +101,7 @@ def make_train_step(model: RawGnn, graph: AnyGraph, query_words,
         raise ValueError("a mesh step takes a rank's slice of the graph "
                          "(shard_graph), and a one-device step the graph")
     graph = graph.to(dev)
-    vocab_rows = model.embeddings.vocab_table.shape[0]
+    vocab_rows = model.embeddings.rows["vocab_table"]
     bag = (make_word_bag(query_words, query_word_counts, vocab_rows)
            if mesh is None else
            shard_bag(query_words, query_word_counts, vocab_rows, mesh)
@@ -135,8 +140,8 @@ def make_train_step(model: RawGnn, graph: AnyGraph, query_words,
             loss.backward()
             total = loss.detach() if total is None else total + loss.detach()
         if mesh is not None:
-            reduce_gradients(model.parameters(), mesh)
-            total = all_reduce_sum(total, mesh)
+            reduce_gradients(replicated_parameters(model), mesh)
+            total = all_reduce_sum(total, mesh, site="loss")
         optimizer.step()
         return total
 

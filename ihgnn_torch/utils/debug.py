@@ -25,10 +25,12 @@ def _numpy(x) -> np.ndarray:
 
 
 def embedding_info(model: RawGnn) -> Tuple[float, float, float]:
-    """(user, vocab, item) table abs-mean (EmbeddingLayers.py:56-61)."""
-    emb = model.embeddings
+    """(user, vocab, item) table abs-mean (EmbeddingLayers.py:56-61); on
+    a mesh with a model axis, of the full tables (every rank calls it)."""
+    with torch.no_grad():
+        users, items, vocab = model.embeddings.tables()
     return tuple(float(np.abs(_numpy(t)).mean()) for t in
-                 (emb.user_table, emb.vocab_table, emb.item_table))
+                 (users, vocab, items))
 
 
 def feature_stats_from(feats, embedding_size: int, layer_count: int

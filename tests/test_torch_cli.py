@@ -285,12 +285,12 @@ def test_cli_resume_from_latest(monkeypatch, tmp_path, dataset_dir):
         return ({k: v.clone() for k, v in model.state_dict().items()},
                 copy.deepcopy(opt.state_dict()))
 
-    def spy_save(result_dir, epoch, model, opt):
+    def spy_save(result_dir, epoch, model, opt, **kw):
         saved[epoch] = snapshot(model, opt)
-        return save(result_dir, epoch, model, opt)
+        return save(result_dir, epoch, model, opt, **kw)
 
-    def spy_restore(result_dir, name, model, opt):
-        epoch = restore(result_dir, name, model, opt)
+    def spy_restore(result_dir, name, model, opt, **kw):
+        epoch = restore(result_dir, name, model, opt, **kw)
         restored[epoch] = snapshot(model, opt)
         return epoch
 
@@ -352,13 +352,18 @@ def test_cli_bf16_and_remat_equal_jax(monkeypatch, tmp_path, dataset_dir,
     _assert_metrics_close(j_mc, t_mc, metric_atol)
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--mesh_data", "2", "--model", "srrl"], "item 8"),
-    (["--mesh_model", "2"], "item 8"),
-    (["--multihost"], "item 8"),
+@pytest.mark.parametrize("flags", [
+    ["--mesh_data", "2", "--model", "srrl"],
+    ["--mesh_model", "2"],
+    ["--multihost"],
 ])
-def test_unported_flags_raise(tmp_path, dataset_dir, flags, item):
-    with pytest.raises(NotImplementedError, match=item):
+def test_mesh_flags_need_torchrun(monkeypatch, tmp_path, dataset_dir, flags):
+    """A mesh of more ranks than one (a model-only mesh and Srrl under a
+    mesh too) and ``--multihost`` run one process a rank: without
+    torchrun's ``WORLD_SIZE`` the CLI says so and writes nothing (the runs
+    themselves: ``tests/test_torch_model_axis.py``)."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(ValueError, match="torchrun"):
         tcli.main(["--dataset", dataset_dir, "--device", "cpu",
                    "--result_dir", str(tmp_path), *flags])
     assert not os.listdir(tmp_path)
@@ -445,12 +450,12 @@ def test_cli_srrl_resume_from_latest(monkeypatch, tmp_path, dataset_dir):
         return ({k: v.clone() for k, v in model.state_dict().items()},
                 copy.deepcopy(opt.state_dict()))
 
-    def spy_save(result_dir, epoch, model, opt):
+    def spy_save(result_dir, epoch, model, opt, **kw):
         saved[epoch] = snapshot(model, opt)
-        return save(result_dir, epoch, model, opt)
+        return save(result_dir, epoch, model, opt, **kw)
 
-    def spy_restore(result_dir, name, model, opt):
-        epoch = restore(result_dir, name, model, opt)
+    def spy_restore(result_dir, name, model, opt, **kw):
+        epoch = restore(result_dir, name, model, opt, **kw)
         restored[epoch] = snapshot(model, opt)
         return epoch
 

@@ -539,8 +539,9 @@ def test_params_from_jax_drops_padded_table_rows(data, runs):
 
 def test_mesh_shapes_and_errors(tmp_path):
     """``make_mesh`` over a one-rank gloo group: the shape, and the errors
-    for a world size that is not data × model, for model > 1 (item 8c),
-    for another backend, and without a process group."""
+    for a world size that is not data × model (a (1, 2) mesh needs 2
+    ranks), for another backend, and without a process group; a (1, 2)
+    mesh's ranks, built from their coordinates."""
     import torch.distributed as dist
     with pytest.raises(RuntimeError, match="initialised"):
         make_mesh(tcfg.MeshConfig(data=2), "gloo")
@@ -554,29 +555,16 @@ def test_mesh_shapes_and_errors(tmp_path):
                              bf16_wire=False).bf16_wire
         with pytest.raises(ValueError, match="needs 4 ranks"):
             make_mesh(tcfg.MeshConfig(data=4), "gloo")
-        with pytest.raises(NotImplementedError, match="item 8c"):
+        with pytest.raises(ValueError, match="needs 2 ranks"):
             make_mesh(tcfg.MeshConfig(data=1, model=2), "gloo")
+        for rank in range(2):
+            mesh = Mesh(1, 2, rank, None, "gloo")
+            assert mesh.shape == {"data": 1, "model": 2}
+            assert (mesh.data_index, mesh.model_index) == (0, rank)
         with pytest.raises(ValueError, match="runs 'gloo'"):
             make_mesh(tcfg.MeshConfig(), "nccl")
     finally:
         dist.destroy_process_group()
-
-
-def test_cli_refuses_what_is_left():
-    """``check_ported`` takes ``--mesh_data`` for every layer type (GAT
-    and phase 2, item 8d; the log hypergraph, item 8e) and refuses,
-    naming the item: ``--mesh_model``, ``--multihost`` and Srrl under a
-    mesh (8c)."""
-    from ihgnn_torch.cli import check_ported
-    for gnn in ("ihgnn", "hgcn", "gcn", "gat"):
-        check_ported(tcfg.parse_args(["--mesh_data", "4", "--gnn", gnn]))
-    for argv in (["--mesh_data", "2", "--phase2_attention"],
-                 ["--mesh_data", "2", "--gnn", "hgcn", "--log_hypergraph"]):
-        check_ported(tcfg.parse_args(argv))
-    for argv, item in ((["--mesh_model", "2"], "8c"), (["--multihost"], "8c"),
-                       (["--mesh_data", "2", "--model", "srrl"], "8c")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            check_ported(tcfg.parse_args(argv))
 
 
 SOFTMAX_DST = {"one_rank": 0, "every_rank": 1, "no_rank": 2,
