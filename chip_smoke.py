@@ -24,7 +24,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    clock (medians and spreads);
 5. one forward and one eval batch, each under ``torch.profiler`` (after
    a warm-up run): device time by kernel, the device's idle share, the
-   costliest host operators;
+   costliest host operators, the port's spans;
 6. the same model on a small graph, on the card and on the CPU (plain
    twins), must agree;
 7. the train path: ``make_train_step`` with Adam on the same graph and
@@ -59,7 +59,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
     and epoch 2 under ``torch.profiler``; a ``--checkpoint latest`` resume
     for 2 more epochs; then ``--gnn gat`` for 1 tested epoch. It reports
     seconds per epoch, steps/s, eval seconds and the profiled epoch's
-    device idle share and costliest host operators, and fails unless the
+    device idle share and the port's spans, and fails unless the
     resume runs epochs 5 and 6 from exactly the saved state (parameters,
     Adam's moments and steps, the learning rate), the log and metrics
     files exist, the average loss falls over the first 4 epochs, the
@@ -1843,6 +1843,37 @@ def run_serving(torch, dev, cfg, graph, qw, qc, path, expected,
     return launches, (features_fn, metrics_fn, features, logs), row
 
 
+def _trace_events(path):
+    """The complete events of a ``torch.profiler`` Chrome trace."""
+    with open(path, encoding="utf-8") as f:
+        return [e for e in json.load(f)["traceEvents"]
+                if e.get("ph") == "X" and "dur" in e]
+
+
+def _window_summary(events):
+    """Device busy time and idle share of a trace's complete events
+    (``benchmark/trace.py`` ``summarize``: the union of its kernel, copy
+    and set spans over the span of all its events), its longest idle
+    gaps, and its annotations (``benchmark/spans.py`` ``attribute``: the
+    port's spans and the profiler's own, each name's count and host,
+    self, device and idle ms)."""
+    from benchmark.spans import attribute
+    from benchmark.trace import summarize
+    s = summarize(events)
+    if not s:
+        return {"device_time": "not measured: the trace has no device "
+                               "events"}
+    by = attribute(events)
+    return {"window_ms": s["window_s"] * 1e3,
+            "device_busy_ms": s["busy_s"] * 1e3,
+            "device_idle_share": 1.0 - s["busy_s"] / s["window_s"],
+            "idle_gaps": s["idle_gaps"],
+            "spans": {name: {(k if k == "count" else k[:-2] + "_ms"):
+                             (v if k == "count" else v * 1e3)
+                             for k, v in r.items()}
+                      for name, r in by.get("by_name", {}).items()}}
+
+
 def profile_window(torch, label, fn):
     """One JSON row for ``fn()`` run under ``torch.profiler``: device time
     by kernel, the device's busy time and idle share of the window, and
@@ -1850,17 +1881,18 @@ def profile_window(torch, label, fn):
     warm-up step the profiler discards and the recorded one: without the
     warm-up the first kernels of the window went missing from the record
     (a bf16 step listed one of its two K2 launches). The busy time and
-    the window come from the exported Chrome trace (``_trace_summary``:
-    the union of its kernel, copy and set spans over the span of all its
-    events); the profiler's GPU annotations (``ProfilerStep*``,
-    ``Optimizer.step``), which span the gaps between kernels, count as no
-    device time. ``top_kernels`` lists the trace's kernels by name with
-    their calls, which the launch counts of the window can be held
-    against."""
+    the window come from the exported Chrome trace (``_window_summary``);
+    the profiler's GPU annotations (``ProfilerStep*``, ``Optimizer.step``),
+    which span the gaps between kernels, count as no device time. The
+    port's tracing is on, so ``spans`` gives each phase's host, device and
+    idle ms. ``top_kernels`` lists the trace's kernels by name with their
+    calls, which the launch counts of the window can be held against."""
     import os
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile, schedule
+
+    from ihgnn_torch.utils import tracing
     recorded = {}
 
     def ready(prof):
@@ -1870,18 +1902,21 @@ def profile_window(torch, label, fn):
     torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
         recorded["path"] = os.path.join(tmp, "window.trace.json")
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1),
-                     on_trace_ready=ready) as prof:
-            for _ in range(2):
-                fn()
-                torch.cuda.synchronize()
-                prof.step()
-        summary = _trace_summary(recorded["path"])
-        with open(recorded["path"], encoding="utf-8") as f:
-            traced = [e for e in json.load(f)["traceEvents"]
-                      if e.get("ph") == "X" and e.get("cat") == "kernel"]
+        tracing.enable()
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1),
+                         on_trace_ready=ready) as prof:
+                for _ in range(2):
+                    fn()
+                    torch.cuda.synchronize()
+                    prof.step()
+        finally:
+            tracing.disable()
+        events = _trace_events(recorded["path"])
+    summary = _window_summary(events)
+    traced = [e for e in events if e.get("cat") == "kernel"]
     by_trace = {}
     for e in traced:
         ms, n = by_trace.get(e["name"], (0.0, 0))
@@ -1891,7 +1926,7 @@ def profile_window(torch, label, fn):
     host = sorted(recorded["host"], key=lambda a: -a.self_cpu_time_total)
     row = {"phase": "profile", "window": label,
            "trace_kernel_events": len(traced), "top_kernels": top}
-    row.update({k: v for k, v in summary.items() if k != "top_host_ops"})
+    row.update(summary)
     row["top_host_ops"] = [{"name": a.key[:60],
                             "self_cpu_ms": a.self_cpu_time_total / 1e3,
                             "calls": a.count} for a in host[:8]]
@@ -3150,43 +3185,6 @@ CLI_BF16_EPOCHS = 1
 CLI_SRRL_EPOCHS, CLI_SRRL_RESUME_EPOCHS = 2, 1
 
 
-def _trace_summary(path):
-    """Device busy time and idle share of a ``torch.profiler`` Chrome
-    trace (the union of its kernel, copy and set spans over the span of
-    all its events), and the host operators that took the most time
-    (inclusive of the operators they call)."""
-    with open(path, encoding="utf-8") as f:
-        events = [e for e in json.load(f)["traceEvents"]
-                  if e.get("ph") == "X" and "dur" in e]
-    host = {}
-    for e in events:
-        if e.get("cat") == "cpu_op":
-            ms, n = host.get(e["name"], (0.0, 0))
-            host[e["name"]] = (ms + e["dur"] / 1e3, n + 1)
-    top_host = [{"name": k[:60], "inclusive_ms": ms, "calls": n}
-                for k, (ms, n) in sorted(host.items(),
-                                         key=lambda kv: -kv[1][0])[:10]]
-    device = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                    if e.get("cat") in ("kernel", "gpu_memcpy",
-                                        "gpu_memset"))
-    if not device:
-        return {"device_time": "not measured: the trace has no device "
-                               "events", "top_host_ops": top_host}
-    window = (max(e["ts"] + e["dur"] for e in events)
-              - min(e["ts"] for e in events))
-    busy, (cur_start, cur_end) = 0.0, device[0]
-    for start, end in device[1:]:
-        if start > cur_end:
-            busy += cur_end - cur_start
-            cur_start, cur_end = start, end
-        else:
-            cur_end = max(cur_end, end)
-    busy += cur_end - cur_start
-    return {"window_ms": window / 1e3, "device_busy_ms": busy / 1e3,
-            "device_idle_share": 1.0 - busy / window,
-            "device_events": len(device), "top_host_ops": top_host}
-
-
 def _cli_expected(runs):
     """The launches of the cli phase's runs: each run's train steps and
     test-epoch forwards times the counts of its model's step and forward;
@@ -3299,7 +3297,8 @@ def run_cli(torch, dev):
             srrl_loop.save_checkpoint = save
             srrl_loop.restore_checkpoint = restore
         launches = _launch_counts()
-        idle = _trace_summary(os.path.join(prof_dir, "epoch2.trace.json"))
+        idle = _window_summary(_trace_events(
+            os.path.join(prof_dir, "epoch2.trace.json")))
         files = {d: sorted(os.listdir(os.path.join(results, d)))
                  for d in sorted(os.listdir(results))}
 

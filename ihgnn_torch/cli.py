@@ -423,13 +423,17 @@ def _run(cfg: Config, dev: torch.device, result_dir: str,
 def write_run_record(directory: str, rank: int, backend: Optional[str],
                      all_metrics: MetricsCollection) -> None:
     """``directory/rank<rank>.json``: the mesh's backend (None on one
-    device), this process's kernel launch counts, the run's epoch stats
+    device), this process's kernel launch counts and counters
+    (``utils/tracing.py``: the feed's batches and waits, the kernel
+    libraries compiled and loaded), the run's epoch stats
     and (rank 0) its test metrics by epoch, in full precision."""
     import json
 
     from ihgnn_torch.ops.launches import launch_counts
+    from ihgnn_torch.utils.tracing import COUNTERS
     os.makedirs(directory, exist_ok=True)
     record = {"backend": backend, "launches": launch_counts(),
+              "counters": dict(COUNTERS),
               "epochs": [dataclasses.asdict(s)
                          for s in all_metrics.epoch_stats],
               "test": [(e, m.as_row()) for e, m in
@@ -440,12 +444,17 @@ def write_run_record(directory: str, rank: int, backend: Optional[str],
 
 
 def _start_profiler(dev: torch.device):
+    """A started profiler, with the port's spans on (``utils/tracing.py``):
+    its trace names the phases of each step."""
     from torch.profiler import ProfilerActivity, profile
+
+    from ihgnn_torch.utils import tracing
     activities = [ProfilerActivity.CPU]
     if dev.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     prof = profile(activities=activities)
     prof.start()
+    tracing.enable()
     return prof
 
 
@@ -453,8 +462,10 @@ def _stop_profiler(prof, dev: torch.device, profile_dir: str,
                    epoch: int) -> str:
     """Stop ``prof`` once the device is done and write its Chrome trace
     under ``profile_dir``; returns the trace's path."""
+    from ihgnn_torch.utils import tracing
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+    tracing.disable()
     prof.stop()
     os.makedirs(profile_dir, exist_ok=True)
     path = os.path.join(profile_dir, f"epoch{epoch}.trace.json")

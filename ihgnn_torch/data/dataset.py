@@ -30,6 +30,7 @@ from ihgnn_torch.data.schema import PosInteraction
 from ihgnn_torch.graph import (Graph2D, HyperGraph, LogHyperGraph,
                                build_graph2d, build_hypergraph,
                                build_log_hypergraph)
+from ihgnn_torch.utils.tracing import count, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -316,7 +317,9 @@ class TrainSampler:
 def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
     """Drain ``iterator`` on a daemon thread into a bounded queue, so batch
     assembly on the host overlaps the step on the card. Exceptions of the
-    producer are raised in the consumer."""
+    producer are raised in the consumer. Counts ``feed.batches`` (items
+    taken) and ``feed.waited`` (items the queue did not hold yet when
+    asked); the wait for each is the span ``feed.wait``."""
     import queue
     import threading
 
@@ -333,11 +336,15 @@ def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
 
     threading.Thread(target=produce, daemon=True).start()
     while True:
-        item = q.get()
+        if q.empty():
+            count("feed.waited")
+        with span("feed.wait"):
+            item = q.get()
         if item is end:
             return
         if isinstance(item, BaseException):
             raise item
+        count("feed.batches")
         yield item
 
 

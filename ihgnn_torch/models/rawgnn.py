@@ -34,6 +34,7 @@ from ihgnn_torch.models.embedding import EmbeddingTables, WordBag
 from ihgnn_torch.models.layers import GATLayer, GCNLayer, HGCNLayer, IHGNNLayer
 from ihgnn_torch.models.prediction import HemPredictionLayer
 from ihgnn_torch.ops.rows import take_rows
+from ihgnn_torch.utils.tracing import span
 
 
 class RawGnn(nn.Module):
@@ -56,6 +57,8 @@ class RawGnn(nn.Module):
             query_transform=cfg.query_transform, generator=generator)
         self.gnns = nn.ModuleList([self._layer(cfg, layer, generator)
                                    for layer in range(cfg.gnn_layer_count)])
+        self._layer_spans = tuple(f"features.layer{k}"
+                                  for k in range(cfg.gnn_layer_count))
         self.prediction = HemPredictionLayer(
             item_count, lambda_muq=cfg.lambda_muq,
             use_cosine_similarity=cfg.use_cosine_similarity,
@@ -110,16 +113,19 @@ class RawGnn(nn.Module):
         With ``cfg.remat`` and grad mode on, each layer runs under
         ``checkpoint`` and runs again in the backward."""
         self._check_graph(graph)
-        x = self.embeddings.all_features(bag)
+        with span("features.embed"):
+            x = self.embeddings.all_features(bag)
         outs = [x]
         remat = self.cfg.remat and torch.is_grad_enabled()
-        for gnn in self.gnns:
-            if remat:
-                x = checkpoint(gnn, x, graph, use_reentrant=False)
-            else:
-                x = gnn(x, graph)
+        for gnn, name in zip(self.gnns, self._layer_spans):
+            with span(name):
+                if remat:
+                    x = checkpoint(gnn, x, graph, use_reentrant=False)
+                else:
+                    x = gnn(x, graph)
             outs.append(x)
-        return torch.cat(outs, dim=1)
+        with span("features.concat"):
+            return torch.cat(outs, dim=1)
 
     def score(self, features: torch.Tensor, users: torch.Tensor,
               queries: torch.Tensor, items: torch.Tensor) -> torch.Tensor:
@@ -154,20 +160,23 @@ class RawGnn(nn.Module):
                            items + self.item_start])
         mine = torch.arange(rows.start, rows.stop, device=nodes.device)
         pick = torch.cat([mine, mine + r, mine + 2 * r])
-        x = self.embeddings.all_features(bag)
-        cols = [take_rows(x, nodes[pick])]
+        with span("features.embed"):
+            x = self.embeddings.all_features(bag)
+            cols = [take_rows(x, nodes[pick])]
         remat = self.cfg.remat and torch.is_grad_enabled()
         last = len(self.gnns) - 1
         for k, gnn in enumerate(self.gnns):
-            args = (x, graph, nodes) if k == last else (x, graph)
-            out = (checkpoint(gnn, *args, use_reentrant=False) if remat
-                   else gnn(*args))
-            if k == last:
-                cols.append(take_rows(out, pick))
-            else:
-                x = out
-                cols.append(take_rows(x, nodes[pick]))
-        feats = torch.cat(cols, dim=1)
+            with span(self._layer_spans[k]):
+                args = (x, graph, nodes) if k == last else (x, graph)
+                out = (checkpoint(gnn, *args, use_reentrant=False) if remat
+                       else gnn(*args))
+                if k == last:
+                    cols.append(take_rows(out, pick))
+                else:
+                    x = out
+                    cols.append(take_rows(x, nodes[pick]))
+        with span("features.concat"):
+            feats = torch.cat(cols, dim=1)
         n = len(mine)
         return self.prediction.score_rows(feats[:n], feats[n:2 * n],
                                           feats[2 * n:], items[rows])

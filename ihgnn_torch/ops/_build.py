@@ -24,6 +24,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, List, Sequence
 
+from ihgnn_torch.utils import tracing
+
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "build"
@@ -72,10 +74,13 @@ def build(stems: Iterable[str] = SOURCES) -> Dict[str, Path]:
     """Compile each source of ``stems`` that has no library yet, all at
     once, and return ``{stem: library path}``. The compiler's output,
     including ptxas's register and shared-memory report, is kept beside
-    each library as ``<stem>-<hash>.log``."""
+    each library as ``<stem>-<hash>.log``. Counts ``kernels.loaded``
+    (libraries found built) and ``kernels.compiled`` (libraries nvcc
+    built) in ``utils/tracing.py``'s counters."""
     stems = tuple(stems)
     paths = {stem: library_path(stem) for stem in stems}
     missing = [s for s in stems if not paths[s].exists()]
+    tracing.count("kernels.loaded", len(stems) - len(missing))
     if not missing:
         return paths
     nvcc = find_nvcc()
@@ -98,6 +103,7 @@ def build(stems: Iterable[str] = SOURCES) -> Dict[str, Path]:
             tmp.unlink(missing_ok=True)
             failed.append(f"{stem}.cu (nvcc rc {rc}):\n"
                           + out.with_suffix(".log").read_text()[-4000:])
+    tracing.count("kernels.compiled", len(missing) - len(failed))
     if failed:
         raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
     return paths

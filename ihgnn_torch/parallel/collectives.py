@@ -41,7 +41,8 @@ and ``all_reduce_sum`` of an ``[N]`` f32 stream, the segment maxima and
 the denominators (and the backward's ``tsum``) over every rank's entries.
 
 Every call can be timed (``set_timing``: ``TIMES``) and recorded
-(``set_recording``: ``RECORD``, read by ``utils/collective_stats.py``).
+(``set_recording``: ``RECORD``, read by ``utils/collective_stats.py``),
+and is the span ``collective.<kind>.<site>`` (``utils/tracing.py``).
 """
 
 from __future__ import annotations
@@ -54,6 +55,7 @@ import torch.distributed as dist
 
 from ihgnn_torch.ops.rows import accumulate_rows
 from ihgnn_torch.parallel.mesh import DATA_AXIS, Mesh
+from ihgnn_torch.utils.tracing import span
 
 # the collectives under their current names (torch 2.13 renames the two
 # "_tensor" forms "_single")
@@ -121,17 +123,18 @@ def _call(kind: str, out: torch.Tensor, inp: Optional[torch.Tensor],
                        "shape": _shape_text(out), "group": axis,
                        "attribution": site})
     kwargs = {"group": group} if op is None else {"group": group, "op": op}
-    if not _TIMING[0]:
+    with span(f"collective.{kind}.{site}"):
+        if not _TIMING[0]:
+            _OPS[kind](out, inp, **kwargs)
+            return
+        cuda = out.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(out.device)
+        t0 = time.perf_counter()
         _OPS[kind](out, inp, **kwargs)
-        return
-    cuda = out.device.type == "cuda"
-    if cuda:
-        torch.cuda.synchronize(out.device)
-    t0 = time.perf_counter()
-    _OPS[kind](out, inp, **kwargs)
-    if cuda:
-        torch.cuda.synchronize(out.device)
-    TIMES.append((timing, (time.perf_counter() - t0) * 1e3))
+        if cuda:
+            torch.cuda.synchronize(out.device)
+        TIMES.append((timing, (time.perf_counter() - t0) * 1e3))
 
 
 def node_pad(n: int, ranks: int) -> int:

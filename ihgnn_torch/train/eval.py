@@ -13,6 +13,7 @@ The host only sums the rows of real (unpadded) logs.
 
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Callable, Optional, Tuple
 
@@ -27,6 +28,7 @@ from ihgnn_torch.models.rawgnn import RawGnn
 from ihgnn_torch.parallel.mesh import Mesh
 from ihgnn_torch.parallel.sharding import shard_bag
 from ihgnn_torch.train.metrics import Metrics, ranking_metrics
+from ihgnn_torch.utils.tracing import span
 
 
 def make_eval_fns(model: RawGnn, graph: AnyGraph, query_words,
@@ -61,16 +63,24 @@ def make_eval_fns(model: RawGnn, graph: AnyGraph, query_words,
            shard_bag(words, query_word_counts, vocab_rows, mesh)).to(dev)
 
     def features_fn() -> torch.Tensor:
-        with torch.inference_mode():
+        with torch.inference_mode(), span("eval.refresh"):
             return model.all_features(graph, bag)
 
+    def put(a):
+        return torch.as_tensor(np.asarray(a)).to(dev)
+
+    batches = itertools.count()
+
     def metrics_fn(features, users, queries, truth, truth_counts):
-        with torch.inference_mode():
-            def put(a):
-                return torch.as_tensor(np.asarray(a)).to(dev)
-            scores = model.score_all_items(features, put(users),
-                                           put(queries))
-            return ranking_metrics(scores, put(truth), put(truth_counts))
+        with torch.inference_mode(), span("eval.batch", next(batches)):
+            with span("eval.put"):
+                users, queries = put(users), put(queries)
+            with span("eval.score"):
+                scores = model.score_all_items(features, users, queries)
+            # a pageable copy waits for the stream, here for the scores
+            with span("eval.put"):
+                truth, truth_counts = put(truth), put(truth_counts)
+            return ranking_metrics(scores, truth, truth_counts)
 
     return features_fn, metrics_fn
 

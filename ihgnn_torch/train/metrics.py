@@ -32,6 +32,8 @@ from typing import (Any, Callable, Iterable, List, Optional, Sequence,
 import numpy as np
 import torch
 
+from ihgnn_torch.utils.tracing import span
+
 K = 10
 
 
@@ -47,7 +49,15 @@ def ranking_metrics(scores: torch.Tensor, truth: torch.Tensor,
       ``[B, 4]`` f32 rows of (HR@k, NDCG@k, MAP@k, MRR@k); rows with
       ``truth_counts == 0`` are zero.
     """
-    top = torch.topk(scores, k, dim=1).indices                # [B, k]
+    with span("eval.topk"):
+        top = torch.topk(scores, k, dim=1).indices            # [B, k]
+    with span("eval.metrics"):
+        return _metric_rows(top, truth, truth_counts, k)
+
+
+def _metric_rows(top: torch.Tensor, truth: torch.Tensor,
+                 truth_counts: torch.Tensor, k: int) -> torch.Tensor:
+    """``ranking_metrics``' rows from the top-``k`` item ids ``top``."""
     truth = truth.long()
     valid = truth >= 0
     eq = top[:, None, :] == truth[:, :, None]                 # [B, T, k]
@@ -65,7 +75,7 @@ def ranking_metrics(scores: torch.Tensor, truth: torch.Tensor,
                            torch.zeros_like(pos))
     dcg = discount.sum(-1)
     r = torch.arange(truth.shape[1], dtype=torch.float32,
-                     device=scores.device)
+                     device=top.device)
     idcg_prefix = torch.cumsum(1.0 / torch.log2(r + 2.0), dim=0)
     idcg = torch.clamp(idcg_prefix[capped - 1], min=1e-12)
     ndcg = dcg / idcg

@@ -15,6 +15,7 @@ them to XLA.
 
 from __future__ import annotations
 
+import itertools
 from typing import Callable, Iterable, Optional
 
 import numpy as np
@@ -31,6 +32,7 @@ from ihgnn_torch.parallel.collectives import all_reduce_sum, reduce_gradients
 from ihgnn_torch.parallel.mesh import Mesh
 from ihgnn_torch.parallel.sharding import shard_bag
 from ihgnn_torch.parallel.tables import replicated_parameters
+from ihgnn_torch.utils.tracing import span
 
 
 def make_optimizer(params: Iterable[torch.nn.Parameter],
@@ -110,40 +112,54 @@ def make_train_step(model: RawGnn, graph: AnyGraph, query_words,
     put = batch_putter(dev)
 
     def loss_of(batch: Batch) -> torch.Tensor:
-        if mesh is None:
-            logits = model(graph, bag, put(batch.users), put(batch.queries),
-                           put(batch.items))
-            return bce_with_logits(logits, put(batch.flags),
-                                   put(batch.weight))
-        rows = mesh.block(batch.users.shape[-1])
-        users, queries, items = (put(batch.users), put(batch.queries),
-                                 put(batch.items))
-        if model.tail_restricted(graph):
-            logits = model.score_tail(graph, bag, users, queries, items, rows)
-        else:
-            logits = model(graph, bag, users[rows], queries[rows],
-                           items[rows])
-        per_row = F.binary_cross_entropy_with_logits(
-            logits, put(batch.flags[rows]), reduction="none")
-        total_weight = max(float(np.asarray(batch.weight).sum()), 1.0)
-        return (per_row * put(batch.weight[rows])).sum() / total_weight
+        rows = None if mesh is None else mesh.block(batch.users.shape[-1])
+        with span("train.put"):
+            users, queries, items = (put(batch.users), put(batch.queries),
+                                     put(batch.items))
+            if mesh is None:
+                flags, weight = put(batch.flags), put(batch.weight)
+            else:
+                flags, weight = (put(batch.flags[rows]),
+                                 put(batch.weight[rows]))
+        with span("train.forward"):
+            if mesh is None:
+                logits = model(graph, bag, users, queries, items)
+                return bce_with_logits(logits, flags, weight)
+            if model.tail_restricted(graph):
+                logits = model.score_tail(graph, bag, users, queries, items,
+                                          rows)
+            else:
+                logits = model(graph, bag, users[rows], queries[rows],
+                               items[rows])
+            per_row = F.binary_cross_entropy_with_logits(logits, flags,
+                                                         reduction="none")
+            total_weight = max(float(np.asarray(batch.weight).sum()), 1.0)
+            return (per_row * weight).sum() / total_weight
+
+    steps = itertools.count()
 
     def train_step(batch: Batch) -> torch.Tensor:
-        micro = batch.unstack()
-        if len(micro) != grad_accum_steps:
-            raise ValueError(f"expected {grad_accum_steps} stacked "
-                             f"batch(es), got users {batch.users.shape}")
-        optimizer.zero_grad(set_to_none=True)
-        total = None
-        for mb in micro:
-            loss = loss_of(mb)
-            loss.backward()
-            total = loss.detach() if total is None else total + loss.detach()
-        if mesh is not None:
-            reduce_gradients(replicated_parameters(model), mesh)
-            total = all_reduce_sum(total, mesh, site="loss")
-        optimizer.step()
-        return total
+        with span("train.step", next(steps)):
+            micro = batch.unstack()
+            if len(micro) != grad_accum_steps:
+                raise ValueError(f"expected {grad_accum_steps} stacked "
+                                 f"batch(es), got users {batch.users.shape}")
+            with span("train.optimizer"):
+                optimizer.zero_grad(set_to_none=True)
+            total = None
+            for mb in micro:
+                loss = loss_of(mb)
+                with span("train.backward"):
+                    loss.backward()
+                total = (loss.detach() if total is None
+                         else total + loss.detach())
+            if mesh is not None:
+                with span("train.reduce"):
+                    reduce_gradients(replicated_parameters(model), mesh)
+                    total = all_reduce_sum(total, mesh, site="loss")
+            with span("train.optimizer"):
+                optimizer.step()
+            return total
 
     return train_step
 

@@ -26,6 +26,7 @@ by about 2e-5 relative on the bf16 test graphs.
 
 import copy
 import dataclasses
+import json
 import os
 
 import jax
@@ -335,6 +336,10 @@ def test_cli_long_tail_and_debug_flows(tmp_path, dataset_dir, capsys):
     lines = (tmp_path / result / "lt.csv").read_text().splitlines()
     assert len(lines) == TINY["user_count"]
     assert os.listdir(tmp_path / "prof") == ["epoch2.trace.json"]
+    trace = (tmp_path / "prof" / "epoch2.trace.json").read_text()
+    assert {"train.step", "features.layer0"} <= {
+        e["name"] for e in json.loads(trace)["traceEvents"]
+        if e.get("cat") == "user_annotation"}
 
 
 @pytest.mark.parametrize("flags,loss_rtol,metric_atol", [
