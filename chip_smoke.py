@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --reference ROOT    # also time ROOT's build
     python3 chip_smoke.py --features [ROOT]   # serving forward times only
+    python3 chip_smoke.py --k1_skew           # K1 on the zipf cell's hubs
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
@@ -66,7 +67,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
     metrics are in [0, 1] and every kernel's launches equal the runs'
     steps and test forwards times the model's counts.
 
-Phase 3 also checks K4 ``csr_segment_max`` and the scalar
+Phase 3 also times K1's node update on the ``ihgnn.train.zipf`` cell's
+own graph, whose hubs K1 sums with a block each, beside the same launch
+without its long segments (bit for bit; ``--k1_skew`` runs this row
+alone). It also checks K4 ``csr_segment_max`` and the scalar
 ``csr_segment_sum`` at the GAT (12M entries → 700k) and phase-2 (6M →
 700k) shapes and on a skewed CSR (a few segments of 10k-1M entries among
 empty and short ones; the sum bit for bit in its order of adds,
@@ -591,6 +595,66 @@ def skewed_rowptr(torch, dev, segments):
     rowptr = np.zeros(segments + 1, np.int64)
     rowptr[1:] = np.cumsum(counts)
     return torch.from_numpy(rowptr.astype(np.int32)).to(dev)
+
+
+def k1_skew_row(torch, dev, results):
+    """K1's node update on the ``ihgnn.train.zipf`` cell's own graph
+    (``benchmark/traffic/train.zipf.json`` over the deployment of
+    ``benchmark/configs/ihgnn-o3o1-d32.json``, seed 0; every seed has the
+    same hubs): with the graph's long segments (a block a hub) and without
+    them (today's kernel alone), held bit for bit, and each segment within
+    2e-6 a term of float64; timed beside its bound, the twin and
+    ``torch.sparse.mm``, with the kernels of both launches by the
+    profiler's names."""
+    from benchmark import generate
+    from ihgnn_torch.graph import build_hypergraph
+    from ihgnn_torch.ops.segsum import csr_gather_sum, csr_gather_sum_plain
+    root = pathlib.Path(__file__).resolve().parent / "benchmark"
+    sizes = json.loads((root / "configs" / "ihgnn-o3o1-d32.json")
+                       .read_text())["deployment"]
+    traffic = json.loads((root / "traffic" / "train.zipf.json").read_text())
+    uqi = generate.interactions(sizes, traffic,
+                                generate.streams(0)["interactions"])
+    n = sizes["users"] + sizes["queries"] + sizes["items"]
+    graph = build_hypergraph(uqi, n, sizes["users"], sizes["queries"])
+    graph = graph.to(dev)
+    e = graph.edge_count
+    edge = torch.randn(e, D, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(0))
+    col, rowptr, hubs = graph.inc_edge, graph.rowptr, graph.long_segments
+    k_out = csr_gather_sum(edge, col, rowptr, long_segments=hubs)
+    if not torch.equal(k_out, csr_gather_sum(edge, col, rowptr)):
+        fail("csr_gather_sum: the zipf node update with its long segments "
+             "differs from the launch without them")
+    lengths = (rowptr[1:] - rowptr[:-1]).double()
+    err = (k_out.double() - csr_gather_sum_plain(edge.double(), col, rowptr)
+           ).abs()
+    if not (err <= 2e-6 * lengths[:, None] + 1e-6).all():
+        fail("csr_gather_sum: a zipf node sum is off float64 by more than "
+             "2e-6 a term")
+    p_out = csr_gather_sum_plain(edge, col, rowptr)
+    csr = torch.sparse_csr_tensor(rowptr, col, torch.ones(col.numel(),
+                                  device=dev), size=(n, e))
+    lib_err = (torch.sparse.mm(csr, edge) - p_out).abs().max().item()
+    longest = int(lengths.max().item())
+    record_row(
+        torch, results, "csr_gather_sum",
+        f"zipf node update [{col.numel()} entries of [{e}, {D}] -> [{n}, "
+        f"{D}]]", err.max().item(), 2e-6 * longest + 1e-6,
+        lambda: csr_gather_sum(edge, col, rowptr, long_segments=hubs),
+        lambda: csr_gather_sum_plain(edge, col, rowptr),
+        lambda: torch.sparse.mm(csr, edge),
+        4 * (edge.numel() + col.numel() + rowptr.numel() + n * D
+             + hubs.ids.numel()),
+        col.numel() * D, lib_err,
+        long_segments=hubs.ids.numel(), long_entries=hubs.entries,
+        longest_segment=longest,
+        without_list_ms=time_ms(torch, lambda: csr_gather_sum(edge, col,
+                                                              rowptr)),
+        device=kernel_device_ms(torch, lambda: csr_gather_sum(
+            edge, col, rowptr, long_segments=hubs)),
+        device_without_list=kernel_device_ms(
+            torch, lambda: csr_gather_sum(edge, col, rowptr)))
 
 
 def check_kernels(torch, dev, graph, bag, graph2d):
@@ -4883,6 +4947,16 @@ def main() -> int:
                       str(pathlib.Path(__file__).resolve().parent))
         return 0
     from ihgnn_torch.ops import _build
+    if sys.argv[1:2] == ["--k1_skew"]:
+        _build.build(("segsum",))
+        emit({"phase": "device", "name": torch.cuda.get_device_name(0),
+              "nvidia_smi": subprocess.run(
+                  ["nvidia-smi", "--query-gpu=name,power.limit",
+                   "--format=csv,noheader"], capture_output=True, text=True,
+                  timeout=60).stdout.strip()})
+        with torch.no_grad():
+            k1_skew_row(torch, torch.device("cuda"), {})
+        return 0
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4987,6 +5061,7 @@ def main() -> int:
         del kp_dev
         check_routed_2d_kernels(torch, dev, graph2d_routed_cpu.to(dev),
                                 checks)
+        k1_skew_row(torch, dev, checks)
     torch.cuda.synchronize()
     del graph, graph2d, bag
     ihgnn, gat = ModelConfig(), ModelConfig(gnn=V.GAT)

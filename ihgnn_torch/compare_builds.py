@@ -22,6 +22,10 @@ runs on the same seeded inputs:
 * ``ihgnn_csr_gather_sum`` (K1's vector form with and without weights,
   its fixed-width form and its scalar form) and ``ihgnn_csr_segment_sum3``
   of both builds of ``segsum.cu``, on a CSR of short and hub segments;
+  and the reference's vector form against this checkout's
+  ``ihgnn_csr_gather_sum_long`` (the hubs summed by a block each, as the
+  wrapper launches it with the CSR's ``long_segments``), with and without
+  weights;
 * ``ihgnn_gather_rows`` and ``ihgnn_gather_rows_t`` of both builds of
   ``gather.cu``;
 * K2, ``ihgnn_gather_roles`` (f32) and its bf16 form, at d = 8, 12, 32
@@ -64,6 +68,7 @@ import torch
 from ihgnn_torch.ops import _build
 from ihgnn_torch.ops.interact import CHUNK_EDGES, ORDER_PARTS
 from ihgnn_torch.ops.segscan import BLOCK, pack_scan_inputs
+from ihgnn_torch.ops.segsum import long_segments
 
 PTR, INT = ctypes.c_void_p, ctypes.c_int
 ARGTYPES = {
@@ -80,6 +85,7 @@ ARGTYPES = {
     "ihgnn_gather_rows_t": [PTR] * 3 + [INT] * 3 + [PTR],
     "ihgnn_csr_segment_scan": [PTR] * 5 + [INT] * 3 + [PTR],
     "ihgnn_csr_gather_sum": [PTR] * 5 + [INT] * 4 + [PTR],
+    "ihgnn_csr_gather_sum_long": [PTR] * 5 + [INT] * 2 + [PTR, INT, PTR],
     "ihgnn_csr_segment_sum3": [PTR] * 3 + [INT] + [PTR] * 3 + [INT] * 3
     + [PTR],
     "ihgnn_csr_gather_sum_bf16": [PTR] * 4 + [INT] * 4 + [PTR],
@@ -259,6 +265,20 @@ def run_k1(lib, x, col, rowptr, weight, vector, width):
     return (out,)
 
 
+def run_k1_long(lib, x, col, rowptr, weight, hubs):
+    """``ihgnn_csr_gather_sum_long`` of ``lib``: the vector form with the
+    long segments ``hubs`` (``ops/segsum.py`` ``LongSegments``)."""
+    s, d = rowptr.numel() - 1, x.shape[1]
+    out = torch.empty(s, d, device=x.device)
+    err = entry(lib, "ihgnn_csr_gather_sum_long")(
+        x.data_ptr(), col.data_ptr(), rowptr.data_ptr(),
+        None if weight is None else weight.data_ptr(), out.data_ptr(), s, d,
+        hubs.ids.data_ptr(), hubs.ids.numel(), _build.stream_ptr(x.device))
+    if err:
+        raise RuntimeError(f"csr_gather_sum long: CUDA error {err}")
+    return (out,)
+
+
 def run_k1_three(lib, x, col, rowptr):
     m, d = x.shape[0] // 3, x.shape[1]
     s = rowptr.numel() - 1
@@ -278,7 +298,9 @@ def k1_cases(libs, dev, gen) -> dict:
     and a few hubs of 5k-50k, and a fixed-width CSR of 3 entries a
     segment; and of its bf16 forms on 300k bf16 rows of each width of
     ``BF16_WIDTHS`` with the same CSRs (the three-region form on three
-    100k-row regions, the columns taken modulo 300k)."""
+    100k-row regions, the columns taken modulo 300k). The vector form's
+    cases also run through this checkout's long-segment launch, held to
+    the reference's vector form."""
     rows, d = 300_000, 32
     counts = torch.randint(0, 11, (100_000,), device=dev, generator=gen)
     counts[::20_000] = torch.tensor([50_000, 20_000, 5_000, 10_000, 8_000],
@@ -307,6 +329,11 @@ def k1_cases(libs, dev, gen) -> dict:
                  run_k1(lib, x, col, rowptr, weight, 0, 0)),
                 ("csr_segment_sum3", run_k1_three(lib, x, col, rowptr))):
             cases.setdefault(name, []).append(outs)
+    hubs = long_segments(rowptr.cpu()).to(dev)
+    for label, w in (("", None), (" weighted", weight)):
+        cases[f"csr_gather_sum vector{label}, long segments by block"] = [
+            run_k1(libs["reference", "segsum"], x, col, rowptr, w, 1, 0),
+            run_k1_long(libs["this", "segsum"], x, col, rowptr, w, hubs)]
     for d in BF16_WIDTHS:
         x16 = torch.randn(rows, d, device=dev, generator=gen).to(BF16)
         views = [("", x16)]

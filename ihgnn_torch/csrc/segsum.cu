@@ -29,10 +29,35 @@
 // segment's entries in entry order, acc = fmaf(w, x, acc) (acc += x
 // without weights, the same rounding), exactly as in the scalar form below
 // and in K8 (csrc/segscan.cu): the results repeat bit for bit and equal
-// K8's. Only the loads are reordered, never the additions. A long segment
-// (a hub node) stays with its group, which keeps 8 rows in flight and
-// leaves the warp's other groups idle once their segments end; splitting it
-// would change the sum order.
+// K8's. Only the loads are reordered, never the additions.
+//
+// Long segments (hub nodes under skew; f32 vector form, CSR only). A group
+// keeps 8 rows in flight, so a segment of 44k entries takes 5,500 round
+// trips to memory while the rest of the card has finished. The caller may
+// pass the list of the segments with more than kLongEntries entries (every
+// one of them, longest first: ops/segsum.py long_segments, built once with
+// the CSR); the launch then puts one block per listed segment in front of
+// the regular blocks, whose groups skip any segment of more than
+// kLongEntries entries, so each segment is written once. A long segment's
+// block copies its ids (and weights) and rows by cp.async through rings in
+// shared memory, in stages of up to 64 entries (8 KB of rows): ids land
+// kIdLead stages ahead of their sums, rows kRowLead. Its last warp (up to
+// four at d > 128) copies nothing and adds the staged rows in entry order
+// into the same one accumulator a (segment, feature): the bits are the
+// group's. On an H100 80GB HBM3 (700 W) the block is bound by its
+// per-stage barrier and its chain of adds, not by memory: the zipf cell's
+// largest hub (43,896 rows of d = 32) takes 0.38 ms alone, its rows read
+// in random or in linear order. kLongEntries = 256 from one measurement of
+// the zipf node update (6M entries -> 700k x 32) on that card: 1024 (184
+// blocks) took 0.673 ms, its groups' segments of 257-1024 entries the
+// longest part, 512 0.560, 256 (1,043 blocks) 0.485, 128 (2,477) 0.461;
+// the kernel without the list 6.77.
+// The rings take 33.75 KB (35.5 KB with weights) of shared memory, which
+// every block of that launch reserves: at d = 32 registers (60-64 a
+// thread) hold both kernels to 4 blocks an SM, which 35.5 KB does not
+// lower. A launch without a list runs csr_gather_sum_vec_kernel, which
+// reserves none. The bf16, three-region and fixed-width forms keep a long
+// segment on its group.
 //
 // Fixed width (width > 0): segment s spans entries [s * width, (s + 1) *
 // width) and rowptr is not read (the scatter's backward: 3 entries an edge).
@@ -91,11 +116,24 @@
 #include <type_traits>
 
 #include "bf16.cuh"
+#include "tf32.cuh"
 
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
 constexpr int kRowsInFlight = 8;   // row loads a lane issues before its FMAs
+// a segment of more than kLongEntries entries is long (ops/segsum.py
+// LONG_ENTRIES)
+constexpr int kLongEntries = 256;
+// a long segment's block: a stage holds up to kSlotIds entries and
+// kSlotFloats floats of their rows; rows land kRowLead stages ahead of the
+// sums, ids kIdLead
+constexpr int kSlotIds = 64;
+constexpr int kSlotFloats = 2048;
+constexpr int kRowLead = 3;
+constexpr int kRowStages = kRowLead + 1;
+constexpr int kIdLead = 2 * kRowLead;
+constexpr int kIdStages = kIdLead + 1;
 
 // The row of column c: THREE reads row c % region_rows of region
 // c / region_rows (x0, x1, x2); otherwise row c of x0.
@@ -177,26 +215,27 @@ __device__ __forceinline__ void fma4(float w, const float4& v, float4& acc) {
   acc.w = fmaf(w, v.w, acc.w);
 }
 
-// The vector form: groups of L lanes, 32 / L segments a warp (see above);
-// rows of Tin (f32 or bf16), sums in f32, stored as Tout (f32 or bf16).
-template <int L, bool WEIGHTED, bool THREE, bool FIXED, typename Tin = float,
-          typename Tout = float>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-csr_gather_sum_vec_kernel(const Tin* __restrict__ x0,
-                          const Tin* __restrict__ x1,
-                          const Tin* __restrict__ x2, int region_rows,
-                          const int* __restrict__ col,
-                          const int* __restrict__ rowptr,
-                          const float* __restrict__ weight,
-                          Tout* __restrict__ out, int num_segments, int d,
-                          int width) {
+// The vector form's work of warp `warp`: groups of L lanes, 32 / L
+// segments a warp (see above); rows of Tin (f32 or bf16), sums in f32,
+// stored as Tout (f32 or bf16). SKIP_LONG: a group leaves a segment of more
+// than kLongEntries entries to its own block.
+template <int L, bool WEIGHTED, bool THREE, bool FIXED, typename Tin,
+          typename Tout, bool SKIP_LONG>
+__device__ __forceinline__ void vec_warp(long long warp,
+                                         const Tin* __restrict__ x0,
+                                         const Tin* __restrict__ x1,
+                                         const Tin* __restrict__ x2,
+                                         int region_rows,
+                                         const int* __restrict__ col,
+                                         const int* __restrict__ rowptr,
+                                         const float* __restrict__ weight,
+                                         Tout* __restrict__ out,
+                                         int num_segments, int d, int width) {
   constexpr int G = 32 / L;                          // segments a warp
   constexpr int J = L < kRowsInFlight ? L : kRowsInFlight;
   const int lane = threadIdx.x & 31;
   const int grp = lane / L;
   const int gl = lane - grp * L;
-  const long long warp = static_cast<long long>(blockIdx.x) *
-                             kWarpsPerBlock + (threadIdx.x >> 5);
   const long long seg0 = warp * G;
   if (seg0 >= num_segments) return;                  // uniform across the warp
   const long long seg = seg0 + grp;
@@ -217,6 +256,8 @@ csr_gather_sum_vec_kernel(const Tin* __restrict__ x0,
     else if (G == 32 && grp == 31)
       end = rowptr[seg + 1];
   }
+  const bool own = !SKIP_LONG || end - begin <= kLongEntries;
+  if (!own) end = begin;
   // the group's lanes, for shuffles that stay inside it
   const unsigned mask = L == 32 ? 0xffffffffu
                                 : ((1u << L) - 1u) << (grp * L);
@@ -255,9 +296,144 @@ csr_gather_sum_vec_kernel(const Tin* __restrict__ x0,
         }
       }
     }
-    if (active && seg < num_segments)
+    if (active && own && seg < num_segments)
       store_quad(out + static_cast<size_t>(seg) * d, f4, acc);
   }
+}
+
+template <int L, bool WEIGHTED, bool THREE, bool FIXED, typename Tin = float,
+          typename Tout = float>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+csr_gather_sum_vec_kernel(const Tin* __restrict__ x0,
+                          const Tin* __restrict__ x1,
+                          const Tin* __restrict__ x2, int region_rows,
+                          const int* __restrict__ col,
+                          const int* __restrict__ rowptr,
+                          const float* __restrict__ weight,
+                          Tout* __restrict__ out, int num_segments, int d,
+                          int width) {
+  vec_warp<L, WEIGHTED, THREE, FIXED, Tin, Tout, false>(
+      static_cast<long long>(blockIdx.x) * kWarpsPerBlock +
+          (threadIdx.x >> 5),
+      x0, x1, x2, region_rows, col, rowptr, weight, out, num_segments, d,
+      width);
+}
+
+// One long segment [begin, end) summed by the whole block (see the top of
+// the file), kChunkFloats features at a time. The last warps of the block
+// sum (lane u < the chunk's float4s adds features 4 u .. 4 u + 3 of the
+// staged rows in entry order, loading kRowsInFlight rows ahead of their
+// FMAs) and copy nothing, so their adds wait for no copy; the other warps
+// copy (warps 0-1 a stage's ids, warps 2-3 its weights, all of them its
+// rows in 16-byte pieces).
+template <bool WEIGHTED>
+__device__ __forceinline__ void long_segment_block(
+    const float* __restrict__ x, const int* __restrict__ col,
+    const float* __restrict__ weight, float* __restrict__ out, long long seg,
+    int begin, int end, int d) {
+  __shared__ __align__(16) float rows[kRowStages * kSlotFloats];
+  __shared__ int ids[kIdStages * kSlotIds];
+  __shared__ float wts[WEIGHTED ? kIdStages * kSlotIds : 1];
+  constexpr int kThreads = kWarpsPerBlock * 32;
+  constexpr int kChunkFloats = kThreads * 2;           // at most 4 adding warps
+  const int t = threadIdx.x;
+  for (int f0 = 0; f0 < d; f0 += kChunkFloats) {
+    const int dc = min(d - f0, kChunkFloats);         // the chunk's features
+    const int c4 = dc >> 2;
+    const int copiers = kThreads - 32 * ((c4 + 31) / 32);
+    const int u = t - copiers;                         // the adding lane
+    const int per = min(kSlotIds, kSlotFloats / dc);  // entries a stage
+    const int stages = (end - begin + per - 1) / per;
+    // stage j's ids (warps 0-1) and weights (warps 2-3) into slot j %
+    // kIdStages
+    auto copy_ids = [&](int j) {
+      const int e = t % kSlotIds;
+      const int k = begin + j * per + e;
+      if (j < stages && e < per && k < end) {
+        const int slot = (j % kIdStages) * kSlotIds + e;
+        if (t < kSlotIds)
+          cp_async4(ids + slot, col + k);
+        else if (WEIGHTED && t < 2 * kSlotIds)
+          cp_async4(wts + slot, weight + k);
+      }
+    };
+    // stage j's rows into slot j % kRowStages, a piece (row r, float4 q) a
+    // copying thread at a time; its ids have landed
+    auto copy_rows = [&](int j) {
+      if (j >= stages || u >= 0) return;
+      const int n = min(per, end - begin - j * per);
+      const int* id = ids + (j % kIdStages) * kSlotIds;
+      float* slot = rows + (j % kRowStages) * kSlotFloats;
+      for (int p = t; p < n * c4; p += copiers) {
+        const int r = p / c4;
+        const int q = p - r * c4;
+        cp_async16(slot + r * dc + 4 * q,
+                   x + static_cast<size_t>(id[r]) * d + f0 + 4 * q, true);
+      }
+    };
+    for (int j = 0; j < kIdLead; ++j) copy_ids(j);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int j = 0; j < kRowLead; ++j) {
+      copy_rows(j);
+      cp_async_commit();
+    }
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int j = 0; j < stages; ++j) {
+      // stage j's rows (and stage j + kRowLead's ids) have landed, and every
+      // lane is done with stage j - 1, whose slots the copies below reuse
+      cp_async_wait<kRowLead - 1>();
+      __syncthreads();
+      copy_rows(j + kRowLead);
+      copy_ids(j + kIdLead);
+      cp_async_commit();
+      if (u >= 0 && u < c4) {
+        const float* slot = rows + (j % kRowStages) * kSlotFloats + 4 * u;
+        const float* ws = WEIGHTED ? wts + (j % kIdStages) * kSlotIds : wts;
+        const int n = min(per, end - begin - j * per);
+        int i = 0;
+        for (; i + kRowsInFlight <= n; i += kRowsInFlight) {
+          float4 v[kRowsInFlight];
+#pragma unroll
+          for (int k = 0; k < kRowsInFlight; ++k)
+            v[k] = *reinterpret_cast<const float4*>(slot + (i + k) * dc);
+#pragma unroll
+          for (int k = 0; k < kRowsInFlight; ++k)
+            fma4(WEIGHTED ? ws[i + k] : 1.f, v[k], acc);
+        }
+        for (; i < n; ++i)
+          fma4(WEIGHTED ? ws[i] : 1.f,
+               *reinterpret_cast<const float4*>(slot + i * dc), acc);
+      }
+    }
+    if (u >= 0 && u < c4)
+      store_quad(out + static_cast<size_t>(seg) * d + f0, u, acc);
+    cp_async_wait<0>();
+    __syncthreads();                                  // the rings are free
+  }
+}
+
+// Blocks 0 .. num_long - 1 each sum the long segment long_ids[block]; the
+// others run the vector form's warps, which skip every long segment.
+template <int L, bool WEIGHTED>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+csr_gather_sum_long_kernel(const float* __restrict__ x,
+                           const int* __restrict__ col,
+                           const int* __restrict__ rowptr,
+                           const float* __restrict__ weight,
+                           float* __restrict__ out, int num_segments, int d,
+                           const int* __restrict__ long_ids, int num_long) {
+  if (static_cast<int>(blockIdx.x) < num_long) {
+    const int seg = long_ids[blockIdx.x];
+    long_segment_block<WEIGHTED>(x, col, weight, out, seg, rowptr[seg],
+                                 rowptr[seg + 1], d);
+    return;
+  }
+  vec_warp<L, WEIGHTED, false, false, float, float, true>(
+      static_cast<long long>(blockIdx.x - num_long) * kWarpsPerBlock +
+          (threadIdx.x >> 5),
+      x, x, x, 0, col, rowptr, weight, out, num_segments, d, 0);
 }
 
 // Lanes a segment for d / 4 float4s: the least power of two >= d / 4, at
@@ -540,6 +716,53 @@ cudaError_t launch_vec_l(const Tin* x0, const Tin* x1, const Tin* x2,
   return cudaGetLastError();
 }
 
+template <int L>
+cudaError_t launch_long_l(const float* x, const int* col, const int* rowptr,
+                          const float* weight, float* out, int num_segments,
+                          int d, const int* long_ids, int num_long,
+                          cudaStream_t stream) {
+  constexpr int G = 32 / L;
+  const long long warps = (static_cast<long long>(num_segments) + G - 1) / G;
+  const long long blocks =
+      num_long + (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const dim3 grid(static_cast<unsigned>(blocks));
+  const int threads = kWarpsPerBlock * 32;
+  if (weight != nullptr)
+    csr_gather_sum_long_kernel<L, true><<<grid, threads, 0, stream>>>(
+        x, col, rowptr, weight, out, num_segments, d, long_ids, num_long);
+  else
+    csr_gather_sum_long_kernel<L, false><<<grid, threads, 0, stream>>>(
+        x, col, rowptr, nullptr, out, num_segments, d, long_ids, num_long);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_long(const float* x, const int* col, const int* rowptr,
+                        const float* weight, float* out, int num_segments,
+                        int d, const int* long_ids, int num_long,
+                        cudaStream_t stream) {
+  switch (group_lanes(d)) {
+    case 1: return launch_long_l<1>(x, col, rowptr, weight, out,
+                                    num_segments, d, long_ids, num_long,
+                                    stream);
+    case 2: return launch_long_l<2>(x, col, rowptr, weight, out,
+                                    num_segments, d, long_ids, num_long,
+                                    stream);
+    case 4: return launch_long_l<4>(x, col, rowptr, weight, out,
+                                    num_segments, d, long_ids, num_long,
+                                    stream);
+    case 8: return launch_long_l<8>(x, col, rowptr, weight, out,
+                                    num_segments, d, long_ids, num_long,
+                                    stream);
+    case 16: return launch_long_l<16>(x, col, rowptr, weight, out,
+                                      num_segments, d, long_ids, num_long,
+                                      stream);
+    default: return launch_long_l<32>(x, col, rowptr, weight, out,
+                                      num_segments, d, long_ids, num_long,
+                                      stream);
+  }
+}
+
 template <bool THREE, typename Tin = float, typename Tout = float>
 cudaError_t launch_vec(const Tin* x0, const Tin* x1, const Tin* x2,
                        int region_rows, const int* col, const int* rowptr,
@@ -598,6 +821,26 @@ extern "C" int ihgnn_csr_gather_sum(const void* x, const void* col,
       static_cast<const float*>(weight), static_cast<float*>(out),
       num_segments, d);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The vector form (the caller guarantees d % 4 == 0 and 16-byte aligned x
+// and out) with long_ids [num_long > 0]: every segment of more than
+// kLongEntries entries, each once, longest first, and no other (a listed
+// shorter one is summed twice, to the same bits).
+extern "C" int ihgnn_csr_gather_sum_long(const void* x, const void* col,
+                                         const void* rowptr,
+                                         const void* weight, void* out,
+                                         int num_segments, int d,
+                                         const void* long_ids, int num_long,
+                                         void* stream) {
+  if (d % 4 != 0 || d <= 0 || num_long <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_long(
+      static_cast<const float*>(x), static_cast<const int*>(col),
+      static_cast<const int*>(rowptr), static_cast<const float*>(weight),
+      static_cast<float*>(out), num_segments, d,
+      static_cast<const int*>(long_ids), num_long,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // The bf16 forms: x [M, d] bf16, no weight; out [S, d] f32 (out_bf16 ==

@@ -20,7 +20,9 @@ vertices get degree 1e-8 (Helpers/Graph.py:68,120,175).
   the ``[3E, d]`` role cotangents. The scatter's backward is the
   edge-major CSR ``(edge_rowptr, i3.view(-1))``: edge e sums the rows of
   its three nodes. ``phase2`` is the bipartite attention graph of IHGNN
-  phase 2 (edge node ``N + e`` → its member nodes).
+  phase 2 (edge node ``N + e`` → its member nodes). ``long_segments``
+  lists the hub nodes of ``rowptr`` (``ops/segsum.py``), which K1 sums
+  with a block each.
 * ``Graph2D`` — the symmetric 2D graph of one completeness mode
   (uqi/uq/ui/qi, Helpers/Graph.py:12-81), coalesced (duplicates summed)
   and sorted by (row, col). ``rowptr`` over ``row`` makes it GCN's SpMM;
@@ -49,6 +51,7 @@ from ihgnn_torch.ops.gatpack import AnyGatPack, build_gat_pack
 from ihgnn_torch.ops.packing import (CHUNK_ROWS_CAP, AnyHyperPack, RolePack,
                                      build_hyper_kernel_pack, role_pack)
 from ihgnn_torch.ops.permute import pick_grid
+from ihgnn_torch.ops.segsum import LongSegments, long_segments
 
 DEGREE_FLOOR = 1e-8   # Helpers/Graph.py:120 — zero-degree vertices
 
@@ -126,6 +129,8 @@ class HyperGraph:
     # node sums are this rank's partials, combined over the mesh; None on
     # one device
     mesh: Optional[object] = None
+    # the long segments of rowptr (ops/segsum.py), or None
+    long_segments: Optional[LongSegments] = None
 
     def to(self, device: DeviceLike) -> "HyperGraph":
         return moved(self, device)
@@ -179,6 +184,8 @@ class LogHyperGraph:
     # the node sums are this rank's partials, combined over the mesh; None
     # on one device
     mesh: Optional[object] = None
+    # the long segments of rowptr (ops/segsum.py), or None
+    long_segments: Optional[LongSegments] = None
 
     def to(self, device: DeviceLike) -> "LogHyperGraph":
         return moved(self, device)
@@ -321,6 +328,7 @@ def hypergraph_from_i3(i3: np.ndarray, node_count: int,
         edge_count=int(e_count),
         edge_mask=(None if edge_mask is None else
                    torch.from_numpy(edge_mask.reshape(-1, 1).copy())),
+        long_segments=long_segments(phase2.dst_rowptr),
     )
 
 
@@ -470,10 +478,11 @@ def log_hypergraph_from_edges(flat_nodes: np.ndarray, sizes: np.ndarray,
 
     node_order = np.argsort(flat_nodes, kind="stable")
     inc_node = flat_nodes[node_order]
+    rowptr = _rowptr(inc_node, node_count)
     return LogHyperGraph(
         inc_node=_i32(inc_node),
         inc_edge=_i32(edge_ids[node_order]),
-        rowptr=_i32(_rowptr(inc_node, node_count)),
+        rowptr=_i32(rowptr),
         edge_nodes=_i32(flat_nodes),
         edge_ids=_i32(edge_ids),
         edge_rowptr=_i32(_rowptr(edge_ids, e_count)),
@@ -481,4 +490,5 @@ def log_hypergraph_from_edges(flat_nodes: np.ndarray, sizes: np.ndarray,
         de=de,
         node_count=int(node_count),
         edge_count=int(e_count),
+        long_segments=long_segments(rowptr),
     )

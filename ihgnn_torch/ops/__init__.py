@@ -3,7 +3,8 @@
 * ``segsum``   — K1 ``csr_gather_sum``: CSR weighted row gather-sum (the
   node update H·E, the query word-bag mean, GCN's SpMM, the log
   hypergraph's sums, the attention's weighted sum, and the backward sums
-  of all of them).
+  of all of them); ``long_segments``, a CSR's hubs, which K1 sums with a
+  block each.
 * ``gather``   — K2 ``gather_roles``: the three endpoint rows of each edge.
 * ``interact`` — K3 ``interact_fwd`` and ``interact_bwd``: the fused
   order-1/2/3 interaction and its backward, joined by ``InteractFn``.

@@ -62,18 +62,23 @@ from ihgnn_torch.parallel.collectives import combine_nodes
 class GatherRolesFn(torch.autograd.Function):
     """``x [N, d]`` → ``[3, E, d]`` (u, q, i) endpoint rows in ``dtype``
     (``x``'s when None); the gradient of ``x`` sums, for each node, the
-    role cotangent rows of its edges in f32."""
+    role cotangent rows of its edges in f32 (``long_segments``: those of
+    ``rowptr``, or None)."""
 
     @staticmethod
-    def forward(ctx, x, i3, inc_slot, rowptr, dtype=None):
+    def forward(ctx, x, i3, inc_slot, rowptr, dtype=None,
+                long_segments=None):
         ctx.save_for_backward(inc_slot, rowptr)
+        ctx.long_segments = long_segments
         return gather_roles(x, i3, dtype)
 
     @staticmethod
     def backward(ctx, droles):
         inc_slot, rowptr = ctx.saved_tensors
         flat = droles.contiguous().view(-1, droles.shape[2])
-        return csr_gather_sum(flat, inc_slot, rowptr), None, None, None, None
+        return (csr_gather_sum(flat, inc_slot, rowptr,
+                               long_segments=ctx.long_segments),
+                None, None, None, None, None)
 
 
 class SpmmFn(torch.autograd.Function):
@@ -81,17 +86,19 @@ class SpmmFn(torch.autograd.Function):
     gradient of ``x`` is ``Aᵀ·cot`` over ``Aᵀ = (t_rowptr, t_col,
     t_weight)``. A weight of None is 1 for every entry; ``t_width``, when
     given, is the entry count of every row of Aᵀ (``csr_gather_sum``'s
-    ``width``). For a bf16 ``x`` (the scatter of bf16 edge rows) the
-    gradient is bf16: ``cot`` rounded to bf16, summed in f32, rounded
-    once."""
+    ``width``); ``long`` and ``t_long`` are the long segments of ``rowptr``
+    and ``t_rowptr``, or None. For a bf16 ``x`` (the scatter of bf16 edge
+    rows) the gradient is bf16: ``cot`` rounded to bf16, summed in f32,
+    rounded once."""
 
     @staticmethod
     def forward(ctx, x, col, rowptr, weight, t_col, t_rowptr, t_weight,
-                t_width=None):
+                t_width=None, long=None, t_long=None):
         ctx.save_for_backward(t_col, t_rowptr, t_weight)
-        ctx.t_width = t_width
+        ctx.t_width, ctx.t_long = t_width, t_long
         ctx.bf16 = x.dtype == torch.bfloat16
-        return csr_gather_sum(x.contiguous(), col, rowptr, weight)
+        return csr_gather_sum(x.contiguous(), col, rowptr, weight,
+                              long_segments=long)
 
     @staticmethod
     def backward(ctx, cot):
@@ -102,8 +109,8 @@ class SpmmFn(torch.autograd.Function):
                                 out_dtype=torch.bfloat16)
         else:
             dx = csr_gather_sum(cot.contiguous(), t_col, t_rowptr, t_weight,
-                                width=ctx.t_width)
-        return dx, None, None, None, None, None, None, None
+                                width=ctx.t_width, long_segments=ctx.t_long)
+        return dx, None, None, None, None, None, None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -490,12 +497,13 @@ def make_hyper_ops(graph: HyperGraph, bf16_stream: bool = False,
     else:
         def gather(x):
             return GatherRolesFn.apply(x, graph.i3, graph.inc_slot,
-                                       graph.rowptr, dtype)
+                                       graph.rowptr, dtype,
+                                       graph.long_segments)
 
         def local(edge):
             return SpmmFn.apply(edge, graph.inc_edge, graph.rowptr, None,
                                 graph.i3.view(-1), graph.edge_rowptr, None,
-                                3)
+                                3, graph.long_segments)
 
     if mesh is None or not combine:
         return gather, local
@@ -537,14 +545,15 @@ def make_log_ops(graph: LogHyperGraph) -> Tuple[
     over the mesh (``combine_nodes``, f32)."""
     nodes, edge_rowptr = graph.edge_nodes, graph.edge_rowptr
     edges, rowptr = graph.inc_edge, graph.rowptr
-    mesh = graph.mesh
+    mesh, hubs = graph.mesh, graph.long_segments
 
     def edge_sum(x: torch.Tensor) -> torch.Tensor:
-        return SpmmFn.apply(x, nodes, edge_rowptr, None, edges, rowptr, None)
+        return SpmmFn.apply(x, nodes, edge_rowptr, None, edges, rowptr, None,
+                            None, None, hubs)
 
     def node_sum(edge: torch.Tensor) -> torch.Tensor:
         out = SpmmFn.apply(edge, edges, rowptr, None, nodes, edge_rowptr,
-                           None)
+                           None, None, hubs)
         return out if mesh is None else combine_nodes(out, mesh)
 
     return edge_sum, node_sum

@@ -35,21 +35,61 @@ features a lane) for d % 8 == 0 and 16-byte aligned rows, else 8 bytes
 the same rule, and both widths give the same bits. They count in
 ``csr_gather_sum.launches_bf16``; the f32 forms in
 ``csr_gather_sum.launches``.
+
+Long segments (hub nodes under skew). A CSR's ``LongSegments``, built once
+with it (``long_segments``: every segment of more than ``LONG_ENTRIES``
+entries, longest first), lets the f32 vector form sum each of them with a
+whole block (``csrc/segsum.cu``), in the same order of adds, so the bits
+do not change; the other segments run as without the list. Every other
+form, and the twin, ignores the list.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
+from ihgnn_torch.device import DeviceLike, moved
 from ihgnn_torch.ops import _build
 from ihgnn_torch.ops.segment import segment_ids, segment_sum
+from ihgnn_torch.utils import tracing
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _BF16_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
     ctypes.c_void_p]
+_LONG_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+
+# a segment of more than LONG_ENTRIES entries is long (csrc/segsum.cu
+# kLongEntries)
+LONG_ENTRIES = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class LongSegments:
+    """The long segments of one CSR: ``ids`` ``[H]`` int32, longest first,
+    and ``entries``, their entry total."""
+
+    ids: torch.Tensor
+    entries: int
+
+    def to(self, device: DeviceLike) -> "LongSegments":
+        return moved(self, device)
+
+
+def long_segments(rowptr) -> LongSegments:
+    """The CPU ``LongSegments`` of the CSR offsets ``rowptr`` (a numpy
+    array or CPU tensor): every segment of more than ``LONG_ENTRIES``
+    entries, longest first (ties by id)."""
+    lengths = np.diff(np.asarray(rowptr, np.int64))
+    ids = np.flatnonzero(lengths > LONG_ENTRIES)
+    ids = ids[np.argsort(-lengths[ids], kind="stable")]
+    return LongSegments(torch.from_numpy(ids.astype(np.int32)),
+                        int(lengths[ids].sum()))
 
 
 def vector_form(d: int, *tensors: torch.Tensor) -> bool:
@@ -88,15 +128,20 @@ def csr_gather_sum_plain(x: torch.Tensor, col: torch.Tensor,
 def csr_gather_sum(x: torch.Tensor, col: torch.Tensor, rowptr: torch.Tensor,
                    weight: Optional[torch.Tensor] = None,
                    width: Optional[int] = None,
-                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                   out_dtype: Optional[torch.dtype] = None,
+                   long_segments: Optional[LongSegments] = None
+                   ) -> torch.Tensor:
     """``[S, d]`` CSR weighted gather-sum of the rows of ``x`` (see the
     module docstring), in ``out_dtype`` (f32 when None; bf16 only for bf16
     ``x``). With ``width``, ``rowptr`` must be ``0, width, 2 width, ...``:
     the caller vouches for it, the wrapper checks only that ``col`` has
-    ``width`` entries a segment. CPU tensors run the plain twin; CUDA
+    ``width`` entries a segment. ``long_segments``: the CSR's own (the
+    caller vouches for it), or None. CPU tensors run the plain twin; CUDA
     tensors launch ``csrc/segsum.cu`` and count one in
     ``csr_gather_sum.launches`` (f32 ``x``) or
-    ``csr_gather_sum.launches_bf16`` (bf16 ``x``)."""
+    ``csr_gather_sum.launches_bf16`` (bf16 ``x``); a launch whose list
+    engages counts its segments in ``k1.long_segments`` and their entries
+    in ``k1.long_entries`` (``utils/tracing.py``)."""
     what = "csr_gather_sum"
     if width is not None and not (
             width > 0 and col.shape == ((rowptr.shape[0] - 1) * width,)):
@@ -105,7 +150,8 @@ def csr_gather_sum(x: torch.Tensor, col: torch.Tensor, rowptr: torch.Tensor,
                          f"{tuple(col.shape)}")
     if out_dtype not in (None, torch.float32, torch.bfloat16):
         raise ValueError(f"{what}: out_dtype {out_dtype} is not f32 or bf16")
-    if not _build.use_kernel(what, x, col, rowptr, weight):
+    hubs = None if long_segments is None else long_segments.ids
+    if not _build.use_kernel(what, x, col, rowptr, weight, hubs):
         return csr_gather_sum_plain(x, col, rowptr, weight, out_dtype)
     if x.dtype == torch.bfloat16:
         return _csr_gather_sum_bf16(x, col, rowptr, weight, width, out_dtype)
@@ -127,11 +173,24 @@ def csr_gather_sum(x: torch.Tensor, col: torch.Tensor, rowptr: torch.Tensor,
     if s == 0 or d == 0:
         return out
     vector = vector_form(d, x, out)
-    fn = _build.function("segsum", "ihgnn_csr_gather_sum", _ARGTYPES)
-    err = fn(x.data_ptr(), col.data_ptr(), rowptr.data_ptr(),
-             None if weight is None else weight.data_ptr(), out.data_ptr(),
-             s, d, int(vector), width if vector and width else 0,
-             _build.stream_ptr(x.device))
+    w_ptr = None if weight is None else weight.data_ptr()
+    if vector and not width and hubs is not None and hubs.numel():
+        _build.require(hubs.dim() == 1 and hubs.dtype == torch.int32
+                       and hubs.is_contiguous(), what,
+                       "long_segments.ids must be contiguous 1-D int32")
+        fn = _build.function("segsum", "ihgnn_csr_gather_sum_long",
+                             _LONG_ARGTYPES)
+        err = fn(x.data_ptr(), col.data_ptr(), rowptr.data_ptr(), w_ptr,
+                 out.data_ptr(), s, d, hubs.data_ptr(), hubs.numel(),
+                 _build.stream_ptr(x.device))
+        tracing.count("k1.long_segments", hubs.numel())
+        tracing.count("k1.long_entries", long_segments.entries)
+    else:
+        fn = _build.function("segsum", "ihgnn_csr_gather_sum", _ARGTYPES)
+        err = fn(x.data_ptr(), col.data_ptr(), rowptr.data_ptr(), w_ptr,
+                 out.data_ptr(), s, d, int(vector),
+                 width if vector and width else 0,
+                 _build.stream_ptr(x.device))
     _build.check("segsum", what, err)
     csr_gather_sum.launches += 1
     return out

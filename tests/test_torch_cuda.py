@@ -34,6 +34,9 @@ kernel reading i and c2 through π, so it is also held bit for bit to
 ``interact_bwd`` on the pre-permuted inputs; the scalar segment sum is
 held bit for bit to ``csr_segment_sum_ordered`` (its order of adds on the
 CPU) and K4 to its twin.
+K1 launched with a CSR's long segments (a block a hub) is held bit for
+bit to K1 launched without them, and so are the node update and the
+gather's backward of a hypergraph with hubs.
 K8 sums each segment in stream order, as K1 does over the same entries:
 bitwise equal to K1, 1e-5 of the largest run length from its twin.
 ``csr_edge_dot`` is also held bit for bit to a second run of itself. Values and
@@ -43,6 +46,8 @@ the attention score head's kernel and bias, whose gradients are sums that
 nearly cancel (the softmax ignores a per-destination shift), within 1e-5
 of the largest gradient of x.
 """
+
+import dataclasses
 
 import pytest
 import torch
@@ -84,9 +89,11 @@ from ihgnn_torch.ops.segmax import (EMPTY_MAX, LONG_SEGMENT,
 from ihgnn_torch.ops.segscan import BLOCK as SCAN_BLOCK
 from ihgnn_torch.ops.segscan import (csr_segment_scan, csr_segment_scan_plain,
                                      pack_scan_inputs)
-from ihgnn_torch.ops.segsum import (bf16_form, csr_gather_sum,
-                                    csr_gather_sum_plain, csr_segment_sum3,
-                                    csr_segment_sum3_plain, vector_form)
+from ihgnn_torch.ops.segsum import (LONG_ENTRIES, LongSegments, bf16_form,
+                                    csr_gather_sum, csr_gather_sum_plain,
+                                    csr_segment_sum3, csr_segment_sum3_plain,
+                                    long_segments, vector_form)
+from ihgnn_torch.utils import tracing
 
 pytestmark = pytest.mark.cuda
 
@@ -225,6 +232,107 @@ def test_csr_gather_sum_fixed_width(dev):
     assert torch.equal(got, csr_gather_sum(x, col, rowptr))
     torch.testing.assert_close(got, csr_gather_sum_plain(x, col, rowptr),
                                rtol=0, atol=1e-5)
+
+
+def _long_csr(dev, rows, seed, every_long=False):
+    """(col, rowptr, lengths) of a CSR whose segments have 0, 1, 9,
+    LONG_ENTRIES, LONG_ENTRIES + 1 and 3000-9000 entries in one order;
+    with ``every_long``, only the last two kinds."""
+    rng = np.random.default_rng(seed)
+    lengths = np.concatenate([[LONG_ENTRIES + 1] * 3,
+                              rng.integers(3000, 9001, 4)])
+    if not every_long:
+        lengths = np.concatenate([np.repeat([0, 1, 9], 40),
+                                  [LONG_ENTRIES] * 3, lengths])
+    lengths = rng.permutation(lengths)
+    rowptr = np.concatenate([[0], np.cumsum(lengths)])
+    col = rng.integers(0, rows, rowptr[-1])
+    return (torch.from_numpy(col).int().to(dev),
+            torch.from_numpy(rowptr).int().to(dev), lengths)
+
+
+def _counters():
+    return (csr_gather_sum.launches,
+            tracing.COUNTERS.get("k1.long_segments", 0),
+            tracing.COUNTERS.get("k1.long_entries", 0))
+
+
+@pytest.mark.parametrize("d", [8, 32, 48, 1040])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_csr_gather_sum_long_segments(dev, d, weighted):
+    """Hubs summed by a block each: the launch with the CSR's long
+    segments gives the bits of the launch without them (segments of
+    LONG_ENTRIES entries stay with their groups, those of one more go to
+    their blocks, empty ones are zero; d = 1040 runs the block in three
+    feature chunks); one launch, counted with its segments and entries."""
+    col, rowptr, lengths = _long_csr(dev, 2000, d)
+    hubs = long_segments(rowptr.cpu())
+    assert hubs.ids.numel() == (lengths > LONG_ENTRIES).sum() == 7
+    g = _gen(dev, 300 + d)
+    x = torch.randn(2000, d, device=dev, generator=g)
+    w = (torch.rand(col.numel(), device=dev, generator=g) if weighted
+         else None)
+    want = csr_gather_sum(x, col, rowptr, w)
+    before = _counters()
+    got = csr_gather_sum(x, col, rowptr, w, long_segments=hubs.to(dev))
+    torch.cuda.synchronize()
+    assert _counters() == (before[0] + 1, before[1] + 7,
+                           before[2] + int(lengths[lengths > LONG_ENTRIES]
+                                           .sum()))
+    assert torch.equal(got, want)
+    assert (got[torch.from_numpy(lengths == 0).to(dev)] == 0).all()
+    exact = csr_gather_sum_plain(x.double(), col, rowptr,
+                                 None if w is None else w.double())
+    tol = torch.from_numpy(2e-6 * lengths + 1e-6).to(dev)[:, None]
+    assert ((got.double() - exact).abs() <= tol).all()
+
+
+@pytest.mark.parametrize("listed", ["every segment long", "every id"])
+def test_csr_gather_sum_list_of_every_segment(dev, listed):
+    """A list that holds every segment: a CSR whose segments are all long
+    (the regular warps write nothing), or every id of the hub CSR (a short
+    or empty segment summed by its block and by its group, to one value)."""
+    col, rowptr, lengths = _long_csr(dev, 3000, 5,
+                                    every_long=listed == "every segment long")
+    s = lengths.size
+    hubs = (long_segments(rowptr.cpu()).to(dev) if listed.endswith("long")
+            else LongSegments(torch.arange(s, dtype=torch.int32, device=dev),
+                              int(lengths.sum())))
+    assert hubs.ids.numel() == s
+    x = torch.randn(3000, 32, device=dev, generator=_gen(dev, 6))
+    got = csr_gather_sum(x, col, rowptr, long_segments=hubs)
+    assert torch.equal(got, csr_gather_sum(x, col, rowptr))
+
+
+def test_hyper_ops_with_long_segments(dev):
+    """A hypergraph with two hubs through the gather and the scatter,
+    forward and backward: the graph's long segments engage in the node
+    update and in the gather's backward (two launches of two segments) and
+    leave the node sums and the gradient of x bit for bit as without
+    them."""
+    rng = np.random.default_rng(8)
+    e = 9000
+    uqi = np.stack([rng.integers(0, 300, e),
+                    np.where(rng.random(e) < 0.4, 0, rng.integers(0, 50, e)),
+                    np.where(rng.random(e) < 0.2, 7, rng.integers(0, 900, e))],
+                   axis=1)
+    graph = build_hypergraph(uqi, 1250, 300, 50).to(dev)
+    assert graph.long_segments.ids.numel() == 2
+    plain = dataclasses.replace(graph, long_segments=None)
+    outs = []
+    for g in (graph, plain):
+        gather, scatter = make_hyper_ops(g)
+        x = torch.randn(1250, 32, device=dev, generator=_gen(dev, 9))
+        x.requires_grad_()
+        before = _counters()
+        nodes = scatter(gather(x).sum(0))
+        nodes.backward(torch.randn(1250, 32, device=dev,
+                                   generator=_gen(dev, 10)))
+        torch.cuda.synchronize()
+        outs.append((nodes.detach(), x.grad, _counters()[1] - before[1]))
+    assert outs[0][2] == 2 * 2 and outs[1][2] == 0
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
 
 
 def test_csr_segment_sum3_mixed_segment_lengths(dev):
